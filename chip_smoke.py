@@ -11,13 +11,25 @@ Phases, each printing one JSON line:
    one process per source, all at once);
 3. mlp_block and 4. attn_block: each kernel bitwise equal to its plain
    PyTorch version on the card, at DeiT-S shapes (batch 256 x 197 tokens,
-   C 384, hidden 1536, 6 heads) with the fast-exp/fast-poly flags both on
-   and both off, and at a small padded shape; kernel, plain-version and
-   library (``torch._int_mm`` on the block's GEMMs) times, and the bound;
-5. engine: a seeded synthetic DeiT-S ibert engine (224 px, depth 12, batch
+   C 384, hidden 1536, 6 heads): the ibert family with the fast-exp/
+   fast-poly flags both on and both off, the ivit family and the two mixes
+   of ivit and ibert LN, and the hoisted-LN (``ln_in``) form; and at a
+   small padded shape; kernel times of the ibert and the ivit variant,
+   plain-version and library (``torch._int_mm`` on the block's GEMMs)
+   times, and the bound;
+5. shiftmax and 6. shift_gelu_requant: each standalone kernel bitwise equal
+   to its plain version at DeiT-S shapes ([256, 6, 197, 197] scores;
+   [50,432, 1536] hidden rows), fast quotient on and off, 8- and 16-bit
+   probs, and at small shapes with a ragged row count and padding columns;
+   kernel and plain times, and the bound;
+7. engine: a seeded synthetic DeiT-S ibert engine (224 px, depth 12, batch
    256) through ``Engine``: the launch counts of one forward, its logits
    bitwise equal to the unfused plain engine on the card and, for 4
-   images, on the CPU; finite and image-dependent; img/s of both engines.
+   images, on the CPU; finite and image-dependent; img/s of both engines;
+8. engine_ivit: the same for the synthetic DeiT-S ivit engine on both of
+   its kernel paths, the fused block kernels (``Engine(spec)``) and the
+   standalone nonlinearity kernels (``Engine(spec, kernels="ops")``), each
+   bitwise equal to the plain engine; img/s of all three.
 
 Then the kernel table as one JSON line, the card's name and power limit,
 and last ``{"ok": true, "device": {...}}``.  Any failure raises and exits
@@ -28,6 +40,7 @@ script, it exits non-zero and prints no result.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import subprocess
 import sys
@@ -35,7 +48,21 @@ import time
 
 BATCH, TOKENS = 256, 197
 H100_INT8_OPS = 1979e12      # dense int8 tensor-core peak, H100 SXM data sheet
+H100_F32_OPS = 67e12         # float32 outside the tensor cores, same sheet
 H100_BYTES = 3.35e12         # HBM3 bandwidth, H100 SXM data sheet
+# f32 operations per element of the standalone kernels' arithmetic, counted
+# on the plain versions (ops/ivit.py), each add, multiply, divide, floor,
+# max or min once, per-row constants left out: the row max and x - max (2),
+# int_exp_shift (18: x + floor(x/2) - floor(x/16), the max with n * x0,
+# q = floor(x / x0), r = x - x0 * q, r/2 - x0, 2**(n - q), the product, its
+# floor and clamp).  Shiftmax adds the row sum (1) and floor(exp * factor *
+# 2**-k) (3); ShiftGELU adds exp + exp_max and its clamp (2), the divide
+# and floor of the factor (2), the sigmoid (3), x * sigmoid (1) and the
+# requant (4: multiply, round, clamp both ways).
+SHIFTMAX_F32_OPS = 24
+SHIFT_GELU_REQUANT_F32_OPS = 32
+IVIT = ("ivit", "ivit", "ivit")                  # (gelu, softmax, ln)
+MIXES = [IVIT, ("ivit", "ivit", "ibert"), ("ibert", "ibert", "ivit")]
 
 
 def emit(obj):
@@ -63,8 +90,8 @@ def time_ms(torch, fn, iters, warmup=2):
     return start.elapsed_time(end) / iters
 
 
-def bound(ops, nbytes):
-    t_ops, t_bytes = ops / H100_INT8_OPS * 1e3, nbytes / H100_BYTES * 1e3
+def bound(ops, nbytes, peak=H100_INT8_OPS):
+    t_ops, t_bytes = ops / peak * 1e3, nbytes / H100_BYTES * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
@@ -80,190 +107,338 @@ def check_equal(torch, name, got, want, rows=None):
     if rows is not None:
         got, want = got[..., :rows, :], want[..., :rows, :]
     err = (got.to(torch.int32) - want.to(torch.int32)).abs().max().item()
-    if not torch.equal(got, want):
+    if got.dtype != want.dtype or not torch.equal(got, want):
         bad = (got != want).nonzero()
         raise AssertionError(f"{name}: kernel != plain version at "
                              f"{bad.shape[0]} elements (first {bad[:4].tolist()}), "
-                             f"max abs err {err}")
+                             f"max abs err {err}, dtypes {got.dtype}/{want.dtype}")
     return err
 
 
-def mlp_kwargs(b, flags):
+def mix_name(mix):
+    return "gelu/softmax/ln " + "/".join(mix)
+
+
+def mlp_kwargs(b, flags, mix=("ibert", "ibert", "ibert")):
     return dict(ln_bias=b["ln2_bias_int"], m_ln=b["m_ln2"], ln_shift=b["ln2_shift"],
                 fc1_w=b["fc1_w"], fc1_b=b["fc1_b"], m_fc1=b["m_fc1"],
                 s_gelu=b["s_gelu"], m_gelu=b["m_gelu"], fc2_w=b["fc2_w"],
                 fc2_b=b["fc2_b"], m_fc2=b["m_fc2"], m_res_x=b["m_res2_x"],
-                m_res_id=b["m_res2_id"], fast_poly=flags)
+                m_res_id=b["m_res2_id"], fast_exp=flags, fast_poly=flags,
+                gelu_base=mix[0], ln_base=mix[2])
 
 
-def attn_kwargs(b, flags, heads, n_valid):
+def attn_kwargs(b, flags, heads, n_valid, mix=("ibert", "ibert", "ibert")):
     return dict(ln_bias=b["ln1_bias_int"], m_ln=b["m_ln1"], ln_shift=b["ln1_shift"],
                 qkv_w=b["qkv_w"], qkv_b=b["qkv_b"], m_qkv=b["m_qkv"],
-                m_attn=b["m_attn"], s_attn=b["s_attn"], s_exp_act=b["s_exp_act"],
+                m_attn=b["m_attn"], s_attn=b["s_attn"], s_exp_act=b.get("s_exp_act"),
                 m_av=b["m_av"], proj_w=b["proj_w"], proj_b=b["proj_b"],
                 m_proj=b["m_proj"], m_res_x=b["m_res1_x"], m_res_id=b["m_res1_id"],
-                num_heads=heads, n_valid=n_valid, fast_exp=flags, fast_poly=flags)
+                num_heads=heads, n_valid=n_valid, fast_exp=flags, fast_poly=flags,
+                sm_base=mix[1], ln_base=mix[2])
 
 
-def kernel_phases(torch, kb, dev):
-    """Phases 3-4: each kernel against its plain version; returns the rows of
-    the kernel table (launch counts filled in by the engine phase)."""
-    import dataclasses
-
+def kernel_phases(torch, kb, knl, dev):
+    """Phases 3-6: each kernel against its plain version; returns the rows
+    of the kernel table (launch counts filled in by the engine phases)."""
     import numpy as np
 
     from ivit_tpu_torch.engine.synthetic import deit_small_config, synthetic_spec
 
     rng = np.random.default_rng(0)
 
-    def act(shape):
-        return torch.as_tensor(np.clip(np.round(rng.normal(0, 32, shape)), -128,
+    def act(shape, std=32):
+        return torch.as_tensor(np.clip(np.round(rng.normal(0, std, shape)), -128,
                                        127).astype(np.int8)).to(dev)
 
-    small_cfg = dataclasses.replace(deit_small_config(depth=1, img_size=64),
-                                    embed_dim=64, num_heads=2, num_classes=10)
-    small = block_args(torch, synthetic_spec(small_cfg, 0).params["blocks"][0], dev)
-    full = block_args(torch, synthetic_spec(deit_small_config(depth=1), 0)
-                      .params["blocks"][0], dev)
+    def uniform(shape):
+        return torch.as_tensor(rng.integers(-127, 128, shape).astype(np.int8)).to(dev)
+
+    def spec_block(mix, **small):
+        gelu, softmax, ln = mix
+        cfg = deit_small_config(depth=1, img_size=64 if small else 224, ln=ln,
+                                gelu=gelu, softmax=softmax)
+        cfg = dataclasses.replace(cfg, **small)
+        return block_args(torch, synthetic_spec(cfg, 0).params["blocks"][0], dev)
+
+    ibert = ("ibert", "ibert", "ibert")
+    tiny = dict(embed_dim=64, num_heads=2, num_classes=10)
+    small = {m: spec_block(m, **tiny) for m in [ibert] + MIXES}
+    full = {m: spec_block(m) for m in [ibert] + MIXES}
     rows = {}
 
     # --- mlp_block ---
-    for flags in (True, False):
-        xs = act((2 * 24, 64))
-        check_equal(torch, f"mlp_block small fast={flags}",
-                    kb.mlp_block(xs, **mlp_kwargs(small, flags)),
-                    kb.mlp_block_ref(xs, **mlp_kwargs(small, flags)))
     x = act((BATCH * TOKENS, 384))
-    errs = {}
-    for flags in (True, False):
-        kw = mlp_kwargs(full, flags)
-        got = kb.mlp_block(x, **kw)
-        torch.cuda.synchronize()
-        errs[flags] = check_equal(torch, f"mlp_block fast={flags}", got,
-                                  kb.mlp_block_ref(x, **kw))
-    kw = mlp_kwargs(full, True)
-    ms = time_ms(torch, lambda: kb.mlp_block(x, **kw), iters=20)
+    errs, ms = [], {}
+    for mix in [ibert] + MIXES:
+        for flags in (True, False):
+            xs = act((2 * 24, 64))
+            check_equal(torch, f"mlp_block small {mix_name(mix)} fast={flags}",
+                        kb.mlp_block(xs, **mlp_kwargs(small[mix], flags, mix)),
+                        kb.mlp_block_ref(xs, **mlp_kwargs(small[mix], flags, mix)))
+            kw = mlp_kwargs(full[mix], flags, mix)
+            got = kb.mlp_block(x, **kw)
+            torch.cuda.synchronize()
+            errs.append(check_equal(torch, f"mlp_block {mix_name(mix)} fast={flags}",
+                                    got, kb.mlp_block_ref(x, **kw)))
+    kw = mlp_kwargs(full[IVIT], True, IVIT)
+    kw["ln_in"] = kb._ln8(x, "ivit", kw["ln_bias"], kw["ln_shift"], kw["m_ln"], None)
+    errs.append(check_equal(torch, "mlp_block ivit ln_in", kb.mlp_block(x, **kw),
+                            kb.mlp_block_ref(x, **kw)))
+    for name, mix in (("ibert", ibert), ("ivit", IVIT)):
+        kw = mlp_kwargs(full[mix], True, mix)
+        ms[name] = time_ms(torch, lambda: kb.mlp_block(x, **kw), iters=20)
+    kw = mlp_kwargs(full[IVIT], True, IVIT)
     plain_ms = time_ms(torch, lambda: kb.mlp_block_ref(x, **kw), iters=3, warmup=1)
-    h = torch.empty((x.shape[0], full["fc1_w"].shape[1]), dtype=torch.int8, device=dev)
-    lib_ms = time_ms(torch, lambda: (torch._int_mm(x, full["fc1_w"]),
-                                     torch._int_mm(h, full["fc2_w"])), iters=20)
-    r, c, hd = x.shape[0], 384, full["fc1_w"].shape[1]
+    blk = full[IVIT]
+    h = torch.empty((x.shape[0], blk["fc1_w"].shape[1]), dtype=torch.int8, device=dev)
+    lib_ms = time_ms(torch, lambda: (torch._int_mm(x, blk["fc1_w"]),
+                                     torch._int_mm(h, blk["fc2_w"])), iters=20)
+    r, c, hd = x.shape[0], 384, blk["fc1_w"].shape[1]
     ops = 2 * r * c * hd * 2
-    nb = nbytes(x, x, full["fc1_w"], full["fc2_w"], full["fc1_b"], full["fc2_b"],
-                full["m_fc1"], full["m_fc2"], full["m_ln2"], full["ln2_bias_int"])
+    nb = nbytes(x, x, blk["fc1_w"], blk["fc2_w"], blk["fc1_b"], blk["fc2_b"],
+                blk["m_fc1"], blk["m_fc2"], blk["m_ln2"], blk["ln2_bias_int"])
     b_ms, b_by = bound(ops, nb)
     rows["mlp_block"] = dict(
         name="mlp_block", route="cuda", source="ivit_tpu_torch/csrc/mlp_block.cu",
         replaces="ivit_tpu/ops/pallas/block.py:783", launches=None,
-        max_abs_err=max(errs.values()), ms=ms, plain_ms=plain_ms,
-        bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms)
+        max_abs_err=max(errs), ms=ms["ivit"], plain_ms=plain_ms,
+        bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms, ms_by_family=ms)
     emit({"phase": "mlp_block", "equal": True, "shape": [r, c, hd],
-          "kernel_ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+          "families_checked": [mix_name(m) for m in [ibert] + MIXES] + ["ivit ln_in"],
+          "kernel_ms_ivit": ms["ivit"], "kernel_ms_ibert": ms["ibert"],
+          "plain_ms_ivit": plain_ms, "library_ms": lib_ms,
           "library": "torch._int_mm fc1 + fc2", "bound_ms": b_ms,
-          "bound_by": b_by, "int8_ops": ops, "bytes": nb,
-          "max_abs_err": max(errs.values())})
+          "bound_by": b_by, "int8_ops": ops, "bytes": nb, "max_abs_err": max(errs)})
 
     # --- attn_block ---
-    for flags in (True, False):
-        xs = act((2, 24, 64))
-        check_equal(torch, f"attn_block small padded fast={flags}",
-                    kb.attn_block(xs, **attn_kwargs(small, flags, 2, 17)),
-                    kb.attn_block_ref(xs, **attn_kwargs(small, flags, 2, 17)),
-                    rows=17)
     x = act((BATCH, TOKENS, 384))
-    errs = {}
-    for flags in (True, False):
-        kw = attn_kwargs(full, flags, 6, TOKENS)
-        got = kb.attn_block(x, **kw)
-        torch.cuda.synchronize()
-        errs[flags] = check_equal(torch, f"attn_block fast={flags}", got,
-                                  kb.attn_block_ref(x, **kw))
-    kw = attn_kwargs(full, True, 6, TOKENS)
-    ms = time_ms(torch, lambda: kb.attn_block(x, **kw), iters=20)
+    errs, ms = [], {}
+    for mix in [ibert] + MIXES:
+        for flags in (True, False):
+            xs = act((2, 24, 64))
+            check_equal(torch, f"attn_block small padded {mix_name(mix)} fast={flags}",
+                        kb.attn_block(xs, **attn_kwargs(small[mix], flags, 2, 17, mix)),
+                        kb.attn_block_ref(xs, **attn_kwargs(small[mix], flags, 2, 17, mix)),
+                        rows=17)
+            kw = attn_kwargs(full[mix], flags, 6, TOKENS, mix)
+            got = kb.attn_block(x, **kw)
+            torch.cuda.synchronize()
+            errs.append(check_equal(torch, f"attn_block {mix_name(mix)} fast={flags}",
+                                    got, kb.attn_block_ref(x, **kw)))
+    kw = attn_kwargs(full[IVIT], True, 6, TOKENS, IVIT)
+    kw["ln_in"] = kb._ln8(x, "ivit", kw["ln_bias"], kw["ln_shift"], kw["m_ln"], None)
+    errs.append(check_equal(torch, "attn_block ivit ln_in", kb.attn_block(x, **kw),
+                            kb.attn_block_ref(x, **kw)))
+    for name, mix in (("ibert", ibert), ("ivit", IVIT)):
+        kw = attn_kwargs(full[mix], True, 6, TOKENS, mix)
+        ms[name] = time_ms(torch, lambda: kb.attn_block(x, **kw), iters=20)
+    kw = attn_kwargs(full[IVIT], True, 6, TOKENS, IVIT)
     plain_ms = time_ms(torch, lambda: kb.attn_block_ref(x, **kw), iters=3, warmup=1)
+    blk = full[IVIT]
     x2 = x.reshape(-1, 384)
-    lib_ms = time_ms(torch, lambda: (torch._int_mm(x2, full["qkv_w"]),
-                                     torch._int_mm(x2, full["proj_w"])), iters=20)
+    lib_ms = time_ms(torch, lambda: (torch._int_mm(x2, blk["qkv_w"]),
+                                     torch._int_mm(x2, blk["proj_w"])), iters=20)
     r, c = x2.shape
     ops = 2 * r * (3 * c * c + c * c) + 2 * 2 * BATCH * TOKENS * TOKENS * c
-    nb = nbytes(x, x, full["qkv_w"], full["proj_w"], full["qkv_b"],
-                full["proj_b"], full["m_qkv"], full["m_proj"], full["m_ln1"],
-                full["ln1_bias_int"])
+    nb = nbytes(x, x, blk["qkv_w"], blk["proj_w"], blk["qkv_b"],
+                blk["proj_b"], blk["m_qkv"], blk["m_proj"], blk["m_ln1"],
+                blk["ln1_bias_int"])
     b_ms, b_by = bound(ops, nb)
     rows["attn_block"] = dict(
         name="attn_block", route="cuda", source="ivit_tpu_torch/csrc/attn_block.cu",
         replaces="ivit_tpu/ops/pallas/block.py:1112", launches=None,
-        max_abs_err=max(errs.values()), ms=ms, plain_ms=plain_ms,
-        bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms)
+        max_abs_err=max(errs), ms=ms["ivit"], plain_ms=plain_ms,
+        bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms, ms_by_family=ms)
     emit({"phase": "attn_block", "equal": True, "shape": [BATCH, TOKENS, c, 6],
-          "kernel_ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+          "families_checked": [mix_name(m) for m in [ibert] + MIXES] + ["ivit ln_in"],
+          "kernel_ms_ivit": ms["ivit"], "kernel_ms_ibert": ms["ibert"],
+          "plain_ms_ivit": plain_ms, "library_ms": lib_ms,
           "library": "torch._int_mm qkv + proj", "bound_ms": b_ms,
-          "bound_by": b_by, "int8_ops": ops, "bytes": nb,
-          "max_abs_err": max(errs.values())})
+          "bound_by": b_by, "int8_ops": ops, "bytes": nb, "max_abs_err": max(errs)})
+
+    # --- shiftmax ---  (no single PyTorch call computes Shiftmax)
+    s_attn = full[IVIT]["s_attn"]
+    scores = uniform((BATCH, 6, TOKENS, TOKENS))
+    errs = []
+    for shape, n_valid in (((130, 50), None), ((3, 5, 24), 17), ((3, 700), 650)):
+        xs = uniform(shape)
+        for bit in (8, 16):
+            for fq in (True, False):
+                errs.append(check_equal(
+                    torch, f"shiftmax small {shape} n_valid={n_valid} bits={bit} fast_q={fq}",
+                    knl.shiftmax(xs, s_attn, bit, n_valid=n_valid, fast_q=fq),
+                    knl.shiftmax_ref(xs, s_attn, bit, n_valid=n_valid, fast_q=fq)))
+    for bit in (8, 16):
+        for fq in (True, False):
+            got = knl.shiftmax(scores, s_attn, bit, fast_q=fq)
+            torch.cuda.synchronize()
+            errs.append(check_equal(torch, f"shiftmax bits={bit} fast_q={fq}", got,
+                                    knl.shiftmax_ref(scores, s_attn, bit, fast_q=fq)))
+    got = knl.shiftmax(scores, s_attn, 8, n_valid=180, fast_q=True)
+    errs.append(check_equal(torch, "shiftmax n_valid=180", got,
+                            knl.shiftmax_ref(scores, s_attn, 8, n_valid=180, fast_q=True)))
+    if not (got[..., :180] > 0).any() or (got[..., 180:] != 0).any():
+        raise AssertionError("shiftmax: no live probabilities, or live padding")
+    ms = time_ms(torch, lambda: knl.shiftmax(scores, s_attn, 8, fast_q=True), iters=20)
+    plain_ms = time_ms(torch, lambda: knl.shiftmax_ref(scores, s_attn, 8, fast_q=True),
+                       iters=3, warmup=1)
+    nb, f32_ops = nbytes(scores, got), SHIFTMAX_F32_OPS * scores.numel()
+    b_ms, b_by = bound(f32_ops, nb, H100_F32_OPS)
+    rows["shiftmax"] = dict(
+        name="shiftmax", route="cuda", source="ivit_tpu_torch/csrc/nonlinear.cu",
+        replaces="ivit_tpu/ops/pallas/nonlinear.py:135", launches=None,
+        max_abs_err=max(errs), ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+        bound_by=b_by, library_ms=None)
+    emit({"phase": "shiftmax", "equal": True, "shape": list(scores.shape),
+          "s_attn": s_attn.item(), "kernel_ms": ms, "plain_ms": plain_ms,
+          "library_ms": None, "bound_ms": b_ms, "bound_by": b_by, "bytes": nb,
+          "f32_ops": f32_ops, "live_prob_share": (got > 0).float().mean().item(),
+          "max_abs_err": max(errs)})
+
+    # --- shift_gelu_requant ---
+    blk = full[IVIT]
+    h = act((BATCH * TOKENS, 1536))
+    errs = []
+    for shape in ((130, 1536), (5, 30), (3, 7, 384)):
+        xs = act(shape)
+        for fq in (True, False):
+            errs.append(check_equal(
+                torch, f"shift_gelu_requant small {shape} fast_q={fq}",
+                knl.shift_gelu_requant(xs, blk["s_gelu"], blk["m_gelu"], fast_q=fq),
+                knl.shift_gelu_requant_ref(xs, blk["s_gelu"], blk["m_gelu"], fast_q=fq)))
+    for fq in (True, False):
+        got = knl.shift_gelu_requant(h, blk["s_gelu"], blk["m_gelu"], fast_q=fq)
+        torch.cuda.synchronize()
+        errs.append(check_equal(
+            torch, f"shift_gelu_requant fast_q={fq}", got,
+            knl.shift_gelu_requant_ref(h, blk["s_gelu"], blk["m_gelu"], fast_q=fq)))
+    ms = time_ms(torch, lambda: knl.shift_gelu_requant(
+        h, blk["s_gelu"], blk["m_gelu"], fast_q=True), iters=20)
+    plain_ms = time_ms(torch, lambda: knl.shift_gelu_requant_ref(
+        h, blk["s_gelu"], blk["m_gelu"], fast_q=True), iters=3, warmup=1)
+    nb, f32_ops = nbytes(h, got), SHIFT_GELU_REQUANT_F32_OPS * h.numel()
+    b_ms, b_by = bound(f32_ops, nb, H100_F32_OPS)
+    rows["shift_gelu_requant"] = dict(
+        name="shift_gelu_requant", route="cuda",
+        source="ivit_tpu_torch/csrc/nonlinear.cu",
+        replaces="ivit_tpu/ops/pallas/nonlinear.py:192", launches=None,
+        max_abs_err=max(errs), ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+        bound_by=b_by, library_ms=None)
+    emit({"phase": "shift_gelu_requant", "equal": True, "shape": list(h.shape),
+          "s_gelu": blk["s_gelu"].item(), "kernel_ms": ms, "plain_ms": plain_ms,
+          "library_ms": None, "bound_ms": b_ms, "bound_by": b_by, "bytes": nb,
+          "f32_ops": f32_ops, "nonzero_share": (got != 0).float().mean().item(),
+          "max_abs_err": max(errs)})
     return rows
 
 
-def engine_phase(torch, kb, dev, rows, profile=False):
-    """Phase 5: the DeiT-S ibert engine through the entry points."""
+def check_logits(torch, name, logits, want, classes):
+    if tuple(logits.shape) != (BATCH, classes):
+        raise AssertionError(f"{name}: logits shape {tuple(logits.shape)}")
+    if not torch.isfinite(logits).all():
+        raise AssertionError(f"{name}: non-finite logits")
+    if not (logits.std(dim=0) > 0).any():
+        raise AssertionError(f"{name}: logits constant across images")
+    if not torch.equal(logits, want):
+        raise AssertionError(
+            f"{name} != plain engine on the card: max abs diff "
+            f"{(logits - want).abs().max().item()}")
+
+
+def run_counted(torch, counters, fn):
+    """Run ``fn`` with every launch count set to 0 just before it; returns
+    its result and the counts read just after."""
+    for c in counters.values():
+        c.launches = 0
+    out = fn()
+    torch.cuda.synchronize()
+    return out, {name: c.launches for name, c in counters.items()}
+
+
+def img_per_s(torch, fn, batches, n):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(n):
+        fn(batches[i % len(batches)])
+    torch.cuda.synchronize()
+    return n * BATCH / (time.perf_counter() - t0)
+
+
+def engine_phases(torch, counters, dev, rows, profile=False):
+    """Phases 7-8: the DeiT-S ibert and ivit engines through the entry points."""
     from ivit_tpu_torch.engine import Engine
     from ivit_tpu_torch.engine.synthetic import deit_small_config, synthetic_spec
 
-    cfg = deit_small_config()
-    spec = synthetic_spec(cfg, seed=0)
-    eng = Engine(spec)                       # cuda, the kernels
-    plain = Engine(spec, kernels=False)      # cuda, the unfused plain engine
     gen = torch.Generator(device=dev).manual_seed(0)
     batches = [torch.randn((BATCH, 224, 224, 3), generator=gen, device=dev)
                for _ in range(3)]
+    block_kernels = ("attn_block", "mlp_block")
+    row_kernels = ("shiftmax", "shift_gelu_requant")
 
-    kb.mlp_block.launches = kb.attn_block.launches = 0
-    logits = eng(batches[0])
-    torch.cuda.synchronize()
-    launches = {"mlp_block": kb.mlp_block.launches,
-                "attn_block": kb.attn_block.launches}
-    if launches != {"mlp_block": cfg.depth, "attn_block": cfg.depth}:
-        raise AssertionError(f"one forward launched {launches}, want "
-                             f"{cfg.depth} of each")
-    for name, n in launches.items():
-        rows[name]["launches"] = n
-
-    if tuple(logits.shape) != (BATCH, cfg.num_classes):
-        raise AssertionError(f"logits shape {tuple(logits.shape)}")
-    if not torch.isfinite(logits).all():
-        raise AssertionError("non-finite logits")
-    if not (logits.std(dim=0) > 0).any():
-        raise AssertionError("logits constant across images")
-    want = plain(batches[0])
-    if not torch.equal(logits, want):
-        raise AssertionError(
-            f"kernel engine != plain engine on the card: max abs diff "
-            f"{(logits - want).abs().max().item()}")
+    # --- ibert: the fused block kernels ---
+    cfg = deit_small_config()
+    spec = synthetic_spec(cfg, seed=0)
+    eng, plain = Engine(spec), Engine(spec, kernels=False)
+    logits, launches = run_counted(torch, counters, lambda: eng(batches[0]))
+    want = {k: cfg.depth if k in block_kernels else 0 for k in counters}
+    if launches != want:
+        raise AssertionError(f"ibert forward launched {launches}, want {want}")
+    check_logits(torch, "ibert kernel engine", logits, plain(batches[0]),
+                 cfg.num_classes)
     cpu = Engine(spec, device="cpu", kernels=False)(batches[0][:4].cpu())
     if not torch.equal(logits[:4].cpu(), cpu):
         raise AssertionError(
-            f"kernel engine != plain engine on the CPU (4 images): max abs "
-            f"diff {(logits[:4].cpu() - cpu).abs().max().item()}")
-
-    def img_per_s(fn, n):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for i in range(n):
-            fn(batches[i % len(batches)])
-        torch.cuda.synchronize()
-        return n * BATCH / (time.perf_counter() - t0)
-
-    ips = img_per_s(eng, 6)
-    plain_ips = img_per_s(plain, 2)
+            f"ibert kernel engine != plain engine on the CPU (4 images): max "
+            f"abs diff {(logits[:4].cpu() - cpu).abs().max().item()}")
     emit({"phase": "engine", "config": "deit_small ibert 224px depth 12 (synthetic, seed 0)",
           "batch": BATCH, "launches_per_forward": launches,
           "equal_plain_cuda": True, "equal_plain_cpu_4img": True,
-          "img_per_s": ips, "plain_img_per_s": plain_ips,
+          "img_per_s": img_per_s(torch, eng, batches, 6),
+          "plain_img_per_s": img_per_s(torch, plain, batches, 2),
           "logits_std": logits.std().item()})
     if profile:
-        emit(profile_forward(torch, eng, batches[0]))
+        emit(profile_forward(torch, "ibert kernels=True", eng, batches[0]))
+    del eng, plain
+
+    # --- ivit: fused block kernels and standalone nonlinearity kernels ---
+    cfg = deit_small_config(ln="ivit", gelu="ivit", softmax="ivit")
+    spec = synthetic_spec(cfg, seed=0)
+    engines = {True: Engine(spec), "ops": Engine(spec, kernels="ops"),
+               False: Engine(spec, kernels=False)}
+    want_logits = engines[False](batches[0])
+    cpu = Engine(spec, device="cpu", kernels=False)(batches[0][:4].cpu())
+    out = {}
+    for path, kernels in ((True, block_kernels), ("ops", row_kernels)):
+        logits, launches = run_counted(torch, counters,
+                                       lambda: engines[path](batches[0]))
+        want = {k: cfg.depth if k in kernels else 0 for k in counters}
+        if launches != want:
+            raise AssertionError(f"ivit kernels={path!r} forward launched "
+                                 f"{launches}, want {want}")
+        check_logits(torch, f"ivit kernels={path!r} engine", logits, want_logits,
+                     cfg.num_classes)
+        if not torch.equal(logits[:4].cpu(), cpu):
+            raise AssertionError(f"ivit kernels={path!r} engine != plain engine "
+                                 "on the CPU (4 images)")
+        for k in kernels:
+            rows[k]["launches"] = launches[k]
+        out[str(path)] = {"launches_per_forward": launches,
+                          "img_per_s": img_per_s(torch, engines[path], batches,
+                                                 6 if path is True else 4)}
+    emit({"phase": "engine_ivit",
+          "config": "deit_small ivit 224px depth 12 (synthetic, seed 0)",
+          "batch": BATCH, "fused": out["True"], "ops": out["ops"],
+          "equal_plain_cuda": True, "equal_plain_cpu_4img": True,
+          "plain_img_per_s": img_per_s(torch, engines[False], batches, 2),
+          "logits_std": want_logits.std().item()})
+    if profile:
+        for path in (True, "ops"):
+            emit(profile_forward(torch, f"ivit kernels={path!r}", engines[path],
+                                 batches[0]))
 
 
-def profile_forward(torch, eng, images, n=3):
+def profile_forward(torch, name, eng, images, n=3):
     """Device time by kernel over ``n`` forwards (torch.profiler, CUDA
     activity), and the device's idle share of the wall time."""
     from torch.autograd import DeviceType
@@ -283,8 +458,8 @@ def profile_forward(torch, eng, images, n=3):
                if a.device_type == DeviceType.CUDA and a.self_device_time_total > 0}
     busy = sum(kernels.values())
     top = sorted(kernels.items(), key=lambda kv: -kv[1])[:12]
-    return {"phase": "profile", "forwards": n, "wall_ms_per_forward": wall_ms,
-            "device_ms_per_forward": busy,
+    return {"phase": "profile", "engine": name, "forwards": n,
+            "wall_ms_per_forward": wall_ms, "device_ms_per_forward": busy,
             "idle_share": max(0.0, 1.0 - busy / wall_ms),
             "top_kernels_ms": [[k[:80], v] for k, v in top]}
 
@@ -292,7 +467,7 @@ def profile_forward(torch, eng, images, n=3):
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", action="store_true",
-                    help="add a torch.profiler breakdown of the engine forward")
+                    help="add a torch.profiler breakdown of the engine forwards")
     args = ap.parse_args(argv)
     import torch
     if not torch.cuda.is_available():
@@ -302,6 +477,7 @@ def main(argv=None) -> int:
     try:
         from ivit_tpu_torch.ops.kernels import _build
         from ivit_tpu_torch.ops.kernels import block as kb
+        from ivit_tpu_torch.ops.kernels import nonlinear as knl
     except ImportError as e:
         print(f"chip_smoke: run from a checkout of the repository ({e})",
               file=sys.stderr)
@@ -318,8 +494,13 @@ def main(argv=None) -> int:
              for n, log in _build.build_log.items()}
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "per_source_s": times, "ptxas": ptxas})
-    rows = kernel_phases(torch, kb, dev)
-    engine_phase(torch, kb, dev, rows, profile=args.profile)
+    rows = kernel_phases(torch, kb, knl, dev)
+    emit({"phase": "kernel_checks_done", "seconds": time.perf_counter() - t0})
+    counters = {"attn_block": kb.attn_block, "mlp_block": kb.mlp_block,
+                "shiftmax": knl.shiftmax,
+                "shift_gelu_requant": knl.shift_gelu_requant}
+    engine_phases(torch, counters, dev, rows, profile=args.profile)
+    emit({"phase": "engines_done", "seconds": time.perf_counter() - t0})
     emit({"kernels": list(rows.values())})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

@@ -1,10 +1,12 @@
-// Fused attention half-block, ibert family, for sm_90a.
+// Fused attention half-block, ivit and ibert families, for sm_90a.
 //
 // Replaces ivit_tpu/ops/pallas/block.py::attn_block_p (body _attn_kernel):
-//   ibert LN -> int8 requant -> qkv GEMM + bias -> requant -> per head int32
-//   q k^T -> requant by m_attn -> ibert softmax over the n_valid columns
-//   (int exp, 16-bit exp requant, 2**32 reciprocal) -> probs @ v -> requant
-//   by m_av -> proj GEMM + bias -> requant -> integer residual.
+//   LN (I-LayerNorm or ibert LN; or the hoisted int8 ln_in) -> int8
+//   requant -> qkv GEMM + bias -> requant -> per head int32 q k^T ->
+//   requant by m_attn -> softmax over the n_valid columns (Shiftmax: shift
+//   exp, exact two-limb row sum, 2**31 reciprocal; or ibert: int exp,
+//   16-bit exp requant, 2**32 reciprocal) -> probs @ v -> requant by m_av
+//   -> proj GEMM + bias -> requant -> integer residual.
 //
 // Bound on this card: operations.  At DeiT-S (B 256, N 197, C 384, 6 heads)
 // one call does 2 * B * N * (3C * C + C * C) + 2 * 2 * B * N * N * C = 75 G
@@ -22,14 +24,15 @@
 //   2. attn_core_kernel: one block per (head, image) with that head's k and
 //      v (transposed) in shared memory; each warp takes one query row at a
 //      time: scores by dp4a (one key per lane), softmax with warp
-//      reductions, probs @ v by dp4a over 4 keys at a time (one output
+//      reductions (Shiftmax through ivit.cuh shiftmax_row, the standalone
+//      kernel's row code), probs @ v by dp4a over 4 keys at a time (one output
 //      channel per lane).  The [N, N] matrix is never stored;
 //   3. proj_kernel: 64 rows of ctx per block, proj GEMM, requant, residual.
 // The LN shift and the exp constants are derived in every thread from the
 // spec's scalar leaves, with the plain version's rdiv, so a call costs the
 // host no arithmetic launches of its own.
 
-#include "exact.cuh"
+#include "ivit.cuh"
 
 namespace ivit {
 
@@ -63,20 +66,24 @@ __device__ __forceinline__ ExpConsts exp_consts_of(float s) {
           floorf(rdiv(kExpC, __fmul_rn(s, s)))};
 }
 
-// 1. LN + qkv GEMM + requant.  wqkv_t: the qkv weight transposed, [3C, C].
+// 1. LN + qkv GEMM + requant.  wqkv_t: the qkv weight transposed, [3C, C];
+// ln_in: the hoisted LN output [R, C], or null to run the LN here.
 template <int BN>
 __global__ void __launch_bounds__(kThreads)
-ln_qkv_kernel(const int8_t* __restrict__ x, const float* __restrict__ ln_bias,
+ln_qkv_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ ln_in,
+              const float* __restrict__ ln_bias,
               const float* __restrict__ m_ln, const int8_t* __restrict__ wqkv_t,
               const int32_t* __restrict__ bqkv, const float* __restrict__ mqkv,
-              AttnScalars sp, int8_t* __restrict__ qkv, int R, int C) {
+              AttnScalars sp, int8_t* __restrict__ qkv, int R, int C,
+              int ln_ivit) {
   extern __shared__ __align__(16) int8_t smem[];
   const int lda = tile_ld(C);
   int8_t* As = smem;
   int8_t* Bs = As + kTileM * lda;
   const int r0 = blockIdx.x * kTileM, N3 = 3 * C;
   const LnShift ln = ln_shift_of(sp.ln_shift);
-  ln_tile_ibert(x, R, C, r0, ln_bias, m_ln, ln.pw, ln.inv_pw, As, lda);
+  ln_tile(x, ln_in, R, C, r0, ln_ivit, ln_bias, m_ln, ln.pw, ln.inv_pw, As,
+          lda);
   int acc[BN / 16][4];
   for (int n0 = 0; n0 < N3; n0 += BN) {
     gemm_tile<BN>(As, lda, wqkv_t, C, n0, Bs, acc);
@@ -93,11 +100,13 @@ ln_qkv_kernel(const int8_t* __restrict__ x, const float* __restrict__ ln_bias,
   }
 }
 
-// 2. Softmax attention for one (head, image).
+// 2. Softmax attention for one (head, image); SHIFTMAX: the ivit softmax,
+// else the ibert one.
 // Shared memory: k rows [Np][Dh + 4] (an odd word stride, so the 32 lanes
 // reading 32 keys hit 32 banks); v transposed [Dh][Np4 + 4] with Np4 = Np
 // rounded up to 4 and zero-filled, so probs @ v runs as dp4a over 4 keys at
 // a time; one query row and one probs row per warp.
+template <bool SHIFTMAX>
 __global__ void __launch_bounds__(kThreads)
 attn_core_kernel(const int8_t* __restrict__ qkv, AttnScalars sp,
                  int8_t* __restrict__ ctx, int Np, int C, int Dh, int n_valid,
@@ -129,8 +138,15 @@ attn_core_kernel(const int8_t* __restrict__ qkv, AttnScalars sp,
   __syncthreads();
 
   const float m_attn = __ldg(sp.m_attn), m_av = __ldg(sp.m_av);
-  const float m_exp_act = rdiv(1.f, __ldg(sp.s_exp_act));
-  const ExpConsts ec = exp_consts_of(__ldg(sp.s_attn));
+  const float s_attn = __ldg(sp.s_attn);
+  float m_exp_act = 0.f, x0 = 0.f;
+  ExpConsts ec{};
+  if (SHIFTMAX) {
+    x0 = exp_shift_x0(s_attn);
+  } else {
+    m_exp_act = rdiv(1.f, __ldg(sp.s_exp_act));
+    ec = exp_consts_of(s_attn);
+  }
   const float lim_a = bits_lim(attn_bits);
   int8_t* q = Qs + warp * Dh;
   int8_t* p = Ps + warp * np4;
@@ -155,25 +171,33 @@ attn_core_kernel(const int8_t* __restrict__ qkv, AttnScalars sp,
         smax = fmaxf(smax, s[t]);
       }
     }
-    smax = warp_max(smax);
-    float e16[kMaxKeysPerLane];
-    int esum = 0;
+    if (SHIFTMAX) {
+      shiftmax_row(s, n_valid, x0, shift_out_scale(8), fast_q, lane);
+    } else {
+      smax = warp_max(smax);
+      int esum = 0;
 #pragma unroll
-    for (int t = 0; t < kMaxKeysPerLane; ++t) {
-      int j = lane + 32 * t;
-      e16[t] = 0.f;
-      if (j < n_valid) {
-        float e = ibert_exp(s[t] - smax, ec.x0, ec.b, ec.c, fast_q, fast_poly);
-        e16[t] = clampf(rintf(e * m_exp_act), -32768.f, 32767.f);
-        esum += (int)e16[t];
+      for (int t = 0; t < kMaxKeysPerLane; ++t) {
+        int j = lane + 32 * t;
+        float e16 = 0.f;
+        if (j < n_valid) {
+          float e =
+              ibert_exp(s[t] - smax, ec.x0, ec.b, ec.c, fast_q, fast_poly);
+          e16 = clampf(rintf(e * m_exp_act), -32768.f, 32767.f);
+          esum += (int)e16;
+        }
+        s[t] = e16;
       }
+      esum = warp_sum(esum);
+      float factor = floorf(rdiv(4294967296.f, __int2float_rn(esum)));
+#pragma unroll
+      for (int t = 0; t < kMaxKeysPerLane; ++t)
+        s[t] = floorf(s[t] * factor * 0x1p-25f);
     }
-    esum = warp_sum(esum);
-    float factor = floorf(rdiv(4294967296.f, __int2float_rn(esum)));
 #pragma unroll
     for (int t = 0; t < kMaxKeysPerLane; ++t) {
       int j = lane + 32 * t;
-      if (j < np4) p[j] = (int8_t)(int)floorf(e16[t] * factor * 0x1p-25f);
+      if (j < np4) p[j] = (int8_t)(int)s[t];
     }
     __syncwarp();
     const int* p4 = reinterpret_cast<const int*>(p);
@@ -200,14 +224,8 @@ proj_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ ctx,
   const int lda = tile_ld(C);
   int8_t* As = smem;
   int8_t* Bs = As + kTileM * lda;
-  const int r0 = blockIdx.x * kTileM, cw = C >> 4;
-  for (int i = threadIdx.x; i < kTileM * cw; i += kThreads) {
-    int row = i / cw, w = i - row * cw;
-    int4 v = make_int4(0, 0, 0, 0);
-    if (r0 + row < R)
-      v = *reinterpret_cast<const int4*>(ctx + (size_t)(r0 + row) * C + 16 * w);
-    *reinterpret_cast<int4*>(As + row * lda + 16 * w) = v;
-  }
+  const int r0 = blockIdx.x * kTileM;
+  copy_tile(ctx, R, C, r0, As, lda);
   const float m_res_x = __ldg(sp.m_res_x), m_res_id = __ldg(sp.m_res_id);
   const float lim_p = bits_lim(proj_bits), lim_o = bits_lim(out_bits);
   int acc[BN / 16][4];
@@ -228,13 +246,14 @@ proj_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ ctx,
   }
 }
 
-template <int BN>
-int launch_attn(const int8_t* x, const float* ln_bias, const float* m_ln,
-                const int8_t* wqkv_t, const int32_t* bqkv, const float* mqkv,
-                const int8_t* wp_t, const int32_t* bp, const float* mp,
-                AttnScalars sp, int8_t* qkv, int8_t* ctx, int8_t* out, int B,
-                int Np, int C, int H, int n_valid, int attn_bits, int proj_bits,
-                int out_bits, int fast_q, int fast_poly, cudaStream_t stream) {
+template <int BN, bool SHIFTMAX>
+int launch_attn(const int8_t* x, const int8_t* ln_in, const float* ln_bias,
+                const float* m_ln, const int8_t* wqkv_t, const int32_t* bqkv,
+                const float* mqkv, const int8_t* wp_t, const int32_t* bp,
+                const float* mp, AttnScalars sp, int8_t* qkv, int8_t* ctx,
+                int8_t* out, int B, int Np, int C, int H, int n_valid,
+                int attn_bits, int proj_bits, int out_bits, int ln_ivit,
+                int fast_q, int fast_poly, cudaStream_t stream) {
   const int R = B * Np, Dh = C / H, np4 = (Np + 3) & ~3;
   const size_t smem_gemm = (size_t)kTileM * tile_ld(C) + gemm_stage_bytes(BN);
   const size_t smem_core = (size_t)Np * (Dh + 4) + (size_t)Dh * (np4 + 4) +
@@ -246,15 +265,15 @@ int launch_attn(const int8_t* x, const float* ln_bias, const float* m_ln,
       (err = cudaFuncSetAttribute(proj_kernel<BN>,
                                   cudaFuncAttributeMaxDynamicSharedMemorySize,
                                   (int)smem_gemm)) != cudaSuccess ||
-      (err = cudaFuncSetAttribute(attn_core_kernel,
+      (err = cudaFuncSetAttribute(attn_core_kernel<SHIFTMAX>,
                                   cudaFuncAttributeMaxDynamicSharedMemorySize,
                                   (int)smem_core)) != cudaSuccess)
     return (int)err;
   const dim3 row_grid((R + kTileM - 1) / kTileM);
   ln_qkv_kernel<BN><<<row_grid, kThreads, smem_gemm, stream>>>(
-      x, ln_bias, m_ln, wqkv_t, bqkv, mqkv, sp, qkv, R, C);
+      x, ln_in, ln_bias, m_ln, wqkv_t, bqkv, mqkv, sp, qkv, R, C, ln_ivit);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-  attn_core_kernel<<<dim3(H, B), kThreads, smem_core, stream>>>(
+  attn_core_kernel<SHIFTMAX><<<dim3(H, B), kThreads, smem_core, stream>>>(
       qkv, sp, ctx, Np, C, Dh, n_valid, attn_bits, fast_q, fast_poly);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
   proj_kernel<BN><<<row_grid, kThreads, smem_gemm, stream>>>(
@@ -264,10 +283,13 @@ int launch_attn(const int8_t* x, const float* ln_bias, const float* m_ln,
 
 }  // namespace ivit
 
-// Pointers in the wrapper's argument order; ln_shift, m_attn, s_attn,
-// s_exp_act, m_av, m_res_x and m_res_id point at one f32 each.  qkv
-// [B * Np, 3C] and ctx [B * Np, C] are int8 scratch.
-extern "C" int ivit_attn_block(const int8_t* x, const float* ln_bias,
+// Pointers in the wrapper's argument order; ln_in may be null (LN in the
+// kernel) and s_exp_act is read by the ibert softmax only; ln_shift,
+// m_attn, s_attn, s_exp_act, m_av, m_res_x and m_res_id point at one f32
+// each.  qkv [B * Np, 3C] and ctx [B * Np, C] are int8 scratch.  ln_ivit /
+// sm_ivit pick the ivit LN / softmax over the ibert ones.
+extern "C" int ivit_attn_block(const int8_t* x, const int8_t* ln_in,
+                               const float* ln_bias,
                                const float* m_ln, const float* ln_shift,
                                const int8_t* wqkv_t, const int32_t* bqkv,
                                const float* mqkv, const float* m_attn,
@@ -277,13 +299,18 @@ extern "C" int ivit_attn_block(const int8_t* x, const float* ln_bias,
                                const float* m_res_x, const float* m_res_id,
                                int8_t* qkv, int8_t* ctx, int8_t* out, int B,
                                int Np, int C, int H, int n_valid, int attn_bits,
-                               int proj_bits, int out_bits, int fast_q,
-                               int fast_poly, cudaStream_t stream) {
+                               int proj_bits, int out_bits, int ln_ivit,
+                               int sm_ivit, int fast_q, int fast_poly,
+                               cudaStream_t stream) {
   const ivit::AttnScalars sp{ln_shift, m_attn, s_attn, s_exp_act,
                              m_av, m_res_x, m_res_id};
   // 128-column passes where C allows (DeiT-S: 3C = 1152, C = 384), else 64
-  auto launch = C % 128 == 0 ? ivit::launch_attn<128> : ivit::launch_attn<64>;
-  return launch(x, ln_bias, m_ln, wqkv_t, bqkv, mqkv, wp_t, bp, mp, sp, qkv,
-                ctx, out, B, Np, C, H, n_valid, attn_bits, proj_bits, out_bits,
-                fast_q, fast_poly, stream);
+  const bool wide = C % 128 == 0;
+  auto launch = sm_ivit ? (wide ? ivit::launch_attn<128, true>
+                                : ivit::launch_attn<64, true>)
+                        : (wide ? ivit::launch_attn<128, false>
+                                : ivit::launch_attn<64, false>);
+  return launch(x, ln_in, ln_bias, m_ln, wqkv_t, bqkv, mqkv, wp_t, bp, mp, sp,
+                qkv, ctx, out, B, Np, C, H, n_valid, attn_bits, proj_bits,
+                out_bits, ln_ivit, fast_q, fast_poly, stream);
 }

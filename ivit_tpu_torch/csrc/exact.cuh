@@ -1,5 +1,6 @@
-// Exact f32 integer arithmetic and the shared building blocks of the
-// ibert block kernels (mlp_block.cu, attn_block.cu).
+// Exact f32 integer arithmetic and the shared building blocks of the block
+// kernels (mlp_block.cu, attn_block.cu; ivit.cuh adds the ivit
+// nonlinearities for them and for nonlinear.cu).
 //
 // Every helper reproduces the JAX construction of ivit_tpu/ops/quant.py and
 // ivit_tpu/ops/pallas/block.py operation for operation, so the kernels give
@@ -8,12 +9,12 @@
 //     the _rn intrinsics, which are never contracted into an FMA; the whole
 //     file is also built with --fmad=false, so plain `a * b + c` rounds twice
 //     as written (the fast_poly form and the residual products rely on it);
-//   * the two-limb LN sums keep their int32 limbs and their fixed f32
+//   * the two-limb sums keep their int32 limbs and their fixed f32
 //     recombination order (they round twice above 2**24);
 //   * round is rintf (half to even), 2**k is a bit construction, sqrt is the
 //     IEEE __fsqrt_rn, int32 -> f32 is round to nearest;
-//   * a NaN LN output (an all-zero padding row) is pinned to 0 before its
-//     int8 requant, as the plain version does.
+//   * a NaN LN output (an ibert all-zero padding row) is pinned to 0 before
+//     its int8 requant, as the plain version does.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -121,37 +122,58 @@ __device__ __forceinline__ float warp_max(float v) {
   return v;
 }
 
-// One warp: ibert LayerNorm of one int8 row of C (C % 32 == 0, C <= 1024),
-// plus its bias and int8 requant, into out_row (block.py _ibert_layernorm +
-// _ln_requant; the engine's ibert_layernorm_int).
-__device__ __forceinline__ void ln_row_ibert(const int8_t* __restrict__ xrow,
-                                             int C,
-                                             const float* __restrict__ bias,
-                                             const float* __restrict__ m_ln,
-                                             float pw, float inv_pw,
-                                             int8_t* out_row, int lane) {
+// Two-limb exact sum of integer-valued f32 (quant.exact_int_sum): each lane
+// adds its values' limbs into sh / sl, limb_total reduces them over the warp
+// and recombines once in f32.
+__device__ __forceinline__ void limb_add(int& sh, int& sl, float x) {
+  x = clampf(x, -2147483648.f, 2147483648.f);
+  const float h = floorf(x * 0.00390625f);
+  sh += (int)h;
+  sl += (int)(x - h * 256.f);
+}
+
+__device__ __forceinline__ float limb_total(int sh, int sl) {
+  sh = warp_sum(sh);
+  sl = warp_sum(sl);
+  return __fadd_rn(__fmul_rn(__int2float_rn(sh), 256.f), __int2float_rn(sl));
+}
+
+// ivit integer Newton sqrt: 10 steps k = floor((k + floor(v / k)) / 2) from
+// k = 2**16 (block.py _newton_sqrt; ivit.int_newton_sqrt).
+__device__ __forceinline__ float newton_sqrt(float v) {
+  float k = 65536.f;
+#pragma unroll
+  for (int i = 0; i < 10; ++i) k = floorf((k + floorf(rdiv(v, k))) * 0.5f);
+  return k;
+}
+
+// One warp: LayerNorm of one int8 row of C (C % 32 == 0, C <= 1024), plus
+// its bias and int8 requant, into out_row.  IVIT: I-LayerNorm
+// (block.py _i_layernorm, Newton sqrt, no shift); else the ibert LN with the
+// frozen shift 2**shift = pw (block.py _ibert_layernorm, floor(sqrt)).  Both
+// end in _ln_requant.
+template <bool IVIT>
+__device__ __forceinline__ void ln_row(const int8_t* __restrict__ xrow, int C,
+                                       const float* __restrict__ bias,
+                                       const float* __restrict__ m_ln,
+                                       float pw, float inv_pw, int8_t* out_row,
+                                       int lane) {
   float v[kMaxLnVals];
   const int nv = C >> 5;
   int sh = 0, sl = 0;
 #pragma unroll
   for (int i = 0; i < kMaxLnVals; ++i) {
     if (i < nv) {
-      float x = (float)xrow[lane + 32 * i];
-      v[i] = x;
-      float h = floorf(x * 0.00390625f);
-      sh += (int)h;
-      sl += (int)(x - h * 256.f);
+      v[i] = (float)xrow[lane + 32 * i];
+      limb_add(sh, sl, v[i]);
     }
   }
-  sh = warp_sum(sh);
-  sl = warp_sum(sl);
-  float s = __fadd_rn(__fmul_rn(__int2float_rn(sh), 256.f), __int2float_rn(sl));
-  float mean = rintf(rdiv(s, (float)C));
+  float mean = rintf(rdiv(limb_total(sh, sl), (float)C));
   int saa = 0, sab = 0, sbb = 0;
 #pragma unroll
   for (int i = 0; i < kMaxLnVals; ++i) {
     if (i < nv) {
-      float y = floorf((v[i] - mean) * inv_pw);
+      float y = IVIT ? v[i] - mean : floorf((v[i] - mean) * inv_pw);
       float a = floorf(y * 0.00390625f);
       float b = y - a * 256.f;
       saa += (int)(a * a);
@@ -165,7 +187,7 @@ __device__ __forceinline__ void ln_row_ibert(const int8_t* __restrict__ xrow,
   float var = __fadd_rn(__fmul_rn(__int2float_rn(saa), 65536.f),
                         __fadd_rn(__fmul_rn(__int2float_rn(sab), 512.f),
                                   __int2float_rn(sbb)));
-  float stdv = floorf(__fsqrt_rn(var)) * pw;
+  float stdv = IVIT ? newton_sqrt(var) : floorf(__fsqrt_rn(var)) * pw;
   float factor = floorf(rdiv(2147483648.f, stdv));
 #pragma unroll
   for (int i = 0; i < kMaxLnVals; ++i) {
@@ -178,23 +200,48 @@ __device__ __forceinline__ void ln_row_ibert(const int8_t* __restrict__ xrow,
   }
 }
 
-// LN of the block's kTileM rows into As (row stride lda); rows past R are
-// zero.  Warp w takes rows w*8 .. w*8+7.
-__device__ __forceinline__ void ln_tile_ibert(const int8_t* __restrict__ x,
-                                              int R, int C, int r0,
-                                              const float* __restrict__ bias,
-                                              const float* __restrict__ m_ln,
-                                              float pw, float inv_pw,
-                                              int8_t* As, int lda) {
+// The kTileM rows r0.. of an int8 [R, C] matrix into As (row stride lda,
+// 16-byte aligned rows, C % 16 == 0); rows past R are zero.
+__device__ __forceinline__ void copy_tile(const int8_t* __restrict__ src,
+                                          int R, int C, int r0, int8_t* As,
+                                          int lda) {
+  const int cw = C >> 4;
+  for (int i = threadIdx.x; i < kTileM * cw; i += kThreads) {
+    int row = i / cw, w = i - row * cw;
+    int4 v = make_int4(0, 0, 0, 0);
+    if (r0 + row < R)
+      v = *reinterpret_cast<const int4*>(src + (size_t)(r0 + row) * C + 16 * w);
+    *reinterpret_cast<int4*>(As + row * lda + 16 * w) = v;
+  }
+}
+
+// The block's LN input tile: LN of x's kTileM rows r0.. into As (row stride
+// lda), the ivit or ibert form; or, where the caller hoisted the LN
+// (ln_in != nullptr, block.py hoisted_ln), ln_in's rows as they are.  Rows
+// past R are zero.  Warp w takes rows w*8 .. w*8+7.
+__device__ __forceinline__ void ln_tile(const int8_t* __restrict__ x,
+                                        const int8_t* __restrict__ ln_in,
+                                        int R, int C, int r0, bool ivit,
+                                        const float* __restrict__ bias,
+                                        const float* __restrict__ m_ln,
+                                        float pw, float inv_pw, int8_t* As,
+                                        int lda) {
+  if (ln_in != nullptr) {
+    copy_tile(ln_in, R, C, r0, As, lda);
+    return;
+  }
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   for (int rr = 0; rr < kTileM / 8; ++rr) {
     int row = warp * (kTileM / 8) + rr;
     int gr = r0 + row;
-    if (gr < R) {
-      ln_row_ibert(x + (size_t)gr * C, C, bias, m_ln, pw, inv_pw,
+    if (gr >= R) {
+      for (int c = lane; c < C; c += 32) As[row * lda + c] = 0;
+    } else if (ivit) {
+      ln_row<true>(x + (size_t)gr * C, C, bias, m_ln, 1.f, 1.f,
                    As + row * lda, lane);
     } else {
-      for (int c = lane; c < C; c += 32) As[row * lda + c] = 0;
+      ln_row<false>(x + (size_t)gr * C, C, bias, m_ln, pw, inv_pw,
+                    As + row * lda, lane);
     }
   }
 }

@@ -1,0 +1,142 @@
+// The ivit nonlinearities as device functions, shared by the standalone
+// kernels (nonlinear.cu) and the block kernels (mlp_block.cu, attn_block.cu)
+// so that the two forms cannot drift apart:
+//   * int_exp_shift (ivit_tpu/ops/pallas/nonlinear.py _int_exp_shift);
+//   * shiftmax_row, one warp's Shiftmax of a row held in registers
+//     (nonlinear.py _shiftmax_kernel, block.py _shiftmax);
+//   * shift_gelu_row, one warp's ShiftGELU + requant of an int8 row in
+//     global or shared memory (nonlinear.py _shift_gelu_kernel, block.py
+//     _shift_gelu with the requant after it).
+// Every f32 rounding happens once, where the reference rounds: s_gelu *
+// 1.702 is one multiply, exp + exp_max one add, exp * factor one multiply
+// followed by an exact power-of-two scale.  Built with --fmad=false.
+#pragma once
+
+#include "exact.cuh"
+
+namespace ivit {
+
+constexpr float kInt32Max = 2147483648.f;  // INT32_MAX rounded to f32
+constexpr float kSigmoidK = (float)1.702;  // sigmoid(1.702 x) ~ GELU
+constexpr float kShiftmaxN = 15.f;         // the exps' shift budgets n
+constexpr float kShiftGeluN = 23.f;
+
+// The scale 2**-(32 - bits) that turns exp * factor (~2**31) into a
+// ``bits``-bit probability or sigmoid: 2**-(31 - bits + 1) in the reference.
+__device__ __forceinline__ float shift_out_scale(int bits) {
+  return pow2((float)(bits - 32));
+}
+
+// x0 = floor(-1 / s), the exp's range-reduction step at input scale s.
+__device__ __forceinline__ float exp_shift_x0(float s) {
+  return floorf(rdiv(-1.f, s));
+}
+
+// x0 of ShiftGELU's exp at input scale s_gelu: its scale is s_gelu * 1.702.
+__device__ __forceinline__ float shift_gelu_x0(float s_gelu) {
+  return exp_shift_x0(__fmul_rn(s_gelu, kSigmoidK));
+}
+
+// Shift-based integer exp of the f32-held integer x (nonlinear.py
+// _int_exp_shift, after ivit_modules.py:89-103):
+// x * log2(e) ~ x + x/2 - x/16, then 2**(n - q) * (r/2 - x0) with q, r the
+// quotient and remainder by x0.  fast_q: the divide-free exact quotient.
+__device__ __forceinline__ float int_exp_shift(float x, float x0, float n,
+                                               int fast_q) {
+  x = (x + floorf(x * 0.5f)) - floorf(x * 0.0625f);
+  x = fmaxf(x, n * x0);
+  const float q = fast_q ? floor_div_int(x, x0) : floorf(rdiv(x, x0));
+  const float r = x - x0 * q;
+  return fmaxf(floorf((r * 0.5f - x0) * pow2(n - q)), 0.f);
+}
+
+// One warp: Shiftmax of one row, column lane + 32 t in v[t], columns >=
+// n_valid padding (kept out of the max, probability 0).  In place: v[t]
+// becomes floor(exp * factor * out_scale), out_scale = 2**-(32 - bits).
+// The row sum is the two-limb exact sum clamped to INT32_MAX: a row of N
+// exps sums to up to N * (-x0) * 2**15, past f32's exact integers (2**24)
+// for ViT's 197 tokens at any scale below ~0.3.
+template <int MAXV>
+__device__ __forceinline__ void shiftmax_row(float (&v)[MAXV], int n_valid,
+                                             float x0, float out_scale,
+                                             int fast_q, int lane) {
+  float vmax = -8388608.f;  // -2**23, the reference's pad-column fill
+#pragma unroll
+  for (int t = 0; t < MAXV; ++t)
+    if (lane + 32 * t < n_valid) vmax = fmaxf(vmax, v[t]);
+  vmax = warp_max(vmax);
+  int sh = 0, sl = 0;
+#pragma unroll
+  for (int t = 0; t < MAXV; ++t) {
+    float e = 0.f;
+    if (lane + 32 * t < n_valid) {
+      e = int_exp_shift(v[t] - vmax, x0, kShiftmaxN, fast_q);
+      limb_add(sh, sl, e);
+    }
+    v[t] = e;
+  }
+  const float factor =
+      floorf(rdiv(kInt32Max, fminf(limb_total(sh, sl), kInt32Max)));
+#pragma unroll
+  for (int t = 0; t < MAXV; ++t)
+    v[t] = floorf(__fmul_rn(v[t], factor) * out_scale);
+}
+
+// ShiftGELU of one int8-valued x of a row with max xmax, exp_max =
+// int_exp_shift(-xmax): x * floor(exp * factor * sig_scale), sig_scale =
+// 2**-(32 - sigmoid bits).
+__device__ __forceinline__ float shift_gelu(float x, float xmax, float exp_max,
+                                            float x0, float n, float sig_scale,
+                                            int fast_q) {
+  const float e = int_exp_shift(x - xmax, x0, n, fast_q);
+  const float sum = fminf(__fadd_rn(e, exp_max), kInt32Max);
+  const float factor = floorf(rdiv(kInt32Max, sum));
+  return x * floorf(__fmul_rn(e, factor) * sig_scale);
+}
+
+// One warp: ShiftGELU + requant clip(round(y * m_out)) to [-lim, lim - 1] of
+// one int8 row of H.  The row max runs over all H columns first.  out may
+// be in (each lane rewrites only what it read); rows of whole 4-byte words
+// are read and written a word per lane.
+__device__ __forceinline__ void shift_gelu_row(const int8_t* in, int8_t* out,
+                                               int H, float x0, float n,
+                                               float sig_scale, float m_out,
+                                               float lim, int fast_q,
+                                               int lane) {
+  const bool words =
+      (H & 3) == 0 && ((reinterpret_cast<uintptr_t>(in) |
+                        reinterpret_cast<uintptr_t>(out)) & 3) == 0;
+  const int* in4 = reinterpret_cast<const int*>(in);
+  float xmax = -128.f;
+  if (words) {
+    for (int w = lane; w < (H >> 2); w += 32) {
+      const int v = in4[w];
+#pragma unroll
+      for (int d = 0; d < 4; ++d)
+        xmax = fmaxf(xmax, (float)(int8_t)(v >> (8 * d)));
+    }
+  } else {
+    for (int c = lane; c < H; c += 32) xmax = fmaxf(xmax, (float)in[c]);
+  }
+  xmax = warp_max(xmax);
+  const float exp_max = int_exp_shift(-xmax, x0, n, fast_q);
+  auto one = [&](float x) {
+    return (int)requant(shift_gelu(x, xmax, exp_max, x0, n, sig_scale, fast_q),
+                        m_out, lim);
+  };
+  if (words) {
+    int* out4 = reinterpret_cast<int*>(out);
+    for (int w = lane; w < (H >> 2); w += 32) {
+      const int v = in4[w];
+      int o = 0;
+#pragma unroll
+      for (int d = 0; d < 4; ++d)
+        o |= (one((float)(int8_t)(v >> (8 * d))) & 0xff) << (8 * d);
+      out4[w] = o;
+    }
+  } else {
+    for (int c = lane; c < H; c += 32) out[c] = (int8_t)one((float)in[c]);
+  }
+}
+
+}  // namespace ivit

@@ -1,7 +1,8 @@
-// Fused MLP half-block, ibert family, for sm_90a.
+// Fused MLP half-block, ivit and ibert families, for sm_90a.
 //
 // Replaces ivit_tpu/ops/pallas/block.py::mlp_block_p (body _mlp_kernel):
-//   ibert LN -> int8 requant -> fc1 + bias -> requant -> ibert GELU ->
+//   LN (I-LayerNorm or ibert LN; or the hoisted int8 ln_in) -> int8
+//   requant -> fc1 + bias -> requant -> GELU (ShiftGELU or ibert GELU) ->
 //   requant -> fc2 + bias -> requant to mlp_bits -> integer residual
 //   clip(round(y * m_res_x) + round(x * m_res_id)).
 //
@@ -14,9 +15,14 @@
 //   * 8 warps run the row LayerNorms into an int8 [64, C] tile;
 //   * fc1 sweeps the hidden dim in 128-column passes (64 where a width is
 //     not a multiple of 128) with mma.sync
-//     m16n8k32 s8 tensor-core products; the epilogue applies bias, requant,
-//     GELU and requant per element and writes the int8 [64, hidden] hidden
-//     tile (96 KB at DeiT-S, dynamic shared memory);
+//     m16n8k32 s8 tensor-core products; the epilogue applies bias and
+//     requant and writes the int8 [64, hidden] hidden tile (96 KB at DeiT-S,
+//     dynamic shared memory), with the ibert GELU and its requant applied
+//     per element on the way;
+//   * ShiftGELU needs its row's max over all hidden columns first, so for
+//     it the tile is stored as requanted, and then each warp runs whole
+//     rows of it in place (ivit.cuh shift_gelu_row: max, exp, sigmoid,
+//     x * sigmoid, requant by m_gelu), the standalone kernel's row code;
 //   * fc2 sweeps C the same way and its epilogue writes the residual output.
 // The wrapper hands the weights over transposed ([out, in], torch's Linear
 // layout), so each 64-deep weight slice streams into shared memory with
@@ -26,7 +32,7 @@
 // host no arithmetic launches of its own.
 // wgmma and a deeper pipeline are the next steps for speed.
 
-#include "exact.cuh"
+#include "ivit.cuh"
 
 namespace ivit {
 
@@ -59,15 +65,18 @@ __device__ __forceinline__ GeluConsts gelu_consts_of(float s_gelu) {
 }
 
 // w1t: fc1 weight transposed, [Hd, C]; w2t: fc2 weight transposed, [C, Hd].
-template <int BN>
+// ln_in: the hoisted LN output [R, C], or null to run the LN here.
+// SHIFT_GELU: ShiftGELU (ivit), else the ibert GELU.
+template <int BN, bool SHIFT_GELU>
 __global__ void __launch_bounds__(kThreads)
-mlp_block_kernel(const int8_t* __restrict__ x, const float* __restrict__ ln_bias,
+mlp_block_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ ln_in,
+                 const float* __restrict__ ln_bias,
                  const float* __restrict__ m_ln, const int8_t* __restrict__ w1t,
                  const int32_t* __restrict__ b1, const float* __restrict__ m1,
                  const int8_t* __restrict__ w2t, const int32_t* __restrict__ b2,
                  const float* __restrict__ m2, MlpScalars sp,
                  int8_t* __restrict__ out, int R, int C, int Hd, int mlp_bits,
-                 int out_bits, int fast_poly) {
+                 int out_bits, int ln_ivit, int fast_exp, int fast_poly) {
   extern __shared__ __align__(16) int8_t smem[];
   const int lda = tile_ld(C), ldg = tile_ld(Hd);
   int8_t* As = smem;
@@ -76,11 +85,14 @@ mlp_block_kernel(const int8_t* __restrict__ x, const float* __restrict__ ln_bias
   const float m_gelu = __ldg(sp.m_gelu), m_res_x = __ldg(sp.m_res_x);
   const float m_res_id = __ldg(sp.m_res_id);
   const LnShift ln = ln_shift_of(sp.ln_shift);
-  const GeluConsts gc = gelu_consts_of(__ldg(sp.s_gelu));
+  const float s_gelu = __ldg(sp.s_gelu);
   const int r0 = blockIdx.x * kTileM;
 
-  ln_tile_ibert(x, R, C, r0, ln_bias, m_ln, ln.pw, ln.inv_pw, As, lda);
+  ln_tile(x, ln_in, R, C, r0, ln_ivit, ln_bias, m_ln, ln.pw, ln.inv_pw, As,
+          lda);
 
+  GeluConsts gc{};
+  if (!SHIFT_GELU) gc = gelu_consts_of(s_gelu);
   int acc[BN / 16][4];
   for (int n0 = 0; n0 < Hd; n0 += BN) {
     gemm_tile<BN>(As, lda, w1t, C, n0, Bs, acc);
@@ -91,9 +103,21 @@ mlp_block_kernel(const int8_t* __restrict__ x, const float* __restrict__ ln_bias
         int row = tile_row(e), col = n0 + tile_col<BN>(j, e);
         float h = requant(__int2float_rn(acc[j][e] + __ldg(b1 + col)),
                           __ldg(m1 + col), 128.f);
-        float g = ibert_gelu(h, gc.b, gc.c, gc.shift, fast_poly);
-        Gs[row * ldg + col] = (int8_t)(int)requant(g, m_gelu, 128.f);
+        if (!SHIFT_GELU)
+          h = requant(ibert_gelu(h, gc.b, gc.c, gc.shift, fast_poly), m_gelu,
+                      128.f);
+        Gs[row * ldg + col] = (int8_t)(int)h;
       }
+  }
+  if (SHIFT_GELU) {
+    __syncthreads();  // the whole hidden tile is written
+    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+    const float x0 = shift_gelu_x0(s_gelu);
+    for (int rr = 0; rr < kTileM / 8; ++rr) {
+      int8_t* g = Gs + (warp * (kTileM / 8) + rr) * ldg;
+      shift_gelu_row(g, g, Hd, x0, kShiftGeluN, shift_out_scale(8), m_gelu,
+                     128.f, fast_exp, lane);
+    }
   }
 
   const float lim_mlp = bits_lim(mlp_bits), lim_out = bits_lim(out_bits);
@@ -114,41 +138,49 @@ mlp_block_kernel(const int8_t* __restrict__ x, const float* __restrict__ ln_bias
   }
 }
 
-template <int BN>
-int launch_mlp(const int8_t* x, const float* ln_bias, const float* m_ln,
-               const int8_t* w1t, const int32_t* b1, const float* m1,
-               const int8_t* w2t, const int32_t* b2, const float* m2,
-               MlpScalars sp, int8_t* out, int R, int C, int Hd, int mlp_bits,
-               int out_bits, int fast_poly, cudaStream_t stream) {
+template <int BN, bool SHIFT_GELU>
+int launch_mlp(const int8_t* x, const int8_t* ln_in, const float* ln_bias,
+               const float* m_ln, const int8_t* w1t, const int32_t* b1,
+               const float* m1, const int8_t* w2t, const int32_t* b2,
+               const float* m2, MlpScalars sp, int8_t* out, int R, int C,
+               int Hd, int mlp_bits, int out_bits, int ln_ivit, int fast_exp,
+               int fast_poly, cudaStream_t stream) {
   size_t smem = (size_t)kTileM * (tile_ld(C) + tile_ld(Hd)) + gemm_stage_bytes(BN);
   cudaError_t err = cudaFuncSetAttribute(
-      mlp_block_kernel<BN>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+      mlp_block_kernel<BN, SHIFT_GELU>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   dim3 grid((R + kTileM - 1) / kTileM);
-  mlp_block_kernel<BN><<<grid, kThreads, smem, stream>>>(
-      x, ln_bias, m_ln, w1t, b1, m1, w2t, b2, m2, sp, out, R, C, Hd, mlp_bits,
-      out_bits, fast_poly);
+  mlp_block_kernel<BN, SHIFT_GELU><<<grid, kThreads, smem, stream>>>(
+      x, ln_in, ln_bias, m_ln, w1t, b1, m1, w2t, b2, m2, sp, out, R, C, Hd,
+      mlp_bits, out_bits, ln_ivit, fast_exp, fast_poly);
   return (int)cudaGetLastError();
 }
 
 }  // namespace ivit
 
-// Pointers in the wrapper's argument order; ln_shift, s_gelu, m_gelu,
-// m_res_x and m_res_id point at one f32 each.
-extern "C" int ivit_mlp_block(const int8_t* x, const float* ln_bias,
-                              const float* m_ln, const float* ln_shift,
-                              const int8_t* w1t, const int32_t* b1,
-                              const float* m1, const float* s_gelu,
-                              const float* m_gelu, const int8_t* w2t,
-                              const int32_t* b2, const float* m2,
-                              const float* m_res_x, const float* m_res_id,
-                              int8_t* out, int R, int C, int Hd, int mlp_bits,
-                              int out_bits, int fast_poly, cudaStream_t stream) {
+// Pointers in the wrapper's argument order; ln_in may be null (LN in the
+// kernel); ln_shift, s_gelu, m_gelu, m_res_x and m_res_id point at one f32
+// each.  ln_ivit / gelu_ivit pick the ivit LN / GELU over the ibert ones.
+extern "C" int ivit_mlp_block(const int8_t* x, const int8_t* ln_in,
+                              const float* ln_bias, const float* m_ln,
+                              const float* ln_shift, const int8_t* w1t,
+                              const int32_t* b1, const float* m1,
+                              const float* s_gelu, const float* m_gelu,
+                              const int8_t* w2t, const int32_t* b2,
+                              const float* m2, const float* m_res_x,
+                              const float* m_res_id, int8_t* out, int R, int C,
+                              int Hd, int mlp_bits, int out_bits, int ln_ivit,
+                              int gelu_ivit, int fast_exp, int fast_poly,
+                              cudaStream_t stream) {
   const ivit::MlpScalars sp{ln_shift, s_gelu, m_gelu, m_res_x, m_res_id};
   // 128-column passes where both widths allow (DeiT-S), 64 otherwise
-  auto launch = (C % 128 == 0 && Hd % 128 == 0) ? ivit::launch_mlp<128>
-                                                : ivit::launch_mlp<64>;
-  return launch(x, ln_bias, m_ln, w1t, b1, m1, w2t, b2, m2, sp, out, R, C, Hd,
-                mlp_bits, out_bits, fast_poly, stream);
+  const bool wide = C % 128 == 0 && Hd % 128 == 0;
+  auto launch = gelu_ivit ? (wide ? ivit::launch_mlp<128, true>
+                                  : ivit::launch_mlp<64, true>)
+                          : (wide ? ivit::launch_mlp<128, false>
+                                  : ivit::launch_mlp<64, false>);
+  return launch(x, ln_in, ln_bias, m_ln, w1t, b1, m1, w2t, b2, m2, sp, out, R,
+                C, Hd, mlp_bits, out_bits, ln_ivit, fast_exp, fast_poly,
+                stream);
 }

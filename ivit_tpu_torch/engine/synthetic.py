@@ -2,11 +2,12 @@
 and the tests).
 
 :func:`synthetic_spec` builds the numpy parameter tree that
-``ivit_tpu/engine/freeze.py::freeze_model`` emits for the ibert family --
-the same keys, shapes and dtypes -- without a trained checkpoint or the QAT
-sim.  It follows the freeze step's own arithmetic: int8 weights quantized
-per output column from a normal draw, int32 biases on the
-``w_scale * s_in`` grid, and every requant multiplier derived by
+``ivit_tpu/engine/freeze.py::freeze_model`` emits for the ivit and ibert
+families, in any mix -- the same keys, shapes and dtypes -- without a
+trained checkpoint or the QAT sim.  It follows the freeze step's own
+arithmetic: int8 weights quantized per output column from a normal draw,
+int32 biases on the ``w_scale * s_in`` grid, and every requant multiplier
+derived by
 :func:`requant_multiplier` from site scales.  The site scales are chosen
 from the fan-in so that every int8 requant output spreads over about 32
 LSB (4 sigma at the int8 limit) and saturates rarely: a spec that is
@@ -20,9 +21,11 @@ from __future__ import annotations
 import dataclasses
 
 import numpy as np
+import torch
 
 from ..models.vit import BitWidths
 from ..ops import ibert as _ib
+from ..ops import ivit as _iv
 from .freeze import (EngineConfig, EngineSpec, _exp_fast_gate,
                      _poly_fast_gate, _sym_scale, requant_const,
                      requant_multiplier)
@@ -36,23 +39,42 @@ CALIBRATED_S_ATTN = (0.005533343, 0.0049191364)
 CALIBRATED_S_GELU = (0.013059441, 0.013524539)
 # The exp QuantAct's calibrated scale is exactly exp(0) / 32767 of the
 # block's s_attn (the same freeze), so it is derived, not tabled.
+# The ivit family's GELU scales: the same geometry, gelu/softmax/layernorm
+# "ivit", built as the deit_small_patch16_224 factory builds it (qkv_bias)
+# with depth=2, initialized and calibrated (one running_stat pass) on one
+# batch of 4 normal images drawn from numpy's default_rng(0), frozen on the
+# CPU.
+CALIBRATED_S_GELU_IVIT = (0.014047618, 0.014301606)
+# Its softmax scales are not that freeze's (0.0045778966, 0.0048980233):
+# a random-init model's attention is flat, its int8 scores span +-0.6, and
+# Shiftmax's linear exp then floors every probability of a 197-token row
+# to 0, so attention passes nothing and the logits do not depend on the
+# image.  The ivit spec takes the scales of the JAX package's Shiftmax
+# tests (tests/test_pallas.py), where the int8 range spans +-6.6 and +-7.7
+# as a trained model's peaked attention does.  A mixed spec takes the
+# softmax scale of its softmax family and the GELU scale of its GELU family.
+S_ATTN_IVIT = (0.0521371, 0.061)
 
 SIGMA = 4.0          # calibrated range in standard deviations (~32 LSB at int8)
 W_STD = 0.02         # weight draw, before per-column int8 quantization
 SCORE_SPREAD = 40.0  # int8 attention-score spread the qkv weights aim for
 # ctx = probs @ v keeps about this fraction of v's spread at DeiT-S widths
-# (measured on this spec with the plain engine; sets the m_av site)
-CTX_GAIN = 0.018
+# (measured on this spec's first block with the plain engine; sets the
+# m_av site), by softmax family: the ibert spec's flat attention keeps
+# little of it, the ivit spec's peaked attention more
+CTX_GAIN = {"ibert": 0.018, "ivit": 0.3}
 
 
 def deit_small_config(depth: int = 12, img_size: int = 224,
-                      ln: str = "ibert") -> EngineConfig:
-    """The headline configuration (bench.py): DeiT-S, ibert everywhere,
-    all bitwidths 8; ``depth`` may be cut for tests."""
+                      ln: str = "ibert", gelu: str = "ibert",
+                      softmax: str = "ibert") -> EngineConfig:
+    """DeiT-S, all bitwidths 8: ibert everywhere is the headline
+    configuration (bench.py), ivit everywhere the compile entry's
+    (``__graft_entry__.py``); ``depth`` may be cut for tests."""
     return EngineConfig(img_size=img_size, patch_size=16, embed_dim=384,
                         depth=depth, num_heads=6, mlp_ratio=4.0,
                         num_classes=1000, bitwidths=BitWidths(),
-                        gelu_type="ibert", softmax_type="ibert",
+                        gelu_type=gelu, softmax_type=softmax,
                         layernorm_type=ln)
 
 
@@ -96,12 +118,29 @@ def _ibert_gelu_out_scale(s_g):
     return np.float32(np.float32(np.float32(s_g) * sig) / np.float32(2.0))
 
 
+def _ivit_gelu_out_scale(s_g):
+    """The ShiftGELU output scale, ``s_g / 2**7`` (an exact shift)."""
+    return np.float32(np.float32(s_g) / np.float32(2.0**7))
+
+
+def _ivit_sum_fits_int32(s_attn, n_tok):
+    """May the Shiftmax row sum run as one int32 reduction?  The freeze
+    step's ``luts.sum_fits_int32`` on its table's largest entry, the exp of
+    a zero difference."""
+    top, _ = _iv.int_exp_shift(torch.zeros(1), torch.tensor(np.float32(s_attn)), 15)
+    return bool(n_tok * float(top) < 2.0**31)
+
+
 def synthetic_spec(config: EngineConfig, seed: int = 0) -> EngineSpec:
-    """A seeded ibert engine spec for ``config`` (numpy parameter tree)."""
+    """A seeded engine spec for ``config`` (numpy parameter tree), any mix
+    of the ivit and ibert families."""
+    sm_base, gelu_base = config.base_type("softmax"), config.base_type("gelu")
     for which in ("softmax", "gelu", "ln"):
-        if config.base_type(which) != "ibert":
+        if config.base_type(which) not in ("ivit", "ibert"):
             raise NotImplementedError(
-                "synthetic specs cover the ibert family of this slice")
+                "synthetic specs cover the ivit and ibert families")
+    s_attn_tab = S_ATTN_IVIT if sm_base == "ivit" else CALIBRATED_S_ATTN
+    s_gelu_tab = CALIBRATED_S_GELU_IVIT if gelu_base == "ivit" else CALIBRATED_S_GELU
     cfg, bw = config, config.bitwidths
     C, H = cfg.embed_dim, cfg.num_heads
     hidden = int(C * cfg.mlp_ratio)
@@ -129,11 +168,11 @@ def synthetic_spec(config: EngineConfig, seed: int = 0) -> EngineSpec:
     p["m_x0"] = requant_multiplier(s_patch, s_block_in)
     p["s_block0"] = s_block_in
 
-    fast_exp = fast_poly = True
+    fast_exp = fast_poly = sm_sum_i32 = True
     blocks = []
     for i in range(cfg.depth):
-        s_attn = np.float32(CALIBRATED_S_ATTN[i % 2])
-        s_g = np.float32(CALIBRATED_S_GELU[i % 2])
+        s_attn = np.float32(s_attn_tab[i % 2])
+        s_g = np.float32(s_gelu_tab[i % 2])
         blk = {}
         ln_b, ln_s, ln_sh = site.layernorm(C)
         s_a1 = _scale(1.0)
@@ -148,11 +187,15 @@ def synthetic_spec(config: EngineConfig, seed: int = 0) -> EngineSpec:
         s_scores = np.float32(np.float32(s_q * s_q) * np.float32(cfg.attn_scale))
         blk["m_attn"] = requant_multiplier(s_scores, s_attn)
         blk["s_attn"] = s_attn
-        c_int = np.floor(np.float32(_ib.EXP_C) / np.float32(s_attn * s_attn))
-        blk["s_exp_act"] = _sym_scale(16, np.float32(0.0),
-                                      np.float32(c_int * 2.0**30))
-        s_sm = np.float32(2.0 / 2**bw.softmax)
-        ctx_std = CTX_GAIN * q_std
+        if sm_base == "ibert":
+            c_int = np.floor(np.float32(_ib.EXP_C) / np.float32(s_attn * s_attn))
+            blk["s_exp_act"] = _sym_scale(16, np.float32(0.0),
+                                          np.float32(c_int * 2.0**30))
+            s_sm = np.float32(2.0 / 2**bw.softmax)
+        else:
+            s_sm = np.float32(1.0 / 2 ** (bw.softmax - 1))
+            sm_sum_i32 = sm_sum_i32 and _ivit_sum_fits_int32(s_attn, n_tok)
+        ctx_std = CTX_GAIN[sm_base] * q_std
         s_a2 = _scale(ctx_std)
         blk["m_av"] = requant_multiplier(np.float32(s_sm * s_q), s_a2)
         w, b, s_pj, proj_std = site.linear(C, C, s_a2, ctx_std)
@@ -175,7 +218,9 @@ def synthetic_spec(config: EngineConfig, seed: int = 0) -> EngineSpec:
                    s_gelu=s_g)
         g_std = 0.6 * h_std                    # GELU keeps ~60% of the spread
         s_m2 = _scale(g_std)
-        blk["m_gelu"] = requant_multiplier(_ibert_gelu_out_scale(s_g), s_m2)
+        s_gelu_out = (_ivit_gelu_out_scale(s_g) if gelu_base == "ivit"
+                      else _ibert_gelu_out_scale(s_g))
+        blk["m_gelu"] = requant_multiplier(s_gelu_out, s_m2)
         w, b, s_fc2, mlp_std = site.linear(hidden, C, s_m2, g_std)
         s_mlp = _scale(mlp_std, bw.mlp_out)
         blk.update(fc2_w=w, fc2_b=b, m_fc2=requant_multiplier(s_fc2, s_mlp))
@@ -184,8 +229,8 @@ def synthetic_spec(config: EngineConfig, seed: int = 0) -> EngineSpec:
         blk["m_res2_x"] = requant_multiplier(s_mlp, s_block_out)
         blk["m_res2_id"] = requant_multiplier(s_res1, s_block_out)
 
-        fast_exp = fast_exp and _exp_fast_gate("ibert", "ibert", s_attn, s_g)
-        fast_poly = fast_poly and _poly_fast_gate("ibert", "ibert", s_attn, s_g)
+        fast_exp = fast_exp and _exp_fast_gate(sm_base, gelu_base, s_attn, s_g)
+        fast_poly = fast_poly and _poly_fast_gate(sm_base, gelu_base, s_attn, s_g)
         blocks.append(blk)
         s_block_in = s_block_out
     p["blocks"] = blocks
@@ -197,7 +242,7 @@ def synthetic_spec(config: EngineConfig, seed: int = 0) -> EngineSpec:
     w, b, s_head, _ = site.linear(C, cfg.num_classes, s_cls, 1.0)
     p.update(head_w=w, head_b=b, head_scale=s_head)
     cfg = dataclasses.replace(cfg, fast_exp=fast_exp, fast_poly=fast_poly,
-                              use_lut=False, sm_sum_i32=True,
+                              use_lut=False, sm_sum_i32=sm_sum_i32,
                               ppoly_fastdiv=True)
     return EngineSpec(config=cfg, params=_f32_tree(p))
 

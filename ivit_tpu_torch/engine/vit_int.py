@@ -1,20 +1,26 @@
 """Integer-only ViT forward (counterpart of ``ivit_tpu/engine/vit_int.py``).
 
-Two paths, bit-identical to each other and to the JAX engine:
+Three paths, bit-identical to each other and to the JAX engine:
 
 * ``kernels=True`` (the JAX fused branch, ``vit_int.py:527-596``): each
   block is one :func:`~ivit_tpu_torch.ops.kernels.block.attn_block` and one
   :func:`~ivit_tpu_torch.ops.kernels.block.mlp_block` call -- the CUDA
   kernels for tensors on the card, their plain versions on the CPU;
+* ``kernels="ops"`` (JAX's ``pallas="ops"`` hybrid, ``vit_int.py:37-45``):
+  the unfused engine with the standalone kernels
+  :func:`~ivit_tpu_torch.ops.kernels.nonlinear.shiftmax` and
+  :func:`~ivit_tpu_torch.ops.kernels.nonlinear.shift_gelu_requant` in place
+  of the ivit softmax and GELU + requant; every GEMM stays outside any
+  kernel, and an ibert softmax or GELU runs unfused, as in JAX;
 * ``kernels=False`` (the JAX unfused branch, ``vit_int.py:598-655``): the
   plain per-op engine on either device, the reference the kernels are held
   against on the card.
 
 The patch-embed and head GEMMs, the input quant and the final cls-row LN
-run outside any kernel in both, as in the JAX package.  The JAX fused
+run outside any kernel on every path, as in the JAX package.  The JAX fused
 branch pads tokens to a multiple of 8 for the TPU's tiles; the port runs
-the ``N`` real tokens unpadded.  This slice ports the ibert family; the
-ivit, ppoly and float branches raise.
+the ``N`` real tokens unpadded.  The ivit and ibert families run, in any
+mix; ppoly and float raise.
 """
 
 from __future__ import annotations
@@ -23,22 +29,44 @@ import torch
 
 from .. import resolve_device
 from ..ops import ibert as ib
+from ..ops import ivit as iv
 from ..ops.kernels import block as kblock
+from ..ops.kernels import nonlinear as knl
 from ..ops.kernels.block import container as _container
 from ..ops.kernels.block import int8_matmul
 from ..ops.quant import exact_int_sum, rdiv
 from .convert import params_to_torch
 from .freeze import EngineConfig, EngineSpec
 
+_NOT_PORTED = {
+    "ppoly": "ppoly comes with a later slice (ROADMAP Queue 1 items 2-4, "
+             "Queue 2 items 1-2)",
+    "float": "the float softmax and GELU come with a later slice of the "
+             "unfused engine (ROADMAP Queue 1 item 3), the float LayerNorm "
+             "with the QAT sim (item 9)",
+}
 
-def _require_ibert(cfg: EngineConfig):
+
+def _base(cfg: EngineConfig, which: str) -> str:
+    """The family of one nonlinearity; raises for those not ported yet."""
+    base = cfg.base_type(which)
+    if base not in ("ivit", "ibert"):
+        raise NotImplementedError(
+            f"{which} family {base!r}: the port runs the ivit and ibert "
+            f"families; {_NOT_PORTED.get(base, 'unknown family')}")
+    return base
+
+
+def _check_families(cfg: EngineConfig):
     for which in ("softmax", "gelu", "ln"):
-        base = cfg.base_type(which)
-        if base != "ibert":
-            raise NotImplementedError(
-                f"{which} family {base!r}: the port runs the ibert family; "
-                "ivit and ppoly come with the next slices of ROADMAP Queue 1 "
-                "items 2-4, float with the QAT sim (item 9)")
+        _base(cfg, which)
+
+
+def _check_kernels(kernels):
+    if kernels not in (True, False, "ops"):
+        raise ValueError(f"kernels={kernels!r}: want True (the fused block "
+                         "kernels), 'ops' (the standalone nonlinearity "
+                         "kernels) or False (the plain engine)")
 
 
 def _gemm_bias(a_int, w_int8, b_int32):
@@ -54,15 +82,23 @@ def _requant(acc, m, bits):
 
 
 def _ln_requant(y_int, m, bits):
-    """Requant of the exact LayerNorm integer; a NaN (zero-variance row) is
-    pinned to 0 first, as the kernels do, since NaN -> int is undefined."""
+    """Requant of the exact LayerNorm integer; a NaN (an ibert zero-variance
+    row) is pinned to 0 first, as the kernels do, since NaN -> int is
+    undefined."""
     y_int = torch.where(torch.isnan(y_int), torch.zeros_like(y_int), y_int)
     return _requant(y_int, m, bits)
 
 
-def _softmax_int(cfg, blk, scores_int):
-    """int8 scores -> probs in the softmax container (ibert family)."""
+def _softmax_int(cfg, blk, scores_int, kernels=False):
+    """int8 scores -> probs in the softmax container."""
     bit = cfg.bitwidths.softmax
+    if _base(cfg, "softmax") == "ivit":
+        if kernels == "ops":
+            return knl.shiftmax(scores_int.to(torch.int8), blk["s_attn"], bit,
+                                fast_q=cfg.fast_exp)
+        probs, _ = iv.shiftmax_int(scores_int.float(), blk["s_attn"], bit,
+                                   fast_q=cfg.fast_exp)
+        return probs.to(_container(bit))
     exp_int, _ = ib.ibert_softmax_exp_int(scores_int.float(), blk["s_attn"],
                                           fast_q=cfg.fast_exp,
                                           fast_poly=cfg.fast_poly)
@@ -73,16 +109,30 @@ def _softmax_int(cfg, blk, scores_int):
     return torch.floor(exp16 * factor / 2 ** (32 - bit + 1)).to(_container(bit))
 
 
-def _gelu_requant_int(cfg, blk, x_int, out_bits):
-    y, _ = ib.ibert_gelu_int(x_int.float(), blk["s_gelu"],
-                             fast_poly=cfg.fast_poly)
+def _gelu_requant_int(cfg, blk, x_int, out_bits, kernels=False):
+    """GELU followed by the dyadic requant to the next activation scale."""
+    if _base(cfg, "gelu") == "ivit":
+        if kernels == "ops":
+            return knl.shift_gelu_requant(x_int.to(torch.int8), blk["s_gelu"],
+                                          blk["m_gelu"], 8, out_bits=out_bits,
+                                          fast_q=cfg.fast_exp)
+        y, _ = iv.shift_gelu_int(x_int.float(), blk["s_gelu"], 8,
+                                 fast_q=cfg.fast_exp)
+    else:
+        y, _ = ib.ibert_gelu_int(x_int.float(), blk["s_gelu"],
+                                 fast_poly=cfg.fast_poly)
     return _requant(y, blk["m_gelu"], out_bits)
 
 
+def _use_int_sqrt(cfg):
+    return bool(cfg.type_params("ln").get("use_int_sqrt", False))
+
+
 def _layernorm_int(cfg, x_int, bias_int, shift):
-    use_int_sqrt = bool(cfg.type_params("ln").get("use_int_sqrt", False))
+    if _base(cfg, "ln") == "ivit":
+        return iv.i_layernorm_core(x_int.float()) + bias_int
     return ib.ibert_layernorm_int(x_int.float(), shift,
-                                  use_int_sqrt=use_int_sqrt) + bias_int
+                                  use_int_sqrt=_use_int_sqrt(cfg)) + bias_int
 
 
 def _residual_requant(y, my, xr, mx, bits):
@@ -91,7 +141,7 @@ def _residual_requant(y, my, xr, mx, bits):
     return torch.clamp(raw, -lim, lim - 1).to(_container(bits))
 
 
-def _attn_unfused(cfg, blk, x):
+def _attn_unfused(cfg, blk, x, kernels):
     bw = cfg.bitwidths
     B, N, C = x.shape
     H, Dh = cfg.num_heads, cfg.head_dim
@@ -103,8 +153,8 @@ def _attn_unfused(cfg, blk, x):
     k = qkv[:, :, 1].permute(0, 2, 3, 1)                     # [B, H, Dh, N]
     v = qkv[:, :, 2].permute(0, 2, 1, 3)
     scores = _requant(int8_matmul(q, k), blk["m_attn"], 8)
-    probs = _softmax_int(cfg, blk, scores)
-    y = _requant(int8_matmul(probs, v), blk["m_av"], 8)                        # [B, H, N, Dh]
+    probs = _softmax_int(cfg, blk, scores, kernels)
+    y = _requant(int8_matmul(probs, v), blk["m_av"], 8)      # [B, H, N, Dh]
     y = y.permute(0, 2, 1, 3).reshape(B, N, C)
     y = _requant(_gemm_bias(y, blk["proj_w"], blk["proj_b"]), blk["m_proj"],
                  bw.attention_out)
@@ -112,34 +162,35 @@ def _attn_unfused(cfg, blk, x):
                              bw.norm2_in)
 
 
-def _mlp_unfused(cfg, blk, x):
+def _mlp_unfused(cfg, blk, x, kernels):
     bw = cfg.bitwidths
     y = _layernorm_int(cfg, x, blk["ln2_bias_int"], blk["ln2_shift"])
     y = _ln_requant(y, blk["m_ln2"], 8)
     y = _requant(_gemm_bias(y, blk["fc1_w"], blk["fc1_b"]), blk["m_fc1"], 8)
-    y = _gelu_requant_int(cfg, blk, y, 8)
+    y = _gelu_requant_int(cfg, blk, y, 8, kernels)
     y = _requant(_gemm_bias(y, blk["fc2_w"], blk["fc2_b"]), blk["m_fc2"],
                  bw.mlp_out)
     return _residual_requant(y, blk["m_res2_x"], x, blk["m_res2_id"],
                              bw.att_block_out)
 
 
-def _attn_fused(cfg, blk, x):
+def _attn_fused(cfg, blk, x, kernels):
     bw = cfg.bitwidths
     return kblock.attn_block(
         x, ln_bias=blk["ln1_bias_int"], m_ln=blk["m_ln1"],
         ln_shift=blk["ln1_shift"], qkv_w=blk["qkv_w"], qkv_b=blk["qkv_b"],
         m_qkv=blk["m_qkv"], m_attn=blk["m_attn"], s_attn=blk["s_attn"],
-        s_exp_act=blk["s_exp_act"], m_av=blk["m_av"], proj_w=blk["proj_w"],
-        proj_b=blk["proj_b"], m_proj=blk["m_proj"], m_res_x=blk["m_res1_x"],
-        m_res_id=blk["m_res1_id"], num_heads=cfg.num_heads,
-        n_valid=x.shape[1], sm_bit=bw.softmax, attn_bits=8,
-        proj_bits=bw.attention_out, out_bits=bw.norm2_in,
+        s_exp_act=blk.get("s_exp_act"), m_av=blk["m_av"],
+        proj_w=blk["proj_w"], proj_b=blk["proj_b"], m_proj=blk["m_proj"],
+        m_res_x=blk["m_res1_x"], m_res_id=blk["m_res1_id"],
+        num_heads=cfg.num_heads, n_valid=x.shape[1], sm_bit=bw.softmax,
+        attn_bits=8, proj_bits=bw.attention_out, out_bits=bw.norm2_in,
         fast_exp=cfg.fast_exp, fast_poly=cfg.fast_poly,
-        use_int_sqrt=bool(cfg.type_params("ln").get("use_int_sqrt", False)))
+        ln_base=_base(cfg, "ln"), sm_base=_base(cfg, "softmax"),
+        use_int_sqrt=_use_int_sqrt(cfg))
 
 
-def _mlp_fused(cfg, blk, x):
+def _mlp_fused(cfg, blk, x, kernels):
     bw = cfg.bitwidths
     B, N, C = x.shape
     y = kblock.mlp_block(
@@ -149,22 +200,25 @@ def _mlp_fused(cfg, blk, x):
         fc2_w=blk["fc2_w"], fc2_b=blk["fc2_b"], m_fc2=blk["m_fc2"],
         m_res_x=blk["m_res2_x"], m_res_id=blk["m_res2_id"],
         mlp_bits=bw.mlp_out, out_bits=bw.att_block_out,
-        fast_poly=cfg.fast_poly,
-        use_int_sqrt=bool(cfg.type_params("ln").get("use_int_sqrt", False)))
+        fast_exp=cfg.fast_exp, fast_poly=cfg.fast_poly,
+        ln_base=_base(cfg, "ln"), gelu_base=_base(cfg, "gelu"),
+        use_int_sqrt=_use_int_sqrt(cfg))
     return y.reshape(B, N, C)
 
 
-def engine_forward(spec: EngineSpec, images, kernels: bool = True,
-                   device=None):
+def engine_forward(spec: EngineSpec, images, kernels=True, device=None):
     """images: f32 NHWC [B, img, img, 3] -> f32 logits [B, classes].
 
-    ``kernels``: the fused block kernels (True) or the unfused plain engine
-    (False).  ``device``: where to run (default ``cuda``; raises without a
-    card unless ``"cpu"``); params and images are moved there if needed.
+    ``kernels``: the fused block kernels (True), the standalone ivit
+    nonlinearity kernels in the unfused engine ("ops"), or the unfused plain
+    engine (False).  ``device``: where to run (default ``cuda``; raises
+    without a card unless ``"cpu"``); params and images are moved there if
+    needed.
     """
+    _check_kernels(kernels)
     dev = resolve_device(device)
     cfg = spec.config
-    _require_ibert(cfg)
+    _check_families(cfg)
     p = params_to_torch(spec.params, dev)
     images = torch.as_tensor(images, dtype=torch.float32).to(dev)
     bw = cfg.bitwidths
@@ -188,10 +242,10 @@ def engine_forward(spec: EngineSpec, images, kernels: bool = True,
         x = torch.clamp(torch.round(x.float() * p["m_x0"]) + p["pos_addend"],
                         -lim, lim - 1).to(_container(bw.block_input))
 
-        attn, mlp = (_attn_fused, _mlp_fused) if kernels else \
+        attn, mlp = (_attn_fused, _mlp_fused) if kernels is True else \
             (_attn_unfused, _mlp_unfused)
         for blk in p["blocks"]:
-            x = mlp(cfg, blk, attn(cfg, blk, x))
+            x = mlp(cfg, blk, attn(cfg, blk, x, kernels), kernels)
 
         # final norm on the cls row only -> head
         y = _layernorm_int(cfg, x[:, :1], p["lnf_bias_int"], p["lnf_shift"])
@@ -205,12 +259,13 @@ class Engine:
 
     Moves the parameters to ``device`` once (default ``cuda``; raises
     without a card unless ``device="cpu"``) and runs :func:`engine_forward`
-    on them.
+    on them with ``kernels`` (True, "ops" or False).
     """
 
-    def __init__(self, spec: EngineSpec, device=None, kernels: bool = True):
+    def __init__(self, spec: EngineSpec, device=None, kernels=True):
+        _check_kernels(kernels)
         self.device = resolve_device(device)
-        _require_ibert(spec.config)
+        _check_families(spec.config)
         self.spec = EngineSpec(spec.config,
                                params_to_torch(spec.params, self.device))
         self.kernels = kernels

@@ -1,4 +1,5 @@
-"""The engine's two fused half-block kernels, ibert family, for Hopper.
+"""The engine's two fused half-block kernels, ivit and ibert families, for
+Hopper.
 
 ``mlp_block`` replaces ``ivit_tpu/ops/pallas/block.py::mlp_block_p`` and
 ``attn_block`` replaces ``attn_block_p``.  Each wrapper launches the
@@ -18,9 +19,15 @@ Each wrapper counts its kernel launches in a plain integer attribute
 (``mlp_block.launches``, ``attn_block.launches``), incremented only where
 the kernel is launched.
 
+Each kernel takes its LayerNorm, softmax and GELU from either family, in
+any mix (``ln_base``, ``sm_base``, ``gelu_base``), and either runs the LN
+itself or takes its int8 output as ``ln_in`` (the JAX kernels' hoisted LN,
+``block.py`` ``hoisted_ln``), which skips the LN stage.
+
 Padding rows (token index >= ``n_valid``) may hold anything: their scores
 columns are masked out of the softmax and their LN output, NaN for an
-all-zero row, is pinned to 0.  Only valid rows of the output are defined.
+all-zero ibert row, is pinned to 0.  Only valid rows of the output are
+defined.
 """
 
 from __future__ import annotations
@@ -30,6 +37,7 @@ import ctypes
 import torch
 
 from .. import ibert as ib
+from .. import ivit as iv
 from ..quant import exact_int_sum, rdiv
 from . import _build
 
@@ -63,19 +71,30 @@ def _residual(y2, m_res_x, x, m_res_id, bits):
     return out.to(container(bits))
 
 
-def _ibert_ln8(x, ln_bias, ln_shift, m_ln):
-    """ibert LayerNorm + bias + int8 requant; NaN rows (zero variance) -> 0."""
-    y = ib.ibert_layernorm_int(x.float(), ln_shift) + ln_bias
-    y = torch.where(torch.isnan(y), torch.zeros_like(y), y)
+def _ln8(x, ln_base, ln_bias, ln_shift, m_ln, ln_in):
+    """LayerNorm + bias + int8 requant of ``x`` (I-LayerNorm or the ibert LN
+    with its frozen shift; a NaN ibert row, zero variance, -> 0), or the
+    hoisted ``ln_in`` as it is."""
+    if ln_in is not None:
+        return ln_in
+    if ln_base == "ivit":
+        y = iv.i_layernorm_core(x.float()) + ln_bias
+    else:
+        y = ib.ibert_layernorm_int(x.float(), ln_shift) + ln_bias
+        y = torch.where(torch.isnan(y), torch.zeros_like(y), y)
     return _requant(y, m_ln, 8).to(torch.int8)
 
 
+_FAMILIES = ("ivit", "ibert")
+
+
 def _check_family(ln_base, other_base, use_int_sqrt):
-    if ln_base != "ibert" or other_base != "ibert":
-        raise NotImplementedError(
-            f"fused block kernels for the {ln_base}/{other_base} families "
-            "come with a later slice (ROADMAP Queue 2 items 1-2); this port "
-            "runs the ibert family")
+    for base in (ln_base, other_base):
+        if base not in _FAMILIES:
+            raise NotImplementedError(
+                f"fused block kernels for the {base!r} family come with a "
+                "later slice (ROADMAP Queue 2 items 1-2); the port runs the "
+                "ivit and ibert families")
     if use_int_sqrt:
         raise NotImplementedError(
             "the fused block kernels take the floor(sqrt) ibert LayerNorm; "
@@ -88,14 +107,19 @@ def _check_family(ln_base, other_base, use_int_sqrt):
 
 def mlp_block_ref(x, *, ln_bias, m_ln, ln_shift, fc1_w, fc1_b, m_fc1, s_gelu,
                   m_gelu, fc2_w, fc2_b, m_fc2, m_res_x, m_res_id, mlp_bits=8,
-                  out_bits=8, fast_poly=False, **_):
+                  out_bits=8, fast_exp=False, fast_poly=False, ln_base="ibert",
+                  gelu_base="ibert", ln_in=None):
     """Plain version of the MLP kernel: x int8 [R, C] -> int8 [R, C].
 
-    ibert LN -> requant -> fc1 + bias -> requant -> ibert GELU -> requant
-    -> fc2 + bias -> requant to ``mlp_bits`` -> integer residual."""
-    y = _ibert_ln8(x, ln_bias, ln_shift, m_ln)
+    LN (or ``ln_in``) -> requant -> fc1 + bias -> requant -> GELU (ShiftGELU
+    over the whole hidden row, or the ibert GELU) -> requant -> fc2 + bias
+    -> requant to ``mlp_bits`` -> integer residual."""
+    y = _ln8(x, ln_base, ln_bias, ln_shift, m_ln, ln_in)
     h = _requant(int8_matmul(y, fc1_w) + fc1_b, m_fc1, 8)
-    g, _ = ib.ibert_gelu_int(h, s_gelu, fast_poly)
+    if gelu_base == "ivit":
+        g, _ = iv.shift_gelu_int(h, s_gelu, 8, fast_q=fast_exp)
+    else:
+        g, _ = ib.ibert_gelu_int(h, s_gelu, fast_poly)
     g = _requant(g, m_gelu, 8).to(torch.int8)
     y2 = _requant(int8_matmul(g, fc2_w) + fc2_b, m_fc2, mlp_bits)
     return _residual(y2, m_res_x, x, m_res_id, out_bits)
@@ -126,7 +150,8 @@ def _describe(t):
 
 
 def _ptr(t):
-    return ctypes.c_void_p(t.data_ptr())
+    """A tensor's device address; None (an operand left out) is null."""
+    return ctypes.c_void_p(None if t is None else t.data_ptr())
 
 
 def _stream():
@@ -141,15 +166,17 @@ def _raise_on(err, name):
 
 def mlp_block(x, *, ln_bias, m_ln, ln_shift, fc1_w, fc1_b, m_fc1, s_gelu,
               m_gelu, fc2_w, fc2_b, m_fc2, m_res_x, m_res_id, mlp_bits=8,
-              out_bits=8, fast_poly=False, ln_base="ibert", gelu_base="ibert",
-              use_int_sqrt=False):
-    """Fused MLP half-block; ``x`` int8 [R, C] token rows."""
+              out_bits=8, fast_exp=False, fast_poly=False, ln_base="ibert",
+              gelu_base="ibert", use_int_sqrt=False, ln_in=None):
+    """Fused MLP half-block; ``x`` int8 [R, C] token rows; ``ln_in``: the
+    hoisted int8 LN output of ``x``, or None to run the LN in the kernel."""
     _check_family(ln_base, gelu_base, use_int_sqrt)
     kw = dict(ln_bias=ln_bias, m_ln=m_ln, ln_shift=ln_shift, fc1_w=fc1_w,
               fc1_b=fc1_b, m_fc1=m_fc1, s_gelu=s_gelu, m_gelu=m_gelu,
               fc2_w=fc2_w, fc2_b=fc2_b, m_fc2=m_fc2, m_res_x=m_res_x,
               m_res_id=m_res_id, mlp_bits=mlp_bits, out_bits=out_bits,
-              fast_poly=fast_poly)
+              fast_exp=fast_exp, fast_poly=fast_poly, ln_base=ln_base,
+              gelu_base=gelu_base, ln_in=ln_in)
     if x.device.type == "cpu":
         return mlp_block_ref(x, **kw)
     r, c = x.shape
@@ -166,6 +193,8 @@ def mlp_block(x, *, ln_bias, m_ln, ln_shift, fc1_w, fc1_b, m_fc1, s_gelu,
             ("fc2_w", fc2_w, torch.int8, (hd, c)), ("fc2_b", fc2_b, torch.int32, (c,)),
             ("m_fc2", m_fc2, torch.float32, (c,))):
         _check(t, name, dt, shp)
+    if ln_in is not None:
+        _check(ln_in, "ln_in", torch.int8, (r, c))
     for name, t in (("ln_shift", ln_shift), ("s_gelu", s_gelu),
                     ("m_gelu", m_gelu), ("m_res_x", m_res_x),
                     ("m_res_id", m_res_id)):
@@ -175,10 +204,12 @@ def mlp_block(x, *, ln_bias, m_ln, ln_shift, fc1_w, fc1_b, m_fc1, s_gelu,
     # the kernel streams weight rows of torch's Linear layout [out, in]
     w1t, w2t = fc1_w.t().contiguous(), fc2_w.t().contiguous()
     err = lib.ivit_mlp_block(
-        _ptr(x), _ptr(ln_bias), _ptr(m_ln), _ptr(ln_shift), _ptr(w1t),
-        _ptr(fc1_b), _ptr(m_fc1), _ptr(s_gelu), _ptr(m_gelu), _ptr(w2t),
-        _ptr(fc2_b), _ptr(m_fc2), _ptr(m_res_x), _ptr(m_res_id), _ptr(out),
-        r, c, hd, mlp_bits, out_bits, int(bool(fast_poly)), _stream())
+        _ptr(x), _ptr(ln_in), _ptr(ln_bias), _ptr(m_ln), _ptr(ln_shift),
+        _ptr(w1t), _ptr(fc1_b), _ptr(m_fc1), _ptr(s_gelu), _ptr(m_gelu),
+        _ptr(w2t), _ptr(fc2_b), _ptr(m_fc2), _ptr(m_res_x), _ptr(m_res_id),
+        _ptr(out), r, c, hd, mlp_bits, out_bits, int(ln_base == "ivit"),
+        int(gelu_base == "ivit"), int(bool(fast_exp)), int(bool(fast_poly)),
+        _stream())
     _raise_on(err, "mlp_block")
     mlp_block.launches += 1
     return out
@@ -192,43 +223,52 @@ mlp_block.launches = 0
 # ---------------------------------------------------------------------------
 
 def attn_block_ref(x, *, ln_bias, m_ln, ln_shift, qkv_w, qkv_b, m_qkv, m_attn,
-                   s_attn, s_exp_act, m_av, proj_w, proj_b, m_proj, m_res_x,
-                   m_res_id, num_heads, n_valid, sm_bit=8, attn_bits=8,
+                   s_attn, m_av, proj_w, proj_b, m_proj, m_res_x, m_res_id,
+                   num_heads, n_valid, s_exp_act=None, sm_bit=8, attn_bits=8,
                    proj_bits=8, out_bits=8, fast_exp=False, fast_poly=False,
-                   **_):
+                   ln_base="ibert", sm_base="ibert", ln_in=None):
     """Plain version of the attention kernel: x int8 [B, Np, C] -> int8.
 
-    ibert LN -> requant -> qkv GEMM -> requant -> per head int32 q k^T ->
-    requant by ``m_attn`` -> ibert softmax over the ``n_valid`` columns ->
-    probs @ v -> requant by ``m_av`` -> proj GEMM -> requant -> residual."""
+    LN (or ``ln_in``) -> requant -> qkv GEMM -> requant -> per head int32
+    q k^T -> requant by ``m_attn`` -> softmax over the ``n_valid`` columns
+    (Shiftmax, or the ibert softmax with its 16-bit exp requant by
+    ``s_exp_act``) -> probs @ v -> requant by ``m_av`` -> proj GEMM ->
+    requant -> residual."""
     b, np_, c = x.shape
     dh = c // num_heads
-    y = _ibert_ln8(x, ln_bias, ln_shift, m_ln)
+    y = _ln8(x, ln_base, ln_bias, ln_shift, m_ln, ln_in)
     qkv = _requant(int8_matmul(y, qkv_w) + qkv_b, m_qkv, 8).to(torch.int8)
     qkv = qkv.reshape(b, np_, 3, num_heads, dh).permute(2, 0, 3, 1, 4)
     q, k, v = qkv[0], qkv[1], qkv[2]                         # [B, H, Np, Dh]
     scores = int8_matmul(q, k.transpose(-1, -2))             # [B, H, Np, Np]
     s = _requant(scores, m_attn, attn_bits)
-    exp_int, _ = ib.ibert_softmax_exp_int(s, s_attn, n_valid, fast_q=fast_exp,
-                                          fast_poly=fast_poly)
-    exp16 = torch.clamp(torch.round(exp_int * rdiv(1.0, s_exp_act)),
-                        -(2.0**15), 2.0**15 - 1)
-    factor = torch.floor(rdiv(2.0**32, exact_int_sum(exp16)))
-    probs = torch.floor(exp16 * factor / 2 ** (32 - sm_bit + 1)).to(container(sm_bit))
-    ctx = _requant(int8_matmul(probs, v), m_av, 8).to(torch.int8)
-    ctx = ctx.permute(0, 2, 1, 3).reshape(b, np_, c)
+    if sm_base == "ivit":
+        probs, _ = iv.shiftmax_int(s, s_attn, sm_bit, n_valid=n_valid,
+                                   fast_q=fast_exp)
+    else:
+        exp_int, _ = ib.ibert_softmax_exp_int(s, s_attn, n_valid, fast_q=fast_exp,
+                                              fast_poly=fast_poly)
+        exp16 = torch.clamp(torch.round(exp_int * rdiv(1.0, s_exp_act)),
+                            -(2.0**15), 2.0**15 - 1)
+        factor = torch.floor(rdiv(2.0**32, exact_int_sum(exp16)))
+        probs = torch.floor(exp16 * factor / 2 ** (32 - sm_bit + 1))
+    ctx = _requant(int8_matmul(probs.to(container(sm_bit)), v), m_av, 8)
+    ctx = ctx.to(torch.int8).permute(0, 2, 1, 3).reshape(b, np_, c)
     y2 = _requant(int8_matmul(ctx, proj_w) + proj_b, m_proj, proj_bits)
     return _residual(y2, m_res_x, x, m_res_id, out_bits)
 
 
 def attn_block(x, *, ln_bias, m_ln, ln_shift, qkv_w, qkv_b, m_qkv, m_attn,
-               s_attn, s_exp_act, m_av, proj_w, proj_b, m_proj, m_res_x,
-               m_res_id, num_heads, n_valid, sm_bit=8, attn_bits=8,
+               s_attn, m_av, proj_w, proj_b, m_proj, m_res_x, m_res_id,
+               num_heads, n_valid, s_exp_act=None, sm_bit=8, attn_bits=8,
                proj_bits=8, out_bits=8, fast_exp=False, fast_poly=False,
-               ln_base="ibert", sm_base="ibert", use_int_sqrt=False):
+               ln_base="ibert", sm_base="ibert", use_int_sqrt=False,
+               ln_in=None):
     """Fused attention half-block; ``x`` int8 [B, Np, C], ``n_valid`` real
-    tokens per image.  On the card: three launches (LN + qkv, per-(image,
-    head) softmax attention, proj + residual) counted as one."""
+    tokens per image; ``ln_in``: the hoisted int8 LN output of ``x``, or
+    None to run the LN in the kernel; ``s_exp_act``: the ibert softmax's
+    exp scale (unused by Shiftmax).  On the card: three launches (LN + qkv,
+    per-(image, head) softmax attention, proj + residual) counted as one."""
     _check_family(ln_base, sm_base, use_int_sqrt)
     kw = dict(ln_bias=ln_bias, m_ln=m_ln, ln_shift=ln_shift, qkv_w=qkv_w,
               qkv_b=qkv_b, m_qkv=m_qkv, m_attn=m_attn, s_attn=s_attn,
@@ -236,7 +276,8 @@ def attn_block(x, *, ln_bias, m_ln, ln_shift, qkv_w, qkv_b, m_qkv, m_attn,
               m_proj=m_proj, m_res_x=m_res_x, m_res_id=m_res_id,
               num_heads=num_heads, n_valid=n_valid, sm_bit=sm_bit,
               attn_bits=attn_bits, proj_bits=proj_bits, out_bits=out_bits,
-              fast_exp=fast_exp, fast_poly=fast_poly)
+              fast_exp=fast_exp, fast_poly=fast_poly, ln_base=ln_base,
+              sm_base=sm_base, ln_in=ln_in)
     if x.device.type == "cpu":
         return attn_block_ref(x, **kw)
     b, np_, c = x.shape
@@ -260,10 +301,13 @@ def attn_block(x, *, ln_bias, m_ln, ln_shift, qkv_w, qkv_b, m_qkv, m_attn,
             ("proj_b", proj_b, torch.int32, (c,)),
             ("m_proj", m_proj, torch.float32, (c,))):
         _check(t, name, dt, shp)
-    for name, t in (("ln_shift", ln_shift), ("m_attn", m_attn),
-                    ("s_attn", s_attn), ("s_exp_act", s_exp_act),
-                    ("m_av", m_av), ("m_res_x", m_res_x),
-                    ("m_res_id", m_res_id)):
+    if ln_in is not None:
+        _check(ln_in, "ln_in", torch.int8, (b, np_, c))
+    scalars = [("ln_shift", ln_shift), ("m_attn", m_attn), ("s_attn", s_attn),
+               ("m_av", m_av), ("m_res_x", m_res_x), ("m_res_id", m_res_id)]
+    if sm_base == "ibert":
+        scalars.append(("s_exp_act", s_exp_act))
+    for name, t in scalars:
         _check_scalar(t, name)
     qkv = torch.empty((b * np_, 3 * c), dtype=torch.int8, device=x.device)
     ctx = torch.empty((b * np_, c), dtype=torch.int8, device=x.device)
@@ -271,12 +315,12 @@ def attn_block(x, *, ln_bias, m_ln, ln_shift, qkv_w, qkv_b, m_qkv, m_attn,
     lib = _build.library("attn_block")
     wqkv_t, wp_t = qkv_w.t().contiguous(), proj_w.t().contiguous()
     err = lib.ivit_attn_block(
-        _ptr(x), _ptr(ln_bias), _ptr(m_ln), _ptr(ln_shift), _ptr(wqkv_t),
-        _ptr(qkv_b), _ptr(m_qkv), _ptr(m_attn), _ptr(s_attn), _ptr(s_exp_act),
-        _ptr(m_av), _ptr(wp_t), _ptr(proj_b), _ptr(m_proj), _ptr(m_res_x),
-        _ptr(m_res_id), _ptr(qkv), _ptr(ctx), _ptr(out), b, np_, c,
-        num_heads, n_valid,
-        attn_bits, proj_bits, out_bits, int(bool(fast_exp)),
+        _ptr(x), _ptr(ln_in), _ptr(ln_bias), _ptr(m_ln), _ptr(ln_shift),
+        _ptr(wqkv_t), _ptr(qkv_b), _ptr(m_qkv), _ptr(m_attn), _ptr(s_attn),
+        _ptr(s_exp_act), _ptr(m_av), _ptr(wp_t), _ptr(proj_b), _ptr(m_proj),
+        _ptr(m_res_x), _ptr(m_res_id), _ptr(qkv), _ptr(ctx), _ptr(out), b,
+        np_, c, num_heads, n_valid, attn_bits, proj_bits, out_bits,
+        int(ln_base == "ivit"), int(sm_base == "ivit"), int(bool(fast_exp)),
         int(bool(fast_poly)), _stream())
     _raise_on(err, "attn_block")
     attn_block.launches += 1

@@ -1,0 +1,98 @@
+"""The two standalone ivit nonlinearity kernels, for Hopper.
+
+``shiftmax`` replaces ``ivit_tpu/ops/pallas/nonlinear.py::shiftmax_p`` and
+``shift_gelu_requant`` replaces ``shift_gelu_requant_p``.  Each wrapper
+launches the hand-written CUDA kernel (``ivit_tpu_torch/csrc/nonlinear.cu``)
+for a tensor on the card and runs its plain PyTorch version,
+``shiftmax_ref`` / ``shift_gelu_requant_ref``, for a tensor on the CPU.
+The plain versions are the integer cores of :mod:`ivit_tpu_torch.ops.ivit`,
+which the Pallas kernel bodies (``_shiftmax_kernel``,
+``_shift_gelu_kernel``) equal bit for bit; on the card they are what the
+kernels are held against.
+
+The scale operands are one-element f32 tensors (the spec's 0-d leaves);
+the kernels read them and derive ``s_gelu * 1.702`` and the exp constants
+in every thread, so a call launches the kernel and nothing else.  Each
+wrapper counts its launches in a plain integer attribute
+(``shiftmax.launches``, ``shift_gelu_requant.launches``), incremented only
+where the kernel is launched.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from .. import ivit as iv
+from . import _build
+from .block import _check, _check_scalar, _ptr, _raise_on, _stream, container
+
+
+def shiftmax_ref(scores, s_attn, output_bit=8, *, n_valid=None, fast_q=False):
+    """Plain version of the Shiftmax kernel: int8 scores [..., N] -> probs
+    in the ``output_bit`` container (int8 up to 8 bits, int16 up to 16)."""
+    probs, _ = iv.shiftmax_int(scores.float(), s_attn, output_bit,
+                               n_valid=n_valid, fast_q=fast_q)
+    return probs.to(container(output_bit))
+
+
+def shift_gelu_requant_ref(x, s_gelu, m_out, output_bit=8, n=23, out_bits=8,
+                           *, fast_q=False):
+    """Plain version of the ShiftGELU + requant kernel: int8 [..., H] ->
+    int8 at the next scale, ``clip(round(shift_gelu(x) * m_out))``."""
+    y, _ = iv.shift_gelu_int(x.float(), s_gelu, output_bit, n, fast_q=fast_q)
+    lim = 2.0 ** (out_bits - 1)
+    return torch.clamp(torch.round(y * m_out), -lim, lim - 1).to(torch.int8)
+
+
+def shiftmax(scores, s_attn, output_bit=8, *, n_valid=None, fast_q=False):
+    """Row Shiftmax over the last axis of int8 ``scores``; columns >=
+    ``n_valid`` are padding (probability 0)."""
+    if scores.device.type == "cpu":
+        return shiftmax_ref(scores, s_attn, output_bit, n_valid=n_valid,
+                            fast_q=fast_q)
+    n = scores.shape[-1]
+    n_valid = n if n_valid is None else n_valid
+    if not (0 < n_valid <= n <= 1024 and 1 < output_bit <= 16):
+        raise ValueError(f"shiftmax kernel takes rows of at most 1024 with "
+                         f"0 < n_valid <= N and output bits in 2..16; got "
+                         f"N={n}, n_valid={n_valid}, bits={output_bit}")
+    _check(scores, "scores", torch.int8, tuple(scores.shape))
+    _check_scalar(s_attn, "s_attn")
+    out = torch.empty(scores.shape, dtype=container(output_bit),
+                      device=scores.device)
+    err = _build.library("nonlinear").ivit_shiftmax(
+        _ptr(scores), _ptr(s_attn), _ptr(out), scores.numel() // n, n,
+        n_valid, output_bit, int(bool(fast_q)), _stream())
+    _raise_on(err, "shiftmax")
+    shiftmax.launches += 1
+    return out
+
+
+shiftmax.launches = 0
+
+
+def shift_gelu_requant(x, s_gelu, m_out, output_bit=8, n=23, out_bits=8, *,
+                       fast_q=False):
+    """Row ShiftGELU + requant over the last axis of int8 ``x``; the row max
+    runs over the whole axis."""
+    if x.device.type == "cpu":
+        return shift_gelu_requant_ref(x, s_gelu, m_out, output_bit, n,
+                                      out_bits, fast_q=fast_q)
+    if not (1 < output_bit <= 16 and 1 < out_bits <= 8 and 0 < n <= 30):
+        raise ValueError(f"shift_gelu_requant kernel takes sigmoid bits in "
+                         f"2..16, output bits in 2..8 and n in 1..30; got "
+                         f"{output_bit}, {out_bits}, {n}")
+    _check(x, "x", torch.int8, tuple(x.shape))
+    _check_scalar(s_gelu, "s_gelu")
+    _check_scalar(m_out, "m_out")
+    h = x.shape[-1]
+    out = torch.empty_like(x)
+    err = _build.library("nonlinear").ivit_shift_gelu_requant(
+        _ptr(x), _ptr(s_gelu), _ptr(m_out), _ptr(out), x.numel() // h, h,
+        output_bit, n, out_bits, int(bool(fast_q)), _stream())
+    _raise_on(err, "shift_gelu_requant")
+    shift_gelu_requant.launches += 1
+    return out
+
+
+shift_gelu_requant.launches = 0

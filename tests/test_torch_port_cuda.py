@@ -1,4 +1,4 @@
-"""The CUDA block kernels against their plain PyTorch versions, on a card.
+"""The CUDA kernels against their plain PyTorch versions, on a card.
 
 Every test here needs a CUDA device and skips without one: a hand-written
 kernel has no CPU mode.  The file imports nothing of JAX, so it also runs
@@ -7,8 +7,10 @@ where only PyTorch is installed:
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_port_cuda.py -q
 
 (``--noconftest``: the suite's conftest pins JAX to the CPU.)  Shapes are
-small: B 2, Np 24 of which n_valid 17 real tokens, C 64, 2 heads, MLP 256;
-the DeiT-S shapes are held by ``chip_smoke.py``.  Exact equality.
+small: B 2, Np 24 of which n_valid 17 real tokens, C 64, 2 heads, MLP 256
+for the block kernels, the shapes of ``tests/test_pallas.py`` for the
+standalone ones; the DeiT-S shapes are held by ``chip_smoke.py``.  Exact
+equality.
 """
 
 import dataclasses
@@ -20,6 +22,7 @@ import torch
 from ivit_tpu_torch.engine import Engine
 from ivit_tpu_torch.engine.synthetic import deit_small_config, synthetic_spec
 from ivit_tpu_torch.ops.kernels import block as kb
+from ivit_tpu_torch.ops.kernels import nonlinear as knl
 
 pytestmark = pytest.mark.cuda
 
@@ -33,13 +36,21 @@ def cuda():
     return torch.device("cuda")
 
 
-def _small_config(depth):
-    return dataclasses.replace(deit_small_config(depth=depth, img_size=64),
-                               embed_dim=C, num_heads=HEADS, num_classes=10)
+# (gelu, softmax, ln)
+MIXES = [("ivit", "ivit", "ivit"), ("ivit", "ivit", "ibert"),
+         ("ibert", "ibert", "ivit")]
 
 
-def _block(dev):
-    blk = synthetic_spec(_small_config(1), seed=3).params["blocks"][0]
+def _small_config(depth, mix=("ibert", "ibert", "ibert")):
+    gelu, softmax, ln = mix
+    return dataclasses.replace(
+        deit_small_config(depth=depth, img_size=64, ln=ln, gelu=gelu,
+                          softmax=softmax),
+        embed_dim=C, num_heads=HEADS, num_classes=10)
+
+
+def _block(dev, mix=("ibert", "ibert", "ibert")):
+    blk = synthetic_spec(_small_config(1, mix), seed=3).params["blocks"][0]
     return {k: torch.as_tensor(v).to(dev) for k, v in blk.items()}
 
 
@@ -83,3 +94,87 @@ def test_cuda_engine_matches_plain_engines(cuda):
     assert (kb.mlp_block.launches, kb.attn_block.launches) == (2, 2)
     assert torch.equal(got, Engine(spec, kernels=False)(images))
     assert torch.equal(got.cpu(), Engine(spec, device="cpu", kernels=False)(images))
+
+
+@pytest.mark.parametrize("hoisted", [False, True])
+@pytest.mark.parametrize("mix", MIXES, ids=["/".join(m) for m in MIXES])
+def test_cuda_ivit_block_kernels_match_plain_versions(cuda, mix, hoisted):
+    gelu, softmax, ln = mix
+    b, x = _block(cuda, mix), _x(cuda)
+    for fast in (False, True):
+        kw = dict(ln_bias=b["ln1_bias_int"], m_ln=b["m_ln1"],
+                  ln_shift=b["ln1_shift"], qkv_w=b["qkv_w"], qkv_b=b["qkv_b"],
+                  m_qkv=b["m_qkv"], m_attn=b["m_attn"], s_attn=b["s_attn"],
+                  s_exp_act=b.get("s_exp_act"), m_av=b["m_av"],
+                  proj_w=b["proj_w"], proj_b=b["proj_b"], m_proj=b["m_proj"],
+                  m_res_x=b["m_res1_x"], m_res_id=b["m_res1_id"],
+                  num_heads=HEADS, n_valid=NV, fast_exp=fast, fast_poly=fast,
+                  ln_base=ln, sm_base=softmax)
+        if hoisted:
+            kw["ln_in"] = kb._ln8(x, ln, b["ln1_bias_int"], b["ln1_shift"],
+                                  b["m_ln1"], None)
+        got = kb.attn_block(x, **kw)
+        torch.cuda.synchronize()
+        assert torch.equal(got[:, :NV], kb.attn_block_ref(x, **kw)[:, :NV])
+
+        x2 = x.reshape(B * NP, C)
+        kw = dict(ln_bias=b["ln2_bias_int"], m_ln=b["m_ln2"],
+                  ln_shift=b["ln2_shift"], fc1_w=b["fc1_w"], fc1_b=b["fc1_b"],
+                  m_fc1=b["m_fc1"], s_gelu=b["s_gelu"], m_gelu=b["m_gelu"],
+                  fc2_w=b["fc2_w"], fc2_b=b["fc2_b"], m_fc2=b["m_fc2"],
+                  m_res_x=b["m_res2_x"], m_res_id=b["m_res2_id"],
+                  fast_exp=fast, fast_poly=fast, ln_base=ln, gelu_base=gelu)
+        if hoisted:
+            kw["ln_in"] = kb._ln8(x2, ln, b["ln2_bias_int"], b["ln2_shift"],
+                                  b["m_ln2"], None)
+        got = kb.mlp_block(x2, **kw)
+        torch.cuda.synchronize()
+        assert torch.equal(got, kb.mlp_block_ref(x2, **kw))
+
+
+@pytest.mark.parametrize("shape,s,bit,n_valid", [
+    ((4, 6, 37, 197), 0.0521371, 8, None), ((130, 50), 0.061, 8, None),
+    ((16, 197), 0.0521371, 16, None), ((4, 6, 37, 197), 0.0045778966, 8, 180),
+    ((3, 700), 0.02, 8, 650)])
+def test_cuda_shiftmax_matches_plain_version(cuda, shape, s, bit, n_valid):
+    scores = torch.from_numpy(np.random.default_rng(0).integers(
+        -127, 128, shape).astype(np.int8)).to(cuda)
+    s = torch.tensor(s, dtype=torch.float32, device=cuda)
+    for fast_q in (False, True):
+        before = knl.shiftmax.launches
+        got = knl.shiftmax(scores, s, bit, n_valid=n_valid, fast_q=fast_q)
+        torch.cuda.synchronize()
+        assert knl.shiftmax.launches == before + 1
+        assert torch.equal(got, knl.shiftmax_ref(scores, s, bit, n_valid=n_valid,
+                                                 fast_q=fast_q))
+
+
+@pytest.mark.parametrize("shape,s,m_out", [((64, 384), 0.0417093, 0.031727),
+                                           ((2, 17, 1536), 0.014047618, 0.5),
+                                           ((5, 30), 0.0417093, 0.031727)])
+def test_cuda_shift_gelu_requant_matches_plain_version(cuda, shape, s, m_out):
+    x = torch.from_numpy(np.random.default_rng(1).integers(
+        -127, 128, shape).astype(np.int8)).to(cuda)
+    s = torch.tensor(s, dtype=torch.float32, device=cuda)
+    m_out = torch.tensor(m_out, dtype=torch.float32, device=cuda)
+    for fast_q in (False, True):
+        before = knl.shift_gelu_requant.launches
+        got = knl.shift_gelu_requant(x, s, m_out, 8, fast_q=fast_q)
+        torch.cuda.synchronize()
+        assert knl.shift_gelu_requant.launches == before + 1
+        assert torch.equal(got, knl.shift_gelu_requant_ref(x, s, m_out, 8,
+                                                           fast_q=fast_q))
+
+
+def test_cuda_ivit_engine_paths_match_plain_engines(cuda):
+    spec = synthetic_spec(_small_config(2, ("ivit", "ivit", "ivit")), seed=0)
+    images = np.random.default_rng(1).normal(size=(4, 64, 64, 3)).astype(np.float32)
+    want = Engine(spec, kernels=False)(images)
+    kb.mlp_block.launches = kb.attn_block.launches = 0
+    knl.shiftmax.launches = knl.shift_gelu_requant.launches = 0
+    assert torch.equal(Engine(spec)(images), want)
+    assert torch.equal(Engine(spec, kernels="ops")(images), want)
+    torch.cuda.synchronize()
+    assert (kb.mlp_block.launches, kb.attn_block.launches) == (2, 2)
+    assert (knl.shiftmax.launches, knl.shift_gelu_requant.launches) == (2, 2)
+    assert torch.equal(want.cpu(), Engine(spec, device="cpu", kernels=False)(images))
