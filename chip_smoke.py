@@ -29,7 +29,19 @@ Phases, each printing one JSON line:
 8. engine_ivit: the same for the synthetic DeiT-S ivit engine on both of
    its kernel paths, the fused block kernels (``Engine(spec)``) and the
    standalone nonlinearity kernels (``Engine(spec, kernels="ops")``), each
-   bitwise equal to the plain engine; img/s of all three.
+   bitwise equal to the plain engine; img/s of all three;
+9. swin_attn_block and 10. mlp_block_swin: the Swin window-attention kernel
+   and the Swin form of the MLP kernel (int16 rows in and out) bitwise
+   equal to their plain versions at the four Swin-T stage shapes of batch
+   64 ([4096, 49, 96] to [64, 49, 768] windows; [200,704, 96] to
+   [3,136, 768] rows, hidden 4C): shifted and unshifted blocks, every
+   family mix, fast flags on and off, ``ln_in``, the int8 input a merge
+   feeds a stage, ibert LNs with their overflow shift > 0, and a small
+   ragged case; per-stage kernel, plain and library times and the bound;
+11. engine_swin: synthetic Swin-T ivit and ibert engines (224 px, depths
+   (2, 2, 6, 2), batch 64) through ``Engine``: 12 + 12 launches a forward,
+   logits bitwise equal to the plain engine on the card and, for 4 images,
+   on the CPU; finite and image-dependent; img/s of both engines.
 
 Then the kernel table as one JSON line, the card's name and power limit,
 and last ``{"ok": true, "device": {...}}``.  Any failure raises and exits
@@ -47,6 +59,7 @@ import sys
 import time
 
 BATCH, TOKENS = 256, 197
+SWIN_BATCH, SWIN_GRID, WIN = 64, 56, 49   # Swin-T: 224 px / patch 4, window 7
 H100_INT8_OPS = 1979e12      # dense int8 tensor-core peak, H100 SXM data sheet
 H100_F32_OPS = 67e12         # float32 outside the tensor cores, same sheet
 H100_BYTES = 3.35e12         # HBM3 bandwidth, H100 SXM data sheet
@@ -333,8 +346,224 @@ def kernel_phases(torch, kb, knl, dev):
     return rows
 
 
-def check_logits(torch, name, logits, want, classes):
-    if tuple(logits.shape) != (BATCH, classes):
+def swin_stage_blocks(torch, spec, dev):
+    """Per Swin-T stage: (C, heads, windows an image, [(shift, block
+    tensors) of its first two blocks]) of a synthetic spec."""
+    cfg, stages = spec.config, {}
+    for (kind, stage, shift), blk in zip(cfg.layout, spec.params["blocks"]):
+        if kind != "block":
+            continue
+        res = SWIN_GRID // 2 ** stage
+        entry = stages.setdefault(stage, (cfg.embed_dim * 2 ** stage,
+                                          cfg.stage_heads[stage],
+                                          (res // min(7, res)) ** 2, []))
+        if len(entry[3]) < 2:
+            entry[3].append((shift, block_args(torch, blk, dev)))
+    return [stages[i] for i in sorted(stages)]
+
+
+def swin_attn_kwargs(b, flags, heads, n_windows, shift, mix):
+    return dict(ln_bias=b["ln1_bias_int"], m_ln=b["m_ln1"], ln_shift=b["ln1_shift"],
+                qkv_w=b["qkv_w"], qkv_b=b["qkv_b"], m_qkv=b["m_qkv"],
+                m_attn=b["m_attn"], m_attn2=b["m_attn2"], s_attn=b["s_attn"],
+                rel_addend=b["rel_bias_addend"],
+                mask_addend=b["mask_int"] if shift else None,
+                s_exp_act=b.get("s_exp_act"), m_av=b["m_av"], proj_w=b["proj_w"],
+                proj_b=b["proj_b"], m_proj=b["m_proj"], m_res_x=b["m_res1_x"],
+                m_res_id=b["m_res1_id"], num_heads=heads, n_windows=n_windows,
+                fast_exp=flags, fast_poly=flags, sm_base=mix[1], ln_base=mix[2])
+
+
+def swin_phases(torch, kb, dev, rows):
+    """Phases 9-10: the Swin window-attention kernel and the Swin form of
+    the MLP kernel against their plain versions at the Swin-T stage shapes;
+    adds the swin_attn_block row and the mlp_block row's Swin times."""
+    import numpy as np
+
+    from ivit_tpu_torch.engine.synthetic import swin_tiny_config, synthetic_swin_spec
+
+    rng = np.random.default_rng(1)
+
+    def stream(shape, bits=16):
+        lim = 2 ** (bits - 1)
+        x = np.clip(np.round(rng.normal(0, lim / 4, shape)), -lim, lim - 1)
+        return torch.as_tensor(x.astype(np.int16 if bits > 8 else np.int8)).to(dev)
+
+    ibert = ("ibert", "ibert", "ibert")
+    mixes = [ibert] + MIXES
+    specs = {}
+    for mix in mixes:
+        gelu, softmax, ln = mix
+        specs[mix] = synthetic_swin_spec(
+            swin_tiny_config(gelu=gelu, softmax=softmax, ln=ln), seed=0)
+    stages = {m: swin_stage_blocks(torch, specs[m], dev) for m in mixes}
+    ln_shifts = sorted({float(b["ln1_shift"]) for _, _, _, blks in stages[ibert]
+                        for _, b in blks} | {float(b["ln2_shift"]) for _, _, _, blks
+                                             in stages[ibert] for _, b in blks})
+    if max(ln_shifts) <= 0:
+        raise AssertionError("the ibert Swin-T spec has no LN overflow shift")
+
+    # --- swin_attn_block ---
+    errs, per_stage = [], []
+    for st, (c, heads, nw, blks) in enumerate(stages[IVIT]):
+        x16 = stream((SWIN_BATCH * nw, WIN, c))
+        x8 = stream((SWIN_BATCH * nw, WIN, c), 8)
+        for mix in mixes:
+            for shift, b in stages[mix][st][3]:
+                for flags in (True, False):
+                    kw = swin_attn_kwargs(b, flags, heads, nw, shift, mix)
+                    got = kb.swin_attn_block(x16, **kw)
+                    torch.cuda.synchronize()
+                    errs.append(check_equal(
+                        torch, f"swin_attn_block stage {st} shift {shift} "
+                        f"{mix_name(mix)} fast={flags}", got, kb.swin_attn_block_ref(x16, **kw)))
+        shift, b = stages[IVIT][st][3][0]
+        kw = swin_attn_kwargs(b, True, heads, nw, shift, IVIT)
+        errs.append(check_equal(torch, f"swin_attn_block stage {st} int8 input",
+                                kb.swin_attn_block(x8, **kw), kb.swin_attn_block_ref(x8, **kw)))
+        kw["ln_in"] = kb._ln8(x16, "ivit", kw["ln_bias"], kw["ln_shift"], kw["m_ln"], None)
+        errs.append(check_equal(torch, f"swin_attn_block stage {st} ln_in",
+                                kb.swin_attn_block(x16, **kw), kb.swin_attn_block_ref(x16, **kw)))
+        # timed: the ivit block as the engine runs it (shifted where the stage has one)
+        shift, b = stages[IVIT][st][3][-1]
+        kw = swin_attn_kwargs(b, True, heads, nw, shift, IVIT)
+        ms = time_ms(torch, lambda: kb.swin_attn_block(x16, **kw), iters=20)
+        kw_ibert = swin_attn_kwargs(stages[ibert][st][3][-1][1], True, heads, nw, shift, ibert)
+        ms_ibert = time_ms(torch, lambda: kb.swin_attn_block(x16, **kw_ibert), iters=20)
+        plain_ms = time_ms(torch, lambda: kb.swin_attn_block_ref(x16, **kw), iters=3, warmup=1)
+        x2 = torch.clamp(x16, -128, 127).to(torch.int8).reshape(-1, c)
+        lib_ms = time_ms(torch, lambda: (torch._int_mm(x2, b["qkv_w"]),
+                                         torch._int_mm(x2, b["proj_w"])), iters=20)
+        r = x16.shape[0] * WIN
+        ops = 2 * r * (3 * c * c + c * c) + 2 * 2 * r * WIN * c
+        nb = nbytes(x16, x16, b["qkv_w"], b["proj_w"], b["qkv_b"], b["proj_b"],
+                    b["m_qkv"], b["m_proj"], b["m_ln1"], b["ln1_bias_int"],
+                    b["rel_bias_addend"], *([b["mask_int"]] if shift else []))
+        b_ms, b_by = bound(ops, nb)
+        per_stage.append(dict(stage=st, shape=[x16.shape[0], WIN, c], heads=heads,
+                              shift=shift, ms=ms, ms_ibert=ms_ibert, plain_ms=plain_ms,
+                              library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by,
+                              int8_ops=ops, bytes=nb))
+    # a small ragged case: 147 rows (not a multiple of 64), 16-token windows
+    xs = stream((3, 16, 96))
+    for mix in mixes:
+        bm = stages[mix][0][3][0][1]
+        kw = swin_attn_kwargs(bm, True, 3, 3, 0, mix)
+        kw["rel_addend"] = bm["rel_bias_addend"][:, :16, :16].contiguous()
+        errs.append(check_equal(torch, f"swin_attn_block small ragged {mix_name(mix)}",
+                                kb.swin_attn_block(xs, **kw), kb.swin_attn_block_ref(xs, **kw)))
+    rows["swin_attn_block"] = dict(
+        name="swin_attn_block", route="cuda",
+        source="ivit_tpu_torch/csrc/swin_attn_block.cu",
+        replaces="ivit_tpu/ops/pallas/block.py:1373", launches=None,
+        max_abs_err=max(errs), ms=sum(d["ms"] for d in per_stage),
+        plain_ms=sum(d["plain_ms"] for d in per_stage),
+        bound_ms=sum(d["bound_ms"] for d in per_stage),
+        bound_by=max(per_stage, key=lambda d: d["bound_ms"])["bound_by"],
+        library_ms=sum(d["library_ms"] for d in per_stage),
+        times_are="one ivit call at each of the four Swin-T stage shapes, summed",
+        ms_by_stage=[d["ms"] for d in per_stage],
+        bound_ms_by_stage=[d["bound_ms"] for d in per_stage])
+    emit({"phase": "swin_attn_block", "equal": True,
+          "families_checked": [mix_name(m) for m in mixes] + ["int8 input", "ln_in", "ragged"],
+          "ibert_ln_shifts": ln_shifts, "stages": per_stage, "max_abs_err": max(errs)})
+
+    # --- mlp_block, Swin form: int16 rows in and out, fc2 at 8 bits ---
+    errs, per_stage = [], []
+    for st, (c, heads, nw, blks) in enumerate(stages[IVIT]):
+        x = stream((SWIN_BATCH * nw * WIN, c))
+        for mix in mixes:
+            b = stages[mix][st][3][0][1]
+            for flags in (True, False):
+                kw = mlp_kwargs(b, flags, mix) | dict(mlp_bits=8, out_bits=16)
+                got = kb.mlp_block(x, **kw)
+                torch.cuda.synchronize()
+                errs.append(check_equal(torch, f"mlp_block swin stage {st} {mix_name(mix)} "
+                                        f"fast={flags}", got, kb.mlp_block_ref(x, **kw)))
+        b = stages[IVIT][st][3][0][1]
+        kw = mlp_kwargs(b, True, IVIT) | dict(mlp_bits=8, out_bits=16)
+        kw_ln = kw | dict(ln_in=kb._ln8(x, "ivit", kw["ln_bias"], kw["ln_shift"],
+                                        kw["m_ln"], None))
+        errs.append(check_equal(torch, f"mlp_block swin stage {st} ln_in",
+                                kb.mlp_block(x, **kw_ln), kb.mlp_block_ref(x, **kw_ln)))
+        ms = time_ms(torch, lambda: kb.mlp_block(x, **kw), iters=20)
+        kw_ibert = mlp_kwargs(stages[ibert][st][3][0][1], True, ibert) | dict(
+            mlp_bits=8, out_bits=16)
+        ms_ibert = time_ms(torch, lambda: kb.mlp_block(x, **kw_ibert), iters=20)
+        plain_ms = time_ms(torch, lambda: kb.mlp_block_ref(x, **kw), iters=3, warmup=1)
+        x2 = torch.clamp(x, -128, 127).to(torch.int8)
+        h = torch.empty((x.shape[0], 4 * c), dtype=torch.int8, device=dev)
+        lib_ms = time_ms(torch, lambda: (torch._int_mm(x2, b["fc1_w"]),
+                                         torch._int_mm(h, b["fc2_w"])), iters=20)
+        ops = 2 * x.shape[0] * c * 4 * c * 2
+        nb = nbytes(x, x, b["fc1_w"], b["fc2_w"], b["fc1_b"], b["fc2_b"],
+                    b["m_fc1"], b["m_fc2"], b["m_ln2"], b["ln2_bias_int"])
+        b_ms, b_by = bound(ops, nb)
+        per_stage.append(dict(stage=st, shape=[x.shape[0], c, 4 * c], ms=ms,
+                              ms_ibert=ms_ibert, plain_ms=plain_ms, library_ms=lib_ms,
+                              bound_ms=b_ms, bound_by=b_by, int8_ops=ops, bytes=nb))
+    xs = stream((147, 96))
+    for mix in mixes:
+        kw = mlp_kwargs(stages[mix][0][3][0][1], True, mix) | dict(mlp_bits=8, out_bits=16)
+        errs.append(check_equal(torch, f"mlp_block swin small ragged {mix_name(mix)}",
+                                kb.mlp_block(xs, **kw), kb.mlp_block_ref(xs, **kw)))
+    rows["mlp_block"].update(
+        swin_max_abs_err=max(errs), swin_ms=sum(d["ms"] for d in per_stage),
+        swin_plain_ms=sum(d["plain_ms"] for d in per_stage),
+        swin_bound_ms=sum(d["bound_ms"] for d in per_stage),
+        swin_library_ms=sum(d["library_ms"] for d in per_stage),
+        swin_ms_by_stage=[d["ms"] for d in per_stage],
+        swin_times_are="one ivit call at each of the four Swin-T stage shapes, summed")
+    rows["mlp_block"]["max_abs_err"] = max(rows["mlp_block"]["max_abs_err"], max(errs))
+    emit({"phase": "mlp_block_swin", "equal": True,
+          "families_checked": [mix_name(m) for m in mixes] + ["ln_in", "ragged"],
+          "stages": per_stage, "max_abs_err": max(errs)})
+
+
+def swin_engine_phase(torch, counters, dev, rows, profile=False):
+    """Phase 11: synthetic Swin-T ivit and ibert engines through Engine."""
+    from ivit_tpu_torch.engine import Engine
+    from ivit_tpu_torch.engine.synthetic import swin_tiny_config, synthetic_swin_spec
+
+    gen = torch.Generator(device=dev).manual_seed(1)
+    batches = [torch.randn((SWIN_BATCH, 224, 224, 3), generator=gen, device=dev)
+               for _ in range(3)]
+    kernels = ("swin_attn_block", "mlp_block")
+    out = {}
+    for fam in ("ivit", "ibert"):
+        cfg = swin_tiny_config(ln=fam, gelu=fam, softmax=fam)
+        spec = synthetic_swin_spec(cfg, seed=0)
+        eng, plain = Engine(spec), Engine(spec, kernels=False)
+        logits, launches = run_counted(torch, counters, lambda: eng(batches[0]))
+        want = {k: cfg.depth if k in kernels else 0 for k in counters}
+        if launches != want:
+            raise AssertionError(f"swin {fam} forward launched {launches}, want {want}")
+        check_logits(torch, f"swin {fam} kernel engine", logits, plain(batches[0]),
+                     cfg.num_classes, SWIN_BATCH)
+        cpu = Engine(spec, device="cpu", kernels=False)(batches[0][:4].cpu())
+        if not torch.equal(logits[:4].cpu(), cpu):
+            raise AssertionError(
+                f"swin {fam} kernel engine != plain engine on the CPU (4 images): "
+                f"max abs diff {(logits[:4].cpu() - cpu).abs().max().item()}")
+        if fam == "ivit":
+            rows["swin_attn_block"]["launches"] = launches["swin_attn_block"]
+            rows["mlp_block"]["launches_swin"] = launches["mlp_block"]
+        out[fam] = {"launches_per_forward": launches,
+                    "img_per_s": img_per_s(torch, eng, batches, 6),
+                    "plain_img_per_s": img_per_s(torch, plain, batches, 2),
+                    "logits_std": logits.std().item()}
+        if profile:
+            emit(profile_forward(torch, f"swin {fam} kernels=True", eng, batches[0]))
+        del eng, plain
+    emit({"phase": "engine_swin",
+          "config": "swin_tiny_patch4_window7_224 224px depths (2, 2, 6, 2) "
+                    "(synthetic, seed 0)",
+          "batch": SWIN_BATCH, "ivit": out["ivit"], "ibert": out["ibert"],
+          "equal_plain_cuda": True, "equal_plain_cpu_4img": True})
+
+
+def check_logits(torch, name, logits, want, classes, batch=BATCH):
+    if tuple(logits.shape) != (batch, classes):
         raise AssertionError(f"{name}: logits shape {tuple(logits.shape)}")
     if not torch.isfinite(logits).all():
         raise AssertionError(f"{name}: non-finite logits")
@@ -362,7 +591,7 @@ def img_per_s(torch, fn, batches, n):
     for i in range(n):
         fn(batches[i % len(batches)])
     torch.cuda.synchronize()
-    return n * BATCH / (time.perf_counter() - t0)
+    return n * batches[0].shape[0] / (time.perf_counter() - t0)
 
 
 def engine_phases(torch, counters, dev, rows, profile=False):
@@ -453,14 +682,15 @@ def profile_forward(torch, name, eng, images, n=3):
         wall_ms = (time.perf_counter() - t0) * 1e3 / n
     # device-side events only: a CPU op's self device time is the time of
     # the kernels it launched, which are listed again under their own names
-    kernels = {a.key: a.self_device_time_total / 1e3 / n
-               for a in prof.key_averages()
-               if a.device_type == DeviceType.CUDA and a.self_device_time_total > 0}
+    device = [a for a in prof.key_averages()
+              if a.device_type == DeviceType.CUDA and a.self_device_time_total > 0]
+    kernels = {a.key: a.self_device_time_total / 1e3 / n for a in device}
     busy = sum(kernels.values())
     top = sorted(kernels.items(), key=lambda kv: -kv[1])[:12]
     return {"phase": "profile", "engine": name, "forwards": n,
             "wall_ms_per_forward": wall_ms, "device_ms_per_forward": busy,
             "idle_share": max(0.0, 1.0 - busy / wall_ms),
+            "device_launches_per_forward": sum(a.count for a in device) / n,
             "top_kernels_ms": [[k[:80], v] for k, v in top]}
 
 
@@ -495,11 +725,13 @@ def main(argv=None) -> int:
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "per_source_s": times, "ptxas": ptxas})
     rows = kernel_phases(torch, kb, knl, dev)
+    swin_phases(torch, kb, dev, rows)
     emit({"phase": "kernel_checks_done", "seconds": time.perf_counter() - t0})
     counters = {"attn_block": kb.attn_block, "mlp_block": kb.mlp_block,
-                "shiftmax": knl.shiftmax,
+                "swin_attn_block": kb.swin_attn_block, "shiftmax": knl.shiftmax,
                 "shift_gelu_requant": knl.shift_gelu_requant}
     engine_phases(torch, counters, dev, rows, profile=args.profile)
+    swin_engine_phase(torch, counters, dev, rows, profile=args.profile)
     emit({"phase": "engines_done", "seconds": time.perf_counter() - t0})
     emit({"kernels": list(rows.values())})
     print(smi, flush=True)

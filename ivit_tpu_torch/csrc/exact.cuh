@@ -23,8 +23,10 @@
 namespace ivit {
 
 constexpr int kThreads = 256;   // 8 warps per block
-constexpr int kTileM = 64;      // token rows per GEMM block
-constexpr int kTileK = 64;      // K depth per staged weight tile
+constexpr int kTileM = 64;      // token rows per GEMM block (32 where
+                                // the MLP hidden tile needs the room)
+constexpr int kTileK = 64;      // K depth per staged weight tile (32 for
+                                // the 96-column pass)
 constexpr int kBsLd = kTileK + 16;  // weight tile row stride: conflict-free fragments
 constexpr int kMaxLnVals = 32;  // C <= 1024: 32 values per lane
 
@@ -147,13 +149,30 @@ __device__ __forceinline__ float newton_sqrt(float v) {
   return k;
 }
 
-// One warp: LayerNorm of one int8 row of C (C % 32 == 0, C <= 1024), plus
-// its bias and int8 requant, into out_row.  IVIT: I-LayerNorm
-// (block.py _i_layernorm, Newton sqrt, no shift); else the ibert LN with the
-// frozen shift 2**shift = pw (block.py _ibert_layernorm, floor(sqrt)).  Both
-// end in _ln_requant.
-template <bool IVIT>
-__device__ __forceinline__ void ln_row(const int8_t* __restrict__ xrow, int C,
+// One activation of an int8 or int16 token stream (x16: int16), as f32.
+__device__ __forceinline__ float load_act(const void* x, size_t i, bool x16) {
+  return x16 ? (float)static_cast<const int16_t*>(x)[i]
+             : (float)static_cast<const int8_t*>(x)[i];
+}
+
+// Store v, already clamped to its container's range, as int8 or int16.
+__device__ __forceinline__ void store_act(void* out, size_t i, float v,
+                                          bool o16) {
+  if (o16)
+    static_cast<int16_t*>(out)[i] = (int16_t)(int)v;
+  else
+    static_cast<int8_t*>(out)[i] = (int8_t)(int)v;
+}
+
+// One warp: LayerNorm of one row of C activations (XT: int8, or int16 on
+// Swin's stream; C % 32 == 0, C <= 1024), plus its bias and int8 requant,
+// into out_row.  IVIT: I-LayerNorm (block.py _i_layernorm, Newton sqrt, no
+// shift); else the ibert LN with the frozen shift 2**shift = pw (block.py
+// _ibert_layernorm, floor(sqrt)).  Both end in _ln_requant.  On the 16-bit
+// stream |y| < 2**16: the limbs a = floor(y / 256) (|a| <= 256) and b keep
+// every square sum an exact int32 up to C = 1024.
+template <bool IVIT, typename XT>
+__device__ __forceinline__ void ln_row(const XT* __restrict__ xrow, int C,
                                        const float* __restrict__ bias,
                                        const float* __restrict__ m_ln,
                                        float pw, float inv_pw, int8_t* out_row,
@@ -200,13 +219,14 @@ __device__ __forceinline__ void ln_row(const int8_t* __restrict__ xrow, int C,
   }
 }
 
-// The kTileM rows r0.. of an int8 [R, C] matrix into As (row stride lda,
+// The TM rows r0.. of an int8 [R, C] matrix into As (row stride lda,
 // 16-byte aligned rows, C % 16 == 0); rows past R are zero.
+template <int TM>
 __device__ __forceinline__ void copy_tile(const int8_t* __restrict__ src,
                                           int R, int C, int r0, int8_t* As,
                                           int lda) {
   const int cw = C >> 4;
-  for (int i = threadIdx.x; i < kTileM * cw; i += kThreads) {
+  for (int i = threadIdx.x; i < TM * cw; i += kThreads) {
     int row = i / cw, w = i - row * cw;
     int4 v = make_int4(0, 0, 0, 0);
     if (r0 + row < R)
@@ -215,11 +235,13 @@ __device__ __forceinline__ void copy_tile(const int8_t* __restrict__ src,
   }
 }
 
-// The block's LN input tile: LN of x's kTileM rows r0.. into As (row stride
-// lda), the ivit or ibert form; or, where the caller hoisted the LN
-// (ln_in != nullptr, block.py hoisted_ln), ln_in's rows as they are.  Rows
-// past R are zero.  Warp w takes rows w*8 .. w*8+7.
-__device__ __forceinline__ void ln_tile(const int8_t* __restrict__ x,
+// The block's LN input tile: LN of the TM rows r0.. of x (XT: int8 or
+// int16) into As (row stride lda), the ivit or ibert form; or, where the
+// caller hoisted the LN (ln_in != nullptr, block.py hoisted_ln), ln_in's
+// rows as they are.  Rows past R are zero.  Warp w takes rows
+// w * TM/8 .. (w + 1) * TM/8 - 1.
+template <int TM, typename XT>
+__device__ __forceinline__ void ln_tile(const XT* __restrict__ x,
                                         const int8_t* __restrict__ ln_in,
                                         int R, int C, int r0, bool ivit,
                                         const float* __restrict__ bias,
@@ -227,12 +249,12 @@ __device__ __forceinline__ void ln_tile(const int8_t* __restrict__ x,
                                         float pw, float inv_pw, int8_t* As,
                                         int lda) {
   if (ln_in != nullptr) {
-    copy_tile(ln_in, R, C, r0, As, lda);
+    copy_tile<TM>(ln_in, R, C, r0, As, lda);
     return;
   }
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  for (int rr = 0; rr < kTileM / 8; ++rr) {
-    int row = warp * (kTileM / 8) + rr;
+  for (int rr = 0; rr < TM / 8; ++rr) {
+    int row = warp * (TM / 8) + rr;
     int gr = r0 + row;
     if (gr >= R) {
       for (int c = lane; c < C; c += 32) As[row * lda + c] = 0;
@@ -244,6 +266,22 @@ __device__ __forceinline__ void ln_tile(const int8_t* __restrict__ x,
                     As + row * lda, lane);
     }
   }
+}
+
+// ln_tile on a stream whose type is known only at run time (x16: int16).
+template <int TM>
+__device__ __forceinline__ void ln_tile_any(const void* __restrict__ x,
+                                            bool x16, const int8_t* ln_in,
+                                            int R, int C, int r0, bool ivit,
+                                            const float* bias,
+                                            const float* m_ln, float pw,
+                                            float inv_pw, int8_t* As, int lda) {
+  if (x16)
+    ln_tile<TM>(static_cast<const int16_t*>(x), ln_in, R, C, r0, ivit, bias,
+                m_ln, pw, inv_pw, As, lda);
+  else
+    ln_tile<TM>(static_cast<const int8_t*>(x), ln_in, R, C, r0, ivit, bias,
+                m_ln, pw, inv_pw, As, lda);
 }
 
 __device__ __forceinline__ void mma_s8(int (&c)[4], int a0, int a1, int a2,
@@ -268,42 +306,54 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
 
-// Bytes of shared memory gemm_tile<BN> stages weights through (two buffers).
+// Bytes of shared memory gemm_tile stages weights through (two buffers).
 __host__ __device__ constexpr int gemm_stage_bytes(int BN) {
   return 2 * BN * kBsLd;
 }
 
-// int8 x int8 -> int32 tile: acc = As[0:64, 0:K] @ Wt[n0:n0+BN, 0:K]^T.
+// The warp layout of a TM x BN output tile: WM x WN warps, each owning 16
+// rows and BN / WN columns as NT m16n8k32 tiles.
+template <int BN, int TM>
+struct GemmShape {
+  static_assert(TM == 32 || TM == 64, "TM rows: 32 or 64");
+  static constexpr int WM = TM / 16;
+  static constexpr int WN = (kThreads / 32) / WM;
+  static constexpr int NT = BN / (8 * WN);
+  static_assert(BN % (8 * WN) == 0, "BN columns split over WN warps");
+};
+
+// int8 x int8 -> int32 tile: acc = As[0:TM, 0:K] @ Wt[n0:n0+BN, 0:K]^T.
 //   As: shared, row-major, row stride lda (lda = C + 16 keeps the eight
 //       fragment rows of a warp in distinct banks);
 //   Wt: global [N, K] row-major, the weight transposed once by the wrapper
-//       (torch's Linear layout), K % 64 == 0, N % BN == 0.  Each 64-deep
-//       slice of the BN weight rows is copied with cp.async into one of two
-//       shared buffers while the tensor cores work on the other.
-// Warp w owns rows (w & 3) * 16 .. +16 and columns (w >> 2) * BN/2 .. +BN/2
-// as BN/16 m16n8k32 tiles; acc[j][e] is row tile_row(e), column
-// tile_col<BN>(j, e).
-template <int BN>
-__device__ __forceinline__ void gemm_tile(const int8_t* As, int lda,
-                                          const int8_t* __restrict__ Wt, int K,
-                                          int n0, int8_t* Bs,
-                                          int (&acc)[BN / 16][4]) {
-  constexpr int NT = BN / 16;
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+//       (torch's Linear layout), N % BN == 0 and K % BN == 0 (the pass width
+//       divides both widths of every GEMM of the block kernels).  Each
+//       BK-deep slice of the BN weight rows, BK = 64 (32 for the 96-column
+//       pass of Swin-T's C = 96 and 192), is copied with cp.async into one
+//       of two shared buffers while the tensor cores work on the other.
+// Warp w owns rows (w % WM) * 16 .. +16 and columns (w / WM) * BN/WN ..
+// +BN/WN; acc[j][e] is row tile_row<TM>(e), column tile_col<BN, TM>(j, e).
+template <int BN, int TM>
+__device__ __forceinline__ void gemm_tile(
+    const int8_t* As, int lda, const int8_t* __restrict__ Wt, int K, int n0,
+    int8_t* Bs, int (&acc)[GemmShape<BN, TM>::NT][4]) {
+  using S = GemmShape<BN, TM>;
+  // unsigned: the divisions by the powers of two below are shifts and masks
+  const unsigned tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int g = lane >> 2, t = lane & 3;
-  const int wm = warp & 3, wn = warp >> 2;
+  const int wm = warp % S::WM, wn = warp / S::WM;
 #pragma unroll
-  for (int j = 0; j < NT; ++j)
+  for (int j = 0; j < S::NT; ++j)
 #pragma unroll
     for (int e = 0; e < 4; ++e) acc[j][e] = 0;
-  const int nk = K / kTileK;
+  constexpr int BK = BN % 64 ? 32 : kTileK, PARTS = BK / 16;
+  const int nk = K / BK;
   auto stage = [&](int kt) {
     int8_t* buf = Bs + (kt & 1) * BN * kBsLd;
-#pragma unroll
-    for (int c = tid; c < BN * 4; c += kThreads) {
-      int n = c >> 2, part = c & 3;
+    for (unsigned c = tid; c < BN * PARTS; c += kThreads) {
+      const unsigned n = c / PARTS, part = c % PARTS;
       cp_async16(buf + n * kBsLd + part * 16,
-                 Wt + (size_t)(n0 + n) * K + kt * kTileK + part * 16);
+                 Wt + (size_t)(n0 + n) * K + kt * BK + part * 16);
     }
     cp_async_commit();
   };
@@ -318,17 +368,18 @@ __device__ __forceinline__ void gemm_tile(const int8_t* As, int lda,
     }
     __syncthreads();
     const int8_t* buf = Bs + (kt & 1) * BN * kBsLd;
-    const int k0 = kt * kTileK;
+    const int k0 = kt * BK;
 #pragma unroll
-    for (int kk = 0; kk < kTileK; kk += 32) {
+    for (int kk = 0; kk < BK; kk += 32) {
       const int8_t* ar = As + (wm * 16 + g) * lda + k0 + kk + t * 4;
       int a0 = *reinterpret_cast<const int*>(ar);
       int a1 = *reinterpret_cast<const int*>(ar + 8 * lda);
       int a2 = *reinterpret_cast<const int*>(ar + 16);
       int a3 = *reinterpret_cast<const int*>(ar + 8 * lda + 16);
 #pragma unroll
-      for (int j = 0; j < NT; ++j) {
-        const int8_t* br = buf + (wn * (BN / 2) + j * 8 + g) * kBsLd + kk + t * 4;
+      for (int j = 0; j < S::NT; ++j) {
+        const int8_t* br =
+            buf + (wn * (BN / S::WN) + j * 8 + g) * kBsLd + kk + t * 4;
         mma_s8(acc[j], a0, a1, a2, a3, *reinterpret_cast<const int*>(br),
                *reinterpret_cast<const int*>(br + 16));
       }
@@ -337,15 +388,27 @@ __device__ __forceinline__ void gemm_tile(const int8_t* As, int lda,
   }
 }
 
+template <int TM>
 __device__ __forceinline__ int tile_row(int e) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  return (warp & 3) * 16 + (lane >> 2) + 8 * (e >> 1);
+  const unsigned lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  return (int)(warp % (TM / 16)) * 16 + (int)(lane >> 2) + 8 * (e >> 1);
 }
 
-template <int BN>
+template <int BN, int TM>
 __device__ __forceinline__ int tile_col(int j, int e) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  return (warp >> 2) * (BN / 2) + 8 * j + 2 * (lane & 3) + (e & 1);
+  using S = GemmShape<BN, TM>;
+  const unsigned lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  return (int)(warp / S::WM) * (BN / S::WN) + 8 * j + 2 * (int)(lane & 3) +
+         (e & 1);
+}
+
+// The widest output pass of 128, 96 or 64 columns that divides both
+// widths, or 0 if none does.
+__host__ __device__ constexpr int pass_width(int n1, int n2) {
+  return (n1 % 128 == 0 && n2 % 128 == 0)  ? 128
+         : (n1 % 96 == 0 && n2 % 96 == 0) ? 96
+         : (n1 % 64 == 0 && n2 % 64 == 0) ? 64
+                                           : 0;
 }
 
 // Shared-memory row stride for an int8 tile of width C: C + 16 keeps the

@@ -32,7 +32,8 @@ def params_to_torch(params_np, device):
     if arr.dtype not in _DTYPES:
         raise TypeError(f"engine parameter of dtype {arr.dtype}; the engine "
                         "holds only int8, int32 and float32 leaves")
-    return torch.from_numpy(np.array(arr)).to(device)  # a writable copy
+    # a writable C-contiguous copy: the kernels take contiguous operands
+    return torch.from_numpy(np.array(arr, order="C")).to(device)
 
 
 def params_to_numpy(params):

@@ -14,6 +14,7 @@ from .. import resolve_device
 from ..models.vit import BitWidths
 from .convert import params_to_numpy, params_to_torch
 from .freeze import EngineConfig, EngineSpec
+from .swin_int import SwinEngineConfig, SwinEngineSpec
 
 
 def _flatten(tree, prefix=""):
@@ -52,7 +53,8 @@ def _base(path: str) -> str:
     return path[:-4] if path.endswith(".npz") else path
 
 
-def save_engine(spec: EngineSpec, path: str):
+def save_engine(spec, path: str):
+    """Save a ViT or Swin engine spec as ``.npz`` + ``.json``."""
     os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
     np.savez_compressed(_base(path) + ".npz",
                         **_flatten(params_to_numpy(spec.params)))
@@ -62,19 +64,23 @@ def save_engine(spec: EngineSpec, path: str):
         json.dump(cfg, f, indent=2)
 
 
-def load_engine(path: str, device=None) -> EngineSpec:
-    """Load a ViT engine artifact with its tensors on ``device``
-    (default ``cuda``; raises without a card unless ``device="cpu"``)."""
+def load_engine(path: str, device=None):
+    """Load a ViT (``EngineSpec``) or Swin (``SwinEngineSpec``) engine
+    artifact with its tensors on ``device`` (default ``cuda``; raises
+    without a card unless ``device="cpu"``)."""
     dev = resolve_device(device)
     base = _base(path)
     with open(base + ".json") as f:
         cfg = json.load(f)
-    if "layout" in cfg:
-        raise NotImplementedError(
-            "Swin engine artifacts load with the Swin engine port "
-            "(ROADMAP Queue 1 item 7)")
     cfg["bitwidths"] = BitWidths(*cfg["bitwidths"])
+    if "layout" in cfg:
+        # Swin artifact: restore the static tuples JSON turned into lists
+        cfg["depths"] = tuple(cfg["depths"])
+        cfg["stage_heads"] = tuple(cfg["stage_heads"])
+        cfg["layout"] = tuple(tuple(e) for e in cfg["layout"])
+        config, spec_cls = SwinEngineConfig(**cfg), SwinEngineSpec
+    else:
+        config, spec_cls = EngineConfig(**cfg), EngineSpec
     with np.load(base + ".npz") as z:
         flat = {k: z[k] for k in z.files}
-    return EngineSpec(config=EngineConfig(**cfg),
-                      params=params_to_torch(_unflatten(flat), dev))
+    return spec_cls(config=config, params=params_to_torch(_unflatten(flat), dev))

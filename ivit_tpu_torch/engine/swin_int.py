@@ -1,0 +1,247 @@
+"""Integer-only Swin forward (counterpart of ``ivit_tpu/engine/swin_int.py``).
+
+Two paths, bit-identical to each other and to the JAX engine:
+
+* ``kernels=True`` (the JAX fused branch, ``swin_int.py:546-652``): each
+  block is one :func:`~ivit_tpu_torch.ops.kernels.block.swin_attn_block`
+  call on the rolled, window-partitioned stream and one
+  :func:`~ivit_tpu_torch.ops.kernels.block.mlp_block` call on the int16
+  token rows -- the CUDA kernels for tensors on the card, their plain
+  versions on the CPU;
+* ``kernels=False`` (the unfused branch, ``swin_int.py:418-469, 653-665``):
+  the plain per-op engine on either device, the reference the kernels are
+  held against on the card.
+
+``stage_paths`` picks the path per stage, as in JAX.  The input quant, the
+patch GEMM and patch norm, the roll and window permutations, PatchMerging,
+the final LN, the exact-int average pool and the head run outside any
+kernel on every path, as in the JAX package.  The JAX fused branch pads
+Swin's 96- and 192-channel stages to 128 lanes for the FFN kernel
+(``c_valid``) and each window to 56 tokens for the attention kernel; the
+port runs both unpadded.  JAX's Swin engine has no hybrid of standalone
+nonlinearity kernels, so ``kernels="ops"`` raises.  The ivit and ibert
+families run, in any mix; ppoly and float raise.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Dict
+
+import torch
+
+from .. import resolve_device
+from ..models.swin import window_partition, window_reverse
+from ..ops.kernels import block as kblock
+from ..ops.kernels.block import int8_matmul
+from ..ops.quant import exact_int_sum, rdiv
+from .convert import params_to_torch
+from .freeze import EngineConfig
+from .vit_int import (_base, _check_families, _gelu_requant_int, _gemm_bias,
+                      _layernorm_int, _ln_requant, _requant, _residual_requant,
+                      _softmax_int, _use_int_sqrt)
+
+
+@dataclasses.dataclass(frozen=True)
+class SwinEngineConfig(EngineConfig):
+    """Swin adds stage structure on top of the base engine config.
+
+    ``layout`` carries the static per-entry structure of ``params["blocks"]``:
+    ``("block", stage, shift)`` or ``("merge", stage, 0)``."""
+
+    depths: tuple = (2, 2, 6, 2)
+    stage_heads: tuple = (3, 6, 12, 24)
+    window_size: int = 7
+    layout: tuple = ()
+
+
+@dataclasses.dataclass
+class SwinEngineSpec:
+    """Frozen integer Swin: static config + parameter tree (numpy arrays or
+    torch tensors)."""
+
+    config: SwinEngineConfig
+    params: Dict[str, Any]
+
+
+def check_swin_kernels(kernels):
+    if kernels == "ops":
+        raise ValueError(
+            "kernels='ops' runs ViT's standalone nonlinearity kernels; the "
+            "Swin engine has no such hybrid (JAX's runs its fused kernels "
+            "for pallas='ops'): use kernels=True or False")
+    if kernels not in (True, False):
+        raise ValueError(f"kernels={kernels!r}: want True (the fused block "
+                         "kernels) or False (the plain engine)")
+
+
+def _to_windows(x, B, res, dim, ws, shift):
+    """[B, res*res, dim] -> rolled, window-partitioned [B*nW, ws*ws, dim]."""
+    xw = x.reshape(B, res, res, dim)
+    if shift > 0:
+        xw = torch.roll(xw, (-shift, -shift), (1, 2))
+    return window_partition(xw, ws)
+
+
+def _from_windows(yw, B, res, dim, ws, shift):
+    """The inverse of :func:`_to_windows`: [B, res*res, dim]."""
+    y = window_reverse(yw.reshape(-1, ws, ws, dim), ws, res, res)
+    if shift > 0:
+        y = torch.roll(y, (shift, shift), (1, 2))
+    return y.reshape(B, res * res, dim)
+
+
+def _attn_unfused(cfg, blk, x, B, res, dim, heads, ws, shift):
+    """Per-op window-attention half-block (``_swin_attn_unfused``)."""
+    n, dh = ws * ws, dim // heads
+    y = _layernorm_int(cfg, x, blk["ln1_bias_int"], blk["ln1_shift"])
+    y = _ln_requant(y, blk["m_ln1"], 8)
+    yw = _to_windows(y, B, res, dim, ws, shift)              # [B*nW, n, C] i8
+    q8 = _requant(_gemm_bias(yw, blk["qkv_w"], blk["qkv_b"]), blk["m_qkv"], 8)
+    qkv = q8.reshape(-1, n, 3, heads, dh)
+    q = qkv[:, :, 0].permute(0, 2, 1, 3)                     # [B*nW, H, n, Dh]
+    k = qkv[:, :, 1].permute(0, 2, 3, 1)
+    v = qkv[:, :, 2].permute(0, 2, 1, 3)
+    scores = _requant(int8_matmul(q, k), blk["m_attn"], 8)
+    # + the quantized relative position bias, then the int8 clip, then the
+    # shift mask (masked scores leave the int8 range and stay f32)
+    attn = torch.clamp(torch.round(scores.float() * blk["m_attn2"])
+                       + blk["rel_bias_addend"][None], -128, 127)
+    if shift > 0:
+        nw = (res // ws) ** 2
+        attn = (attn.reshape(B, nw, heads, n, n)
+                + blk["mask_int"][None, :, None]).reshape(-1, heads, n, n)
+    probs = _softmax_int(cfg, blk, attn)
+    ctx = _requant(int8_matmul(probs, v), blk["m_av"], 8)    # [B*nW, H, n, Dh]
+    ctx = ctx.permute(0, 2, 1, 3).reshape(-1, n, dim)
+    yo = _requant(_gemm_bias(ctx, blk["proj_w"], blk["proj_b"]),
+                  blk["m_proj"], 16)
+    yo = _from_windows(yo, B, res, dim, ws, shift)
+    return _residual_requant(yo, blk["m_res1_x"], x, blk["m_res1_id"], 16)
+
+
+def _attn_fused(cfg, blk, x, B, res, dim, heads, ws, shift):
+    """The window-attention half-block as one ``swin_attn_block`` call on
+    the rolled, partitioned stream (int16, or int8 after a merge)."""
+    xw = _to_windows(x, B, res, dim, ws, shift)
+    yo = kblock.swin_attn_block(
+        xw, ln_bias=blk["ln1_bias_int"], m_ln=blk["m_ln1"],
+        ln_shift=blk["ln1_shift"], qkv_w=blk["qkv_w"], qkv_b=blk["qkv_b"],
+        m_qkv=blk["m_qkv"], m_attn=blk["m_attn"], m_attn2=blk["m_attn2"],
+        s_attn=blk["s_attn"], rel_addend=blk["rel_bias_addend"],
+        mask_addend=blk["mask_int"] if shift > 0 else None,
+        m_av=blk["m_av"], proj_w=blk["proj_w"], proj_b=blk["proj_b"],
+        m_proj=blk["m_proj"], m_res_x=blk["m_res1_x"],
+        m_res_id=blk["m_res1_id"], num_heads=heads,
+        n_windows=(res // ws) ** 2, s_exp_act=blk.get("s_exp_act"),
+        sm_bit=cfg.bitwidths.softmax, fast_exp=cfg.fast_exp,
+        fast_poly=cfg.fast_poly, ln_base=_base(cfg, "ln"),
+        sm_base=_base(cfg, "softmax"), use_int_sqrt=_use_int_sqrt(cfg))
+    return _from_windows(yo, B, res, dim, ws, shift)
+
+
+def _mlp_unfused(cfg, blk, x):
+    y = _layernorm_int(cfg, x, blk["ln2_bias_int"], blk["ln2_shift"])
+    y = _ln_requant(y, blk["m_ln2"], 8)
+    y = _requant(_gemm_bias(y, blk["fc1_w"], blk["fc1_b"]), blk["m_fc1"], 8)
+    y = _gelu_requant_int(cfg, blk, y, 8)
+    y = _requant(_gemm_bias(y, blk["fc2_w"], blk["fc2_b"]), blk["m_fc2"], 8)
+    return _residual_requant(y, blk["m_res2_x"], x, blk["m_res2_id"], 16)
+
+
+def _mlp_fused(cfg, blk, x):
+    """The FFN half-block as one ``mlp_block`` call on the int16 rows: fc2
+    requant to 8 bits, residual and output at 16 (``swin_int.py:617-649``;
+    C as it is, no lane padding)."""
+    B, L, C = x.shape
+    y = kblock.mlp_block(
+        x.reshape(B * L, C), ln_bias=blk["ln2_bias_int"], m_ln=blk["m_ln2"],
+        ln_shift=blk["ln2_shift"], fc1_w=blk["fc1_w"], fc1_b=blk["fc1_b"],
+        m_fc1=blk["m_fc1"], s_gelu=blk["s_gelu"], m_gelu=blk["m_gelu"],
+        fc2_w=blk["fc2_w"], fc2_b=blk["fc2_b"], m_fc2=blk["m_fc2"],
+        m_res_x=blk["m_res2_x"], m_res_id=blk["m_res2_id"], mlp_bits=8,
+        out_bits=16, fast_exp=cfg.fast_exp, fast_poly=cfg.fast_poly,
+        ln_base=_base(cfg, "ln"), gelu_base=_base(cfg, "gelu"),
+        use_int_sqrt=_use_int_sqrt(cfg))
+    return y.reshape(B, L, C)
+
+
+def _merge(cfg, mg, x, B, res, dim):
+    """PatchMerging: 2x2 neighbours concatenated (integer data movement),
+    LN over 4C, reduction GEMM (no bias), requant to int8."""
+    xm = x.reshape(B, res, res, dim)
+    xm = torch.cat([xm[:, 0::2, 0::2], xm[:, 1::2, 0::2],
+                    xm[:, 0::2, 1::2], xm[:, 1::2, 1::2]], dim=-1)
+    xm = xm.reshape(B, -1, 4 * dim)
+    y = _layernorm_int(cfg, xm, mg["norm_bias_int"], mg["norm_shift"])
+    y = _ln_requant(y, mg["m_norm"], 8)
+    return _requant(int8_matmul(y, mg["red_w"]), mg["m_red"], 8)
+
+
+def check_stage_paths(cfg, stage_paths):
+    if stage_paths is not None and len(stage_paths) != len(cfg.depths):
+        raise ValueError(f"stage_paths {stage_paths!r}: want one bool for each "
+                         f"of the {len(cfg.depths)} stages")
+
+
+def swin_engine_forward(spec: SwinEngineSpec, images, kernels=True,
+                        device=None, stage_paths=None):
+    """images: f32 NHWC [B, img, img, 3] -> f32 logits [B, classes].
+
+    ``kernels``: the fused block kernels (True) or the unfused plain engine
+    (False); ``stage_paths``: one bool per stage, fused or unfused for that
+    stage (``None``: ``kernels`` everywhere; a stage is fused only where
+    ``kernels`` is True).  ``device``: where to run (default ``cuda``;
+    raises without a card unless ``"cpu"``); params and images are moved
+    there if needed.
+    """
+    check_swin_kernels(kernels)
+    dev = resolve_device(device)
+    cfg = spec.config
+    _check_families(cfg)
+    check_stage_paths(cfg, stage_paths)
+    p = params_to_torch(spec.params, dev)
+    images = torch.as_tensor(images, dtype=torch.float32).to(dev)
+    B = images.shape[0]
+    ps = cfg.patch_size
+    g = cfg.img_size // ps
+
+    with torch.no_grad():
+        x = torch.clamp(torch.round(rdiv(images, p["s_input"])), -128, 127)
+        x = x.to(torch.int8).reshape(B, g, ps, g, ps, 3)
+        x = x.permute(0, 1, 3, 2, 4, 5).reshape(B, g * g, ps * ps * 3)
+        x = _requant(_gemm_bias(x, p["patch"]["w"], p["patch"]["b"]),
+                     p["patch"]["m"], 8)
+        # patch norm, its qact, then the 16-bit stage input
+        y = _layernorm_int(cfg, x, p["patch"]["pn_bias_int"],
+                           p["patch"]["pn_shift"])
+        x = _ln_requant(y, p["patch"]["m_norm"], 8)
+        x = torch.clamp(torch.round(x.float() * p["patch"]["m_x0"]),
+                        -(2.0**15), 2.0**15 - 1).to(torch.int16)
+
+        res, dim = g, cfg.embed_dim
+        for (kind, stage, shift), blk in zip(cfg.layout, p["blocks"]):
+            if kind == "merge":
+                x = _merge(cfg, blk["merge"], x, B, res, dim)
+                res, dim = res // 2, dim * 2
+                continue
+            heads = cfg.stage_heads[stage]
+            ws = min(cfg.window_size, res)
+            fused = kernels is True and (stage_paths is None
+                                         or bool(stage_paths[stage]))
+            if fused:
+                x = _attn_fused(cfg, blk, x, B, res, dim, heads, ws, shift)
+                x = _mlp_fused(cfg, blk, x)
+            else:
+                x = _attn_unfused(cfg, blk, x, B, res, dim, heads, ws, shift)
+                x = _mlp_unfused(cfg, blk, x)
+
+        y = _layernorm_int(cfg, x, p["lnf_bias_int"], p["lnf_shift"])
+        y = _ln_requant(y, p["m_lnf"], 8)
+        # exact-int average pool: two-limb int32 token sum, correctly
+        # rounded divide by the token count, round once
+        y = torch.round(rdiv(exact_int_sum(y.float().transpose(1, 2)),
+                             float(y.shape[1])))
+        y = _requant(y[..., 0], p["m_pool"], 8)
+        acc = _gemm_bias(y, p["head_w"], p["head_b"])
+        return acc.float() * p["head_scale"]

@@ -4,7 +4,8 @@ and the tests).
 :func:`synthetic_spec` builds the numpy parameter tree that
 ``ivit_tpu/engine/freeze.py::freeze_model`` emits for the ivit and ibert
 families, in any mix -- the same keys, shapes and dtypes -- without a
-trained checkpoint or the QAT sim.  It follows the freeze step's own
+trained checkpoint or the QAT sim; :func:`synthetic_swin_spec` does the
+same for ``ivit_tpu/engine/swin_int.py::freeze_swin_model``.  It follows the freeze step's own
 arithmetic: int8 weights quantized per output column from a normal draw,
 int32 biases on the ``w_scale * s_in`` grid, and every requant multiplier
 derived by
@@ -23,12 +24,14 @@ import dataclasses
 import numpy as np
 import torch
 
+from ..models.swin import attention_mask, relative_position_index
 from ..models.vit import BitWidths
 from ..ops import ibert as _ib
 from ..ops import ivit as _iv
 from .freeze import (EngineConfig, EngineSpec, _exp_fast_gate,
                      _poly_fast_gate, _sym_scale, requant_const,
                      requant_multiplier)
+from .swin_int import SwinEngineConfig, SwinEngineSpec
 
 # Nonlinearity input scales as a calibrated DeiT produces them: read off a
 # JAX freeze (ivit_tpu.engine.freeze_model) of the DeiT-S geometry (224 px,
@@ -100,14 +103,14 @@ class _Sites:
         b_int = np.clip(np.round(b / bias_scale), -(2**31), 2**31 - 1)
         return w_int, b_int.astype(np.int32), bias_scale, out_std
 
-    def layernorm(self, dim):
+    def layernorm(self, dim, shift=0.0):
         """(bias_int [C], out_scale [C], shift), the freeze step's
         ``_ln_site`` on a drawn gamma/beta."""
         gamma = self.rng.uniform(0.8, 1.2, dim).astype(np.float32)
         beta = self.rng.normal(0.0, 0.1, dim).astype(np.float32)
         base = np.float32(np.sqrt(dim) / 2.0**30)
         bias_int = np.floor((beta / gamma) / base).astype(np.float32)
-        return bias_int, base * gamma, np.float32(0.0)
+        return bias_int, base * gamma, np.float32(shift)
 
 
 def _ibert_gelu_out_scale(s_g):
@@ -254,7 +257,212 @@ def _f32_tree(tree):
         return {k: _f32_tree(v) for k, v in tree.items()}
     if isinstance(tree, list):
         return [_f32_tree(v) for v in tree]
-    arr = np.asarray(tree)
+    arr = np.asarray(tree, order="C")
     if arr.dtype in (np.int8, np.int32):
         return arr
     return arr.astype(np.float32)
+
+
+# --- Swin ---------------------------------------------------------------------
+
+# The int8 scores after the first requant spread over this fraction of
+# their range at the softmax's scale (s_attn1 = SWIN_S_ATTN1_RATIO * s_attn;
+# a JAX freeze of the test_swin_engine.py geometry gives m_attn2 of 0.60 to
+# 0.90), so the rel-pos addend widens them into s_attn's grid.
+SWIN_S_ATTN1_RATIO = 0.75
+# The rel-pos bias table's spread, relative to the scores' real spread: a
+# trained Swin's biases move a score by about half its spread.
+SWIN_REL_GAIN = 0.5
+# ctx = probs @ v keeps about this fraction of v's spread over a 49-key
+# window, by softmax family (the DeiT-S values of CTX_GAIN, windowed).
+SWIN_CTX_GAIN = {"ibert": 0.15, "ivit": 0.3}
+
+
+def swin_tiny_config(depths=(2, 2, 6, 2), img_size: int = 224,
+                     ln: str = "ivit", gelu: str = "ivit", softmax: str = "ivit",
+                     embed_dim: int = 96, stage_heads=(3, 6, 12, 24),
+                     window_size: int = 7,
+                     num_classes: int = 1000) -> SwinEngineConfig:
+    """Swin-T (``swin_tiny_patch4_window7_224``, ``ivit_tpu/models/swin.py``):
+    224 px, patch 4, window 7, embed 96, depths (2, 2, 6, 2), heads (3, 6,
+    12, 24), all bitwidths 8 with the 16-bit residual stream; ivit
+    everywhere is the JAX package's Swin bench row.  Depth, widths and
+    image size may be cut for tests; ``layout`` is filled in by
+    :func:`synthetic_swin_spec`."""
+    return SwinEngineConfig(
+        img_size=img_size, patch_size=4, embed_dim=embed_dim,
+        depth=sum(depths), num_heads=stage_heads[0], mlp_ratio=4.0,
+        num_classes=num_classes, bitwidths=BitWidths(), gelu_type=gelu,
+        softmax_type=softmax, layernorm_type=ln, depths=tuple(depths),
+        stage_heads=tuple(stage_heads), window_size=window_size)
+
+
+def ibert_ln_shift(dim: int, bits: int) -> float:
+    """The overflow shift that calibration gives an ibert LayerNorm over
+    ``dim`` channels of a ``bits``-bit stream spread to +-SIGMA standard
+    deviations: the least ``shift`` with ``var / 2**(2 * shift) < 2**32``
+    (``ivit_tpu/ops/ibert.py`` set_shift), var = dim * (2**(bits-1) /
+    SIGMA)**2.  0 on the 8-bit stream; 1 or 2 on Swin-T's 16-bit one."""
+    var = dim * (2.0 ** (bits - 1) / SIGMA) ** 2
+    return float(max(0.0, np.ceil(np.log2(np.sqrt(var / 2.0**32)))))
+
+
+def synthetic_swin_spec(config: SwinEngineConfig, seed: int = 0) -> SwinEngineSpec:
+    """A seeded Swin engine spec for ``config`` (numpy parameter tree and
+    the ``layout``), any mix of the ivit and ibert families; the method of
+    :func:`synthetic_spec`, site for site as ``freeze_swin_model`` emits
+    them: the patch GEMM and patch norm, per block the rel-pos addend
+    [H, n, n] (a drawn int8 table through ``requant_const``), ``m_attn2``
+    and on shifted blocks ``mask_int = round(mask / s_attn)``, the
+    ``{"merge": ...}`` entries, the final LN, ``m_pool`` and the head.  An
+    ibert LN on the 16-bit stream gets its calibrated overflow shift
+    (:func:`ibert_ln_shift`)."""
+    sm_base, gelu_base = config.base_type("softmax"), config.base_type("gelu")
+    ln_base = config.base_type("ln")
+    for which in ("softmax", "gelu", "ln"):
+        if config.base_type(which) not in ("ivit", "ibert"):
+            raise NotImplementedError(
+                "synthetic specs cover the ivit and ibert families")
+    s_attn_tab = S_ATTN_IVIT if sm_base == "ivit" else CALIBRATED_S_ATTN
+    s_gelu_tab = CALIBRATED_S_GELU_IVIT if gelu_base == "ivit" else CALIBRATED_S_GELU
+    cfg = config
+    site = _Sites(np.random.default_rng(seed))
+
+    def ln_site(dim, bits):
+        shift = ibert_ln_shift(dim, bits) if ln_base == "ibert" else 0.0
+        return site.layernorm(dim, shift)
+
+    p = {}
+    s_input = _scale(1.0)                      # images ~ N(0, 1)
+    p["s_input"] = s_input
+    D = cfg.embed_dim
+    w, b, s_conv, patch_std = site.linear(cfg.patch_size ** 2 * 3, D, s_input, 1.0)
+    s_bn = _scale(patch_std)
+    pn_b, pn_s, pn_sh = ln_site(D, 8)
+    s_patch = _scale(1.0)                      # LN outputs ~ N(beta, gamma)
+    s0 = _scale(1.0, 16)
+    p["patch"] = {"w": w, "b": b, "m": requant_multiplier(s_conv, s_bn),
+                  "pn_bias_int": pn_b, "pn_shift": pn_sh, "s_pn": pn_s,
+                  "m_norm": requant_multiplier(pn_s, s_patch),
+                  "m_x0": requant_multiplier(s_patch, s0)}
+
+    fast_exp = fast_poly = sm_sum_i32 = True
+    blocks, layout = [], []
+    s_in, x_std, x_bits = s0, 1.0, 16
+    grid = cfg.img_size // cfg.patch_size
+    i_blk = 0
+    for stage, depth in enumerate(cfg.depths):
+        dim = cfg.embed_dim * 2 ** stage
+        heads = cfg.stage_heads[stage]
+        res = grid // 2 ** stage
+        ws = min(cfg.window_size, res)
+        n = ws * ws
+        hidden = int(dim * cfg.mlp_ratio)
+        for d in range(depth):
+            s_attn = np.float32(s_attn_tab[i_blk % 2])
+            s_g = np.float32(s_gelu_tab[i_blk % 2])
+            i_blk += 1
+            blk = {}
+            ln_b, ln_s, ln_sh = ln_site(dim, x_bits)
+            s_a1 = _scale(1.0)
+            blk.update(ln1_bias_int=ln_b, ln1_shift=ln_sh, s_ln1=ln_s,
+                       m_ln1=requant_multiplier(ln_s, s_a1))
+            # qkv weights sized so the first score requant spreads
+            # SCORE_SPREAD LSB at s_attn1
+            s_attn1 = np.float32(SWIN_S_ATTN1_RATIO * s_attn)
+            q_std = float(np.sqrt(SCORE_SPREAD * s_attn1))
+            w, b, s_qkv, q_std = site.linear(dim, 3 * dim, s_a1, 1.0,
+                                             w_std=q_std / np.sqrt(dim))
+            s_q = _scale(q_std)
+            blk.update(qkv_w=w, qkv_b=b, m_qkv=requant_multiplier(s_qkv, s_q))
+            s_scores = np.float32(np.float32(s_q * s_q)
+                                  * np.float32((dim // heads) ** -0.5))
+            blk["m_attn"] = requant_multiplier(s_scores, s_attn1)
+            # relative position bias: a drawn table quantized to int8, then
+            # requanted onto s_attn
+            table = site.rng.normal(0.0, SWIN_REL_GAIN * SCORE_SPREAD * s_attn1,
+                                    ((2 * ws - 1) ** 2, heads)).astype(np.float32)
+            s_table = _sym_scale(8, table.min(), table.max())
+            table_int = np.clip(np.round(table / s_table), -128, 127)
+            bias_int = table_int[relative_position_index(ws).reshape(-1)]
+            bias_int = bias_int.reshape(n, n, heads).transpose(2, 0, 1)
+            blk["rel_bias_addend"] = requant_const(bias_int, s_table, s_attn)
+            blk["m_attn2"] = requant_multiplier(s_attn1, s_attn)
+            blk["s_attn"] = s_attn
+            shift = 0 if d % 2 == 0 or res <= cfg.window_size else ws // 2
+            layout.append(("block", stage, shift))
+            if shift > 0:
+                mask = attention_mask((res, res), ws, shift)
+                blk["mask_int"] = np.round(mask / np.float32(s_attn))
+            if sm_base == "ibert":
+                c_int = np.floor(np.float32(_ib.EXP_C) / np.float32(s_attn * s_attn))
+                blk["s_exp_act"] = _sym_scale(16, np.float32(0.0),
+                                              np.float32(c_int * 2.0**30))
+                s_sm = np.float32(2.0 / 2**8)
+            else:
+                s_sm = np.float32(1.0 / 2**7)
+                sm_sum_i32 = sm_sum_i32 and _ivit_sum_fits_int32(s_attn, n)
+            ctx_std = SWIN_CTX_GAIN[sm_base] * q_std
+            s_a3 = _scale(ctx_std)
+            blk["m_av"] = requant_multiplier(np.float32(s_sm * s_q), s_a3)
+            w, b, s_pj, proj_std = site.linear(dim, dim, s_a3, ctx_std)
+            s_a4 = _scale(proj_std, 16)
+            blk.update(proj_w=w, proj_b=b, m_proj=requant_multiplier(s_pj, s_a4))
+            res1_std = float(np.hypot(proj_std, x_std))
+            s_res1 = _scale(res1_std, 16)
+            blk["m_res1_x"] = requant_multiplier(s_a4, s_res1)
+            blk["m_res1_id"] = requant_multiplier(s_in, s_res1)
+
+            ln_b, ln_s, ln_sh = ln_site(dim, 16)
+            s_m1 = _scale(1.0)
+            blk.update(ln2_bias_int=ln_b, ln2_shift=ln_sh, s_ln2=ln_s,
+                       m_ln2=requant_multiplier(ln_s, s_m1))
+            h_std = float(s_g) * 127.0 / SIGMA
+            w, b, s_fc1, h_std = site.linear(dim, hidden, s_m1, 1.0,
+                                             w_std=h_std / np.sqrt(dim))
+            blk.update(fc1_w=w, fc1_b=b, m_fc1=requant_multiplier(s_fc1, s_g),
+                       s_gelu=s_g)
+            g_std = 0.6 * h_std
+            s_m2 = _scale(g_std)
+            s_gelu_out = (_ivit_gelu_out_scale(s_g) if gelu_base == "ivit"
+                          else _ibert_gelu_out_scale(s_g))
+            blk["m_gelu"] = requant_multiplier(s_gelu_out, s_m2)
+            w, b, s_fc2, mlp_std = site.linear(hidden, dim, s_m2, g_std)
+            s_mlp = _scale(mlp_std)
+            blk.update(fc2_w=w, fc2_b=b, m_fc2=requant_multiplier(s_fc2, s_mlp))
+            x_std = float(np.hypot(mlp_std, res1_std))
+            s_out = _scale(x_std, 16)
+            blk["m_res2_x"] = requant_multiplier(s_mlp, s_out)
+            blk["m_res2_id"] = requant_multiplier(s_res1, s_out)
+            fast_exp = fast_exp and _exp_fast_gate(sm_base, gelu_base, s_attn, s_g)
+            fast_poly = fast_poly and _poly_fast_gate(sm_base, gelu_base, s_attn, s_g)
+            blocks.append(blk)
+            s_in, x_bits = s_out, 16
+
+        if stage < len(cfg.depths) - 1:
+            layout.append(("merge", stage, 0))
+            nb, nscale, nshift = ln_site(4 * dim, x_bits)
+            s_n = _scale(1.0)
+            w, _, red_scale, red_std = site.linear(4 * dim, 2 * dim, s_n, 1.0)
+            s_r = _scale(red_std)
+            blocks.append({"merge": {
+                "norm_bias_int": nb, "norm_shift": nshift, "s_norm": nscale,
+                "m_norm": requant_multiplier(nscale, s_n), "red_w": w,
+                "m_red": requant_multiplier(red_scale, s_r)}})
+            s_in, x_std, x_bits = s_r, red_std, 8
+    p["blocks"] = blocks
+
+    dim = cfg.embed_dim * 2 ** (len(cfg.depths) - 1)
+    ln_b, ln_s, ln_sh = ln_site(dim, x_bits)
+    s_cls = _scale(1.0)
+    p.update(lnf_bias_int=ln_b, lnf_shift=ln_sh, s_lnf=ln_s,
+             m_lnf=requant_multiplier(ln_s, s_cls))
+    pool_std = 0.3                             # the token mean of LN outputs
+    s_pool = _scale(pool_std)
+    p["m_pool"] = requant_multiplier(s_cls, s_pool)
+    w, b, s_head, _ = site.linear(dim, cfg.num_classes, s_pool, pool_std)
+    p.update(head_w=w, head_b=b, head_scale=s_head)
+    cfg = dataclasses.replace(cfg, layout=tuple(layout), fast_exp=fast_exp,
+                              fast_poly=fast_poly, use_lut=False,
+                              sm_sum_i32=sm_sum_i32, ppoly_fastdiv=True)
+    return SwinEngineSpec(config=cfg, params=_f32_tree(p))

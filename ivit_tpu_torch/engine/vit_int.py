@@ -25,6 +25,8 @@ mix; ppoly and float raise.
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from .. import resolve_device
@@ -255,21 +257,38 @@ def engine_forward(spec: EngineSpec, images, kernels=True, device=None):
 
 
 class Engine:
-    """Callable integer inference engine for one frozen ViT spec.
+    """Callable integer inference engine for one frozen ViT or Swin spec
+    (dispatching on the spec's type, as the JAX ``Engine`` does).
 
     Moves the parameters to ``device`` once (default ``cuda``; raises
     without a card unless ``device="cpu"``) and runs :func:`engine_forward`
-    on them with ``kernels`` (True, "ops" or False).
+    (a ViT spec; ``kernels`` True, "ops" or False) or
+    :func:`~ivit_tpu_torch.engine.swin_int.swin_engine_forward` (a Swin
+    spec; ``kernels`` True or False, ``stage_paths`` one bool per stage) on
+    them.
     """
 
-    def __init__(self, spec: EngineSpec, device=None, kernels=True):
-        _check_kernels(kernels)
+    def __init__(self, spec, device=None, kernels=True, stage_paths=None):
+        # imported here: swin_int builds on this module
+        from .swin_int import (SwinEngineSpec, check_stage_paths,
+                               check_swin_kernels, swin_engine_forward)
+        if isinstance(spec, SwinEngineSpec):
+            check_swin_kernels(kernels)
+            check_stage_paths(spec.config, stage_paths)
+            self._forward = functools.partial(swin_engine_forward,
+                                              stage_paths=stage_paths)
+        else:
+            _check_kernels(kernels)
+            if stage_paths is not None:
+                raise ValueError("stage_paths picks a path per Swin stage; "
+                                 "a ViT spec has none")
+            self._forward = engine_forward
         self.device = resolve_device(device)
         _check_families(spec.config)
-        self.spec = EngineSpec(spec.config,
+        self.spec = type(spec)(spec.config,
                                params_to_torch(spec.params, self.device))
         self.kernels = kernels
 
     def __call__(self, images):
-        return engine_forward(self.spec, images, kernels=self.kernels,
-                              device=self.device)
+        return self._forward(self.spec, images, kernels=self.kernels,
+                             device=self.device)

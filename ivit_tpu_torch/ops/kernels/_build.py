@@ -23,15 +23,16 @@ _ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__
 CSRC = os.path.join(_ROOT, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_ROOT), "build", "ivit_tpu_torch")
 SOURCES = {"mlp_block": "mlp_block.cu", "attn_block": "attn_block.cu",
-           "nonlinear": "nonlinear.cu"}
+           "swin_attn_block": "swin_attn_block.cu", "nonlinear": "nonlinear.cu"}
 FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "--fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
-    "mlp_block": {"ivit_mlp_block": [_P] * 16 + [_I] * 9 + [_P]},
+    "mlp_block": {"ivit_mlp_block": [_P] * 16 + [_I] * 10 + [_P]},
     "attn_block": {"ivit_attn_block": [_P] * 20 + [_I] * 12 + [_P]},
+    "swin_attn_block": {"ivit_swin_attn_block": [_P] * 23 + [_I] * 10 + [_P]},
     "nonlinear": {"ivit_shiftmax": [_P] * 3 + [_I] * 5 + [_P],
                   "ivit_shift_gelu_requant": [_P] * 4 + [_I] * 6 + [_P]},
 }

@@ -1,14 +1,16 @@
-"""The engine's two fused half-block kernels, ivit and ibert families, for
-Hopper.
+"""The engines' three fused half-block kernels, ivit and ibert families,
+for Hopper.
 
-``mlp_block`` replaces ``ivit_tpu/ops/pallas/block.py::mlp_block_p`` and
-``attn_block`` replaces ``attn_block_p``.  Each wrapper launches the
-hand-written CUDA kernel (``ivit_tpu_torch/csrc/``) for a tensor on the
-card and runs its plain PyTorch version, ``mlp_block_ref`` /
-``attn_block_ref``, for a tensor on the CPU.  The plain versions follow the
-Pallas kernel bodies (``_mlp_kernel``, ``_attn_kernel``) step for step and
-run on either device; on the card they are what the kernels are held
-against.
+``mlp_block`` replaces ``ivit_tpu/ops/pallas/block.py::mlp_block_p`` (the
+ViT form on int8 token rows and the Swin form on int16 rows),
+``attn_block`` replaces ``attn_block_p`` and ``swin_attn_block`` replaces
+``swin_attn_block_p``.  Each wrapper launches the hand-written CUDA kernel
+(``ivit_tpu_torch/csrc/``) for a tensor on the card and runs its plain
+PyTorch version, ``mlp_block_ref`` / ``attn_block_ref`` /
+``swin_attn_block_ref``, for a tensor on the CPU.  The plain versions
+follow the Pallas kernel bodies (``_mlp_kernel``, ``_attn_kernel``,
+``_swin_attn_kernel``) step for step and run on either device; on the card
+they are what the kernels are held against.
 
 On the card every operand is a tensor there, the scalars (LN shift,
 scales, multipliers) one-element f32 tensors as the engine spec holds
@@ -16,8 +18,9 @@ them: the kernels derive their constants from those in each thread, so
 a call launches nothing but the weight transposes and the kernel.
 
 Each wrapper counts its kernel launches in a plain integer attribute
-(``mlp_block.launches``, ``attn_block.launches``), incremented only where
-the kernel is launched.
+(``mlp_block.launches``, ``attn_block.launches``,
+``swin_attn_block.launches``), incremented only where the kernel is
+launched.
 
 Each kernel takes its LayerNorm, softmax and GELU from either family, in
 any mix (``ln_base``, ``sm_base``, ``gelu_base``), and either runs the LN
@@ -28,6 +31,12 @@ Padding rows (token index >= ``n_valid``) may hold anything: their scores
 columns are masked out of the softmax and their LN output, NaN for an
 all-zero ibert row, is pinned to 0.  Only valid rows of the output are
 defined.
+
+The kernels take any channel count C that is a multiple of 32 (at most
+1024) whose GEMM widths share a pass of 128, 96 or 64 columns: DeiT-S's
+384 and Swin-T's 96 to 768 run as they are.  The TPU kernels' lane padding
+of C to 128 (``c_valid``) is a Mosaic layout workaround, not semantics,
+and the port has none.
 """
 
 from __future__ import annotations
@@ -56,6 +65,13 @@ def int8_matmul(a, w):
 def container(bits):
     """Narrowest signed integer dtype holding a ``bits``-clamped value."""
     return torch.int8 if bits <= 8 else (torch.int16 if bits <= 16 else torch.int32)
+
+
+def _pass_width(n1, n2):
+    """The GEMM output pass the kernels take for widths n1 and n2 (128, 96
+    or 64 columns, the widest dividing both; 0 if none does), as
+    ``exact.cuh::pass_width``."""
+    return next((w for w in (128, 96, 64) if n1 % w == 0 and n2 % w == 0), 0)
 
 
 def _requant(acc, m, bits):
@@ -109,7 +125,9 @@ def mlp_block_ref(x, *, ln_bias, m_ln, ln_shift, fc1_w, fc1_b, m_fc1, s_gelu,
                   m_gelu, fc2_w, fc2_b, m_fc2, m_res_x, m_res_id, mlp_bits=8,
                   out_bits=8, fast_exp=False, fast_poly=False, ln_base="ibert",
                   gelu_base="ibert", ln_in=None):
-    """Plain version of the MLP kernel: x int8 [R, C] -> int8 [R, C].
+    """Plain version of the MLP kernel: x int8 or int16 [R, C] -> [R, C] in
+    the ``out_bits`` container (ViT: int8 -> int8; Swin: int16 -> int16 with
+    ``mlp_bits`` 8 and ``out_bits`` 16).
 
     LN (or ``ln_in``) -> requant -> fc1 + bias -> requant -> GELU (ShiftGELU
     over the whole hidden row, or the ibert GELU) -> requant -> fc2 + bias
@@ -123,6 +141,10 @@ def mlp_block_ref(x, *, ln_bias, m_ln, ln_shift, fc1_w, fc1_b, m_fc1, s_gelu,
     g = _requant(g, m_gelu, 8).to(torch.int8)
     y2 = _requant(int8_matmul(g, fc2_w) + fc2_b, m_fc2, mlp_bits)
     return _residual(y2, m_res_x, x, m_res_id, out_bits)
+
+
+_STREAM = (torch.int8, torch.int16)    # the token streams the kernels take
+_MAX_SMEM = 232448                     # a block's shared memory on sm_90
 
 
 def _check(t, name, dtype, shape):
@@ -168,8 +190,10 @@ def mlp_block(x, *, ln_bias, m_ln, ln_shift, fc1_w, fc1_b, m_fc1, s_gelu,
               m_gelu, fc2_w, fc2_b, m_fc2, m_res_x, m_res_id, mlp_bits=8,
               out_bits=8, fast_exp=False, fast_poly=False, ln_base="ibert",
               gelu_base="ibert", use_int_sqrt=False, ln_in=None):
-    """Fused MLP half-block; ``x`` int8 [R, C] token rows; ``ln_in``: the
-    hoisted int8 LN output of ``x``, or None to run the LN in the kernel."""
+    """Fused MLP half-block; ``x`` int8 or int16 [R, C] token rows, out in
+    the ``out_bits`` container, which on the card is x's (int8 -> int8 for
+    ViT, int16 -> int16 for Swin); ``ln_in``: the hoisted int8 LN output of
+    ``x``, or None to run the LN in the kernel."""
     _check_family(ln_base, gelu_base, use_int_sqrt)
     kw = dict(ln_bias=ln_bias, m_ln=m_ln, ln_shift=ln_shift, fc1_w=fc1_w,
               fc1_b=fc1_b, m_fc1=m_fc1, s_gelu=s_gelu, m_gelu=m_gelu,
@@ -181,12 +205,18 @@ def mlp_block(x, *, ln_bias, m_ln, ln_shift, fc1_w, fc1_b, m_fc1, s_gelu,
         return mlp_block_ref(x, **kw)
     r, c = x.shape
     hd = fc1_w.shape[1]
-    if c % 64 or hd % 64 or c > 1024 or max(mlp_bits, out_bits) > 8:
-        raise ValueError(f"mlp_block kernel takes C, hidden multiples of 64 "
-                         f"with C <= 1024 and 8-bit outputs; got C={c}, "
-                         f"hidden={hd}, bits={mlp_bits}/{out_bits}")
+    out_dtype = container(out_bits)
+    smem = min(rows * (c + hd + 32) + 2 * _pass_width(c, hd) * 80
+               for rows in (64, 32))
+    if (c % 32 or c > 1024 or not _pass_width(c, hd) or smem > _MAX_SMEM
+            or x.dtype not in _STREAM or out_dtype != x.dtype or mlp_bits > 16):
+        raise ValueError(
+            f"mlp_block kernel takes C a multiple of 32 (<= 1024) sharing a "
+            f"128-, 96- or 64-column pass with the hidden width, and an int8 "
+            f"or int16 stream that the output keeps (out_bits 8 or 16); got "
+            f"C={c}, hidden={hd}, x {x.dtype}, bits={mlp_bits}/{out_bits}")
     for name, t, dt, shp in (
-            ("x", x, torch.int8, (r, c)), ("ln_bias", ln_bias, torch.float32, (c,)),
+            ("x", x, x.dtype, (r, c)), ("ln_bias", ln_bias, torch.float32, (c,)),
             ("m_ln", m_ln, torch.float32, (c,)),
             ("fc1_w", fc1_w, torch.int8, (c, hd)), ("fc1_b", fc1_b, torch.int32, (hd,)),
             ("m_fc1", m_fc1, torch.float32, (hd,)),
@@ -199,7 +229,7 @@ def mlp_block(x, *, ln_bias, m_ln, ln_shift, fc1_w, fc1_b, m_fc1, s_gelu,
                     ("m_gelu", m_gelu), ("m_res_x", m_res_x),
                     ("m_res_id", m_res_id)):
         _check_scalar(t, name)
-    out = torch.empty_like(x)
+    out = torch.empty((r, c), dtype=out_dtype, device=x.device)
     lib = _build.library("mlp_block")
     # the kernel streams weight rows of torch's Linear layout [out, in]
     w1t, w2t = fc1_w.t().contiguous(), fc2_w.t().contiguous()
@@ -207,7 +237,8 @@ def mlp_block(x, *, ln_bias, m_ln, ln_shift, fc1_w, fc1_b, m_fc1, s_gelu,
         _ptr(x), _ptr(ln_in), _ptr(ln_bias), _ptr(m_ln), _ptr(ln_shift),
         _ptr(w1t), _ptr(fc1_b), _ptr(m_fc1), _ptr(s_gelu), _ptr(m_gelu),
         _ptr(w2t), _ptr(fc2_b), _ptr(m_fc2), _ptr(m_res_x), _ptr(m_res_id),
-        _ptr(out), r, c, hd, mlp_bits, out_bits, int(ln_base == "ivit"),
+        _ptr(out), r, c, hd, mlp_bits, out_bits, int(x.dtype == torch.int16),
+        int(ln_base == "ivit"),
         int(gelu_base == "ivit"), int(bool(fast_exp)), int(bool(fast_poly)),
         _stream())
     _raise_on(err, "mlp_block")
@@ -242,20 +273,29 @@ def attn_block_ref(x, *, ln_bias, m_ln, ln_shift, qkv_w, qkv_b, m_qkv, m_attn,
     q, k, v = qkv[0], qkv[1], qkv[2]                         # [B, H, Np, Dh]
     scores = int8_matmul(q, k.transpose(-1, -2))             # [B, H, Np, Np]
     s = _requant(scores, m_attn, attn_bits)
-    if sm_base == "ivit":
-        probs, _ = iv.shiftmax_int(s, s_attn, sm_bit, n_valid=n_valid,
-                                   fast_q=fast_exp)
-    else:
-        exp_int, _ = ib.ibert_softmax_exp_int(s, s_attn, n_valid, fast_q=fast_exp,
-                                              fast_poly=fast_poly)
-        exp16 = torch.clamp(torch.round(exp_int * rdiv(1.0, s_exp_act)),
-                            -(2.0**15), 2.0**15 - 1)
-        factor = torch.floor(rdiv(2.0**32, exact_int_sum(exp16)))
-        probs = torch.floor(exp16 * factor / 2 ** (32 - sm_bit + 1))
+    probs = _softmax_probs(s, sm_base, s_attn, s_exp_act, sm_bit, n_valid,
+                           fast_exp, fast_poly)
     ctx = _requant(int8_matmul(probs.to(container(sm_bit)), v), m_av, 8)
     ctx = ctx.to(torch.int8).permute(0, 2, 1, 3).reshape(b, np_, c)
     y2 = _requant(int8_matmul(ctx, proj_w) + proj_b, m_proj, proj_bits)
     return _residual(y2, m_res_x, x, m_res_id, out_bits)
+
+
+def _softmax_probs(s, sm_base, s_attn, s_exp_act, sm_bit, n_valid, fast_exp,
+                   fast_poly):
+    """f32 integer scores -> ``sm_bit`` probabilities over the last axis,
+    the first ``n_valid`` columns real (None: all): Shiftmax, or the ibert
+    softmax with its 16-bit exp requant by ``s_exp_act``."""
+    if sm_base == "ivit":
+        probs, _ = iv.shiftmax_int(s, s_attn, sm_bit, n_valid=n_valid,
+                                   fast_q=fast_exp)
+        return probs
+    exp_int, _ = ib.ibert_softmax_exp_int(s, s_attn, n_valid, fast_q=fast_exp,
+                                          fast_poly=fast_poly)
+    exp16 = torch.clamp(torch.round(exp_int * rdiv(1.0, s_exp_act)),
+                        -(2.0**15), 2.0**15 - 1)
+    factor = torch.floor(rdiv(2.0**32, exact_int_sum(exp16)))
+    return torch.floor(exp16 * factor / 2 ** (32 - sm_bit + 1))
 
 
 def attn_block(x, *, ln_bias, m_ln, ln_shift, qkv_w, qkv_b, m_qkv, m_attn,
@@ -282,11 +322,13 @@ def attn_block(x, *, ln_bias, m_ln, ln_shift, qkv_w, qkv_b, m_qkv, m_attn,
         return attn_block_ref(x, **kw)
     b, np_, c = x.shape
     dh = c // num_heads
-    if (c % 64 or c > 1024 or dh * num_heads != c or dh % 4 or dh > 128
+    if (c % 32 or c > 1024 or not _pass_width(3 * c, c)
+            or dh * num_heads != c or dh % 4 or dh > 128
             or np_ > 256 or not 0 < n_valid <= np_ or sm_bit != 8
             or max(attn_bits, proj_bits, out_bits) > 8):
         raise ValueError(
-            f"attn_block kernel takes C a multiple of 64 (<= 1024), head dim "
+            f"attn_block kernel takes C a multiple of 32 (<= 1024) with a "
+            f"128-, 96- or 64-column pass over 3C and C, head dim "
             f"a multiple of 4 (<= 128), <= 256 tokens, 8-bit probs and "
             f"outputs; got C={c}, heads={num_heads}, Np={np_}, "
             f"n_valid={n_valid}, sm_bit={sm_bit}")
@@ -328,3 +370,124 @@ def attn_block(x, *, ln_bias, m_ln, ln_shift, qkv_w, qkv_b, m_qkv, m_attn,
 
 
 attn_block.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# Swin window-attention half-block
+# ---------------------------------------------------------------------------
+
+def swin_attn_block_ref(xw, *, ln_bias, m_ln, ln_shift, qkv_w, qkv_b, m_qkv,
+                        m_attn, m_attn2, s_attn, rel_addend, mask_addend, m_av,
+                        proj_w, proj_b, m_proj, m_res_x, m_res_id, num_heads,
+                        n_windows, s_exp_act=None, sm_bit=8, fast_exp=False,
+                        fast_poly=False, ln_base="ivit", sm_base="ivit",
+                        ln_in=None):
+    """Plain version of the Swin window-attention kernel: xw int8 or int16
+    [B*nW, n, C] (rolled and window-partitioned) -> int16 [B*nW, n, C].
+
+    LN (or ``ln_in``) -> requant -> qkv GEMM -> requant -> per (window,
+    head) int32 q k^T -> ``clip(round(clip(round(s * m_attn)) * m_attn2) +
+    rel_addend)`` to int8 -> + the window's ``mask_addend`` [nW, n, n] on
+    shifted blocks (after the clip, so masked scores leave the int8 range)
+    -> softmax over the n keys -> probs @ v -> requant by ``m_av`` -> proj
+    GEMM -> requant to 16 bits -> integer residual to int16
+    (``block.py::_swin_attn_kernel``)."""
+    bw, n, c = xw.shape
+    dh = c // num_heads
+    y = _ln8(xw, ln_base, ln_bias, ln_shift, m_ln, ln_in)
+    qkv = _requant(int8_matmul(y, qkv_w) + qkv_b, m_qkv, 8).to(torch.int8)
+    qkv = qkv.reshape(bw, n, 3, num_heads, dh).permute(2, 0, 3, 1, 4)
+    q, k, v = qkv[0], qkv[1], qkv[2]                         # [BW, H, n, Dh]
+    s = _requant(int8_matmul(q, k.transpose(-1, -2)), m_attn, 8)
+    a = torch.clamp(torch.round(s * m_attn2) + rel_addend, -128, 127)
+    if mask_addend is not None:
+        a = a.reshape(-1, n_windows, num_heads, n, n) + mask_addend[None, :, None]
+        a = a.reshape(bw, num_heads, n, n)
+    probs = _softmax_probs(a, sm_base, s_attn, s_exp_act, sm_bit, None,
+                           fast_exp, fast_poly)
+    ctx = _requant(int8_matmul(probs.to(container(sm_bit)), v), m_av, 8)
+    ctx = ctx.to(torch.int8).permute(0, 2, 1, 3).reshape(bw, n, c)
+    y2 = _requant(int8_matmul(ctx, proj_w) + proj_b, m_proj, 16)
+    return _residual(y2, m_res_x, xw, m_res_id, 16)
+
+
+def swin_attn_block(xw, *, ln_bias, m_ln, ln_shift, qkv_w, qkv_b, m_qkv,
+                    m_attn, m_attn2, s_attn, rel_addend, mask_addend, m_av,
+                    proj_w, proj_b, m_proj, m_res_x, m_res_id, num_heads,
+                    n_windows, s_exp_act=None, sm_bit=8, fast_exp=False,
+                    fast_poly=False, ln_base="ivit", sm_base="ivit",
+                    use_int_sqrt=False, ln_in=None):
+    """Fused Swin window-attention half-block; ``xw`` int8 or int16
+    [B*nW, n, C], windows of ``n`` tokens, ``n_windows`` windows an image;
+    ``rel_addend`` f32 [H, n, n]; ``mask_addend`` f32 [nW, n, n] for a
+    shifted block, else None; ``ln_in``: the hoisted int8 LN output of
+    ``xw``, or None to run the LN in the kernel.  Returns int16
+    [B*nW, n, C].  On the card: three launches (LN + qkv, per-(window,
+    head) softmax attention, proj + residual) counted as one."""
+    _check_family(ln_base, sm_base, use_int_sqrt)
+    kw = dict(ln_bias=ln_bias, m_ln=m_ln, ln_shift=ln_shift, qkv_w=qkv_w,
+              qkv_b=qkv_b, m_qkv=m_qkv, m_attn=m_attn, m_attn2=m_attn2,
+              s_attn=s_attn, rel_addend=rel_addend, mask_addend=mask_addend,
+              m_av=m_av, proj_w=proj_w, proj_b=proj_b, m_proj=m_proj,
+              m_res_x=m_res_x, m_res_id=m_res_id, num_heads=num_heads,
+              n_windows=n_windows, s_exp_act=s_exp_act, sm_bit=sm_bit,
+              fast_exp=fast_exp, fast_poly=fast_poly, ln_base=ln_base,
+              sm_base=sm_base, ln_in=ln_in)
+    if xw.device.type == "cpu":
+        return swin_attn_block_ref(xw, **kw)
+    bw, n, c = xw.shape
+    dh = c // num_heads
+    if (c % 32 or c > 1024 or not _pass_width(3 * c, c)
+            or dh * num_heads != c or dh % 4 or dh > 128 or not 0 < n <= 64
+            or sm_bit != 8 or xw.dtype not in _STREAM or n_windows < 1
+            or (mask_addend is not None and bw % n_windows)):
+        raise ValueError(
+            f"swin_attn_block kernel takes an int8 or int16 stream, C a "
+            f"multiple of 32 (<= 1024) with a 128-, 96- or 64-column pass "
+            f"over 3C and C, head dim a multiple of 4 (<= 128), <= 64 tokens "
+            f"a window, whole images of windows and 8-bit probs; got "
+            f"{xw.dtype} [{bw}, {n}, {c}], heads={num_heads}, "
+            f"n_windows={n_windows}, sm_bit={sm_bit}")
+    for name, t, dt, shp in (
+            ("xw", xw, xw.dtype, (bw, n, c)),
+            ("ln_bias", ln_bias, torch.float32, (c,)),
+            ("m_ln", m_ln, torch.float32, (c,)),
+            ("qkv_w", qkv_w, torch.int8, (c, 3 * c)),
+            ("qkv_b", qkv_b, torch.int32, (3 * c,)),
+            ("m_qkv", m_qkv, torch.float32, (3 * c,)),
+            ("rel_addend", rel_addend, torch.float32, (num_heads, n, n)),
+            ("proj_w", proj_w, torch.int8, (c, c)),
+            ("proj_b", proj_b, torch.int32, (c,)),
+            ("m_proj", m_proj, torch.float32, (c,))):
+        _check(t, name, dt, shp)
+    if mask_addend is not None:
+        _check(mask_addend, "mask_addend", torch.float32, (n_windows, n, n))
+    if ln_in is not None:
+        _check(ln_in, "ln_in", torch.int8, (bw, n, c))
+    scalars = [("ln_shift", ln_shift), ("m_attn", m_attn), ("m_attn2", m_attn2),
+               ("s_attn", s_attn), ("m_av", m_av), ("m_res_x", m_res_x),
+               ("m_res_id", m_res_id)]
+    if sm_base == "ibert":
+        scalars.append(("s_exp_act", s_exp_act))
+    for name, t in scalars:
+        _check_scalar(t, name)
+    qkv = torch.empty((bw * n, 3 * c), dtype=torch.int8, device=xw.device)
+    ctx = torch.empty((bw * n, c), dtype=torch.int8, device=xw.device)
+    out = torch.empty((bw, n, c), dtype=torch.int16, device=xw.device)
+    lib = _build.library("swin_attn_block")
+    wqkv_t, wp_t = qkv_w.t().contiguous(), proj_w.t().contiguous()
+    err = lib.ivit_swin_attn_block(
+        _ptr(xw), _ptr(ln_in), _ptr(ln_bias), _ptr(m_ln), _ptr(ln_shift),
+        _ptr(wqkv_t), _ptr(qkv_b), _ptr(m_qkv), _ptr(m_attn), _ptr(m_attn2),
+        _ptr(rel_addend), _ptr(mask_addend), _ptr(s_attn), _ptr(s_exp_act),
+        _ptr(m_av), _ptr(wp_t), _ptr(proj_b), _ptr(m_proj), _ptr(m_res_x),
+        _ptr(m_res_id), _ptr(qkv), _ptr(ctx), _ptr(out), bw, n, c, num_heads,
+        n_windows, int(xw.dtype == torch.int16), int(ln_base == "ivit"),
+        int(sm_base == "ivit"), int(bool(fast_exp)), int(bool(fast_poly)),
+        _stream())
+    _raise_on(err, "swin_attn_block")
+    swin_attn_block.launches += 1
+    return out
+
+
+swin_attn_block.launches = 0

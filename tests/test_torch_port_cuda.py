@@ -9,8 +9,10 @@ where only PyTorch is installed:
 (``--noconftest``: the suite's conftest pins JAX to the CPU.)  Shapes are
 small: B 2, Np 24 of which n_valid 17 real tokens, C 64, 2 heads, MLP 256
 for the block kernels, the shapes of ``tests/test_pallas.py`` for the
-standalone ones; the DeiT-S shapes are held by ``chip_smoke.py``.  Exact
-equality.
+standalone ones; for Swin, a 56 px Swin-T-width spec (C 96 and 192, heads 3
+and 6, windows of 49 tokens, a shifted block) and one at C 384 and 768
+(hidden 3072); the DeiT-S and Swin-T shapes are held by ``chip_smoke.py``.
+Exact equality.
 """
 
 import dataclasses
@@ -20,7 +22,8 @@ import pytest
 import torch
 
 from ivit_tpu_torch.engine import Engine
-from ivit_tpu_torch.engine.synthetic import deit_small_config, synthetic_spec
+from ivit_tpu_torch.engine.synthetic import (deit_small_config, swin_tiny_config,
+                                              synthetic_spec, synthetic_swin_spec)
 from ivit_tpu_torch.ops.kernels import block as kb
 from ivit_tpu_torch.ops.kernels import nonlinear as knl
 
@@ -177,4 +180,115 @@ def test_cuda_ivit_engine_paths_match_plain_engines(cuda):
     torch.cuda.synchronize()
     assert (kb.mlp_block.launches, kb.attn_block.launches) == (2, 2)
     assert (knl.shiftmax.launches, knl.shift_gelu_requant.launches) == (2, 2)
+    assert torch.equal(want.cpu(), Engine(spec, device="cpu", kernels=False)(images))
+
+
+# (gelu, softmax, ln): ibert, ivit and the two mixes
+SWIN_MIXES = [("ibert", "ibert", "ibert")] + MIXES
+
+
+def _swin_spec(mix, embed_dim=96, heads=(3, 6), depths=(2, 2)):
+    gelu, softmax, ln = mix
+    return synthetic_swin_spec(swin_tiny_config(
+        depths=depths, img_size=56, embed_dim=embed_dim, stage_heads=heads,
+        num_classes=10, gelu=gelu, softmax=softmax, ln=ln), seed=3)
+
+
+def _swin_blocks(spec, dev):
+    """(block tensors, heads, windows an image, shift) of every block."""
+    out = []
+    for (kind, stage, shift), blk in zip(spec.config.layout, spec.params["blocks"]):
+        if kind == "block":
+            res = 14 // 2 ** stage
+            out.append(({k: torch.as_tensor(v).to(dev) for k, v in blk.items()},
+                        spec.config.stage_heads[stage], (res // min(7, res)) ** 2,
+                        shift))
+    return out
+
+
+def _stream(dev, shape, bits, seed):
+    lim = 2 ** (bits - 1)
+    x = np.clip(np.round(np.random.default_rng(seed).normal(0, lim / 4, shape)),
+                -lim, lim - 1)
+    return torch.from_numpy(x.astype(np.int16 if bits > 8 else np.int8)).to(dev)
+
+
+def _swin_attn_kw(b, mix, fast, heads, n_windows, shift):
+    return dict(ln_bias=b["ln1_bias_int"], m_ln=b["m_ln1"], ln_shift=b["ln1_shift"],
+                qkv_w=b["qkv_w"], qkv_b=b["qkv_b"], m_qkv=b["m_qkv"],
+                m_attn=b["m_attn"], m_attn2=b["m_attn2"], s_attn=b["s_attn"],
+                rel_addend=b["rel_bias_addend"],
+                mask_addend=b["mask_int"] if shift else None,
+                s_exp_act=b.get("s_exp_act"), m_av=b["m_av"], proj_w=b["proj_w"],
+                proj_b=b["proj_b"], m_proj=b["m_proj"], m_res_x=b["m_res1_x"],
+                m_res_id=b["m_res1_id"], num_heads=heads, n_windows=n_windows,
+                fast_exp=fast, fast_poly=fast, sm_base=mix[1], ln_base=mix[2])
+
+
+def _swin_mlp_kw(b, mix, fast):
+    return dict(ln_bias=b["ln2_bias_int"], m_ln=b["m_ln2"], ln_shift=b["ln2_shift"],
+                fc1_w=b["fc1_w"], fc1_b=b["fc1_b"], m_fc1=b["m_fc1"],
+                s_gelu=b["s_gelu"], m_gelu=b["m_gelu"], fc2_w=b["fc2_w"],
+                fc2_b=b["fc2_b"], m_fc2=b["m_fc2"], m_res_x=b["m_res2_x"],
+                m_res_id=b["m_res2_id"], mlp_bits=8, out_bits=16, fast_exp=fast,
+                fast_poly=fast, ln_base=mix[2], gelu_base=mix[0])
+
+
+@pytest.mark.parametrize("mix", SWIN_MIXES, ids=["/".join(m) for m in SWIN_MIXES])
+def test_cuda_swin_kernels_match_plain_versions(cuda, mix):
+    """Both Swin kernels at C 96 (a shifted and an unshifted block) and 192,
+    int16 and int8 (a merge's output) window input, fast flags both ways,
+    the LN in the kernel and hoisted; ibert LNs carry a shift > 0 here."""
+    for i, (b, heads, nw, shift) in enumerate(_swin_blocks(_swin_spec(mix), cuda)):
+        c = b["ln1_bias_int"].shape[0]
+        for bits in (16, 8):
+            x = _stream(cuda, (2 * nw, 49, c), bits, seed=i)
+            for fast in (False, True):
+                kw = _swin_attn_kw(b, mix, fast, heads, nw, shift)
+                for ln_in in (None, kb._ln8(x, mix[2], kw["ln_bias"],
+                                            kw["ln_shift"], kw["m_ln"], None)):
+                    before = kb.swin_attn_block.launches
+                    got = kb.swin_attn_block(x, ln_in=ln_in, **kw)
+                    torch.cuda.synchronize()
+                    assert kb.swin_attn_block.launches == before + 1
+                    want = kb.swin_attn_block_ref(x, ln_in=ln_in, **kw)
+                    assert got.dtype == torch.int16
+                    assert torch.equal(got, want), (i, bits, fast, ln_in is None)
+        x = _stream(cuda, (2 * nw * 49, c), 16, seed=10 + i)
+        for fast in (False, True):
+            kw = _swin_mlp_kw(b, mix, fast)
+            got = kb.mlp_block(x, **kw)
+            torch.cuda.synchronize()
+            assert got.dtype == torch.int16
+            assert torch.equal(got, kb.mlp_block_ref(x, **kw)), (i, fast)
+
+
+def test_cuda_swin_wide_stages_match_plain_versions(cuda):
+    """C 384 and 768 with hidden 1536 and 3072 (the 32-row MLP tile), 12 and
+    24 heads of 32 channels."""
+    mix = ("ivit", "ivit", "ivit")
+    spec = _swin_spec(mix, embed_dim=384, heads=(12, 24), depths=(1, 1))
+    for i, (b, heads, nw, shift) in enumerate(_swin_blocks(spec, cuda)):
+        c = b["ln1_bias_int"].shape[0]
+        x = _stream(cuda, (2 * nw, 49, c), 16, seed=20 + i)
+        kw = _swin_attn_kw(b, mix, True, heads, nw, shift)
+        got = kb.swin_attn_block(x, **kw)
+        torch.cuda.synchronize()
+        assert torch.equal(got, kb.swin_attn_block_ref(x, **kw))
+        x = x.reshape(-1, c)
+        got = kb.mlp_block(x, **_swin_mlp_kw(b, mix, True))
+        torch.cuda.synchronize()
+        assert torch.equal(got, kb.mlp_block_ref(x, **_swin_mlp_kw(b, mix, True)))
+
+
+def test_cuda_swin_engine_matches_plain_engines(cuda):
+    spec = _swin_spec(("ivit", "ivit", "ivit"))
+    images = np.random.default_rng(1).normal(size=(3, 56, 56, 3)).astype(np.float32)
+    want = Engine(spec, kernels=False)(images)
+    kb.mlp_block.launches = kb.swin_attn_block.launches = 0
+    got = Engine(spec)(images)
+    torch.cuda.synchronize()
+    assert (kb.mlp_block.launches, kb.swin_attn_block.launches) == (4, 4)
+    assert torch.equal(got, want)
+    assert torch.equal(Engine(spec, stage_paths=(True, False))(images), want)
     assert torch.equal(want.cpu(), Engine(spec, device="cpu", kernels=False)(images))

@@ -78,6 +78,15 @@ def test_entry_points_default_to_cuda(tmp_path):
         engine_forward(spec, x)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         load_engine(str(tmp_path / "eng"))
+    from ivit_tpu_torch.engine import swin_engine_forward
+    from ivit_tpu_torch.engine.synthetic import swin_tiny_config, synthetic_swin_spec
+    swin = synthetic_swin_spec(swin_tiny_config(depths=(1,), img_size=28,
+                                                embed_dim=32, stage_heads=(2,),
+                                                num_classes=10), seed=0)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        Engine(swin)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        swin_engine_forward(swin, np.zeros((1, 28, 28, 3), np.float32))
 
 
 def test_entry_points_run_on_cpu_when_asked(tmp_path):
