@@ -38,10 +38,20 @@ Phases, each printing one JSON line:
    family mix, fast flags on and off, ``ln_in``, the int8 input a merge
    feeds a stage, ibert LNs with their overflow shift > 0, and a small
    ragged case; per-stage kernel, plain and library times and the bound;
-11. engine_swin: synthetic Swin-T ivit and ibert engines (224 px, depths
+11. attn_edges: both attention kernels bitwise equal to their plain
+   versions at the edge shapes of their 16-row query tiles, 32-key chunks
+   and 32-channel head chunks, C 128 with head dims 32, 64 and 128, ivit
+   and ibert: ViT token counts 1, 15, 17, 33 and 256 with padding tokens;
+   Swin windows of 49 and 64 tokens, shifted and unshifted, int16 and int8
+   input; the LN in the kernel and hoisted; softmax scales that take the
+   cores' int32 exp and its f32 form;
+12. engine_swin: synthetic Swin-T ivit and ibert engines (224 px, depths
    (2, 2, 6, 2), batch 64) through ``Engine``: 12 + 12 launches a forward,
    logits bitwise equal to the plain engine on the card and, for 4 images,
    on the CPU; finite and image-dependent; img/s of both engines.
+
+The build phase reports ptxas's registers and spill bytes per kernel and
+fails if an attention-chain kernel spills.
 
 Then the kernel table as one JSON line, the card's name and power limit,
 and last ``{"ok": true, "device": {...}}``.  Any failure raises and exits
@@ -54,6 +64,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
+import re
 import subprocess
 import sys
 import time
@@ -346,6 +357,98 @@ def kernel_phases(torch, kb, knl, dev):
     return rows
 
 
+EDGE_TOKENS = [(1, 1), (15, 13), (17, 15), (33, 31), (256, 250)]   # (Np, n_valid)
+EDGE_HEADS = [4, 2, 1]    # C 128: head dims 32, 64, 128
+
+
+def attn_edge_phase(torch, kb, dev):
+    """Phase 11: both attention kernels at the edge shapes of their tiles."""
+    import numpy as np
+
+    from ivit_tpu_torch.engine.synthetic import (deit_small_config, swin_tiny_config,
+                                                  synthetic_spec, synthetic_swin_spec)
+
+    rng = np.random.default_rng(2)
+
+    def stream(shape, bits):
+        lim = 2 ** (bits - 1)
+        x = np.clip(np.round(rng.normal(0, lim / 4, shape)), -lim, lim - 1)
+        return torch.as_tensor(x.astype(np.int16 if bits > 8 else np.int8)).to(dev)
+
+    checked = 0
+    for fam in ("ivit", "ibert"):
+        mix = (fam, fam, fam)
+        for heads in EDGE_HEADS:
+            cfg = dataclasses.replace(
+                deit_small_config(depth=1, img_size=64, ln=fam, gelu=fam, softmax=fam),
+                embed_dim=128, num_heads=heads, num_classes=10)
+            b = block_args(torch, synthetic_spec(cfg, 5).params["blocks"][0], dev)
+            for np_, nv in EDGE_TOKENS:
+                x = stream((2, np_, 128), 8)
+                kw = attn_kwargs(b, True, heads, nv, mix)
+                for ln_in in (None, kb._ln8(x, fam, kw["ln_bias"], kw["ln_shift"],
+                                            kw["m_ln"], None)):
+                    check_equal(torch, f"attn_block edge {fam} Np={np_} n_valid={nv} "
+                                f"dh={128 // heads} ln_in={ln_in is not None}",
+                                kb.attn_block(x, ln_in=ln_in, **kw),
+                                kb.attn_block_ref(x, ln_in=ln_in, **kw), rows=nv)
+                    checked += 1
+            for ws in (7, 8):
+                spec = synthetic_swin_spec(swin_tiny_config(
+                    depths=(2,), img_size=8 * ws, embed_dim=128, stage_heads=(heads,),
+                    window_size=ws, num_classes=10, gelu=fam, softmax=fam, ln=fam), seed=5)
+                for (_, _, shift), blk in zip(spec.config.layout, spec.params["blocks"]):
+                    b = block_args(torch, blk, dev)
+                    kw = swin_attn_kwargs(b, True, heads, 4, shift, mix)
+                    for bits in (16, 8):
+                        x = stream((8, ws * ws, 128), bits)
+                        for ln_in in (None, kb._ln8(x, fam, kw["ln_bias"], kw["ln_shift"],
+                                                    kw["m_ln"], None)):
+                            check_equal(torch, f"swin_attn_block edge {fam} n={ws * ws} "
+                                        f"dh={128 // heads} shift={shift} bits={bits} "
+                                        f"ln_in={ln_in is not None}",
+                                        kb.swin_attn_block(x, ln_in=ln_in, **kw),
+                                        kb.swin_attn_block_ref(x, ln_in=ln_in, **kw))
+                            checked += 1
+    # softmax scales that take the cores' int32 exp and its f32 form
+    for fam in ("ivit", "ibert"):
+        mix = (fam, fam, fam)
+        cfg = dataclasses.replace(
+            deit_small_config(depth=1, img_size=64, ln=fam, gelu=fam, softmax=fam),
+            embed_dim=64, num_heads=2, num_classes=10)
+        b = block_args(torch, synthetic_spec(cfg, 0).params["blocks"][0], dev)
+        x = stream((2, 24, 64), 8)
+        for s_attn in (2.0, 0.0521371, 1e-4):
+            kw = attn_kwargs(b, True, 2, 17, mix) | dict(
+                s_attn=torch.tensor(s_attn, device=dev))
+            check_equal(torch, f"attn_block {fam} s_attn={s_attn}",
+                        kb.attn_block(x, **kw), kb.attn_block_ref(x, **kw), rows=17)
+            checked += 1
+    emit({"phase": "attn_edges", "equal": True, "checks": checked,
+          "vit_tokens_n_valid": EDGE_TOKENS, "swin_window_tokens": [49, 64],
+          "head_dims": [128 // h for h in EDGE_HEADS], "C": 128})
+
+
+def ptxas_report(log):
+    """Registers and spill bytes of every kernel in one ``-Xptxas -v`` log."""
+    out, name, spill = [], None, 0
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            name, spill = m.group(1), 0
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m:
+            spill = int(m.group(1)) + int(m.group(2))
+            continue
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name is not None:
+            out.append({"kernel": name[:72], "registers": int(m.group(1)),
+                        "spill_bytes": spill})
+            name = None
+    return out
+
+
 def swin_stage_blocks(torch, spec, dev):
     """Per Swin-T stage: (C, heads, windows an image, [(shift, block
     tensors) of its first two blocks]) of a synthetic spec."""
@@ -521,7 +624,7 @@ def swin_phases(torch, kb, dev, rows):
 
 
 def swin_engine_phase(torch, counters, dev, rows, profile=False):
-    """Phase 11: synthetic Swin-T ivit and ibert engines through Engine."""
+    """Phase 12: synthetic Swin-T ivit and ibert engines through Engine."""
     from ivit_tpu_torch.engine import Engine
     from ivit_tpu_torch.engine.synthetic import swin_tiny_config, synthetic_swin_spec
 
@@ -720,12 +823,16 @@ def main(argv=None) -> int:
           "cuda": torch.version.cuda, "name": torch.cuda.get_device_name(0)})
     t0 = time.perf_counter()
     times = _build.build_all()
-    ptxas = {n: [l.strip() for l in log.splitlines() if "registers" in l or "spill" in l]
-             for n, log in _build.build_log.items()}
+    ptxas = {n: ptxas_report(log) for n, log in _build.build_log.items()}
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "per_source_s": times, "ptxas": ptxas})
+    spills = [k for n in ("attn_block", "swin_attn_block") for k in ptxas.get(n, [])
+              if k["spill_bytes"]]
+    if spills:
+        raise AssertionError(f"attention-chain kernels spill: {spills}")
     rows = kernel_phases(torch, kb, knl, dev)
     swin_phases(torch, kb, dev, rows)
+    attn_edge_phase(torch, kb, dev)
     emit({"phase": "kernel_checks_done", "seconds": time.perf_counter() - t0})
     counters = {"attn_block": kb.attn_block, "mlp_block": kb.mlp_block,
                 "swin_attn_block": kb.swin_attn_block, "shiftmax": knl.shiftmax,

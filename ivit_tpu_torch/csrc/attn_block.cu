@@ -12,24 +12,32 @@
 // one call does 2 * B * N * (3C * C + C * C) + 2 * 2 * B * N * N * C = 75 G
 // int8 ops (~38 us at 1,979 TOPS) and moves ~39 MB of operands (~12 us at
 // 3.35 TB/s); the softmax adds ~60 M elementwise exp chains on the CUDA
-// cores.
+// cores, which bound the core launch: the exps run in exact int32 (the
+// integer and conversion pipes, not the tensor cores, set its pace).
 //
 // Design: one image's int8 qkv is 197 x 1152 = 230 KB, more than a block's
 // 227 KB of shared memory, so the TPU kernel's single body becomes a chain
 // of three launches on one stream, counted as one kernel (the first and the
-// last, and the softmax row code, shared with swin_attn_block.cu in
+// last, and the core's tile code, shared with swin_attn_block.cu in
 // attn_chain.cuh):
-//   1. ln_qkv_kernel: 64 token rows per block, LN into shared memory, qkv
-//      GEMM on mma.sync m16n8k32 s8 with the weight rows streamed by
-//      double-buffered cp.async (exact.cuh gemm_tile), requant, int8 qkv to
-//      global memory;
-//   2. attn_core_kernel: one block per (head, image) with that head's k and
-//      v (transposed) in shared memory; each warp takes one query row at a
-//      time: scores by dp4a (one key per lane), softmax with warp
-//      reductions (Shiftmax through ivit.cuh shiftmax_row, the standalone
-//      kernel's row code), probs @ v by dp4a over 4 keys at a time (one output
-//      channel per lane).  The [N, N] matrix is never stored;
-//   3. proj_kernel: 64 rows of ctx per block, proj GEMM, requant, residual.
+//   1. ln_qkv_wgmma_kernel: 64 token rows per block, LN (exact.cuh
+//      ln_row_i32, 16 lanes a row) written straight into the swizzled
+//      K-major A tile while TMA brings the first weight slices, qkv GEMM on
+//      wgmma m64nNk32 s8 (wgmma_gemm.cuh), requant, 4-byte stores of qkv;
+//   2. attn_core_mma_kernel: one block per (head, image) with that head's k
+//      and v (transposed, keys permuted) staged once in shared memory; each
+//      group of 4 warps takes 16 query rows at a time on mma.sync m16n8k32
+//      s8, warp p against keys 64 p .. 64 p + 63: scores in int32
+//      registers, requant, softmax on the accumulator layout (a row in a
+//      quad of lanes of each warp, maxima and exact sums exchanged through
+//      shared memory; Shiftmax through ivit.cuh shiftmax_quad), the int8
+//      probabilities packed from those registers into the A fragments of
+//      probs @ v, the other warps' int32 partial sums added into the
+//      first's.  Four warps a tile keep 32 scores a thread, so two or
+//      three blocks fit an SM.  The [N, N] matrix is never stored;
+//   3. proj_wgmma_kernel: 64 rows of ctx per block, proj GEMM on wgmma,
+//      requant, residual, the passes split over blocks where the row blocks
+//      would leave SMs idle.
 // The LN shift and the exp constants are derived in every thread from the
 // spec's scalar leaves, with the plain version's rdiv, so a call costs the
 // host no arithmetic launches of its own.
@@ -38,50 +46,45 @@
 
 namespace ivit {
 
-constexpr int kMaxKeysPerLane = 8;  // N <= 256
+constexpr int kCoreThreads = 256;  // 8 warps
+constexpr int kSplit = 4;          // warps a query tile: keys split 4 ways
+constexpr int kCoreGroups = kCoreThreads / (32 * kSplit);
 
 // 2. Softmax attention for one (head, image); SHIFTMAX: the ivit softmax,
-// else the ibert one.  Keys and values staged by stage_kv; one query row
-// and one probs row per warp.
-template <bool SHIFTMAX>
-__global__ void __launch_bounds__(kThreads)
-attn_core_kernel(const int8_t* __restrict__ qkv, AttnScalars sp,
-                 int8_t* __restrict__ ctx, int Np, int C, int Dh, int n_valid,
-                 int attn_bits, int fast_q, int fast_poly) {
+// else the ibert one.  Each group of kSplit warps takes 16 query rows at a
+// time, warp p of it keys 64 p .. 64 p + 63 (Np <= 256), so that a thread
+// holds at most 32 scores; MAXD: chunks of 32 channels (2: Dh <= 64, 4:
+// Dh <= 128).  Three blocks an SM (80 registers a thread) hold the
+// Shiftmax core at Dh <= 64; the ibert core, whose exp keeps more
+// constants live, and Dh 128 take two (128 registers), spilling nothing.
+template <bool SHIFTMAX, int MAXD>
+__global__ void __launch_bounds__(kCoreThreads, SHIFTMAX && MAXD <= 2 ? 3 : 2)
+attn_core_mma_kernel(const int8_t* __restrict__ qkv, AttnScalars sp,
+                     int8_t* __restrict__ ctx, int Np, int C, int Dh,
+                     int n_valid, int attn_bits, int fast_q, int fast_poly) {
   extern __shared__ __align__(16) int8_t smem[];
-  const int np4 = (Np + 3) & ~3;
+  const int h = blockIdx.x, b = blockIdx.y, warp = threadIdx.x >> 5;
+  const int group = warp / kSplit;
   int8_t* Ks = smem;
-  int8_t* Vt = Ks + Np * (Dh + 4);
-  int8_t* Qs = Vt + Dh * (np4 + 4);  // [8][Dh]
-  int8_t* Ps = Qs + 8 * Dh;          // [8][np4]
-  const int h = blockIdx.x, b = blockIdx.y;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  int8_t* Vt = Ks + ((Np + 31) & ~31) * kv_ld(Dh);
+  int* xch = reinterpret_cast<int*>(smem + kv_bytes(Np, Dh) +
+                                    group * split_xchg_bytes(kSplit, Dh));
   const int8_t* base = qkv + (size_t)b * Np * 3 * C + h * Dh;
-  stage_kv(base, Np, C, Dh, Ks, Vt);
+  stage_kv(base, Np, C, Dh, Ks, Vt, threadIdx.x, kCoreThreads);
   __syncthreads();
 
   const float m_attn = __ldg(sp.m_attn), m_av = __ldg(sp.m_av);
   const SoftmaxConsts k = softmax_consts_of<SHIFTMAX>(sp);
   const float lim_a = bits_lim(attn_bits);
-  int8_t* q = Qs + warp * Dh;
-  int8_t* p = Ps + warp * np4;
-  for (int i = warp; i < Np; i += 8) {
-    load_q(base, i, C, Dh, q, lane);
-    float s[kMaxKeysPerLane];
-    float smax = -8388608.f;  // -2**23, the reference's pad-column fill
-#pragma unroll
-    for (int t = 0; t < kMaxKeysPerLane; ++t) {
-      int j = lane + 32 * t;
-      s[t] = -8388608.f;
-      if (j < n_valid) {
-        s[t] = requant(__int2float_rn(qk_dot(q, Ks, j, Dh)), m_attn, lim_a);
-        smax = fmaxf(smax, s[t]);
-      }
-    }
-    softmax_pv_row<SHIFTMAX>(s, smax, n_valid, k, fast_q, fast_poly, p, Vt,
-                             np4, Dh, m_av, ctx + ((size_t)b * Np + i) * C + h * Dh,
-                             lane);
-  }
+  auto score = [&](int, int, int dot) {
+    return requant(__int2float_rn(dot), m_attn, lim_a);
+  };
+  int8_t* cbase = ctx + (size_t)b * Np * C + h * Dh;
+  SplitReduce<kSplit> red{xch, warp % kSplit, 1 + group, 0, 0};
+  for (int i0 = 16 * group; i0 < Np; i0 += 16 * kCoreGroups)
+    attn_tile<SHIFTMAX, 8 / kSplit, MAXD>(base, 3 * C, i0, Np, Dh, n_valid, Ks,
+                                          Vt, score, k, fast_q, fast_poly, m_av,
+                                          cbase, C, red);
 }
 
 template <int BN, bool SHIFTMAX>
@@ -93,32 +96,39 @@ int launch_attn(const int8_t* x, const int8_t* ln_in, const float* ln_bias,
                 int attn_bits, int proj_bits, int out_bits, int ln_ivit,
                 int fast_q, int fast_poly, cudaStream_t stream) {
   const int R = B * Np, Dh = C / H;
-  const size_t smem_gemm = gemm_smem(C, BN), smem_core = core_smem(Np, Dh);
+  const size_t smem_gemm = wg_smem(C, BN);
+  const size_t smem_core =
+      kv_bytes(Np, Dh) + kCoreGroups * split_xchg_bytes(kSplit, Dh);
+  CUtensorMap mq, mpj;
   cudaError_t err;
-  if ((err = allow_gemm_smem<BN>(C)) != cudaSuccess ||
-      (err = cudaFuncSetAttribute(attn_core_kernel<SHIFTMAX>,
+  if ((err = prepare_gemms<BN>(wqkv_t, wp_t, C, &mq, &mpj)) != cudaSuccess ||
+      (err = cudaFuncSetAttribute(attn_core_mma_kernel<SHIFTMAX, 2>,
+                                  cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                  (int)smem_core)) != cudaSuccess ||
+      (err = cudaFuncSetAttribute(attn_core_mma_kernel<SHIFTMAX, 4>,
                                   cudaFuncAttributeMaxDynamicSharedMemorySize,
                                   (int)smem_core)) != cudaSuccess)
     return (int)err;
-  const dim3 row_grid((R + kTileM - 1) / kTileM);
-  ln_qkv_kernel<BN><<<row_grid, kThreads, smem_gemm, stream>>>(
-      x, ln_in, ln_bias, m_ln, wqkv_t, bqkv, mqkv, sp, qkv, R, C, 0, ln_ivit);
+  const int row_blocks = (R + kGemmRows - 1) / kGemmRows;
+  ln_qkv_wgmma_kernel<BN><<<row_blocks, kGemmThreads, smem_gemm, stream>>>(
+      mq, x, ln_in, ln_bias, m_ln, bqkv, mqkv, sp, qkv, R, C, 0, ln_ivit);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-  attn_core_kernel<SHIFTMAX><<<dim3(H, B), kThreads, smem_core, stream>>>(
-      qkv, sp, ctx, Np, C, Dh, n_valid, attn_bits, fast_q, fast_poly);
+  const dim3 core_grid(H, B);
+  if (Dh <= 64)
+    attn_core_mma_kernel<SHIFTMAX, 2><<<core_grid, kCoreThreads, smem_core, stream>>>(
+        qkv, sp, ctx, Np, C, Dh, n_valid, attn_bits, fast_q, fast_poly);
+  else
+    attn_core_mma_kernel<SHIFTMAX, 4><<<core_grid, kCoreThreads, smem_core, stream>>>(
+        qkv, sp, ctx, Np, C, Dh, n_valid, attn_bits, fast_q, fast_poly);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-  proj_kernel<BN><<<row_grid, kThreads, smem_gemm, stream>>>(
-      x, ctx, wp_t, bp, mp, sp, out, R, C, proj_bits, out_bits, 0, 0);
+  proj_wgmma_kernel<BN><<<gemm_grid(R, C, BN), kGemmThreads, smem_gemm,
+                          stream>>>(mpj, x, ctx, bp, mp, sp, out, R, C,
+                                    proj_bits, out_bits, 0, 0);
   return (int)cudaGetLastError();
 }
 
 }  // namespace ivit
 
-// Pointers in the wrapper's argument order; ln_in may be null (LN in the
-// kernel) and s_exp_act is read by the ibert softmax only; ln_shift,
-// m_attn, s_attn, s_exp_act, m_av, m_res_x and m_res_id point at one f32
-// each.  qkv [B * Np, 3C] and ctx [B * Np, C] are int8 scratch.  ln_ivit /
-// sm_ivit pick the ivit LN / softmax over the ibert ones.
 extern "C" int ivit_attn_block(const int8_t* x, const int8_t* ln_in,
                                const float* ln_bias,
                                const float* m_ln, const float* ln_shift,
@@ -138,8 +148,10 @@ extern "C" int ivit_attn_block(const int8_t* x, const int8_t* ln_in,
                        m_av,     m_res_x, m_res_id};
   // 128-column passes where C allows (DeiT-S: 3C = 1152, C = 384), else 96
   // or 64
-  const int bn = pass_width(3 * C, C);
-  if (bn == 0) return (int)cudaErrorInvalidValue;
+  const int bn = pass_width(3 * C, C), dh = H > 0 ? C / H : 0;
+  if (bn == 0 || C % 32 || C > 1024 || dh * H != C || dh % 4 ||
+      dh > 128 || Np < 1 || Np > 256 || n_valid < 1 || n_valid > Np)
+    return (int)cudaErrorInvalidValue;
   auto launch = sm_ivit ? (bn == 128  ? launch_attn<128, true>
                            : bn == 96 ? launch_attn<96, true>
                                       : launch_attn<64, true>)

@@ -1,16 +1,21 @@
 // The launches that the two attention kernels share (attn_block.cu for ViT,
 // swin_attn_block.cu for Swin's windows): each is a chain of three kernels
 // on one stream, counted as one,
-//   1. ln_qkv_kernel: LN + qkv GEMM + requant over flat token rows;
-//   2. a softmax attention core per (head, image) or (window, head), whose
-//      row code is softmax_pv_row below;
-//   3. proj_kernel: proj GEMM + requant + integer residual.
+//   1. ln_qkv_wgmma_kernel: LN + qkv GEMM + requant over flat token rows,
+//      on wgmma with TMA-fed weights (wgmma_gemm.cuh);
+//   2. a softmax attention core per (head, image) or (window, head) on
+//      mma.sync tensor cores, whose 16-query-row tile is attn_tile below;
+//   3. proj_wgmma_kernel: proj GEMM + requant + integer residual, on the
+//      same wgmma row GEMM.
 // The token stream is int8 (ViT) or int16 (Swin), read and written as it
 // is; the LN shift and the exp constants are derived in every thread from
 // the spec's scalar leaves.
 #pragma once
 
+#include <mutex>
+
 #include "ivit.cuh"
+#include "wgmma_gemm.cuh"
 
 namespace ivit {
 
@@ -62,197 +67,569 @@ __device__ __forceinline__ SoftmaxConsts softmax_consts_of(AttnScalars sp) {
   return k;
 }
 
-// Stage one (image, head)'s or (window, head)'s keys and values in shared
-// memory: k rows [Np][Dh + 4] (an odd word stride, so the 32 lanes reading
-// 32 keys hit 32 banks) and v transposed [Dh][np4 + 4] with np4 = Np rounded
-// up to 4 and zero-filled, so probs @ v runs as dp4a over 4 keys at a time.
-// base: the first token's q columns of this head in the int8 qkv rows.
+// ibert_exp in int32 for x0 in (-2**13, -1), where the polynomial's terms
+// stay below 2**23 (ibert_exp_int_ok): every f32 step of ibert_exp is then
+// an exact integer, so this gives its bits.  q = floor(x / x0) <= 30 by
+// div_small, r = x - x0 q, z = r (r + b) + c, and 2**(30 - q) z as an
+// exact f32 product.
+__device__ __forceinline__ bool ibert_exp_int_ok(const ExpConsts& ec) {
+  return ec.x0 > -8192.f && ec.x0 < -1.f &&
+         fabsf(ec.x0) * (fabsf(ec.x0) + fabsf(ec.b)) + fabsf(ec.c) < 8388608.f;
+}
+__device__ __forceinline__ float ibert_exp_i32(int x, int x0, unsigned magic,
+                                               int b, int c) {
+  x = max(x, 30 * x0);
+  const int q = div_small(-x, magic), r = x - x0 * q, z = r * (r + b) + c;
+  return fmaxf(__int2float_rn(z) * __int_as_float((157 - q) << 23), 0.f);
+}
+
+// The ibert softmax (int exp, 16-bit exp requant, 2**32 reciprocal) of one
+// row on the accumulator layout, as shiftmax_quad runs Shiftmax: values
+// v[i] at columns col0 + quad_col(i, t), those of i < nv_live computed,
+// columns >= n_valid padding with probability 0; max and int32 sum by red.
+// The exp runs in int32 where ibert_exp_int_ok, else in f32.
+template <int NV, class Red>
+__device__ __forceinline__ void ibert_softmax_quad(float (&v)[NV], int nv_live,
+                                                   int t, int col0, int n_valid,
+                                                   const SoftmaxConsts& k,
+                                                   int fast_q, int fast_poly,
+                                                   Red& red) {
+  float smax = -8388608.f;  // -2**23, the reference's pad-column fill
+#pragma unroll
+  for (int i = 0; i < NV; ++i)
+    if (i < nv_live && col0 + quad_col(i, t) < n_valid) smax = fmaxf(smax, v[i]);
+  smax = red.max(smax);
+  int esum = 0;
+  auto exp16 = [&](float e, int i) {
+    const float e16 = clampf(rintf(e * k.m_exp_act), -32768.f, 32767.f);
+    esum += (int)e16;
+    v[i] = e16;
+  };
+  if (ibert_exp_int_ok(k.ec)) {
+    const int x0 = (int)k.ec.x0, b = (int)k.ec.b, c = (int)k.ec.c;
+    const unsigned magic = div_magic(-x0);
+#pragma unroll
+    for (int i = 0; i < NV; ++i) {
+      if (i < nv_live && col0 + quad_col(i, t) < n_valid)
+        exp16(ibert_exp_i32(__float2int_rn(fmaxf(v[i] - smax, -1073741824.f)),
+                            x0, magic, b, c), i);
+      else
+        v[i] = 0.f;
+    }
+  } else {
+#pragma unroll
+    for (int i = 0; i < NV; ++i) {
+      if (i < nv_live && col0 + quad_col(i, t) < n_valid)
+        exp16(ibert_exp(v[i] - smax, k.ec.x0, k.ec.b, k.ec.c, fast_q, fast_poly), i);
+      else
+        v[i] = 0.f;
+    }
+  }
+  esum = red.sum(esum);
+  const float factor = floorf(rdiv(4294967296.f, __int2float_rn(esum)));
+#pragma unroll
+  for (int i = 0; i < NV; ++i) v[i] = floorf(v[i] * factor * 0x1p-25f);
+}
+
+// Row reductions of an attention tile whose keys one warp holds: over the
+// 4 lanes of the row's quad (row: the row in the tile, unused here).
+struct QuadReduce {
+  static constexpr int kParts = 1;
+  int part, row;
+  __device__ __forceinline__ float max(float v) { return quad_max(v); }
+  __device__ __forceinline__ int sum(int v) { return quad_sum(v); }
+};
+
+// The shared memory through which the K warps that split a tile's keys
+// exchange their row maxima and sums (two alternating slots of [K warps][16
+// rows] words) and their int32 P v partial sums (warps 1 .. K - 1, each
+// [channel tiles][4][32 lanes]).
+__host__ __device__ constexpr size_t split_xchg_bytes(int K, int dh) {
+  return (size_t)2 * K * 16 * 4 +
+         (size_t)(K - 1) * (((dh + 31) & ~31) / 8) * 4 * 32 * 4;
+}
+
+// ... or over the quads of the row in all K warps of a split (part 0 ..
+// K - 1): each quad's value goes through shared memory to the others, and
+// every warp combines the K values in the same order-free way (max; exact
+// int32 sum).  One named barrier (bar, 32 K threads) an exchange; the
+// slots alternate, so a slot is rewritten only after every warp passed the
+// barrier of the exchange in between, after its reads.
+template <int K>
+struct SplitReduce {
+  static constexpr int kParts = K;
+  int* xch;  // the split's exchange memory (split_xchg_bytes)
+  int part, bar, row, slot;
+  __device__ __forceinline__ const int* publish(int v) {
+    int* b = xch + slot * K * 16;
+    if ((threadIdx.x & 3) == 0) b[part * 16 + row] = v;
+    asm volatile("bar.sync %0, %1;\n" ::"r"(bar), "n"(32 * K) : "memory");
+    slot ^= 1;
+    return b + row;  // part p's value at [16 p]
+  }
+  __device__ __forceinline__ float max(float v) {
+    const int* b = publish(__float_as_int(quad_max(v)));
+    float m = __int_as_float(b[0]);
+#pragma unroll
+    for (int p = 1; p < K; ++p) m = fmaxf(m, __int_as_float(b[16 * p]));
+    return m;
+  }
+  __device__ __forceinline__ int sum(int v) {
+    const int* b = publish(quad_sum(v));
+    int total = 0;
+#pragma unroll
+    for (int p = 0; p < K; ++p) total += b[16 * p];
+    return total;
+  }
+};
+
+// One head's keys and values in shared memory, for n tokens of Dh
+// channels, both rounded up to 32 (kp, dp) and zero-filled:
+//   Ks [kp][kv_ld(Dh)]: key rows, the B operand of q k^T;
+//   Vt [dp][kv_ld(n)]:  v transposed, the B operand of p v, with the keys
+//       of every 32-key chunk permuted to chunk_slot order, so that the
+//       probabilities pack straight from the score accumulators into P's
+//       A fragments.
+// A row stride of 16 mod 32 bytes puts the 8 rows x 4 words of a fragment
+// load in 32 distinct banks.
+__host__ __device__ constexpr int kv_ld(int n) { return ((n + 31) & ~31) + 16; }
+__host__ __device__ constexpr size_t kv_bytes(int n, int dh) {
+  return (size_t)((n + 31) & ~31) * kv_ld(dh) + (size_t)((dh + 31) & ~31) * kv_ld(n);
+}
+
+// The slot of key k (0..31) of a chunk in P's m16n8k32 A fragment: a
+// lane's score accumulators hold keys 8 (i >> 1) + 2t + (i & 1) of each
+// 16-key half, which its A registers name slots 4t + i.
+__device__ __forceinline__ int chunk_slot(int k) {
+  const int r = k & 15;
+  return (k & 16) + 4 * ((r >> 1) & 3) + ((r >> 3) << 1) + (r & 1);
+}
+
+// Stage one (image, head)'s or (window, head)'s k and v (tid of nthr
+// threads).  base: the first token's q columns of this head in the int8
+// qkv rows [n, 3C].
 __device__ __forceinline__ void stage_kv(const int8_t* __restrict__ base,
-                                         int Np, int C, int Dh, int8_t* Ks,
-                                         int8_t* Vt) {
-  const int N3 = 3 * C, dw = Dh >> 2, ldk = Dh + 4;
-  const int np4 = (Np + 3) & ~3, ldv = np4 + 4;
-  for (int i = threadIdx.x; i < np4 * dw; i += kThreads) {
-    int j = i / dw, w = i - j * dw;
+                                         int n, int C, int Dh, int8_t* Ks,
+                                         int8_t* Vt, int tid, int nthr) {
+  const int N3 = 3 * C, kp = (n + 31) & ~31, dw = ((Dh + 31) & ~31) >> 2;
+  const int ldk = kv_ld(Dh), ldv = kv_ld(n);
+  for (int i = tid; i < kp * dw; i += nthr) {
+    const int j = i / dw, w = i - j * dw;
     int kv = 0, vv = 0;
-    if (j < Np) {
+    if (j < n && 4 * w < Dh) {
       const int8_t* src = base + (size_t)j * N3 + 4 * w;
       kv = *reinterpret_cast<const int*>(src + C);
       vv = *reinterpret_cast<const int*>(src + 2 * C);
-      *reinterpret_cast<int*>(Ks + j * ldk + 4 * w) = kv;
     }
+    *reinterpret_cast<int*>(Ks + j * ldk + 4 * w) = kv;
+    const int slot = (j & ~31) + chunk_slot(j & 31);
 #pragma unroll
-    for (int d = 0; d < 4; ++d) Vt[(4 * w + d) * ldv + j] = (int8_t)(vv >> (8 * d));
+    for (int d = 0; d < 4; ++d) Vt[(4 * w + d) * ldv + slot] = (int8_t)(vv >> (8 * d));
   }
 }
 
-// Shared memory of a softmax attention core: Ks, Vt, one query row and one
-// probs row per warp.
-__host__ __device__ constexpr size_t core_smem(int Np, int Dh) {
-  return (size_t)Np * (Dh + 4) + (size_t)Dh * (((Np + 3) & ~3) + 4) +
-         8 * (size_t)Dh + 8 * (size_t)((Np + 3) & ~3);
+// One word of a q row for an A fragment: 4 channels from col, 0 past the
+// n rows or the Dh channels.
+__device__ __forceinline__ int q_word(const int8_t* __restrict__ qbase,
+                                      int row, int n, int N3, int col, int Dh) {
+  return row < n && col < Dh
+             ? *reinterpret_cast<const int*>(qbase + (size_t)row * N3 + col)
+             : 0;
 }
 
-// One warp: the i-th query row of this core's head into q (Dh int8).
-__device__ __forceinline__ void load_q(const int8_t* __restrict__ base, int i,
-                                       int C, int Dh, int8_t* q, int lane) {
-  for (int w = lane; w < (Dh >> 2); w += 32)
-    reinterpret_cast<int*>(q)[w] =
-        *reinterpret_cast<const int*>(base + (size_t)i * 3 * C + 4 * w);
-  __syncwarp();
+__device__ __forceinline__ int pack4(float a, float b, float c, float d) {
+  return (int)(((uint32_t)(int)a & 0xff) | (((uint32_t)(int)b & 0xff) << 8) |
+               (((uint32_t)(int)c & 0xff) << 16) | ((uint32_t)(int)d << 24));
 }
 
-// One warp: q . k_j for this lane's key j, by dp4a.
-__device__ __forceinline__ int qk_dot(const int8_t* q, const int8_t* Ks, int j,
-                                      int Dh) {
-  const int* kr = reinterpret_cast<const int*>(Ks + j * (Dh + 4));
-  const int* qr = reinterpret_cast<const int*>(q);
-  int dot = 0;
-  for (int w = 0; w < (Dh >> 2); ++w) dot = __dp4a(qr[w], kr[w], dot);
-  return dot;
-}
-
-// One warp: the softmax of one query row's f32 scores s[t] (key lane + 32 t,
-// the first n_valid keys real; smax: this lane's max over its real keys)
-// into 8-bit probabilities (Shiftmax: shift exp, exact two-limb row sum,
-// 2**31 reciprocal; or ibert: int exp, 16-bit exp requant, 2**32
-// reciprocal), stored as int8 in p (keys up to np4, padding 0); then
-// ctx_row[d] = requant(p . v[:, d], m_av) for the Dh channels, by dp4a
-// over 4 keys at a time (one output channel per lane).  The scores may lie
-// far below the int8 range (Swin's shift mask): they stay f32 throughout.
-template <bool SHIFTMAX, int MAXV>
-__device__ __forceinline__ void softmax_pv_row(
-    float (&s)[MAXV], float smax, int n_valid, const SoftmaxConsts& k,
-    int fast_q, int fast_poly, int8_t* p, const int8_t* Vt, int np4, int Dh,
-    float m_av, int8_t* __restrict__ ctx_row, int lane) {
-  if (SHIFTMAX) {
-    shiftmax_row(s, n_valid, k.x0, shift_out_scale(8), fast_q, lane);
-  } else {
-    smax = warp_max(smax);
-    int esum = 0;
-#pragma unroll
-    for (int t = 0; t < MAXV; ++t) {
-      int j = lane + 32 * t;
-      float e16 = 0.f;
-      if (j < n_valid) {
-        float e = ibert_exp(s[t] - smax, k.ec.x0, k.ec.b, k.ec.c, fast_q,
-                            fast_poly);
-        e16 = clampf(rintf(e * k.m_exp_act), -32768.f, 32767.f);
-        esum += (int)e16;
-      }
-      s[t] = e16;
-    }
-    esum = warp_sum(esum);
-    float factor = floorf(rdiv(4294967296.f, __int2float_rn(esum)));
-#pragma unroll
-    for (int t = 0; t < MAXV; ++t) s[t] = floorf(s[t] * factor * 0x1p-25f);
-  }
-#pragma unroll
-  for (int t = 0; t < MAXV; ++t) {
-    int j = lane + 32 * t;
-    if (j < np4) p[j] = (int8_t)(int)s[t];
-  }
-  __syncwarp();
-  const int* p4 = reinterpret_cast<const int*>(p);
-  const int ldv = np4 + 4;
-  for (int d = lane; d < Dh; d += 32) {
-    const int* v4 = reinterpret_cast<const int*>(Vt + d * ldv);
-    int a = 0;
-    for (int w = 0; w < (np4 >> 2); ++w) a = __dp4a(p4[w], v4[w], a);
-    ctx_row[d] = (int8_t)(int)requant(__int2float_rn(a), m_av, 128.f);
-  }
-  __syncwarp();
-}
-
-// 1. LN + qkv GEMM + requant.  x: [R, C] int8 or (x16) int16; wqkv_t: the
-// qkv weight transposed, [3C, C]; ln_in: the hoisted LN output [R, C], or
-// null to run the LN here.
-template <int BN>
-__global__ void __launch_bounds__(kThreads)
-ln_qkv_kernel(const void* __restrict__ x, const int8_t* __restrict__ ln_in,
-              const float* __restrict__ ln_bias,
-              const float* __restrict__ m_ln, const int8_t* __restrict__ wqkv_t,
-              const int32_t* __restrict__ bqkv, const float* __restrict__ mqkv,
-              AttnScalars sp, int8_t* __restrict__ qkv, int R, int C, int x16,
-              int ln_ivit) {
-  constexpr int NT = GemmShape<BN, kTileM>::NT;
-  extern __shared__ __align__(16) int8_t smem[];
-  const int lda = tile_ld(C);
-  int8_t* As = smem;
-  int8_t* Bs = As + kTileM * lda;
-  const int r0 = blockIdx.x * kTileM, N3 = 3 * C;
-  const LnShift ln = ln_shift_of(sp.ln_shift);
-  ln_tile_any<kTileM>(x, x16, ln_in, R, C, r0, ln_ivit, ln_bias, m_ln, ln.pw,
-                      ln.inv_pw, As, lda);
+// One warp, or the K warps of a split (part 0 .. K - 1, each with a K-th of
+// the keys): the 16 query rows i0 .. i0 + 15 of one head against all
+// its n keys, on mma.sync m16n8k32 s8 (rows past n are zero and never
+// written):
+//   S = q k^T in int32 accumulators, MAXC chunks of 32 keys a warp (4
+//   tiles of 8 keys each; the warp's chunks part * MAXC .. that hold keys
+//   computed);
+//   score(row, key, dot) -> the f32 score of a real row and key < n_valid;
+//   the softmax on the accumulator layout (shiftmax_quad or
+//   ibert_softmax_quad), each row in the 4 lanes of a quad;
+//   the int8 probabilities packed from those registers into P's A
+//   fragments (keys in chunk_slot order, as Vt holds them), P v over up to
+//   MAXD chunks of 32 channels (the other parts' int32 partials added into
+//   part 0's through shared memory), requant by m_av, 4-byte stores of ctx
+//   rows by part 0.
+// qbase / cbase: row 0, channel 0 of this head in qkv [n, N3] / ctx [n, ldc].
+// red: the row reductions, QuadReduce, or SplitReduce<K>, whose part says
+// which K-th of the keys this warp holds (MAXC chunks from part * MAXC).
+template <bool SHIFTMAX, int MAXC, int MAXD, class Red, class Score>
+__device__ __forceinline__ void attn_tile(
+    const int8_t* __restrict__ qbase, int N3, int i0, int n, int Dh,
+    int n_valid, const int8_t* Ks, const int8_t* Vt, Score score,
+    const SoftmaxConsts& k, int fast_q, int fast_poly, float m_av,
+    int8_t* __restrict__ cbase, int ldc, Red& red) {
+  const int part = red.part;
+  constexpr int NT = 4 * MAXC, DT = 4 * MAXD;  // 8-key and 8-channel tiles
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const int c0 = part * MAXC;                            // first chunk
+  const int nc = min(MAXC, max(0, ((n + 31) >> 5) - c0));  // chunks with keys
+  const int nd = (Dh + 31) >> 5, key0 = 32 * c0;
+  const int ldk = kv_ld(Dh), ldv = kv_ld(n);
   int acc[NT][4];
-  for (int n0 = 0; n0 < N3; n0 += BN) {
-    gemm_tile<BN, kTileM>(As, lda, wqkv_t, C, n0, Bs, acc);
 #pragma unroll
-    for (int j = 0; j < NT; ++j)
+  for (int j = 0; j < NT; ++j)
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        int gr = r0 + tile_row<kTileM>(e), col = n0 + tile_col<BN, kTileM>(j, e);
-        if (gr >= R) continue;
-        qkv[(size_t)gr * N3 + col] = (int8_t)(int)requant(
-            __int2float_rn(acc[j][e] + __ldg(bqkv + col)), __ldg(mqkv + col),
-            128.f);
+    for (int e = 0; e < 4; ++e) acc[j][e] = 0;
+#pragma unroll
+  for (int kk = 0; kk < MAXD; ++kk) {
+    if (kk < nd) {
+      const int c = 32 * kk + 4 * t;
+      const int a0 = q_word(qbase, i0 + g, n, N3, c, Dh);
+      const int a1 = q_word(qbase, i0 + g + 8, n, N3, c, Dh);
+      const int a2 = q_word(qbase, i0 + g, n, N3, c + 16, Dh);
+      const int a3 = q_word(qbase, i0 + g + 8, n, N3, c + 16, Dh);
+#pragma unroll
+      for (int j = 0; j < NT; ++j) {
+        if (j < 4 * nc) {
+          const int8_t* kr = Ks + (key0 + 8 * j + g) * ldk + c;
+          mma_s8(acc[j], a0, a1, a2, a3, *reinterpret_cast<const int*>(kr),
+                 *reinterpret_cast<const int*>(kr + 16));
+        }
       }
+    }
+  }
+  // f32 scores of rows g (s[0]) and g + 8 (s[1]); index 2j + (e & 1) is
+  // column key0 + quad_col(2j + (e & 1), t); a padding row's scores are 0
+  float s[2][2 * NT];
+#pragma unroll
+  for (int j = 0; j < NT; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int row = i0 + g + 8 * (e >> 1), key = key0 + 8 * j + 2 * t + (e & 1);
+      float v = -8388608.f;
+      if (j < 4 * nc && key < n_valid) v = row < n ? score(row, key, acc[j][e]) : 0.f;
+      s[e >> 1][2 * j + (e & 1)] = v;
+    }
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    red.row = g + 8 * h;
+    if (SHIFTMAX)
+      shiftmax_quad(s[h], 8 * nc, t, key0, n_valid, k.x0, shift_out_scale(8),
+                    fast_q, red);
+    else
+      ibert_softmax_quad(s[h], 8 * nc, t, key0, n_valid, k, fast_q, fast_poly,
+                         red);
+  }
+  // P's A fragments, chunk c: registers 0-1 rows g / g + 8 of tiles 4c and
+  // 4c + 1, registers 2-3 those of tiles 4c + 2 and 4c + 3
+  int pa[MAXC][4];
+#pragma unroll
+  for (int c = 0; c < MAXC; ++c)
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      const float* v = &s[r & 1][8 * c + 4 * (r >> 1)];
+      pa[c][r] = pack4(v[0], v[1], v[2], v[3]);
+    }
+  int o[DT][4];
+#pragma unroll
+  for (int d = 0; d < DT; ++d)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[d][e] = 0;
+#pragma unroll
+  for (int c = 0; c < MAXC; ++c) {
+    if (c < nc) {
+#pragma unroll
+      for (int d = 0; d < DT; ++d) {
+        if (d < 4 * nd) {
+          const int8_t* vr = Vt + (8 * d + g) * ldv + key0 + 32 * c + 4 * t;
+          mma_s8(o[d], pa[c][0], pa[c][1], pa[c][2], pa[c][3],
+                 *reinterpret_cast<const int*>(vr),
+                 *reinterpret_cast<const int*>(vr + 16));
+        }
+      }
+    }
+  }
+  if constexpr (Red::kParts > 1) {  // parts 1.. add their sums into part 0's
+    int* pv = red.xch + 2 * Red::kParts * 16;
+    const int stride = 4 * nd * 4 * 32;  // one part's partial sums
+    if (part > 0) {
+#pragma unroll
+      for (int d = 0; d < DT; ++d)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          if (d < 4 * nd) pv[(part - 1) * stride + (4 * d + e) * 32 + lane] = o[d][e];
+    }
+    asm volatile("bar.sync %0, %1;\n" ::"r"(red.bar), "n"(32 * Red::kParts)
+                 : "memory");
+    if (part > 0) return;
+#pragma unroll
+    for (int p = 1; p < Red::kParts; ++p)
+#pragma unroll
+      for (int d = 0; d < DT; ++d)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          if (d < 4 * nd) o[d][e] += pv[(p - 1) * stride + (4 * d + e) * 32 + lane];
+  }
+  // ctx: requant, then two lanes' 16-bit pairs of two tiles into one word
+#pragma unroll
+  for (int d = 0; d < DT; d += 2) {
+    if (d < 4 * nd) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        uint32_t v[2];
+#pragma unroll
+        for (int q = 0; q < 2; ++q) {
+          const int lo = (int)requant(__int2float_rn(o[d + q][2 * h]), m_av, 128.f);
+          const int hi = (int)requant(__int2float_rn(o[d + q][2 * h + 1]), m_av, 128.f);
+          v[q] = (uint32_t)(lo & 0xff) | ((uint32_t)(hi & 0xff) << 8);
+        }
+        const uint32_t word = pair_word(v[0], v[1]);
+        const int row = i0 + g + 8 * h, col = 8 * d + pair_col();
+        if (row < n && col < Dh)
+          *reinterpret_cast<uint32_t*>(cbase + (size_t)row * ldc + col) = word;
+      }
+    }
   }
 }
 
-// 3. proj GEMM + requant to proj_bits + residual to out_bits.  wp_t: the
-// proj weight transposed, [C, C]; x and out: [R, C], int8 or (x16 / o16)
-// int16.
+// The LN prologue of ln_qkv: the LN (ivit or ibert form, exact.cuh
+// ln_row_i32) of the 64 rows r0.. of x (XT: int8 or int16) into the
+// swizzled A tile.  A row takes L lanes (8 below C 256, else 16), so a
+// warp runs 32 / L rows at once: the Newton chain and the group reductions
+// are latency.  Rows past R rerun row R - 1 (every lane of a warp
+// takes part in the group sums); the GEMM never stores them.
+template <int L, typename XT>
+__device__ __forceinline__ void ln_rows_swizzled(
+    const XT* __restrict__ x, int R, int C, int r0, bool ivit,
+    const float* __restrict__ bias, const float* __restrict__ m_ln, float pw,
+    int shift, int8_t* A) {
+  constexpr int kGroups = 32 / L, kWarps = kGemmConsumers / 32;
+  const int lane = threadIdx.x & (L - 1);
+  const int first = (threadIdx.x >> 5) * kGroups + ((threadIdx.x & 31) / L);
+  for (int row = first; row < kGemmRows; row += kWarps * kGroups) {
+    const XT* xrow = x + (size_t)min(r0 + row, R - 1) * C;
+    const SwizzledRow out{A, row};
+    if (ivit)
+      ln_row_i32<true, L>(xrow, C, bias, m_ln, 1.f, 0, out, lane);
+    else
+      ln_row_i32<false, L>(xrow, C, bias, m_ln, pw, shift, out, lane);
+  }
+}
+
+template <typename XT>
+__device__ __forceinline__ void ln_rows_any_width(
+    const XT* __restrict__ x, int R, int C, int r0, bool ivit,
+    const float* __restrict__ bias, const float* __restrict__ m_ln, float pw,
+    int shift, int8_t* A) {
+  if (C < 256)
+    ln_rows_swizzled<8>(x, R, C, r0, ivit, bias, m_ln, pw, shift, A);
+  else
+    ln_rows_swizzled<16>(x, R, C, r0, ivit, bias, m_ln, pw, shift, A);
+}
+
+// 1. LN + qkv GEMM + requant.  x: [R, C] int8 or (x16) int16; wqkv: the
+// tensor map of the qkv weight transposed, [3C, C]; ln_in: the hoisted LN
+// output [R, C], or null to run the LN here.
 template <int BN>
-__global__ void __launch_bounds__(kThreads)
-proj_kernel(const void* __restrict__ x, const int8_t* __restrict__ ctx,
-            const int8_t* __restrict__ wp_t, const int32_t* __restrict__ bp,
-            const float* __restrict__ mp, AttnScalars sp,
-            void* __restrict__ out, int R, int C, int proj_bits, int out_bits,
-            int x16, int o16) {
-  constexpr int NT = GemmShape<BN, kTileM>::NT;
-  extern __shared__ __align__(16) int8_t smem[];
-  const int lda = tile_ld(C);
-  int8_t* As = smem;
-  int8_t* Bs = As + kTileM * lda;
-  const int r0 = blockIdx.x * kTileM;
-  copy_tile<kTileM>(ctx, R, C, r0, As, lda);
+__global__ void __launch_bounds__(kGemmThreads, 2)
+ln_qkv_wgmma_kernel(const __grid_constant__ CUtensorMap wqkv,
+                    const void* __restrict__ x, const int8_t* __restrict__ ln_in,
+                    const float* __restrict__ ln_bias,
+                    const float* __restrict__ m_ln,
+                    const int32_t* __restrict__ bqkv,
+                    const float* __restrict__ mqkv, AttnScalars sp,
+                    int8_t* __restrict__ qkv, int R, int C, int x16,
+                    int ln_ivit) {
+  const int r0 = blockIdx.x * kGemmRows, N3 = 3 * C;
+  auto fill = [&](int8_t* A) {
+    if (ln_in != nullptr) {
+      copy_rows_swizzled(ln_in, R, C, r0, A);
+      return;
+    }
+    // 2**shift = pw, pow2's clamped exponent
+    const LnShift ln = ln_shift_of(sp.ln_shift);
+    const int shift = ((__float_as_int(ln.pw) >> 23) & 255) - 127;
+    if (x16)
+      ln_rows_any_width(static_cast<const int16_t*>(x), R, C, r0, ln_ivit,
+                        ln_bias, m_ln, ln.pw, shift, A);
+    else
+      ln_rows_any_width(static_cast<const int8_t*>(x), R, C, r0, ln_ivit,
+                        ln_bias, m_ln, ln.pw, shift, A);
+  };
+  auto epi = [&](int (&acc)[BN / 4], int c0) {
+#pragma unroll
+    for (int j = 0; j < BN / 16; j += 2)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        uint32_t v[2];
+#pragma unroll
+        for (int q = 0; q < 2; ++q) {
+          const int col = c0 + wg_col(j + q, 0);
+          const int2 b = __ldg(reinterpret_cast<const int2*>(bqkv + col));
+          const float2 m = __ldg(reinterpret_cast<const float2*>(mqkv + col));
+          const int* a = &acc[4 * (j + q) + 2 * h];
+          const int lo = (int)requant(__int2float_rn(a[0] + b.x), m.x, 128.f);
+          const int hi = (int)requant(__int2float_rn(a[1] + b.y), m.y, 128.f);
+          v[q] = (uint32_t)(lo & 0xff) | ((uint32_t)(hi & 0xff) << 8);
+        }
+        const uint32_t word = pair_word(v[0], v[1]);
+        const int gr = r0 + wg_row(2 * h);
+        if (gr < R)
+          *reinterpret_cast<uint32_t*>(qkv + (size_t)gr * N3 + c0 + 8 * j +
+                                       pair_col()) = word;
+      }
+  };
+  wgmma_rows<BN, false>(&wqkv, C, N3, fill, epi);
+}
+
+// 3. proj GEMM + requant to proj_bits + residual to out_bits.  wp: the
+// tensor map of the proj weight transposed, [C, C]; x and out: [R, C],
+// int8 or (x16 / o16) int16.
+template <int BN>
+__global__ void __launch_bounds__(kGemmThreads, 2)
+proj_wgmma_kernel(const __grid_constant__ CUtensorMap wp,
+                  const void* __restrict__ x, const int8_t* __restrict__ ctx,
+                  const int32_t* __restrict__ bp, const float* __restrict__ mp,
+                  AttnScalars sp, void* __restrict__ out, int R, int C,
+                  int proj_bits, int out_bits, int x16, int o16) {
+  const int r0 = blockIdx.x * kGemmRows;
+  auto fill = [&](int8_t* A) { copy_rows_swizzled(ctx, R, C, r0, A); };
   const float m_res_x = __ldg(sp.m_res_x), m_res_id = __ldg(sp.m_res_id);
   const float lim_p = bits_lim(proj_bits), lim_o = bits_lim(out_bits);
-  int acc[NT][4];
-  for (int n0 = 0; n0 < C; n0 += BN) {
-    gemm_tile<BN, kTileM>(As, lda, wp_t, C, n0, Bs, acc);
+  auto epi = [&](int (&acc)[BN / 4], int c0) {
 #pragma unroll
-    for (int j = 0; j < NT; ++j)
+    for (int j = 0; j < BN / 16; j += 2)
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        int gr = r0 + tile_row<kTileM>(e), col = n0 + tile_col<BN, kTileM>(j, e);
-        if (gr >= R) continue;
-        float y2 = requant(__int2float_rn(acc[j][e] + __ldg(bp + col)),
-                           __ldg(mp + col), lim_p);
-        size_t idx = (size_t)gr * C + col;
-        float o = rintf(y2 * m_res_x) + rintf(load_act(x, idx, x16) * m_res_id);
-        store_act(out, idx, clampf(o, -lim_o, lim_o - 1.f), o16);
+      for (int h = 0; h < 2; ++h) {
+        const int gr = r0 + wg_row(2 * h);
+        uint32_t v[2];
+#pragma unroll
+        for (int q = 0; q < 2; ++q) {
+          const int col = c0 + wg_col(j + q, 0);
+          const int2 b = __ldg(reinterpret_cast<const int2*>(bp + col));
+          const float2 m = __ldg(reinterpret_cast<const float2*>(mp + col));
+          const int* a = &acc[4 * (j + q) + 2 * h];
+          const size_t idx = (size_t)gr * C + col;
+          float x0 = 0.f, x1 = 0.f;
+          if (gr < R) {
+            x0 = load_act(x, idx, x16);
+            x1 = load_act(x, idx + 1, x16);
+          }
+          const float y0 = requant(__int2float_rn(a[0] + b.x), m.x, lim_p);
+          const float y1 = requant(__int2float_rn(a[1] + b.y), m.y, lim_p);
+          const int o0 = (int)clampf(rintf(y0 * m_res_x) + rintf(x0 * m_res_id),
+                                     -lim_o, lim_o - 1.f);
+          const int o1 = (int)clampf(rintf(y1 * m_res_x) + rintf(x1 * m_res_id),
+                                     -lim_o, lim_o - 1.f);
+          if (o16) {
+            if (gr < R)
+              *reinterpret_cast<uint32_t*>(static_cast<int16_t*>(out) + idx) =
+                  (uint32_t)(o0 & 0xffff) | ((uint32_t)(o1 & 0xffff) << 16);
+          } else {
+            v[q] = (uint32_t)(o0 & 0xff) | ((uint32_t)(o1 & 0xff) << 8);
+          }
+        }
+        if (!o16) {
+          const uint32_t word = pair_word(v[0], v[1]);
+          if (gr < R)
+            *reinterpret_cast<uint32_t*>(static_cast<int8_t*>(out) +
+                                         (size_t)gr * C + c0 + 8 * j +
+                                         pair_col()) = word;
+        }
       }
+  };
+  wgmma_rows<BN, true>(&wp, C, C, fill, epi);
+}
+
+// The TMA descriptor of a weight W [N, K] int8, row-major: [BN, 128]-byte
+// boxes with the 128-byte swizzle, zero past K.  cuTensorMapEncodeTiled
+// comes from the driver through the runtime's entry-point query (no -lcuda);
+// descriptors are cached by pointer and shape, since the host sets the
+// pace of small calls.
+typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                  void*, const cuuint64_t*, const cuuint64_t*,
+                                  const cuuint32_t*, const cuuint32_t*,
+                                  CUtensorMapInterleave, CUtensorMapSwizzle,
+                                  CUtensorMapL2promotion,
+                                  CUtensorMapFloatOOBfill);
+
+inline cudaError_t weight_map(CUtensorMap* map, const int8_t* w, int N, int K,
+                              int BN) {
+  struct Entry {
+    const int8_t* w;
+    int N, K, BN;
+    CUtensorMap map;
+  };
+  constexpr int kCache = 16;
+  static Entry cache[kCache];
+  static int used = 0, next = 0;
+  static EncodeTiledFn encode = nullptr;
+  static std::mutex mu;
+  std::lock_guard<std::mutex> lock(mu);
+  for (int i = 0; i < used; ++i) {
+    const Entry& e = cache[i];
+    if (e.w == w && e.N == N && e.K == K && e.BN == BN) {
+      *map = e.map;
+      return cudaSuccess;
+    }
   }
+  if (encode == nullptr) {
+    void* fn = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &fn,
+                                              cudaEnableDefault, &found);
+    if (err != cudaSuccess) return err;
+    if (found != cudaDriverEntryPointSuccess || fn == nullptr)
+      return cudaErrorNotSupported;
+    encode = reinterpret_cast<EncodeTiledFn>(fn);
+  }
+  const cuuint64_t dims[2] = {(cuuint64_t)K, (cuuint64_t)N};
+  const cuuint64_t strides[1] = {(cuuint64_t)K};
+  const cuuint32_t box[2] = {(cuuint32_t)kSliceK, (cuuint32_t)BN};
+  const cuuint32_t unit[2] = {1, 1};
+  if (encode(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2, const_cast<int8_t*>(w), dims,
+             strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+             CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
+    return cudaErrorInvalidValue;
+  cache[next] = {w, N, K, BN, *map};
+  next = (next + 1) % kCache;
+  if (used < kCache) ++used;
+  return cudaSuccess;
 }
 
-// Shared memory of ln_qkv_kernel and proj_kernel: a 64-row int8 tile and
-// the weight ring.
-__host__ __device__ constexpr size_t gemm_smem(int C, int BN) {
-  return (size_t)kTileM * tile_ld(C) + gemm_stage_bytes(BN);
+// Blocks of the proj launch over R rows and N columns: ceil(R / 64) row
+// blocks, times a split of the BN-column passes where the row blocks alone
+// would leave SMs idle (Swin-T's last stage has 49 of them for 132 SMs).
+// ln_qkv is not split: each split block would rerun the LN of its rows.
+inline dim3 gemm_grid(int R, int N, int BN) {
+  static int sms = 0;
+  if (sms == 0) {
+    int dev = 0;
+    if (cudaGetDevice(&dev) != cudaSuccess ||
+        cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) !=
+            cudaSuccess)
+      sms = 1;
+  }
+  const int rows = (R + kGemmRows - 1) / kGemmRows, passes = N / BN;
+  const int split = min(passes, max(1, (2 * sms + rows - 1) / rows));
+  return dim3(rows, split);
 }
 
-// Raise the dynamic shared memory limit of ln_qkv_kernel<BN> and
-// proj_kernel<BN> to gemm_smem(C, BN).
+// Launch the two GEMM launches' kernels around a core launch: set their
+// shared memory limit and build both weight maps.
 template <int BN>
-cudaError_t allow_gemm_smem(int C) {
-  const int bytes = (int)gemm_smem(C, BN);
-  cudaError_t err = cudaFuncSetAttribute(
-      ln_qkv_kernel<BN>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-  if (err != cudaSuccess) return err;
-  return cudaFuncSetAttribute(
-      proj_kernel<BN>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+cudaError_t prepare_gemms(const int8_t* wqkv_t, const int8_t* wp_t, int C,
+                          CUtensorMap* mq, CUtensorMap* mp) {
+  const int bytes = (int)wg_smem(C, BN);
+  cudaError_t err;
+  if ((err = cudaFuncSetAttribute(ln_qkv_wgmma_kernel<BN>,
+                                  cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                  bytes)) != cudaSuccess ||
+      (err = cudaFuncSetAttribute(proj_wgmma_kernel<BN>,
+                                  cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                  bytes)) != cudaSuccess ||
+      (err = weight_map(mq, wqkv_t, 3 * C, C, BN)) != cudaSuccess)
+    return err;
+  return weight_map(mp, wp_t, C, C, BN);
 }
 
 }  // namespace ivit

@@ -1,6 +1,6 @@
 // Exact f32 integer arithmetic and the shared building blocks of the block
-// kernels (mlp_block.cu, attn_block.cu; ivit.cuh adds the ivit
-// nonlinearities for them and for nonlinear.cu).
+// kernels (mlp_block.cu, and the attention chain of attn_chain.cuh; ivit.cuh
+// adds the ivit nonlinearities for them and for nonlinear.cu).
 //
 // Every helper reproduces the JAX construction of ivit_tpu/ops/quant.py and
 // ivit_tpu/ops/pallas/block.py operation for operation, so the kernels give
@@ -14,7 +14,9 @@
 //   * round is rintf (half to even), 2**k is a bit construction, sqrt is the
 //     IEEE __fsqrt_rn, int32 -> f32 is round to nearest;
 //   * a NaN LN output (an ibert all-zero padding row) is pinned to 0 before
-//     its int8 requant, as the plain version does.
+//     its int8 requant, as the plain version does;
+//   * where every f32 step of a chain is an exact integer (ln_row_i32, the
+//     attention cores' exps), it runs in int32 to the same bits.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -113,8 +115,12 @@ __device__ __forceinline__ float bits_lim(int bits) {
   return (float)(1 << (bits - 1));
 }
 
+// Sum over the L-lane group of this lane (lanes L g .. L g + L - 1; L a
+// power of two, the whole warp by default).  Every lane of the warp takes
+// part.
+template <int L = 32>
 __device__ __forceinline__ int warp_sum(int v) {
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  for (int o = L / 2; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
   return v;
 }
 
@@ -122,6 +128,18 @@ __device__ __forceinline__ float warp_max(float v) {
   for (int o = 16; o > 0; o >>= 1)
     v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
   return v;
+}
+
+// The same over the four lanes of a quad (lanes 4g .. 4g + 3), which hold
+// one row of an mma accumulator tile.
+__device__ __forceinline__ int quad_sum(int v) {
+  v += __shfl_xor_sync(0xffffffffu, v, 1);
+  return v + __shfl_xor_sync(0xffffffffu, v, 2);
+}
+
+__device__ __forceinline__ float quad_max(float v) {
+  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
+  return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
 }
 
 // Two-limb exact sum of integer-valued f32 (quant.exact_int_sum): each lane
@@ -134,9 +152,10 @@ __device__ __forceinline__ void limb_add(int& sh, int& sl, float x) {
   sl += (int)(x - h * 256.f);
 }
 
+template <int L = 32>
 __device__ __forceinline__ float limb_total(int sh, int sl) {
-  sh = warp_sum(sh);
-  sl = warp_sum(sl);
+  sh = warp_sum<L>(sh);
+  sl = warp_sum<L>(sl);
   return __fadd_rn(__fmul_rn(__int2float_rn(sh), 256.f), __int2float_rn(sl));
 }
 
@@ -219,6 +238,57 @@ __device__ __forceinline__ void ln_row(const XT* __restrict__ xrow, int C,
   }
 }
 
+// ln_row for one group of L lanes (lane: the lane in the group; every lane
+// of the warp runs a row at once; C % L == 0), in int32 where ln_row's f32
+// steps are exact integers: the stream's values are ints, so limb_add's
+// limbs are v >> 8 and v & 255, y = v - mean (ibert: floored by 2**shift,
+// an arithmetic shift), y's limbs y >> 8 and y & 255 and their products
+// exact ints.  Only the mean, the sqrt, the factor and the output run in
+// f32, as in ln_row: the same bits, with a third of its conversions.  The
+// group sums do not depend on how the row is split.  The row is read three
+// times (from L1) instead of held in registers.  out_row[c] gives the byte
+// of column c (a pointer or a row writer).
+template <bool IVIT, int L, typename XT, typename Out>
+__device__ __forceinline__ void ln_row_i32(const XT* __restrict__ xrow, int C,
+                                           const float* __restrict__ bias,
+                                           const float* __restrict__ m_ln,
+                                           float pw, int shift, Out out_row,
+                                           int lane) {
+  int sh = 0, sl = 0;
+#pragma unroll 4
+  for (int c = lane; c < C; c += L) {
+    const int v = xrow[c];
+    sh += v >> 8;
+    sl += v & 255;
+  }
+  const float mean = rintf(rdiv(limb_total<L>(sh, sl), (float)C));
+  const int mi = (int)mean;
+  int saa = 0, sab = 0, sbb = 0;
+#pragma unroll 4
+  for (int c = lane; c < C; c += L) {
+    const int d = xrow[c] - mi;
+    const int y = IVIT ? d : (shift >= 0 ? d >> min(shift, 31) : d << -shift);
+    const int a = y >> 8, b = y & 255;
+    saa += a * a;
+    sab += a * b;
+    sbb += b * b;
+  }
+  saa = warp_sum<L>(saa);
+  sab = warp_sum<L>(sab);
+  sbb = warp_sum<L>(sbb);
+  float var = __fadd_rn(__fmul_rn(__int2float_rn(saa), 65536.f),
+                        __fadd_rn(__fmul_rn(__int2float_rn(sab), 512.f),
+                                  __int2float_rn(sbb)));
+  float stdv = IVIT ? newton_sqrt(var) : floorf(__fsqrt_rn(var)) * pw;
+  float factor = floorf(rdiv(2147483648.f, stdv));
+#pragma unroll 4
+  for (int c = lane; c < C; c += L) {
+    float o = floorf(__int2float_rn(xrow[c] - mi) * factor * 0.5f) + __ldg(bias + c);
+    if (o != o) o = 0.f;
+    out_row[c] = (int8_t)(int)requant(o, __ldg(m_ln + c), 128.f);
+  }
+}
+
 // The TM rows r0.. of an int8 [R, C] matrix into As (row stride lda,
 // 16-byte aligned rows, C % 16 == 0); rows past R are zero.
 template <int TM>
@@ -266,22 +336,6 @@ __device__ __forceinline__ void ln_tile(const XT* __restrict__ x,
                     As + row * lda, lane);
     }
   }
-}
-
-// ln_tile on a stream whose type is known only at run time (x16: int16).
-template <int TM>
-__device__ __forceinline__ void ln_tile_any(const void* __restrict__ x,
-                                            bool x16, const int8_t* ln_in,
-                                            int R, int C, int r0, bool ivit,
-                                            const float* bias,
-                                            const float* m_ln, float pw,
-                                            float inv_pw, int8_t* As, int lda) {
-  if (x16)
-    ln_tile<TM>(static_cast<const int16_t*>(x), ln_in, R, C, r0, ivit, bias,
-                m_ln, pw, inv_pw, As, lda);
-  else
-    ln_tile<TM>(static_cast<const int8_t*>(x), ln_in, R, C, r0, ivit, bias,
-                m_ln, pw, inv_pw, As, lda);
 }
 
 __device__ __forceinline__ void mma_s8(int (&c)[4], int a0, int a1, int a2,

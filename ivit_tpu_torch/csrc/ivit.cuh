@@ -3,7 +3,9 @@
 // so that the two forms cannot drift apart:
 //   * int_exp_shift (ivit_tpu/ops/pallas/nonlinear.py _int_exp_shift);
 //   * shiftmax_row, one warp's Shiftmax of a row held in registers
-//     (nonlinear.py _shiftmax_kernel, block.py _shiftmax);
+//     (nonlinear.py _shiftmax_kernel, block.py _shiftmax), and
+//     shiftmax_quad, the same for a row spread over a quad of an mma
+//     accumulator tile (the attention cores);
 //   * shift_gelu_row, one warp's ShiftGELU + requant of an int8 row in
 //     global or shared memory (nonlinear.py _shift_gelu_kernel, block.py
 //     _shift_gelu with the requant after it).
@@ -80,6 +82,102 @@ __device__ __forceinline__ void shiftmax_row(float (&v)[MAXV], int n_valid,
 #pragma unroll
   for (int t = 0; t < MAXV; ++t)
     v[t] = floorf(__fmul_rn(v[t], factor) * out_scale);
+}
+
+// The column of this lane's i-th value of a row in an mma accumulator tile
+// (m16n8, or wgmma's m64nN): 8-column tile i / 2, columns 2t and 2t + 1 of
+// it, t = lane % 4.
+__device__ __forceinline__ int quad_col(int i, int t) {
+  return 8 * (i >> 1) + 2 * t + (i & 1);
+}
+
+// floor(n / d) for 0 <= n < 2**32 / d and d >= 2 by a multiply-high with
+// magic = div_magic(d) = floor((2**32 - 1) / d) + 1: the product overshoots
+// n / d by less than n / 2**32 < 1 / d, short of the next multiple.  The
+// exps below divide n <= 30 d with 2 <= d < 2**13.
+__device__ __forceinline__ unsigned div_magic(int d) {
+  return 0xffffffffu / (unsigned)d + 1u;
+}
+__device__ __forceinline__ int div_small(int n, unsigned magic) {
+  return (int)__umulhi((unsigned)n, magic);
+}
+
+// int_exp_shift at n = 15 in int32 for x0 in (-2**13, -1) and an integer
+// x <= 0 (clamped at -2**30): every f32 step of int_exp_shift is exact
+// there, so this gives its bits in integer instructions alone.  x + x/2 -
+// x/16 with floors is x + (x >> 1) - (x >> 4); q = floor(x / x0) <= 15
+// (either quotient form is exact at these sizes), rem = -x - q |x0|, r =
+// -rem; (r / 2 - x0) 2**(15 - q) = (2 |x0| - rem) 2**(14 - q), floored.
+__device__ __forceinline__ int int_exp_shift15(int x, int x0, unsigned magic) {
+  x = x + (x >> 1) - (x >> 4);
+  x = max(x, 15 * x0);
+  const int q = div_small(-x, magic);
+  const int m = -2 * x0 + x - x0 * q;  // 2 |x0| - rem
+  return q < 15 ? m << (14 - q) : m >> 1;
+}
+
+// int_exp_shift at n = 15 out of line, for the f32 path of shiftmax_quad
+// (x0 past the int32 path's range) in a tile whose keys several warps
+// split, whose exchange state leaves the fewest registers: its registers
+// then do not weigh on the int32 path that the engines' scales take.
+__device__ __noinline__ float int_exp_shift15_f32(float x, float x0, int fast_q) {
+  return int_exp_shift(x, x0, kShiftmaxN, fast_q);
+}
+
+// shiftmax_row on the accumulator layout: one row held by the four lanes
+// of a quad (and, where K warps split the keys, by a quad of each), this
+// lane's values v[i] at columns col0 + quad_col(i, t), those of i < nv_live
+// computed, the columns >= n_valid padding.  red reduces over the row's
+// lanes: red.max(float), red.sum(int).  The max and the two-limb int32
+// sums do not depend on the order of the columns, so every value gets
+// shiftmax_row's bits.  For -2**13 < x0 < -1 the exp runs in int32
+// (int_exp_shift15; the limbs of an int e >= 0 are e >> 8 and e & 255),
+// else in f32 as int_exp_shift.
+template <int NV, class Red>
+__device__ __forceinline__ void shiftmax_quad(float (&v)[NV], int nv_live,
+                                              int t, int col0, int n_valid,
+                                              float x0, float out_scale,
+                                              int fast_q, Red& red) {
+  float vmax = -8388608.f;
+#pragma unroll
+  for (int i = 0; i < NV; ++i)
+    if (i < nv_live && col0 + quad_col(i, t) < n_valid) vmax = fmaxf(vmax, v[i]);
+  vmax = red.max(vmax);
+  int sh = 0, sl = 0;
+  if (x0 > -8192.f && x0 < -1.f) {
+    const int x0i = (int)x0;
+    const unsigned magic = div_magic(-x0i);
+#pragma unroll
+    for (int i = 0; i < NV; ++i) {
+      int e = 0;
+      if (i < nv_live && col0 + quad_col(i, t) < n_valid) {
+        e = int_exp_shift15(__float2int_rn(fmaxf(v[i] - vmax, -1073741824.f)),
+                            x0i, magic);
+        sh += e >> 8;
+        sl += e & 255;
+      }
+      v[i] = __int2float_rn(e);
+    }
+  } else {
+#pragma unroll
+    for (int i = 0; i < NV; ++i) {
+      float e = 0.f;
+      if (i < nv_live && col0 + quad_col(i, t) < n_valid) {
+        e = Red::kParts > 1 ? int_exp_shift15_f32(v[i] - vmax, x0, fast_q)
+                            : int_exp_shift(v[i] - vmax, x0, kShiftmaxN, fast_q);
+        limb_add(sh, sl, e);
+      }
+      v[i] = e;
+    }
+  }
+  sh = red.sum(sh);
+  sl = red.sum(sl);
+  const float total = __fadd_rn(__fmul_rn(__int2float_rn(sh), 256.f),
+                                __int2float_rn(sl));
+  const float factor = floorf(rdiv(kInt32Max, fminf(total, kInt32Max)));
+#pragma unroll
+  for (int i = 0; i < NV; ++i)
+    v[i] = floorf(__fmul_rn(v[i], factor) * out_scale);
 }
 
 // ShiftGELU of one int8-valued x of a row with max xmax, exp_max =

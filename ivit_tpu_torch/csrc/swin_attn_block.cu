@@ -21,54 +21,62 @@
 //
 // Design: the chain of attn_chain.cuh, three launches on one stream
 // counted as one kernel, over the flat [B * nW * n, C] rows:
-//   1. ln_qkv_kernel: 64 rows per block (windows need not align with the
-//      blocks: LN and the GEMM are row-local), LN of the int16 rows into
-//      shared memory, qkv GEMM on mma.sync s8, requant, int8 qkv to global;
-//   2. swin_core_kernel: one block per (window, head), that head's k and v
-//      in shared memory; each warp takes one query row at a time: scores
-//      by dp4a (keys j and j + 32 per lane, n <= 64), the two requants and
-//      the rel-pos addend, the int8 clip, then the shift mask of the
-//      window's index within its image (window w % nW).  The masked scores,
-//      about -100 / s_attn2, stay f32 through the softmax, whose exp clamps
-//      them as the reference does (Shiftmax at n * x0, ibert at 30 * x0);
-//   3. proj_kernel: 64 rows of ctx per block, proj GEMM, requant to 16 bits,
-//      residual against the int16 (or int8) input, int16 out.
-// One window's qkv (49 x 2304 = 113 KB at stage 3) would fit a block's
-// shared memory, so a single launch per window tile is possible; the chain
-// reuses the two GEMM kernels that ViT already holds bitwise, and runs the
-// GEMMs over 64 full rows instead of 49 of 64.  The window pad n = 49 -> 56,
-// head packing, pad_kv, win_tile and the f32 scratches of the TPU kernel are
-// Mosaic workarounds, not semantics: the port runs the 49 tokens as they are.
+//   1. ln_qkv_wgmma_kernel: 64 rows per block (windows need not align with
+//      the blocks: LN and the GEMM are row-local), LN of the int16 rows in
+//      int32 (8 lanes a row at C 96 and 192, so a warp runs 4 rows at once)
+//      into the swizzled A tile under the first TMA weight slices, qkv GEMM
+//      on wgmma s8, requant, int8 qkv to global;
+//   2. swin_core_mma_kernel: each warp owns one (window, head) pair, 8 pairs
+//      a block: it stages that head's k and v in its own slice of shared
+//      memory (3 KB each at Dh 32; a warp barrier, no block barrier) and
+//      runs the window's 49 query rows as 4 tiles of 16 on mma.sync m16n8k32
+//      s8 against 64 padded keys: the two requants and the rel-pos addend,
+//      the int8 clip, then the shift mask of the window's index within its
+//      image (window w % nW).  The masked scores, about -100 / s_attn2,
+//      stay exact through the softmax, whose exp clamps them as the
+//      reference does (Shiftmax at n * x0, ibert at 30 * x0);
+//   3. proj_wgmma_kernel: 64 rows of ctx per block, proj GEMM on wgmma,
+//      requant to 16 bits, residual against the int16 (or int8) input,
+//      int16 out; the passes split over blocks at the last stages, whose
+//      row blocks (49 at stage 3) would leave SMs idle.
+// A warp per pair: a window has 49 rows, 4 query tiles, and its k and v of
+// one head are 3 KB, so nothing is shared between pairs; a block per pair
+// would leave most of its warps idle past the 49 rows (12,288 blocks at
+// stage 0), 8 pairs a block keep every warp busy.  One window's qkv (49 x 2304
+// = 113 KB at stage 3) would fit a block's shared memory, so a single
+// launch per window tile is possible; the chain reuses the two GEMM kernels
+// that ViT holds bitwise.  The window pad n = 49 -> 56, head packing,
+// pad_kv, win_tile and the f32 scratches of the TPU kernel are Mosaic
+// workarounds, not semantics: the port runs the 49 tokens as they are.
 // Rolling and window partition stay outside, in torch, as the JAX engine
-// runs them; folding the permutation into the kernel's indexing, wgmma and
-// TMA are later steps for speed.
+// runs them.
 
 #include "attn_chain.cuh"
 
 namespace ivit {
 
-constexpr int kSwinKeysPerLane = 2;  // n <= 64: ws <= 8
+constexpr int kSwinPairsPerBlock = 8;  // one (window, head) pair a warp
 
-// 2. Window attention for one (window, head); SHIFTMAX: the ivit softmax,
-// else the ibert one.  rel: [H, n, n] f32 rel-pos addends; mask: [nW, n, n]
-// f32 shift-mask addends, or null for an unshifted block.
-template <bool SHIFTMAX>
-__global__ void __launch_bounds__(kThreads)
-swin_core_kernel(const int8_t* __restrict__ qkv, const float* __restrict__ rel,
-                 const float* __restrict__ mask, AttnScalars sp,
-                 int8_t* __restrict__ ctx, int n, int C, int Dh,
-                 int n_windows, int fast_q, int fast_poly) {
+// 2. Window attention, one (window, head) pair a warp; SHIFTMAX: the ivit
+// softmax, else the ibert one; MAXD: chunks of 32 channels (1: Dh <= 32,
+// Swin-T; 4: Dh <= 128).  rel: [H, n, n] f32 rel-pos addends; mask: [nW, n,
+// n] f32 shift-mask addends, or null for an unshifted block.
+template <bool SHIFTMAX, int MAXD>
+__global__ void __launch_bounds__(32 * kSwinPairsPerBlock, MAXD > 1 ? 2 : 3)
+swin_core_mma_kernel(const int8_t* __restrict__ qkv, const float* __restrict__ rel,
+                     const float* __restrict__ mask, AttnScalars sp,
+                     int8_t* __restrict__ ctx, int n, int C, int Dh, int H,
+                     int pairs, int n_windows, int fast_q, int fast_poly) {
   extern __shared__ __align__(16) int8_t smem[];
-  const int np4 = (n + 3) & ~3;
-  int8_t* Ks = smem;
-  int8_t* Vt = Ks + n * (Dh + 4);
-  int8_t* Qs = Vt + Dh * (np4 + 4);  // [8][Dh]
-  int8_t* Ps = Qs + 8 * Dh;          // [8][np4]
-  const int w = blockIdx.x, h = blockIdx.y;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int p = blockIdx.x * kSwinPairsPerBlock + warp;
+  if (p >= pairs) return;
+  const int w = p / H, h = p - w * H;
+  int8_t* Ks = smem + warp * kv_bytes(n, Dh);
+  int8_t* Vt = Ks + ((n + 31) & ~31) * kv_ld(Dh);
   const int8_t* base = qkv + (size_t)w * n * 3 * C + h * Dh;
-  stage_kv(base, n, C, Dh, Ks, Vt);
-  __syncthreads();
+  stage_kv(base, n, C, Dh, Ks, Vt, lane, 32);
+  __syncwarp();
 
   const float m_attn = __ldg(sp.m_attn), m_attn2 = __ldg(sp.m_attn2);
   const float m_av = __ldg(sp.m_av);
@@ -76,28 +84,17 @@ swin_core_kernel(const int8_t* __restrict__ qkv, const float* __restrict__ rel,
   const float* rel_h = rel + (size_t)h * n * n;
   const float* mask_w =
       mask == nullptr ? nullptr : mask + (size_t)(w % n_windows) * n * n;
-  int8_t* q = Qs + warp * Dh;
-  int8_t* p = Ps + warp * np4;
-  for (int i = warp; i < n; i += 8) {
-    load_q(base, i, C, Dh, q, lane);
-    float s[kSwinKeysPerLane];
-    float smax = -8388608.f;
-#pragma unroll
-    for (int t = 0; t < kSwinKeysPerLane; ++t) {
-      int j = lane + 32 * t;
-      s[t] = -8388608.f;
-      if (j < n) {
-        float a = requant(__int2float_rn(qk_dot(q, Ks, j, Dh)), m_attn, 128.f);
-        a = clampf(rintf(a * m_attn2) + __ldg(rel_h + i * n + j), -128.f, 127.f);
-        if (mask_w != nullptr) a += __ldg(mask_w + i * n + j);
-        s[t] = a;
-        smax = fmaxf(smax, a);
-      }
-    }
-    softmax_pv_row<SHIFTMAX>(s, smax, n, k, fast_q, fast_poly, p, Vt, np4, Dh,
-                             m_av, ctx + ((size_t)w * n + i) * C + h * Dh,
-                             lane);
-  }
+  auto score = [&](int i, int j, int dot) {
+    float a = requant(__int2float_rn(dot), m_attn, 128.f);
+    a = clampf(rintf(a * m_attn2) + __ldg(rel_h + i * n + j), -128.f, 127.f);
+    if (mask_w != nullptr) a += __ldg(mask_w + i * n + j);
+    return a;
+  };
+  int8_t* cbase = ctx + (size_t)w * n * C + h * Dh;
+  QuadReduce red{0, 0};
+  for (int i0 = 0; i0 < n; i0 += 16)
+    attn_tile<SHIFTMAX, 2, MAXD>(base, 3 * C, i0, n, Dh, n, Ks, Vt, score, k,
+                                 fast_q, fast_poly, m_av, cbase, C, red);
 }
 
 template <int BN, bool SHIFTMAX>
@@ -108,24 +105,37 @@ int launch_swin(const void* x, int x16, const int8_t* ln_in,
                 const float* mp, AttnScalars sp, int8_t* qkv, int8_t* ctx,
                 int16_t* out, int BW, int n, int C, int H, int n_windows,
                 int ln_ivit, int fast_q, int fast_poly, cudaStream_t stream) {
-  const int R = BW * n, Dh = C / H;
-  const size_t smem_gemm = gemm_smem(C, BN), smem_core = core_smem(n, Dh);
+  const int R = BW * n, Dh = C / H, pairs = BW * H;
+  const size_t smem_gemm = wg_smem(C, BN);
+  const size_t smem_core = kSwinPairsPerBlock * kv_bytes(n, Dh);
+  CUtensorMap mq, mpj;
   cudaError_t err;
-  if ((err = allow_gemm_smem<BN>(C)) != cudaSuccess ||
-      (err = cudaFuncSetAttribute(swin_core_kernel<SHIFTMAX>,
+  if ((err = prepare_gemms<BN>(wqkv_t, wp_t, C, &mq, &mpj)) != cudaSuccess ||
+      (err = cudaFuncSetAttribute(swin_core_mma_kernel<SHIFTMAX, 1>,
+                                  cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                  (int)smem_core)) != cudaSuccess ||
+      (err = cudaFuncSetAttribute(swin_core_mma_kernel<SHIFTMAX, 4>,
                                   cudaFuncAttributeMaxDynamicSharedMemorySize,
                                   (int)smem_core)) != cudaSuccess)
     return (int)err;
-  const dim3 row_grid((R + kTileM - 1) / kTileM);
-  ln_qkv_kernel<BN><<<row_grid, kThreads, smem_gemm, stream>>>(
-      x, ln_in, ln_bias, m_ln, wqkv_t, bqkv, mqkv, sp, qkv, R, C, x16,
-      ln_ivit);
+  const int row_blocks = (R + kGemmRows - 1) / kGemmRows;
+  ln_qkv_wgmma_kernel<BN><<<row_blocks, kGemmThreads, smem_gemm, stream>>>(
+      mq, x, ln_in, ln_bias, m_ln, bqkv, mqkv, sp, qkv, R, C, x16, ln_ivit);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-  swin_core_kernel<SHIFTMAX><<<dim3(BW, H), kThreads, smem_core, stream>>>(
-      qkv, rel, mask, sp, ctx, n, C, Dh, n_windows, fast_q, fast_poly);
+  const int blocks = (pairs + kSwinPairsPerBlock - 1) / kSwinPairsPerBlock;
+  const int threads = 32 * kSwinPairsPerBlock;
+  if (Dh <= 32)  // Swin-T's heads
+    swin_core_mma_kernel<SHIFTMAX, 1><<<blocks, threads, smem_core, stream>>>(
+        qkv, rel, mask, sp, ctx, n, C, Dh, H, pairs, n_windows, fast_q,
+        fast_poly);
+  else
+    swin_core_mma_kernel<SHIFTMAX, 4><<<blocks, threads, smem_core, stream>>>(
+        qkv, rel, mask, sp, ctx, n, C, Dh, H, pairs, n_windows, fast_q,
+        fast_poly);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-  proj_kernel<BN><<<row_grid, kThreads, smem_gemm, stream>>>(
-      x, ctx, wp_t, bp, mp, sp, out, R, C, 16, 16, x16, 1);
+  proj_wgmma_kernel<BN><<<gemm_grid(R, C, BN), kGemmThreads, smem_gemm,
+                          stream>>>(mpj, x, ctx, bp, mp, sp, out, R, C, 16, 16,
+                                    x16, 1);
   return (int)cudaGetLastError();
 }
 
@@ -154,8 +164,8 @@ extern "C" int ivit_swin_attn_block(
   const AttnScalars sp{ln_shift, m_attn, m_attn2, s_attn, s_exp_act,
                        m_av,     m_res_x, m_res_id};
   const int bn = pass_width(3 * C, C), dh = H > 0 ? C / H : 0;
-  if (bn == 0 || C % 32 || C > 32 * kMaxLnVals || dh * H != C || dh % 4 ||
-      dh > 128 || n < 1 || n > 32 * kSwinKeysPerLane || n_windows < 1)
+  if (bn == 0 || C % 32 || C > 1024 || dh * H != C || dh % 4 ||
+      dh > 128 || n < 1 || n > 64 || n_windows < 1)
     return (int)cudaErrorInvalidValue;
   auto launch = sm_ivit ? (bn == 128  ? launch_swin<128, true>
                            : bn == 96 ? launch_swin<96, true>

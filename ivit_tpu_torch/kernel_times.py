@@ -1,13 +1,21 @@
-"""Card times of the ViT block kernels of one checkout, for comparing two.
+"""Card times of the block kernels of one checkout, for comparing two.
 
     python ivit_tpu_torch/kernel_times.py --root CHECKOUT --label NAME
 
 imports ``ivit_tpu_torch`` from ``CHECKOUT`` (this checkout by default),
 builds its kernels, and prints one JSON line: the mean time of 50
-back-to-back ``mlp_block`` and ``attn_block`` calls (CUDA events) at DeiT-S
-shapes (batch 256 x 197 tokens, C 384, hidden 1536, 6 heads), for the
-ivit and the ibert family, fast flags on.  Run it for two checkouts in one
-call, in the order A, B, B, A, to compare them on one card.
+back-to-back calls (CUDA events), fast flags on, ivit and ibert families,
+of
+  * ``mlp_block`` and ``attn_block`` at DeiT-S shapes (batch 256 x 197
+    tokens, C 384, hidden 1536, 6 heads);
+  * ``swin_attn_block`` and the Swin form of ``mlp_block`` at the four
+    Swin-T stage shapes of batch 64 ([4096, 49, 96] to [64, 49, 768]
+    windows, the stage's last block: shifted where the stage has one);
+and, for both attention kernels, the device time of each of the three
+launches of their chain (LN + qkv, attention core, proj), summed by kernel
+name over 10 calls under ``torch.profiler`` (``*_split_ms``; "other" is
+the wrapper's weight transposes).  Run it for two checkouts in one call,
+in the order A, B, B, A, to compare them on one card.
 """
 
 from __future__ import annotations
@@ -15,7 +23,18 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import subprocess
 import sys
+
+SWIN_BATCH, SWIN_GRID, WIN = 64, 56, 49
+
+
+def launch_role(name):
+    """The chain launch a kernel name belongs to."""
+    for role in ("ln_qkv", "core", "proj_"):
+        if role in name:
+            return role.rstrip("_")
+    return "other"
 
 
 def main(argv=None):
@@ -28,8 +47,11 @@ def main(argv=None):
     sys.path.insert(0, root)
     import numpy as np
     import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
 
-    from ivit_tpu_torch.engine.synthetic import deit_small_config, synthetic_spec
+    from ivit_tpu_torch.engine.synthetic import (deit_small_config, swin_tiny_config,
+                                                  synthetic_spec, synthetic_swin_spec)
     from ivit_tpu_torch.ops.kernels import _build
     from ivit_tpu_torch.ops.kernels import block as kb
     if not kb.__file__.startswith(root):
@@ -50,14 +72,34 @@ def main(argv=None):
         torch.cuda.synchronize()
         return start.elapsed_time(end) / iters
 
+    def split_ms(fn, iters=10):
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        out = {"ln_qkv": 0.0, "core": 0.0, "proj": 0.0, "other": 0.0}
+        for a in prof.key_averages():
+            if a.device_type == DeviceType.CUDA and a.self_device_time_total > 0:
+                out[launch_role(a.key)] += a.self_device_time_total / 1e3 / iters
+        return out
+
+    def tensors(blk):
+        return {k: torch.as_tensor(v).to(dev) for k, v in blk.items()}
+
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True).stdout.strip()
     rng = np.random.default_rng(0)
-    out = {"label": args.label, "card": torch.cuda.get_device_name(0)}
+    out = {"label": args.label, "card": torch.cuda.get_device_name(0),
+           "nvidia_smi": smi}
+    x = torch.as_tensor(np.clip(np.round(rng.normal(0, 32, (256, 197, 384))),
+                                -128, 127).astype(np.int8)).to(dev)
+    rows = x.reshape(-1, 384)
     for fam in ("ivit", "ibert"):
         cfg = deit_small_config(depth=1, ln=fam, gelu=fam, softmax=fam)
-        b = {k: torch.as_tensor(v).to(dev)
-             for k, v in synthetic_spec(cfg, 0).params["blocks"][0].items()}
-        x = torch.as_tensor(np.clip(np.round(rng.normal(0, 32, (256, 197, 384))),
-                                    -128, 127).astype(np.int8)).to(dev)
+        b = tensors(synthetic_spec(cfg, 0).params["blocks"][0])
         mlp = dict(ln_bias=b["ln2_bias_int"], m_ln=b["m_ln2"], ln_shift=b["ln2_shift"],
                    fc1_w=b["fc1_w"], fc1_b=b["fc1_b"], m_fc1=b["m_fc1"],
                    s_gelu=b["s_gelu"], m_gelu=b["m_gelu"], fc2_w=b["fc2_w"],
@@ -71,9 +113,49 @@ def main(argv=None):
                     m_proj=b["m_proj"], m_res_x=b["m_res1_x"], m_res_id=b["m_res1_id"],
                     num_heads=6, n_valid=197, fast_exp=True, fast_poly=True,
                     ln_base=fam, sm_base=fam)
-        rows = x.reshape(-1, 384)
         out[f"mlp_block_{fam}_ms"] = time_ms(lambda: kb.mlp_block(rows, **mlp))
         out[f"attn_block_{fam}_ms"] = time_ms(lambda: kb.attn_block(x, **attn))
+        out[f"attn_block_{fam}_split_ms"] = split_ms(lambda: kb.attn_block(x, **attn))
+
+    for fam in ("ivit", "ibert"):
+        spec = synthetic_swin_spec(swin_tiny_config(ln=fam, gelu=fam, softmax=fam), seed=0)
+        last = {}
+        for (kind, stage, shift), blk in zip(spec.config.layout, spec.params["blocks"]):
+            if kind == "block":
+                last[stage] = (shift, blk)
+        attn_ms, split, mlp_ms = [], [], []
+        for st in sorted(last):
+            shift, blk = last[st]
+            b = tensors(blk)
+            c, heads = spec.config.embed_dim * 2 ** st, spec.config.stage_heads[st]
+            res = SWIN_GRID // 2 ** st
+            nw = (res // min(7, res)) ** 2
+            xw = torch.as_tensor(np.clip(np.round(rng.normal(
+                0, 2 ** 13, (SWIN_BATCH * nw, WIN, c))), -2 ** 15, 2 ** 15 - 1)
+                .astype(np.int16)).to(dev)
+            kw = dict(ln_bias=b["ln1_bias_int"], m_ln=b["m_ln1"], ln_shift=b["ln1_shift"],
+                      qkv_w=b["qkv_w"], qkv_b=b["qkv_b"], m_qkv=b["m_qkv"],
+                      m_attn=b["m_attn"], m_attn2=b["m_attn2"], s_attn=b["s_attn"],
+                      rel_addend=b["rel_bias_addend"],
+                      mask_addend=b["mask_int"] if shift else None,
+                      s_exp_act=b.get("s_exp_act"), m_av=b["m_av"],
+                      proj_w=b["proj_w"], proj_b=b["proj_b"], m_proj=b["m_proj"],
+                      m_res_x=b["m_res1_x"], m_res_id=b["m_res1_id"],
+                      num_heads=heads, n_windows=nw, fast_exp=True, fast_poly=True,
+                      sm_base=fam, ln_base=fam)
+            attn_ms.append(time_ms(lambda: kb.swin_attn_block(xw, **kw)))
+            split.append(split_ms(lambda: kb.swin_attn_block(xw, **kw)))
+            mkw = dict(ln_bias=b["ln2_bias_int"], m_ln=b["m_ln2"], ln_shift=b["ln2_shift"],
+                       fc1_w=b["fc1_w"], fc1_b=b["fc1_b"], m_fc1=b["m_fc1"],
+                       s_gelu=b["s_gelu"], m_gelu=b["m_gelu"], fc2_w=b["fc2_w"],
+                       fc2_b=b["fc2_b"], m_fc2=b["m_fc2"], m_res_x=b["m_res2_x"],
+                       m_res_id=b["m_res2_id"], mlp_bits=8, out_bits=16,
+                       fast_exp=True, fast_poly=True, ln_base=fam, gelu_base=fam)
+            xr = xw.reshape(-1, c)
+            mlp_ms.append(time_ms(lambda: kb.mlp_block(xr, **mkw)))
+        out[f"swin_attn_block_{fam}_ms_by_stage"] = attn_ms
+        out[f"swin_attn_block_{fam}_split_ms_by_stage"] = split
+        out[f"mlp_block_swin_{fam}_ms_by_stage"] = mlp_ms
     print(json.dumps(out), flush=True)
     return 0
 

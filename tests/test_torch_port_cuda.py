@@ -11,8 +11,12 @@ small: B 2, Np 24 of which n_valid 17 real tokens, C 64, 2 heads, MLP 256
 for the block kernels, the shapes of ``tests/test_pallas.py`` for the
 standalone ones; for Swin, a 56 px Swin-T-width spec (C 96 and 192, heads 3
 and 6, windows of 49 tokens, a shifted block) and one at C 384 and 768
-(hidden 3072); the DeiT-S and Swin-T shapes are held by ``chip_smoke.py``.
-Exact equality.
+(hidden 3072); and edge shapes of the attention kernels' 16-row query
+tiles, 32-key chunks and 32-channel head chunks at C 128 (head dims 32, 64
+and 128): ViT token counts 1, 15, 17, 33 and 256 with padding tokens, Swin
+windows of 49 and 64 tokens, shifted and unshifted, int16 and int8 input.
+The DeiT-S and Swin-T shapes are held by ``chip_smoke.py``.  Exact
+equality.
 """
 
 import dataclasses
@@ -194,14 +198,15 @@ def _swin_spec(mix, embed_dim=96, heads=(3, 6), depths=(2, 2)):
         num_classes=10, gelu=gelu, softmax=softmax, ln=ln), seed=3)
 
 
-def _swin_blocks(spec, dev):
-    """(block tensors, heads, windows an image, shift) of every block."""
-    out = []
+def _swin_blocks(spec, dev, grid=14):
+    """(block tensors, heads, windows an image, shift) of every block; grid:
+    the patch grid of the spec's image size."""
+    out, ws = [], spec.config.window_size
     for (kind, stage, shift), blk in zip(spec.config.layout, spec.params["blocks"]):
         if kind == "block":
-            res = 14 // 2 ** stage
+            res = grid // 2 ** stage
             out.append(({k: torch.as_tensor(v).to(dev) for k, v in blk.items()},
-                        spec.config.stage_heads[stage], (res // min(7, res)) ** 2,
+                        spec.config.stage_heads[stage], (res // min(ws, res)) ** 2,
                         shift))
     return out
 
@@ -292,3 +297,77 @@ def test_cuda_swin_engine_matches_plain_engines(cuda):
     assert torch.equal(got, want)
     assert torch.equal(Engine(spec, stage_paths=(True, False))(images), want)
     assert torch.equal(want.cpu(), Engine(spec, device="cpu", kernels=False)(images))
+
+
+# (Np, n_valid) and heads at C 128 (head dims 32, 64, 128): ragged query
+# tiles, key chunks and padding keys of the attention cores
+EDGE_TOKENS = [(1, 1), (15, 13), (17, 15), (33, 31), (256, 250)]
+EDGE_HEADS = [4, 2, 1]
+
+
+@pytest.mark.parametrize("heads", EDGE_HEADS, ids=[f"dh{128 // h}" for h in EDGE_HEADS])
+@pytest.mark.parametrize("family", ["ivit", "ibert"])
+def test_cuda_attn_block_edge_shapes(cuda, family, heads):
+    cfg = dataclasses.replace(
+        deit_small_config(depth=1, img_size=64, ln=family, gelu=family,
+                          softmax=family),
+        embed_dim=128, num_heads=heads, num_classes=10)
+    b = {k: torch.as_tensor(v).to(cuda)
+         for k, v in synthetic_spec(cfg, seed=5).params["blocks"][0].items()}
+    for i, (np_, nv) in enumerate(EDGE_TOKENS):
+        x = _stream(cuda, (2, np_, 128), 8, seed=30 + i)
+        kw = dict(ln_bias=b["ln1_bias_int"], m_ln=b["m_ln1"], ln_shift=b["ln1_shift"],
+                  qkv_w=b["qkv_w"], qkv_b=b["qkv_b"], m_qkv=b["m_qkv"],
+                  m_attn=b["m_attn"], s_attn=b["s_attn"], s_exp_act=b.get("s_exp_act"),
+                  m_av=b["m_av"], proj_w=b["proj_w"], proj_b=b["proj_b"],
+                  m_proj=b["m_proj"], m_res_x=b["m_res1_x"], m_res_id=b["m_res1_id"],
+                  num_heads=heads, n_valid=nv, fast_exp=True, fast_poly=True,
+                  ln_base=family, sm_base=family)
+        for ln_in in (None, kb._ln8(x, family, kw["ln_bias"], kw["ln_shift"],
+                                    kw["m_ln"], None)):
+            got = kb.attn_block(x, ln_in=ln_in, **kw)
+            torch.cuda.synchronize()
+            want = kb.attn_block_ref(x, ln_in=ln_in, **kw)
+            assert torch.equal(got[:, :nv], want[:, :nv]), (np_, ln_in is None)
+
+
+@pytest.mark.parametrize("heads", EDGE_HEADS, ids=[f"dh{128 // h}" for h in EDGE_HEADS])
+@pytest.mark.parametrize("window", [7, 8], ids=["n49", "n64"])
+def test_cuda_swin_attn_block_edge_shapes(cuda, window, heads):
+    """Windows of 49 and 64 tokens (4 an image), the unshifted and the
+    shifted block, int16 and int8 input, the LN in the kernel and hoisted."""
+    for family in ("ivit", "ibert"):
+        spec = synthetic_swin_spec(swin_tiny_config(
+            depths=(2,), img_size=8 * window, embed_dim=128, stage_heads=(heads,),
+            window_size=window, num_classes=10, gelu=family, softmax=family,
+            ln=family), seed=5)
+        mix = (family, family, family)
+        for i, (blk, h, nw, shift) in enumerate(_swin_blocks(spec, cuda, grid=16 if window == 8 else 14)):
+            for bits in (16, 8):
+                x = _stream(cuda, (2 * nw, window * window, 128), bits, seed=40 + i)
+                kw = _swin_attn_kw(blk, mix, True, h, nw, shift)
+                for ln_in in (None, kb._ln8(x, family, kw["ln_bias"], kw["ln_shift"],
+                                            kw["m_ln"], None)):
+                    got = kb.swin_attn_block(x, ln_in=ln_in, **kw)
+                    torch.cuda.synchronize()
+                    want = kb.swin_attn_block_ref(x, ln_in=ln_in, **kw)
+                    assert torch.equal(got, want), (family, shift, bits, ln_in is None)
+
+
+@pytest.mark.parametrize("s_attn", [2.0, 0.0521371, 1e-4])
+@pytest.mark.parametrize("family", ["ivit", "ibert"])
+def test_cuda_attn_block_exp_paths(cuda, family, s_attn):
+    """Softmax scales that take the cores' int32 exp (0.0521371) and its f32
+    form (x0 = -1 at 2.0; past the int32 range at 1e-4)."""
+    mix = (family, family, family)
+    b, x = _block(cuda, mix), _x(cuda)
+    kw = dict(ln_bias=b["ln1_bias_int"], m_ln=b["m_ln1"], ln_shift=b["ln1_shift"],
+              qkv_w=b["qkv_w"], qkv_b=b["qkv_b"], m_qkv=b["m_qkv"],
+              m_attn=b["m_attn"], s_attn=torch.tensor(s_attn, device=cuda),
+              s_exp_act=b.get("s_exp_act"), m_av=b["m_av"], proj_w=b["proj_w"],
+              proj_b=b["proj_b"], m_proj=b["m_proj"], m_res_x=b["m_res1_x"],
+              m_res_id=b["m_res1_id"], num_heads=HEADS, n_valid=NV,
+              fast_exp=True, fast_poly=True, ln_base=family, sm_base=family)
+    got = kb.attn_block(x, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(got[:, :NV], kb.attn_block_ref(x, **kw)[:, :NV])
