@@ -20,8 +20,9 @@ Phases, each printing one JSON line:
 5. shiftmax and 6. shift_gelu_requant: each standalone kernel bitwise equal
    to its plain version at DeiT-S shapes ([256, 6, 197, 197] scores;
    [50,432, 1536] hidden rows), fast quotient on and off, 8- and 16-bit
-   probs, and at small shapes with a ragged row count and padding columns;
-   kernel and plain times, and the bound;
+   probs, and at small shapes with a ragged row count and padding columns
+   (ShiftGELU: rows held in registers up to 4096, rows read a word or a
+   byte a lane); kernel and plain times, and the bound;
 7. engine: a seeded synthetic DeiT-S ibert engine (224 px, depth 12, batch
    256) through ``Engine``: the launch counts of one forward, its logits
    bitwise equal to the unfused plain engine on the card and, for 4
@@ -45,13 +46,19 @@ Phases, each printing one JSON line:
    Swin windows of 49 and 64 tokens, shifted and unshifted, int16 and int8
    input; the LN in the kernel and hoisted; softmax scales that take the
    cores' int32 exp and its f32 form;
-12. engine_swin: synthetic Swin-T ivit and ibert engines (224 px, depths
+12. mlp_edges: the MLP kernel bitwise equal to its plain version at the
+   widths of every model it serves, C / hidden 96/384, 192/768 and
+   384/1536 (its 64-row wgmma block), 768/3072 and 1024/4096 (its 32-row
+   block), at row counts 1, 63 and 65, int8 and int16 streams, the LN in
+   the kernel and hoisted, every family mix, fast flags on and off; and
+   ShiftGELU at GELU scales 1e-3 and 1.0;
+13. engine_swin: synthetic Swin-T ivit and ibert engines (224 px, depths
    (2, 2, 6, 2), batch 64) through ``Engine``: 12 + 12 launches a forward,
    logits bitwise equal to the plain engine on the card and, for 4 images,
    on the CPU; finite and image-dependent; img/s of both engines.
 
 The build phase reports ptxas's registers and spill bytes per kernel and
-fails if an attention-chain kernel spills.
+fails if any kernel spills.
 
 Then the kernel table as one JSON line, the card's name and power limit,
 and last ``{"ok": true, "device": {...}}``.  Any failure raises and exits
@@ -324,7 +331,8 @@ def kernel_phases(torch, kb, knl, dev):
     blk = full[IVIT]
     h = act((BATCH * TOKENS, 1536))
     errs = []
-    for shape in ((130, 1536), (5, 30), (3, 7, 384)):
+    for shape in ((130, 1536), (5, 30), (3, 7, 384), (9, 2048), (3, 4096),
+                  (3, 4112), (7, 100)):
         xs = act(shape)
         for fq in (True, False):
             errs.append(check_equal(
@@ -427,6 +435,63 @@ def attn_edge_phase(torch, kb, dev):
     emit({"phase": "attn_edges", "equal": True, "checks": checked,
           "vit_tokens_n_valid": EDGE_TOKENS, "swin_window_tokens": [49, 64],
           "head_dims": [128 // h for h in EDGE_HEADS], "C": 128})
+
+
+MLP_EDGE_WIDTHS = [(96, 384), (192, 768), (384, 1536), (768, 3072), (1024, 4096)]
+MLP_EDGE_ROWS = (1, 63, 65)
+
+
+def mlp_edge_phase(torch, kb, knl, dev):
+    """Phase 12: the MLP kernel at the widths of every model it serves,
+    ragged rows, both streams; ShiftGELU at far GELU scales."""
+    import numpy as np
+
+    from ivit_tpu_torch.engine.synthetic import deit_small_config, synthetic_spec
+
+    rng = np.random.default_rng(3)
+
+    def stream(shape, bits):
+        lim = 2 ** (bits - 1)
+        x = np.clip(np.round(rng.normal(0, lim / 4, shape)), -lim, lim - 1)
+        return torch.as_tensor(x.astype(np.int16 if bits > 8 else np.int8)).to(dev)
+
+    checked = 0
+    for c, hd in MLP_EDGE_WIDTHS:
+        for mix in [("ibert", "ibert", "ibert")] + MIXES:
+            gelu, softmax, ln = mix
+            cfg = dataclasses.replace(
+                deit_small_config(depth=1, img_size=64, ln=ln, gelu=gelu, softmax=softmax),
+                embed_dim=c, num_heads=c // 32, num_classes=10)
+            b = block_args(torch, synthetic_spec(cfg, 7).params["blocks"][0], dev)
+            assert tuple(b["fc1_w"].shape) == (c, hd)
+            for r in MLP_EDGE_ROWS:
+                for bits in (8, 16):
+                    x = stream((r, c), bits)
+                    for flags in (True, False):
+                        kw = mlp_kwargs(b, flags, mix) | dict(mlp_bits=8, out_bits=bits)
+                        for ln_in in (None, kb._ln8(x, ln, kw["ln_bias"], kw["ln_shift"],
+                                                    kw["m_ln"], None)):
+                            check_equal(torch, f"mlp_block edge C={c} hidden={hd} R={r} "
+                                        f"bits={bits} {mix_name(mix)} fast={flags} "
+                                        f"ln_in={ln_in is not None}",
+                                        kb.mlp_block(x, ln_in=ln_in, **kw),
+                                        kb.mlp_block_ref(x, ln_in=ln_in, **kw))
+                            checked += 1
+            if mix == IVIT:
+                x = stream((65, c), 8)
+                for s_gelu in (1e-3, 1.0):
+                    s_t = torch.tensor(s_gelu, device=dev)
+                    kw = mlp_kwargs(b, True, mix) | dict(s_gelu=s_t)
+                    check_equal(torch, f"mlp_block edge C={c} s_gelu={s_gelu}",
+                                kb.mlp_block(x, **kw), kb.mlp_block_ref(x, **kw))
+                    h = stream((33, hd), 8)
+                    check_equal(torch, f"shift_gelu_requant H={hd} s_gelu={s_gelu}",
+                                knl.shift_gelu_requant(h, s_t, b["m_gelu"]),
+                                knl.shift_gelu_requant_ref(h, s_t, b["m_gelu"]))
+                    checked += 2
+    emit({"phase": "mlp_edges", "equal": True, "checks": checked,
+          "widths": MLP_EDGE_WIDTHS, "rows": list(MLP_EDGE_ROWS),
+          "streams_bits": [8, 16], "far_s_gelu": [1e-3, 1.0]})
 
 
 def ptxas_report(log):
@@ -624,7 +689,7 @@ def swin_phases(torch, kb, dev, rows):
 
 
 def swin_engine_phase(torch, counters, dev, rows, profile=False):
-    """Phase 12: synthetic Swin-T ivit and ibert engines through Engine."""
+    """Phase 13: synthetic Swin-T ivit and ibert engines through Engine."""
     from ivit_tpu_torch.engine import Engine
     from ivit_tpu_torch.engine.synthetic import swin_tiny_config, synthetic_swin_spec
 
@@ -823,16 +888,16 @@ def main(argv=None) -> int:
           "cuda": torch.version.cuda, "name": torch.cuda.get_device_name(0)})
     t0 = time.perf_counter()
     times = _build.build_all()
-    ptxas = {n: ptxas_report(log) for n, log in _build.build_log.items()}
+    ptxas = {n: ptxas_report(log) for n, log in _build.compiler_logs().items()}
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "per_source_s": times, "ptxas": ptxas})
-    spills = [k for n in ("attn_block", "swin_attn_block") for k in ptxas.get(n, [])
-              if k["spill_bytes"]]
+    spills = [k for n in _build.SOURCES for k in ptxas.get(n, []) if k["spill_bytes"]]
     if spills:
-        raise AssertionError(f"attention-chain kernels spill: {spills}")
+        raise AssertionError(f"kernels spill: {spills}")
     rows = kernel_phases(torch, kb, knl, dev)
     swin_phases(torch, kb, dev, rows)
     attn_edge_phase(torch, kb, dev)
+    mlp_edge_phase(torch, kb, knl, dev)
     emit({"phase": "kernel_checks_done", "seconds": time.perf_counter() - t0})
     counters = {"attn_block": kb.attn_block, "mlp_block": kb.mlp_block,
                 "swin_attn_block": kb.swin_attn_block, "shiftmax": knl.shiftmax,

@@ -12,8 +12,6 @@
 // the spec's scalar leaves.
 #pragma once
 
-#include <mutex>
-
 #include "ivit.cuh"
 #include "wgmma_gemm.cuh"
 
@@ -390,41 +388,6 @@ __device__ __forceinline__ void attn_tile(
   }
 }
 
-// The LN prologue of ln_qkv: the LN (ivit or ibert form, exact.cuh
-// ln_row_i32) of the 64 rows r0.. of x (XT: int8 or int16) into the
-// swizzled A tile.  A row takes L lanes (8 below C 256, else 16), so a
-// warp runs 32 / L rows at once: the Newton chain and the group reductions
-// are latency.  Rows past R rerun row R - 1 (every lane of a warp
-// takes part in the group sums); the GEMM never stores them.
-template <int L, typename XT>
-__device__ __forceinline__ void ln_rows_swizzled(
-    const XT* __restrict__ x, int R, int C, int r0, bool ivit,
-    const float* __restrict__ bias, const float* __restrict__ m_ln, float pw,
-    int shift, int8_t* A) {
-  constexpr int kGroups = 32 / L, kWarps = kGemmConsumers / 32;
-  const int lane = threadIdx.x & (L - 1);
-  const int first = (threadIdx.x >> 5) * kGroups + ((threadIdx.x & 31) / L);
-  for (int row = first; row < kGemmRows; row += kWarps * kGroups) {
-    const XT* xrow = x + (size_t)min(r0 + row, R - 1) * C;
-    const SwizzledRow out{A, row};
-    if (ivit)
-      ln_row_i32<true, L>(xrow, C, bias, m_ln, 1.f, 0, out, lane);
-    else
-      ln_row_i32<false, L>(xrow, C, bias, m_ln, pw, shift, out, lane);
-  }
-}
-
-template <typename XT>
-__device__ __forceinline__ void ln_rows_any_width(
-    const XT* __restrict__ x, int R, int C, int r0, bool ivit,
-    const float* __restrict__ bias, const float* __restrict__ m_ln, float pw,
-    int shift, int8_t* A) {
-  if (C < 256)
-    ln_rows_swizzled<8>(x, R, C, r0, ivit, bias, m_ln, pw, shift, A);
-  else
-    ln_rows_swizzled<16>(x, R, C, r0, ivit, bias, m_ln, pw, shift, A);
-}
-
 // 1. LN + qkv GEMM + requant.  x: [R, C] int8 or (x16) int16; wqkv: the
 // tensor map of the qkv weight transposed, [3C, C]; ln_in: the hoisted LN
 // output [R, C], or null to run the LN here.
@@ -440,19 +403,8 @@ ln_qkv_wgmma_kernel(const __grid_constant__ CUtensorMap wqkv,
                     int ln_ivit) {
   const int r0 = blockIdx.x * kGemmRows, N3 = 3 * C;
   auto fill = [&](int8_t* A) {
-    if (ln_in != nullptr) {
-      copy_rows_swizzled(ln_in, R, C, r0, A);
-      return;
-    }
-    // 2**shift = pw, pow2's clamped exponent
-    const LnShift ln = ln_shift_of(sp.ln_shift);
-    const int shift = ((__float_as_int(ln.pw) >> 23) & 255) - 127;
-    if (x16)
-      ln_rows_any_width(static_cast<const int16_t*>(x), R, C, r0, ln_ivit,
-                        ln_bias, m_ln, ln.pw, shift, A);
-    else
-      ln_rows_any_width(static_cast<const int8_t*>(x), R, C, r0, ln_ivit,
-                        ln_bias, m_ln, ln.pw, shift, A);
+    fill_ln_tile(A, x, ln_in, R, C, r0, x16, ln_ivit, ln_bias, m_ln,
+                 sp.ln_shift);
   };
   auto epi = [&](int (&acc)[BN / 4], int c0) {
 #pragma unroll
@@ -495,123 +447,10 @@ proj_wgmma_kernel(const __grid_constant__ CUtensorMap wp,
   const float m_res_x = __ldg(sp.m_res_x), m_res_id = __ldg(sp.m_res_id);
   const float lim_p = bits_lim(proj_bits), lim_o = bits_lim(out_bits);
   auto epi = [&](int (&acc)[BN / 4], int c0) {
-#pragma unroll
-    for (int j = 0; j < BN / 16; j += 2)
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int gr = r0 + wg_row(2 * h);
-        uint32_t v[2];
-#pragma unroll
-        for (int q = 0; q < 2; ++q) {
-          const int col = c0 + wg_col(j + q, 0);
-          const int2 b = __ldg(reinterpret_cast<const int2*>(bp + col));
-          const float2 m = __ldg(reinterpret_cast<const float2*>(mp + col));
-          const int* a = &acc[4 * (j + q) + 2 * h];
-          const size_t idx = (size_t)gr * C + col;
-          float x0 = 0.f, x1 = 0.f;
-          if (gr < R) {
-            x0 = load_act(x, idx, x16);
-            x1 = load_act(x, idx + 1, x16);
-          }
-          const float y0 = requant(__int2float_rn(a[0] + b.x), m.x, lim_p);
-          const float y1 = requant(__int2float_rn(a[1] + b.y), m.y, lim_p);
-          const int o0 = (int)clampf(rintf(y0 * m_res_x) + rintf(x0 * m_res_id),
-                                     -lim_o, lim_o - 1.f);
-          const int o1 = (int)clampf(rintf(y1 * m_res_x) + rintf(x1 * m_res_id),
-                                     -lim_o, lim_o - 1.f);
-          if (o16) {
-            if (gr < R)
-              *reinterpret_cast<uint32_t*>(static_cast<int16_t*>(out) + idx) =
-                  (uint32_t)(o0 & 0xffff) | ((uint32_t)(o1 & 0xffff) << 16);
-          } else {
-            v[q] = (uint32_t)(o0 & 0xff) | ((uint32_t)(o1 & 0xff) << 8);
-          }
-        }
-        if (!o16) {
-          const uint32_t word = pair_word(v[0], v[1]);
-          if (gr < R)
-            *reinterpret_cast<uint32_t*>(static_cast<int8_t*>(out) +
-                                         (size_t)gr * C + c0 + 8 * j +
-                                         pair_col()) = word;
-        }
-      }
+    residual_epilogue<BN>(acc, c0, r0, R, C, x, bp, mp, m_res_x, m_res_id,
+                          lim_p, lim_o, x16, o16, out);
   };
   wgmma_rows<BN, true>(&wp, C, C, fill, epi);
-}
-
-// The TMA descriptor of a weight W [N, K] int8, row-major: [BN, 128]-byte
-// boxes with the 128-byte swizzle, zero past K.  cuTensorMapEncodeTiled
-// comes from the driver through the runtime's entry-point query (no -lcuda);
-// descriptors are cached by pointer and shape, since the host sets the
-// pace of small calls.
-typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
-                                  void*, const cuuint64_t*, const cuuint64_t*,
-                                  const cuuint32_t*, const cuuint32_t*,
-                                  CUtensorMapInterleave, CUtensorMapSwizzle,
-                                  CUtensorMapL2promotion,
-                                  CUtensorMapFloatOOBfill);
-
-inline cudaError_t weight_map(CUtensorMap* map, const int8_t* w, int N, int K,
-                              int BN) {
-  struct Entry {
-    const int8_t* w;
-    int N, K, BN;
-    CUtensorMap map;
-  };
-  constexpr int kCache = 16;
-  static Entry cache[kCache];
-  static int used = 0, next = 0;
-  static EncodeTiledFn encode = nullptr;
-  static std::mutex mu;
-  std::lock_guard<std::mutex> lock(mu);
-  for (int i = 0; i < used; ++i) {
-    const Entry& e = cache[i];
-    if (e.w == w && e.N == N && e.K == K && e.BN == BN) {
-      *map = e.map;
-      return cudaSuccess;
-    }
-  }
-  if (encode == nullptr) {
-    void* fn = nullptr;
-    cudaDriverEntryPointQueryResult found;
-    cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &fn,
-                                              cudaEnableDefault, &found);
-    if (err != cudaSuccess) return err;
-    if (found != cudaDriverEntryPointSuccess || fn == nullptr)
-      return cudaErrorNotSupported;
-    encode = reinterpret_cast<EncodeTiledFn>(fn);
-  }
-  const cuuint64_t dims[2] = {(cuuint64_t)K, (cuuint64_t)N};
-  const cuuint64_t strides[1] = {(cuuint64_t)K};
-  const cuuint32_t box[2] = {(cuuint32_t)kSliceK, (cuuint32_t)BN};
-  const cuuint32_t unit[2] = {1, 1};
-  if (encode(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2, const_cast<int8_t*>(w), dims,
-             strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
-             CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
-    return cudaErrorInvalidValue;
-  cache[next] = {w, N, K, BN, *map};
-  next = (next + 1) % kCache;
-  if (used < kCache) ++used;
-  return cudaSuccess;
-}
-
-// Blocks of the proj launch over R rows and N columns: ceil(R / 64) row
-// blocks, times a split of the BN-column passes where the row blocks alone
-// would leave SMs idle (Swin-T's last stage has 49 of them for 132 SMs).
-// ln_qkv is not split: each split block would rerun the LN of its rows.
-inline dim3 gemm_grid(int R, int N, int BN) {
-  static int sms = 0;
-  if (sms == 0) {
-    int dev = 0;
-    if (cudaGetDevice(&dev) != cudaSuccess ||
-        cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) !=
-            cudaSuccess)
-      sms = 1;
-  }
-  const int rows = (R + kGemmRows - 1) / kGemmRows, passes = N / BN;
-  const int split = min(passes, max(1, (2 * sms + rows - 1) / rows));
-  return dim3(rows, split);
 }
 
 // Launch the two GEMM launches' kernels around a core launch: set their

@@ -25,8 +25,6 @@
 namespace ivit {
 
 constexpr int kThreads = 256;   // 8 warps per block
-constexpr int kTileM = 64;      // token rows per GEMM block (32 where
-                                // the MLP hidden tile needs the room)
 constexpr int kTileK = 64;      // K depth per staged weight tile (32 for
                                 // the 96-column pass)
 constexpr int kBsLd = kTileK + 16;  // weight tile row stride: conflict-free fragments
@@ -166,21 +164,6 @@ __device__ __forceinline__ float newton_sqrt(float v) {
 #pragma unroll
   for (int i = 0; i < 10; ++i) k = floorf((k + floorf(rdiv(v, k))) * 0.5f);
   return k;
-}
-
-// One activation of an int8 or int16 token stream (x16: int16), as f32.
-__device__ __forceinline__ float load_act(const void* x, size_t i, bool x16) {
-  return x16 ? (float)static_cast<const int16_t*>(x)[i]
-             : (float)static_cast<const int8_t*>(x)[i];
-}
-
-// Store v, already clamped to its container's range, as int8 or int16.
-__device__ __forceinline__ void store_act(void* out, size_t i, float v,
-                                          bool o16) {
-  if (o16)
-    static_cast<int16_t*>(out)[i] = (int16_t)(int)v;
-  else
-    static_cast<int8_t*>(out)[i] = (int8_t)(int)v;
 }
 
 // One warp: LayerNorm of one row of C activations (XT: int8, or int16 on

@@ -6,9 +6,11 @@
 //     (nonlinear.py _shiftmax_kernel, block.py _shiftmax), and
 //     shiftmax_quad, the same for a row spread over a quad of an mma
 //     accumulator tile (the attention cores);
-//   * shift_gelu_row, one warp's ShiftGELU + requant of an int8 row in
-//     global or shared memory (nonlinear.py _shift_gelu_kernel, block.py
-//     _shift_gelu with the requant after it).
+//   * shift_gelu_table_kernel, the table of ShiftGELU + requant outputs of
+//     every (row max, value) pair, and shift_gelu_row, one warp's ShiftGELU
+//     + requant of an int8 row in global or shared memory through that
+//     table (nonlinear.py _shift_gelu_kernel, block.py _shift_gelu with
+//     the requant after it).
 // Every f32 rounding happens once, where the reference rounds: s_gelu *
 // 1.702 is one multiply, exp + exp_max one add, exp * factor one multiply
 // followed by an exact power-of-two scale.  Built with --fmad=false.
@@ -180,61 +182,120 @@ __device__ __forceinline__ void shiftmax_quad(float (&v)[NV], int nv_live,
     v[i] = floorf(__fmul_rn(v[i], factor) * out_scale);
 }
 
-// ShiftGELU of one int8-valued x of a row with max xmax, exp_max =
-// int_exp_shift(-xmax): x * floor(exp * factor * sig_scale), sig_scale =
-// 2**-(32 - sigmoid bits).
-__device__ __forceinline__ float shift_gelu(float x, float xmax, float exp_max,
-                                            float x0, float n, float sig_scale,
-                                            int fast_q) {
-  const float e = int_exp_shift(x - xmax, x0, n, fast_q);
+// ShiftGELU + requant as a table.  The output of an element depends only
+// on the element x (int8) and its row's max xmax (block.py _shift_gelu_lut
+// makes the same observation): its exp is int_exp_shift(x - xmax), a
+// function of d = xmax - x in [0, 255] alone, and exp_max =
+// int_exp_shift(-xmax) is constant along the row.  An int8 xmax takes 256
+// values, so one small launch (shift_gelu_table_kernel) computes the
+// outputs requant(x * sigmoid) of every (xmax, x <= xmax) pair, 65,536
+// entries, with the reference's operations on the same values; each row
+// then copies its xmax's 256 bytes into shared memory and each element is
+// one lookup.  The divide chain runs once a table entry a call instead of
+// once an element.
+// The table is [xmax + 128][x + 128], 65,536 bytes.  One block of 256
+// threads a row max xmax = blockIdx.x - 128: the exps
+// int_exp_shift(-d), d = 0 .. 255, then the entries x = -128 .. xmax of
+// table[xmax + 128], x * floor(exp * factor * sig_scale) with factor =
+// floor(2**31 / (exp + exp_max)), requantized by m_out to [-lim, lim - 1].
+// Entries past xmax are never looked up and stay unwritten.
+__global__ void __launch_bounds__(256)
+shift_gelu_table_kernel(const float* __restrict__ s_gelu,
+                        const float* __restrict__ m_out, int output_bit,
+                        int n, int out_bits, int fast_q,
+                        int8_t* __restrict__ table) {
+  __shared__ float exps[256];
+  const float x0 = shift_gelu_x0(__ldg(s_gelu)), nf = (float)n;
+  const int d = threadIdx.x, xmax = (int)blockIdx.x - 128;
+  exps[d] = int_exp_shift(__int2float_rn(-d), x0, nf, fast_q);
+  __syncthreads();
+  const int x = d - 128;
+  if (x > xmax) return;
+  const float exp_max = int_exp_shift(__int2float_rn(-xmax), x0, nf, fast_q);
+  const float e = exps[xmax - x];
   const float sum = fminf(__fadd_rn(e, exp_max), kInt32Max);
   const float factor = floorf(rdiv(kInt32Max, sum));
-  return x * floorf(__fmul_rn(e, factor) * sig_scale);
+  const float y = __int2float_rn(x) *
+                  floorf(__fmul_rn(e, factor) * shift_out_scale(output_bit));
+  table[blockIdx.x * 256 + d] =
+      (int8_t)(int)requant(y, __ldg(m_out), bits_lim(out_bits));
 }
 
-// One warp: ShiftGELU + requant clip(round(y * m_out)) to [-lim, lim - 1] of
-// one int8 row of H.  The row max runs over all H columns first.  out may
-// be in (each lane rewrites only what it read); rows of whole 4-byte words
-// are read and written a word per lane.
+// The table launch before a kernel that looks it up, on the same stream.
+inline cudaError_t launch_shift_gelu_table(const float* s_gelu,
+                                           const float* m_out, int output_bit,
+                                           int n, int out_bits, int fast_q,
+                                           int8_t* table, cudaStream_t stream) {
+  shift_gelu_table_kernel<<<256, 256, 0, stream>>>(s_gelu, m_out, output_bit, n,
+                                                   out_bits, fast_q, table);
+  return cudaGetLastError();
+}
+
+// The four int8 values of a word through a row's table.
+__device__ __forceinline__ uint32_t gelu_lookup4(const int8_t* tab,
+                                                 uint32_t w) {
+  uint32_t o = 0;
+#pragma unroll
+  for (int d = 0; d < 4; ++d)
+    o |= (uint32_t)(uint8_t)tab[((w >> (8 * d)) & 255) ^ 128] << (8 * d);
+  return o;
+}
+
+__device__ __forceinline__ int4 gelu_lookup16(const int8_t* tab, int4 v) {
+  return make_int4((int)gelu_lookup4(tab, (uint32_t)v.x),
+                   (int)gelu_lookup4(tab, (uint32_t)v.y),
+                   (int)gelu_lookup4(tab, (uint32_t)v.z),
+                   (int)gelu_lookup4(tab, (uint32_t)v.w));
+}
+
+// The max of the four signed bytes of a word and of m.
+__device__ __forceinline__ int max_s8x4(int m, uint32_t w) {
+#pragma unroll
+  for (int d = 0; d < 4; ++d) m = max(m, (int)(int8_t)(w >> (8 * d)));
+  return m;
+}
+
+__device__ __forceinline__ int warp_max_int(int v) {
+  for (int o = 16; o > 0; o >>= 1) v = max(v, __shfl_xor_sync(0xffffffffu, v, o));
+  return v;
+}
+
+// One warp: the 256-byte table of row max xmax into tab (shared memory this
+// warp owns), 8 bytes a lane.
+__device__ __forceinline__ void copy_gelu_row_table(int8_t* tab,
+                                                    const int8_t* table,
+                                                    int xmax, int lane) {
+  reinterpret_cast<int2*>(tab)[lane] =
+      __ldg(reinterpret_cast<const int2*>(table + (xmax + 128) * 256) + lane);
+  __syncwarp();
+}
+
+// One warp: ShiftGELU + requant of one int8 row of H through the launch's
+// table (shift_gelu_table_kernel) and tab, 256 bytes of shared memory this
+// warp owns.  The row is read twice: for its max, then for the lookups
+// (out may be in: each lane rewrites only what it read); rows of whole
+// 4-byte words a word per lane.
 __device__ __forceinline__ void shift_gelu_row(const int8_t* in, int8_t* out,
-                                               int H, float x0, float n,
-                                               float sig_scale, float m_out,
-                                               float lim, int fast_q,
-                                               int lane) {
+                                               int H, int8_t* tab,
+                                               const int8_t* table, int lane) {
   const bool words =
       (H & 3) == 0 && ((reinterpret_cast<uintptr_t>(in) |
                         reinterpret_cast<uintptr_t>(out)) & 3) == 0;
-  const int* in4 = reinterpret_cast<const int*>(in);
-  float xmax = -128.f;
+  const uint32_t* in4 = reinterpret_cast<const uint32_t*>(in);
+  int xmax = -128;
   if (words) {
-    for (int w = lane; w < (H >> 2); w += 32) {
-      const int v = in4[w];
-#pragma unroll
-      for (int d = 0; d < 4; ++d)
-        xmax = fmaxf(xmax, (float)(int8_t)(v >> (8 * d)));
-    }
+    for (int w = lane; w < (H >> 2); w += 32) xmax = max_s8x4(xmax, in4[w]);
   } else {
-    for (int c = lane; c < H; c += 32) xmax = fmaxf(xmax, (float)in[c]);
+    for (int c = lane; c < H; c += 32) xmax = max(xmax, (int)in[c]);
   }
-  xmax = warp_max(xmax);
-  const float exp_max = int_exp_shift(-xmax, x0, n, fast_q);
-  auto one = [&](float x) {
-    return (int)requant(shift_gelu(x, xmax, exp_max, x0, n, sig_scale, fast_q),
-                        m_out, lim);
-  };
+  copy_gelu_row_table(tab, table, warp_max_int(xmax), lane);
   if (words) {
-    int* out4 = reinterpret_cast<int*>(out);
-    for (int w = lane; w < (H >> 2); w += 32) {
-      const int v = in4[w];
-      int o = 0;
-#pragma unroll
-      for (int d = 0; d < 4; ++d)
-        o |= (one((float)(int8_t)(v >> (8 * d))) & 0xff) << (8 * d);
-      out4[w] = o;
-    }
+    uint32_t* out4 = reinterpret_cast<uint32_t*>(out);
+    for (int w = lane; w < (H >> 2); w += 32) out4[w] = gelu_lookup4(tab, in4[w]);
   } else {
-    for (int c = lane; c < H; c += 32) out[c] = (int8_t)one((float)in[c]);
+    for (int c = lane; c < H; c += 32) out[c] = tab[(uint8_t)in[c] ^ 128];
   }
+  __syncwarp();  // the table may be replaced for the warp's next row
 }
 
 }  // namespace ivit

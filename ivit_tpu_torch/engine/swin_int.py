@@ -162,7 +162,8 @@ def _mlp_fused(cfg, blk, x):
         m_res_x=blk["m_res2_x"], m_res_id=blk["m_res2_id"], mlp_bits=8,
         out_bits=16, fast_exp=cfg.fast_exp, fast_poly=cfg.fast_poly,
         ln_base=_base(cfg, "ln"), gelu_base=_base(cfg, "gelu"),
-        use_int_sqrt=_use_int_sqrt(cfg))
+        use_int_sqrt=_use_int_sqrt(cfg), fc1_wt=blk.get("fc1_wt"),
+        fc2_wt=blk.get("fc2_wt"))
     return y.reshape(B, L, C)
 
 

@@ -204,7 +204,8 @@ def _mlp_fused(cfg, blk, x, kernels):
         mlp_bits=bw.mlp_out, out_bits=bw.att_block_out,
         fast_exp=cfg.fast_exp, fast_poly=cfg.fast_poly,
         ln_base=_base(cfg, "ln"), gelu_base=_base(cfg, "gelu"),
-        use_int_sqrt=_use_int_sqrt(cfg))
+        use_int_sqrt=_use_int_sqrt(cfg), fc1_wt=blk.get("fc1_wt"),
+        fc2_wt=blk.get("fc2_wt"))
     return y.reshape(B, N, C)
 
 
@@ -261,7 +262,11 @@ class Engine:
     (dispatching on the spec's type, as the JAX ``Engine`` does).
 
     Moves the parameters to ``device`` once (default ``cuda``; raises
-    without a card unless ``device="cpu"``) and runs :func:`engine_forward`
+    without a card unless ``device="cpu"``), with ``kernels=True`` adds each
+    block's MLP weights transposed to torch's Linear layout (``fc1_wt``,
+    ``fc2_wt``: the ``mlp_block`` kernel streams those, so a call neither
+    transposes nor gives its weight maps fresh addresses), and runs
+    :func:`engine_forward`
     (a ViT spec; ``kernels`` True, "ops" or False) or
     :func:`~ivit_tpu_torch.engine.swin_int.swin_engine_forward` (a Swin
     spec; ``kernels`` True or False, ``stage_paths`` one bool per stage) on
@@ -285,8 +290,13 @@ class Engine:
             self._forward = engine_forward
         self.device = resolve_device(device)
         _check_families(spec.config)
-        self.spec = type(spec)(spec.config,
-                               params_to_torch(spec.params, self.device))
+        params = params_to_torch(spec.params, self.device)
+        if kernels is True:
+            for blk in params["blocks"]:
+                if "fc1_w" in blk:
+                    blk["fc1_wt"] = blk["fc1_w"].t().contiguous()
+                    blk["fc2_wt"] = blk["fc2_w"].t().contiguous()
+        self.spec = type(spec)(spec.config, params)
         self.kernels = kernels
 
     def __call__(self, images):

@@ -11,6 +11,9 @@ of
   * ``swin_attn_block`` and the Swin form of ``mlp_block`` at the four
     Swin-T stage shapes of batch 64 ([4096, 49, 96] to [64, 49, 768]
     windows, the stage's last block: shifted where the stage has one);
+  * the standalone ``shift_gelu_requant`` at [50,432, 1536] and
+    ``shiftmax`` at [256, 6, 197, 197] (DeiT-S's hidden rows and scores,
+    the synthetic ivit block's scales, fast quotient on);
 and, for both attention kernels, the device time of each of the three
 launches of their chain (LN + qkv, attention core, proj), summed by kernel
 name over 10 calls under ``torch.profiler`` (``*_split_ms``; "other" is
@@ -54,6 +57,7 @@ def main(argv=None):
                                                   synthetic_spec, synthetic_swin_spec)
     from ivit_tpu_torch.ops.kernels import _build
     from ivit_tpu_torch.ops.kernels import block as kb
+    from ivit_tpu_torch.ops.kernels import nonlinear as knl
     if not kb.__file__.startswith(root):
         raise RuntimeError(f"imported {kb.__file__}, not the package under {root}")
     _build.build_all()
@@ -116,6 +120,16 @@ def main(argv=None):
         out[f"mlp_block_{fam}_ms"] = time_ms(lambda: kb.mlp_block(rows, **mlp))
         out[f"attn_block_{fam}_ms"] = time_ms(lambda: kb.attn_block(x, **attn))
         out[f"attn_block_{fam}_split_ms"] = split_ms(lambda: kb.attn_block(x, **attn))
+        if fam == "ivit":
+            h = torch.as_tensor(np.clip(np.round(rng.normal(0, 32, (rows.shape[0], 1536))),
+                                        -128, 127).astype(np.int8)).to(dev)
+            out["shift_gelu_requant_ms"] = time_ms(lambda: knl.shift_gelu_requant(
+                h, b["s_gelu"], b["m_gelu"], fast_q=True))
+            scores = torch.as_tensor(rng.integers(-127, 128, (256, 6, 197, 197))
+                                     .astype(np.int8)).to(dev)
+            out["shiftmax_ms"] = time_ms(lambda: knl.shiftmax(
+                scores, b["s_attn"], 8, fast_q=True))
+            del h, scores
 
     for fam in ("ivit", "ibert"):
         spec = synthetic_swin_spec(swin_tiny_config(ln=fam, gelu=fam, softmax=fam), seed=0)

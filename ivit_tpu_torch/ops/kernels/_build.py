@@ -7,7 +7,9 @@ an add rounds as written, as the exactness helpers require).  The libraries
 go to ``build/ivit_tpu_torch/`` beside the package, named by a hash of all
 sources and flags, so an edited source is rebuilt and an unchanged one is
 reused.  All sources are compiled in parallel, one nvcc each, at the first
-call that needs a kernel.
+call that needs a kernel.  Each compiler's output (ptxas's register and
+spill report) is kept beside its library, so it can be read whether this
+process built the library or found it built.
 """
 
 from __future__ import annotations
@@ -30,15 +32,14 @@ FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
-    "mlp_block": {"ivit_mlp_block": [_P] * 16 + [_I] * 10 + [_P]},
+    "mlp_block": {"ivit_mlp_block": [_P] * 16 + [_I] * 10 + [_P, _P]},
     "attn_block": {"ivit_attn_block": [_P] * 20 + [_I] * 12 + [_P]},
     "swin_attn_block": {"ivit_swin_attn_block": [_P] * 23 + [_I] * 10 + [_P]},
     "nonlinear": {"ivit_shiftmax": [_P] * 3 + [_I] * 5 + [_P],
-                  "ivit_shift_gelu_requant": [_P] * 4 + [_I] * 6 + [_P]},
+                  "ivit_shift_gelu_requant": [_P] * 4 + [_I] * 6 + [_P, _P]},
 }
 
 _libs: dict = {}
-build_log: dict = {}
 
 
 def _nvcc() -> str:
@@ -62,12 +63,17 @@ def _lib_path(name: str, digest: str) -> str:
     return os.path.join(BUILD_DIR, f"lib{name}-{digest}.so")
 
 
+def _log_path(name: str, digest: str) -> str:
+    return _lib_path(name, digest)[:-3] + ".log"
+
+
 def build_all() -> dict:
     """Compile every source not yet built, all nvcc processes at once.
 
     Returns ``{name: seconds}`` for the sources compiled by this call and
-    records each compiler's output (register and spill report) in
-    :data:`build_log`.  Raises with the compiler's output on failure."""
+    keeps each compiler's output (register and spill report) beside its
+    library (:func:`compiler_logs`).  Raises with the compiler's output on
+    failure."""
     digest = _digest()
     todo = {n: s for n, s in SOURCES.items()
             if not os.path.exists(_lib_path(n, digest))}
@@ -87,14 +93,27 @@ def build_all() -> dict:
     for name, (tmp, proc) in procs.items():
         out, _ = proc.communicate()
         times[name] = time.perf_counter() - t0
-        build_log[name] = out
         if proc.returncode != 0:
             failed.append(f"--- {name} (nvcc exit {proc.returncode}) ---\n{out}")
         else:
+            with open(_log_path(name, digest), "w") as f:
+                f.write(out)
             os.replace(tmp, _lib_path(name, digest))
     if failed:
         raise RuntimeError("CUDA kernel build failed:\n" + "\n".join(failed))
     return times
+
+
+def compiler_logs() -> dict:
+    """``{name: nvcc output}`` of every source's current library, building
+    what is missing."""
+    build_all()
+    digest = _digest()
+    out = {}
+    for name in SOURCES:
+        with open(_log_path(name, digest)) as f:
+            out[name] = f.read()
+    return out
 
 
 def library(name: str):

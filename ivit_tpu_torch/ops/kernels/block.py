@@ -15,7 +15,10 @@ they are what the kernels are held against.
 On the card every operand is a tensor there, the scalars (LN shift,
 scales, multipliers) one-element f32 tensors as the engine spec holds
 them: the kernels derive their constants from those in each thread, so
-a call launches nothing but the weight transposes and the kernel.
+a call launches nothing but the weight transposes and the kernel
+(``mlp_block`` takes the transposes as ``fc1_wt`` / ``fc2_wt``, which
+``Engine`` makes once, and then launches the kernel alone, after its
+ShiftGELU table with the ivit GELU).
 
 Each wrapper counts its kernel launches in a plain integer attribute
 (``mlp_block.launches``, ``attn_block.launches``,
@@ -145,6 +148,7 @@ def mlp_block_ref(x, *, ln_bias, m_ln, ln_shift, fc1_w, fc1_b, m_fc1, s_gelu,
 
 _STREAM = (torch.int8, torch.int16)    # the token streams the kernels take
 _MAX_SMEM = 232448                     # a block's shared memory on sm_90
+GELU_TABLE_BYTES = 256 * 256           # ShiftGELU's [row max][value] outputs
 
 
 def _check(t, name, dtype, shape):
@@ -189,11 +193,15 @@ def _raise_on(err, name):
 def mlp_block(x, *, ln_bias, m_ln, ln_shift, fc1_w, fc1_b, m_fc1, s_gelu,
               m_gelu, fc2_w, fc2_b, m_fc2, m_res_x, m_res_id, mlp_bits=8,
               out_bits=8, fast_exp=False, fast_poly=False, ln_base="ibert",
-              gelu_base="ibert", use_int_sqrt=False, ln_in=None):
+              gelu_base="ibert", use_int_sqrt=False, ln_in=None, fc1_wt=None,
+              fc2_wt=None):
     """Fused MLP half-block; ``x`` int8 or int16 [R, C] token rows, out in
     the ``out_bits`` container, which on the card is x's (int8 -> int8 for
     ViT, int16 -> int16 for Swin); ``ln_in``: the hoisted int8 LN output of
-    ``x``, or None to run the LN in the kernel."""
+    ``x``, or None to run the LN in the kernel.  ``fc1_wt`` / ``fc2_wt``:
+    ``fc1_w`` / ``fc2_w`` transposed to torch's Linear layout [out, in] and
+    contiguous, which the kernel streams, or None to transpose them here;
+    the plain version does not read them."""
     _check_family(ln_base, gelu_base, use_int_sqrt)
     kw = dict(ln_bias=ln_bias, m_ln=m_ln, ln_shift=ln_shift, fc1_w=fc1_w,
               fc1_b=fc1_b, m_fc1=m_fc1, s_gelu=s_gelu, m_gelu=m_gelu,
@@ -206,8 +214,9 @@ def mlp_block(x, *, ln_bias, m_ln, ln_shift, fc1_w, fc1_b, m_fc1, s_gelu,
     r, c = x.shape
     hd = fc1_w.shape[1]
     out_dtype = container(out_bits)
-    smem = min(rows * (c + hd + 32) + 2 * _pass_width(c, hd) * 80
-               for rows in (64, 32))
+    # the 64-row wgmma block takes the shapes whose tiles fit its shared
+    # memory, the 32-row block (this formula, mlp_smem) every other
+    smem = 32 * (c + hd + 32) + 2 * _pass_width(c, hd) * 80
     if (c % 32 or c > 1024 or not _pass_width(c, hd) or smem > _MAX_SMEM
             or x.dtype not in _STREAM or out_dtype != x.dtype or mlp_bits > 16):
         raise ValueError(
@@ -225,22 +234,29 @@ def mlp_block(x, *, ln_bias, m_ln, ln_shift, fc1_w, fc1_b, m_fc1, s_gelu,
         _check(t, name, dt, shp)
     if ln_in is not None:
         _check(ln_in, "ln_in", torch.int8, (r, c))
+    # the kernel streams weight rows of torch's Linear layout [out, in]
+    if fc1_wt is None:
+        fc1_wt = fc1_w.t().contiguous()
+    if fc2_wt is None:
+        fc2_wt = fc2_w.t().contiguous()
+    _check(fc1_wt, "fc1_wt", torch.int8, (hd, c))
+    _check(fc2_wt, "fc2_wt", torch.int8, (c, hd))
     for name, t in (("ln_shift", ln_shift), ("s_gelu", s_gelu),
                     ("m_gelu", m_gelu), ("m_res_x", m_res_x),
                     ("m_res_id", m_res_id)):
         _check_scalar(t, name)
     out = torch.empty((r, c), dtype=out_dtype, device=x.device)
+    table = (torch.empty(GELU_TABLE_BYTES, dtype=torch.int8, device=x.device)
+             if gelu_base == "ivit" else None)
     lib = _build.library("mlp_block")
-    # the kernel streams weight rows of torch's Linear layout [out, in]
-    w1t, w2t = fc1_w.t().contiguous(), fc2_w.t().contiguous()
     err = lib.ivit_mlp_block(
         _ptr(x), _ptr(ln_in), _ptr(ln_bias), _ptr(m_ln), _ptr(ln_shift),
-        _ptr(w1t), _ptr(fc1_b), _ptr(m_fc1), _ptr(s_gelu), _ptr(m_gelu),
-        _ptr(w2t), _ptr(fc2_b), _ptr(m_fc2), _ptr(m_res_x), _ptr(m_res_id),
+        _ptr(fc1_wt), _ptr(fc1_b), _ptr(m_fc1), _ptr(s_gelu), _ptr(m_gelu),
+        _ptr(fc2_wt), _ptr(fc2_b), _ptr(m_fc2), _ptr(m_res_x), _ptr(m_res_id),
         _ptr(out), r, c, hd, mlp_bits, out_bits, int(x.dtype == torch.int16),
         int(ln_base == "ivit"),
         int(gelu_base == "ivit"), int(bool(fast_exp)), int(bool(fast_poly)),
-        _stream())
+        _ptr(table), _stream())
     _raise_on(err, "mlp_block")
     mlp_block.launches += 1
     return out

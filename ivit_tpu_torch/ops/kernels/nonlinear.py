@@ -12,10 +12,11 @@ kernels are held against.
 
 The scale operands are one-element f32 tensors (the spec's 0-d leaves);
 the kernels read them and derive ``s_gelu * 1.702`` and the exp constants
-in every thread, so a call launches the kernel and nothing else.  Each
-wrapper counts its launches in a plain integer attribute
-(``shiftmax.launches``, ``shift_gelu_requant.launches``), incremented only
-where the kernel is launched.
+in every thread, so a call launches the kernel and nothing else
+(``shift_gelu_requant``: its table of every (row max, value) output, then
+the rows, counted as one).  Each wrapper counts its launches in a plain
+integer attribute (``shiftmax.launches``, ``shift_gelu_requant.launches``),
+incremented only where the kernel is launched.
 """
 
 from __future__ import annotations
@@ -24,7 +25,8 @@ import torch
 
 from .. import ivit as iv
 from . import _build
-from .block import _check, _check_scalar, _ptr, _raise_on, _stream, container
+from .block import (GELU_TABLE_BYTES, _check, _check_scalar, _ptr, _raise_on,
+                    _stream, container)
 
 
 def shiftmax_ref(scores, s_attn, output_bit=8, *, n_valid=None, fast_q=False):
@@ -87,9 +89,10 @@ def shift_gelu_requant(x, s_gelu, m_out, output_bit=8, n=23, out_bits=8, *,
     _check_scalar(m_out, "m_out")
     h = x.shape[-1]
     out = torch.empty_like(x)
+    table = torch.empty(GELU_TABLE_BYTES, dtype=torch.int8, device=x.device)
     err = _build.library("nonlinear").ivit_shift_gelu_requant(
         _ptr(x), _ptr(s_gelu), _ptr(m_out), _ptr(out), x.numel() // h, h,
-        output_bit, n, out_bits, int(bool(fast_q)), _stream())
+        output_bit, n, out_bits, int(bool(fast_q)), _ptr(table), _stream())
     _raise_on(err, "shift_gelu_requant")
     shift_gelu_requant.launches += 1
     return out

@@ -15,8 +15,11 @@ and 6, windows of 49 tokens, a shifted block) and one at C 384 and 768
 tiles, 32-key chunks and 32-channel head chunks at C 128 (head dims 32, 64
 and 128): ViT token counts 1, 15, 17, 33 and 256 with padding tokens, Swin
 windows of 49 and 64 tokens, shifted and unshifted, int16 and int8 input.
-The DeiT-S and Swin-T shapes are held by ``chip_smoke.py``.  Exact
-equality.
+The MLP kernel also runs at the widths of every model it serves (C /
+hidden 96/384 to 1024/4096: the 64-row wgmma block and the 32-row block),
+ragged row counts 1, 63 and 65, int8 and int16 streams, and once at
+DeiT-S's 50,432 rows; ShiftGELU at GELU scales far from the engines'.  The
+DeiT-S and Swin-T shapes are held by ``chip_smoke.py``.  Exact equality.
 """
 
 import dataclasses
@@ -158,8 +161,16 @@ def test_cuda_shiftmax_matches_plain_version(cuda, shape, s, bit, n_valid):
 
 @pytest.mark.parametrize("shape,s,m_out", [((64, 384), 0.0417093, 0.031727),
                                            ((2, 17, 1536), 0.014047618, 0.5),
-                                           ((5, 30), 0.0417093, 0.031727)])
+                                           ((5, 30), 0.0417093, 0.031727),
+                                           ((9, 2048), 0.014047618, 0.031727),
+                                           ((3, 4096), 0.0417093, 0.5),
+                                           ((3, 4112), 0.0417093, 0.031727),
+                                           ((7, 100), 0.014047618, 0.031727),
+                                           ((33, 1536), 1e-3, 0.031727),
+                                           ((33, 1536), 1.0, 0.031727)])
 def test_cuda_shift_gelu_requant_matches_plain_version(cuda, shape, s, m_out):
+    """Rows held in registers (whole 16-byte chunks, up to 4096), rows read
+    a word or a byte a lane, and GELU scales far from the engines'."""
     x = torch.from_numpy(np.random.default_rng(1).integers(
         -127, 128, shape).astype(np.int8)).to(cuda)
     s = torch.tensor(s, dtype=torch.float32, device=cuda)
@@ -371,3 +382,73 @@ def test_cuda_attn_block_exp_paths(cuda, family, s_attn):
     got = kb.attn_block(x, **kw)
     torch.cuda.synchronize()
     assert torch.equal(got[:, :NV], kb.attn_block_ref(x, **kw)[:, :NV])
+
+
+# (C, hidden): Swin-T stage 0, stage 1, DeiT-S and Swin-T stage 2 (the
+# 64-row wgmma block), Swin-T stage 3 / ViT-B and ViT-L (the 32-row block)
+MLP_SHAPES = [(96, 384), (192, 768), (384, 1536), (768, 3072), (1024, 4096)]
+
+
+def _vit_block_at(dev, c, mix, seed=7):
+    gelu, softmax, ln = mix
+    cfg = dataclasses.replace(
+        deit_small_config(depth=1, img_size=64, ln=ln, gelu=gelu, softmax=softmax),
+        embed_dim=c, num_heads=c // 32, num_classes=10)
+    blk = synthetic_spec(cfg, seed=seed).params["blocks"][0]
+    return {k: torch.as_tensor(v).to(dev) for k, v in blk.items()}
+
+
+@pytest.mark.parametrize("c,hidden", MLP_SHAPES, ids=[f"C{c}" for c, _ in MLP_SHAPES])
+def test_cuda_mlp_block_widths(cuda, c, hidden):
+    """Row counts 1, 63 and 65 (ragged row blocks of both kernels), the int8
+    stream and the int16 one (fc2 at 8 bits, out at 16, as Swin runs it),
+    the LN in the kernel and hoisted, every family mix, fast flags both
+    ways."""
+    for mix in SWIN_MIXES:
+        b = _vit_block_at(cuda, c, mix)
+        assert tuple(b["fc1_w"].shape) == (c, hidden)
+        for r in (1, 63, 65):
+            for bits in (8, 16):
+                x = _stream(cuda, (r, c), bits, seed=r)
+                for fast in (False, True):
+                    kw = _swin_mlp_kw(b, mix, fast) | dict(out_bits=bits)
+                    for ln_in in (None, kb._ln8(x, mix[2], kw["ln_bias"],
+                                                kw["ln_shift"], kw["m_ln"], None)):
+                        before = kb.mlp_block.launches
+                        got = kb.mlp_block(x, ln_in=ln_in, **kw)
+                        torch.cuda.synchronize()
+                        assert kb.mlp_block.launches == before + 1
+                        want = kb.mlp_block_ref(x, ln_in=ln_in, **kw)
+                        assert torch.equal(got, want), (mix, r, bits, fast, ln_in is None)
+
+
+@pytest.mark.parametrize("family", ["ivit", "ibert"])
+def test_cuda_mlp_block_deit_s_rows(cuda, family):
+    """DeiT-S's 256 x 197 token rows, with the engine's pre-transposed
+    weights and without."""
+    b = _vit_block_at(cuda, 384, (family, family, family))
+    x = _stream(cuda, (256 * 197, 384), 8, seed=5)
+    kw = _swin_mlp_kw(b, (family,) * 3, True) | dict(out_bits=8)
+    want = kb.mlp_block_ref(x, **kw)
+    for wt in (False, True):
+        extra = dict(fc1_wt=b["fc1_w"].t().contiguous(),
+                     fc2_wt=b["fc2_w"].t().contiguous()) if wt else {}
+        got = kb.mlp_block(x, **kw, **extra)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), wt
+
+
+@pytest.mark.parametrize("s_gelu", [1e-3, 0.0417093, 1.0])
+def test_cuda_mlp_block_gelu_scales(cuda, s_gelu):
+    """ShiftGELU's table at GELU scales far from the engines' (the exp's
+    quotient x / x0 from 0 to hundreds), both block kernels."""
+    mix = ("ivit", "ivit", "ivit")
+    for c in (64, 768):
+        b = _vit_block_at(cuda, c, mix)
+        x = _stream(cuda, (65, c), 8, seed=9)
+        for fast in (False, True):
+            kw = _swin_mlp_kw(b, mix, fast) | dict(
+                out_bits=8, s_gelu=torch.tensor(s_gelu, device=cuda))
+            got = kb.mlp_block(x, **kw)
+            torch.cuda.synchronize()
+            assert torch.equal(got, kb.mlp_block_ref(x, **kw)), (c, fast)

@@ -136,3 +136,34 @@ def test_synthetic_spec_has_the_freeze_tree(calibrated):
     scaled = {k: (dt, tuple(dims.get(d, d) for d in shp))
               for k, (dt, shp) in want.items()}
     assert _tree(full.params) == scaled
+
+
+def test_engine_hands_the_mlp_kernel_transposed_weights(monkeypatch):
+    """``Engine(kernels=True)`` keeps each block's fc1 / fc2 weights in
+    torch's Linear layout and passes them to ``mlp_block``, which then
+    transposes nothing a call; the logits stay the plain engine's."""
+    from ivit_tpu_torch.engine import Engine
+    from ivit_tpu_torch.ops.kernels import block as kb
+
+    cfg = dataclasses.replace(deit_small_config(depth=2, img_size=64),
+                              embed_dim=64, num_heads=2, num_classes=10)
+    spec = synthetic_spec(cfg, seed=0)
+    eng = Engine(spec, device="cpu")
+    for blk in eng.spec.params["blocks"]:
+        assert torch.equal(blk["fc1_wt"], blk["fc1_w"].t())
+        assert torch.equal(blk["fc2_wt"], blk["fc2_w"].t())
+        assert blk["fc1_wt"].is_contiguous() and blk["fc2_wt"].is_contiguous()
+    assert "fc1_wt" not in Engine(spec, device="cpu", kernels=False).spec.params["blocks"][0]
+    seen, mlp_block = [], kb.mlp_block
+
+    def spy(x, **kw):
+        seen.append((kw["fc1_wt"], kw["fc2_wt"]))
+        return mlp_block(x, **kw)
+
+    monkeypatch.setattr(kb, "mlp_block", spy)
+    x = _images(2, 64)
+    got = eng(x)
+    blocks = eng.spec.params["blocks"]
+    assert [(a.data_ptr(), b.data_ptr()) for a, b in seen] == \
+        [(b["fc1_wt"].data_ptr(), b["fc2_wt"].data_ptr()) for b in blocks]
+    assert torch.equal(got, Engine(spec, device="cpu", kernels=False)(x))
