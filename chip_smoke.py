@@ -55,7 +55,18 @@ Phases, each printing one JSON line:
 13. engine_swin: synthetic Swin-T ivit and ibert engines (224 px, depths
    (2, 2, 6, 2), batch 64) through ``Engine``: 12 + 12 launches a forward,
    logits bitwise equal to the plain engine on the card and, for 4 images,
-   on the CPU; finite and image-dependent; img/s of both engines.
+   on the CPU; finite and image-dependent; img/s of both engines;
+14. ppoly_kernels: the ppoly variants of the three block kernels (the
+   ppoly GELU in both MLP blocks, the ppoly softmax in both attention
+   cores) bitwise equal to their plain versions at DeiT-S shapes (both
+   tables of the synthetic DeiT-S ppoly spec, fast-div form and rdiv form,
+   padding tokens) and at every Swin-T stage of batch 64 (shifted and
+   unshifted; the 32-row MLP block at stage 3); kernel, plain and library
+   times and the bound (run before the edge phases);
+15. engine_ppoly: the synthetic DeiT-S ppoly engine (ibert LN, batch 256)
+   and Swin-T ppoly engine (ivit LN, batch 64), gelu and softmax
+   ``ppoly_backend_ibert``, as phases 7 and 13: 12 + 12 launches, logits
+   bitwise equal to the plain engine on the card and the CPU, img/s.
 
 The build phase reports ptxas's registers and spill bytes per kernel and
 fails if any kernel spills.
@@ -494,6 +505,179 @@ def mlp_edge_phase(torch, kb, knl, dev):
           "streams_bits": [8, 16], "far_s_gelu": [1e-3, 1.0]})
 
 
+PPOLY = "ppoly_backend_ibert"
+
+
+def ppoly_gelu_kwargs(b, fastdiv):
+    return dict(gelu_bounds=b["gelu_bounds"], gelu_coeffs=b["gelu_coeffs"],
+                gelu_s_out=b["gelu_s_out"], gelu_fastdiv=fastdiv,
+                gelu_s_out_c=b["gelu_s_out_c"], gelu_patch_h=b["gelu_patch_h"],
+                gelu_patch_d=b["gelu_patch_d"])
+
+
+def ppoly_sm_kwargs(b):
+    return dict(sm_bounds=b["sm_bounds"], sm_coeffs=b["sm_coeffs"], exp_bits=16)
+
+
+def ppoly_row(name, source, replaces, errs, per, plain_ms, lib_ms, ops, nb):
+    b_ms, b_by = bound(ops, nb)
+    return dict(name=name, route="cuda", source=source, replaces=replaces,
+                launches=None, max_abs_err=max(errs), ms=per, plain_ms=plain_ms,
+                bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms)
+
+
+def ppoly_phases(torch, kb, dev, rows):
+    """Phase 14: the ppoly variants of the three block kernels against their
+    plain versions: DeiT-S shapes (both blocks of the ppoly spec's tables,
+    fast-div on and off, padding tokens), every Swin-T stage (shifted and
+    unshifted; the 32-row MLP block at stage 3); adds the three ppoly rows
+    (times: the fast-div form the engines take)."""
+    import numpy as np
+
+    from ivit_tpu_torch.engine.synthetic import (deit_small_config, swin_tiny_config,
+                                                  synthetic_spec, synthetic_swin_spec)
+
+    rng = np.random.default_rng(4)
+
+    def stream(shape, bits):
+        lim = 2 ** (bits - 1)
+        x = np.clip(np.round(rng.normal(0, lim / 4, shape)), -lim, lim - 1)
+        return torch.as_tensor(x.astype(np.int16 if bits > 8 else np.int8)).to(dev)
+
+    mix = (PPOLY, PPOLY, "ibert")
+    spec = synthetic_spec(deit_small_config(depth=2, ln="ibert", gelu=PPOLY,
+                                            softmax=PPOLY), seed=0)
+    blocks = [block_args(torch, b, dev) for b in spec.params["blocks"]]
+    if not spec.config.ppoly_fastdiv:
+        raise AssertionError("the DeiT-S ppoly spec failed its fast-div gate")
+    x = stream((BATCH * TOKENS, 384), 8)
+    xa = stream((BATCH, TOKENS, 384), 8)
+    xs = stream((2, 24, 384), 8)
+    errs_m, errs_a = [], []
+    for i, b in enumerate(blocks):
+        for fastdiv in (True, False):
+            kw = mlp_kwargs(b, True, ("ppoly", "ppoly", "ibert")) | ppoly_gelu_kwargs(b, fastdiv)
+            got = kb.mlp_block(x, **kw)
+            torch.cuda.synchronize()
+            errs_m.append(check_equal(torch, f"mlp_block ppoly block {i} fastdiv={fastdiv}",
+                                      got, kb.mlp_block_ref(x, **kw)))
+        kw = attn_kwargs(b, True, 6, TOKENS, ("ppoly", "ppoly", "ibert")) | ppoly_sm_kwargs(b)
+        got = kb.attn_block(xa, **kw)
+        torch.cuda.synchronize()
+        errs_a.append(check_equal(torch, f"attn_block ppoly block {i}", got,
+                                  kb.attn_block_ref(xa, **kw)))
+        kw = kw | dict(n_valid=17)
+        errs_a.append(check_equal(torch, f"attn_block ppoly block {i} padded",
+                                  kb.attn_block(xs, **kw), kb.attn_block_ref(xs, **kw),
+                                  rows=17))
+    b = blocks[0]
+    kw_m = mlp_kwargs(b, True, ("ppoly", "ppoly", "ibert")) | ppoly_gelu_kwargs(b, True)
+    kw_a = attn_kwargs(b, True, 6, TOKENS, ("ppoly", "ppoly", "ibert")) | ppoly_sm_kwargs(b)
+    deit = dict(
+        mlp_ms=time_ms(torch, lambda: kb.mlp_block(x, **kw_m), iters=20),
+        mlp_ms_rdiv=time_ms(torch, lambda: kb.mlp_block(
+            x, **(kw_m | dict(gelu_fastdiv=False))), iters=20),
+        mlp_plain_ms=time_ms(torch, lambda: kb.mlp_block_ref(x, **kw_m), iters=3, warmup=1),
+        attn_ms=time_ms(torch, lambda: kb.attn_block(xa, **kw_a), iters=20),
+        attn_plain_ms=time_ms(torch, lambda: kb.attn_block_ref(xa, **kw_a), iters=3,
+                              warmup=1))
+    xa2 = xa.reshape(-1, 384)
+    h = torch.empty((x.shape[0], 1536), dtype=torch.int8, device=dev)
+    deit["mlp_library_ms"] = time_ms(torch, lambda: (torch._int_mm(x, b["fc1_w"]),
+                                                      torch._int_mm(h, b["fc2_w"])), iters=20)
+    deit["attn_library_ms"] = time_ms(torch, lambda: (torch._int_mm(xa2, b["qkv_w"]),
+                                                       torch._int_mm(xa2, b["proj_w"])), iters=20)
+    r = x.shape[0]
+    mlp_ops = 2 * r * 384 * 1536 * 2
+    mlp_nb = nbytes(x, x, b["fc1_w"], b["fc2_w"], b["fc1_b"], b["fc2_b"], b["m_fc1"],
+                    b["m_fc2"], b["m_ln2"], b["ln2_bias_int"], b["gelu_bounds"],
+                    b["gelu_coeffs"])
+    attn_ops = 2 * r * (4 * 384 * 384) + 2 * 2 * BATCH * TOKENS * TOKENS * 384
+    attn_nb = nbytes(xa, xa, b["qkv_w"], b["proj_w"], b["qkv_b"], b["proj_b"],
+                     b["m_qkv"], b["m_proj"], b["m_ln1"], b["ln1_bias_int"],
+                     b["sm_bounds"], b["sm_coeffs"])
+
+    # --- Swin-T stages ---
+    sspec = synthetic_swin_spec(swin_tiny_config(ln="ivit", gelu=PPOLY, softmax=PPOLY),
+                                seed=0)
+    if not sspec.config.ppoly_fastdiv:
+        raise AssertionError("the Swin-T ppoly spec failed its fast-div gate")
+    swin = []
+    errs_s, errs_ms = [], []
+    for st, (c, heads, nw, blks) in enumerate(swin_stage_blocks(torch, sspec, dev)):
+        x16 = stream((SWIN_BATCH * nw, WIN, c), 16)
+        for shift, sb in blks:
+            kw = swin_attn_kwargs(sb, True, heads, nw, shift,
+                                  ("ppoly", "ppoly", "ivit")) | ppoly_sm_kwargs(sb)
+            got = kb.swin_attn_block(x16, **kw)
+            torch.cuda.synchronize()
+            errs_s.append(check_equal(torch, f"swin_attn_block ppoly stage {st} shift {shift}",
+                                      got, kb.swin_attn_block_ref(x16, **kw)))
+        xr = x16.reshape(-1, c)
+        sb = blks[0][1]
+        for fastdiv in (True, False):
+            kw = mlp_kwargs(sb, True, ("ppoly", "ppoly", "ivit")) | dict(
+                mlp_bits=8, out_bits=16) | ppoly_gelu_kwargs(sb, fastdiv)
+            got = kb.mlp_block(xr, **kw)
+            torch.cuda.synchronize()
+            errs_ms.append(check_equal(torch, f"mlp_block swin ppoly stage {st} "
+                                       f"fastdiv={fastdiv}", got, kb.mlp_block_ref(xr, **kw)))
+        shift, sb = blks[-1]
+        kw_s = swin_attn_kwargs(sb, True, heads, nw, shift,
+                                ("ppoly", "ppoly", "ivit")) | ppoly_sm_kwargs(sb)
+        kw_m = mlp_kwargs(blks[0][1], True, ("ppoly", "ppoly", "ivit")) | dict(
+            mlp_bits=8, out_bits=16) | ppoly_gelu_kwargs(blks[0][1], True)
+        x2 = torch.clamp(x16, -128, 127).to(torch.int8).reshape(-1, c)
+        hs = torch.empty((x2.shape[0], 4 * c), dtype=torch.int8, device=dev)
+        rs = x2.shape[0]
+        swin.append(dict(
+            stage=st, shift=shift, attn_ms=time_ms(torch, lambda: kb.swin_attn_block(x16, **kw_s), iters=20),
+            attn_plain_ms=time_ms(torch, lambda: kb.swin_attn_block_ref(x16, **kw_s), iters=2, warmup=1),
+            attn_library_ms=time_ms(torch, lambda: (torch._int_mm(x2, sb["qkv_w"]),
+                                                    torch._int_mm(x2, sb["proj_w"])), iters=20),
+            attn_bound=bound(2 * rs * 4 * c * c + 2 * 2 * rs * WIN * c,
+                             nbytes(x16, x16, sb["qkv_w"], sb["proj_w"], sb["qkv_b"],
+                                    sb["proj_b"], sb["m_qkv"], sb["m_proj"], sb["m_ln1"],
+                                    sb["ln1_bias_int"], sb["rel_bias_addend"],
+                                    sb["sm_bounds"], sb["sm_coeffs"],
+                                    *([sb["mask_int"]] if shift else []))),
+            mlp_ms=time_ms(torch, lambda: kb.mlp_block(xr, **kw_m), iters=20),
+            mlp_plain_ms=time_ms(torch, lambda: kb.mlp_block_ref(xr, **kw_m), iters=2, warmup=1),
+            mlp_library_ms=time_ms(torch, lambda: (torch._int_mm(x2, blks[0][1]["fc1_w"]),
+                                                   torch._int_mm(hs, blks[0][1]["fc2_w"])),
+                                   iters=20),
+            mlp_bound=bound(2 * rs * c * 4 * c * 2,
+                            nbytes(x16, x16, blks[0][1]["fc1_w"], blks[0][1]["fc2_w"]))))
+    rows["mlp_block[ppoly]"] = ppoly_row(
+        "mlp_block[ppoly]", "ivit_tpu_torch/csrc/mlp_block.cu",
+        "ivit_tpu/ops/pallas/block.py:783", errs_m + errs_ms, deit["mlp_ms"],
+        deit["mlp_plain_ms"], deit["mlp_library_ms"], mlp_ops, mlp_nb)
+    rows["mlp_block[ppoly]"].update(
+        ms_rdiv_form=deit["mlp_ms_rdiv"], swin_ms_by_stage=[d["mlp_ms"] for d in swin],
+        times_are="DeiT-S [50,432, 384], hidden 1536, fast-div form")
+    rows["attn_block[ppoly]"] = ppoly_row(
+        "attn_block[ppoly]", "ivit_tpu_torch/csrc/attn_block.cu",
+        "ivit_tpu/ops/pallas/block.py:1112", errs_a, deit["attn_ms"],
+        deit["attn_plain_ms"], deit["attn_library_ms"], attn_ops, attn_nb)
+    rows["swin_attn_block[ppoly]"] = dict(
+        name="swin_attn_block[ppoly]", route="cuda",
+        source="ivit_tpu_torch/csrc/swin_attn_block.cu",
+        replaces="ivit_tpu/ops/pallas/block.py:1373", launches=None,
+        max_abs_err=max(errs_s), ms=sum(d["attn_ms"] for d in swin),
+        plain_ms=sum(d["attn_plain_ms"] for d in swin),
+        bound_ms=sum(d["attn_bound"][0] for d in swin),
+        bound_by=max(swin, key=lambda d: d["attn_bound"][0])["attn_bound"][1],
+        library_ms=sum(d["attn_library_ms"] for d in swin),
+        times_are="one call at each of the four Swin-T stage shapes (the "
+                  "shifted block where the stage has one), summed",
+        ms_by_stage=[d["attn_ms"] for d in swin])
+    emit({"phase": "ppoly_kernels", "equal": True,
+          "config": "DeiT-S and Swin-T, gelu and softmax ppoly_backend_ibert",
+          "deit_small": deit | {"mlp_bound_ms": bound(mlp_ops, mlp_nb),
+                                "attn_bound_ms": bound(attn_ops, attn_nb)},
+          "swin_tiny": swin, "max_abs_err": max(errs_m + errs_a + errs_s + errs_ms)})
+
+
 def ptxas_report(log):
     """Registers and spill bytes of every kernel in one ``-Xptxas -v`` log."""
     out, name, spill = [], None, 0
@@ -835,6 +1019,55 @@ def engine_phases(torch, counters, dev, rows, profile=False):
                                  batches[0]))
 
 
+def ppoly_engine_phase(torch, counters, dev, rows, profile=False):
+    """Phase 15: the synthetic DeiT-S ppoly engine (batch 256) and Swin-T
+    ppoly engine (batch 64) through Engine: 12 + 12 launches a forward,
+    logits bitwise equal to the plain engine on the card and, for 4
+    images, on the CPU; img/s."""
+    from ivit_tpu_torch.engine import Engine
+    from ivit_tpu_torch.engine.synthetic import (deit_small_config, swin_tiny_config,
+                                                  synthetic_spec, synthetic_swin_spec)
+
+    gen = torch.Generator(device=dev).manual_seed(2)
+    out = {}
+    for name, cfg, make, batch, img, attn in (
+            ("deit_small", deit_small_config(ln="ibert", gelu=PPOLY, softmax=PPOLY),
+             synthetic_spec, BATCH, 224, "attn_block"),
+            ("swin_tiny", swin_tiny_config(ln="ivit", gelu=PPOLY, softmax=PPOLY),
+             synthetic_swin_spec, SWIN_BATCH, 224, "swin_attn_block")):
+        spec = make(cfg, seed=0)
+        batches = [torch.randn((batch, img, img, 3), generator=gen, device=dev)
+                   for _ in range(3)]
+        eng, plain = Engine(spec), Engine(spec, kernels=False)
+        logits, launches = run_counted(torch, counters, lambda: eng(batches[0]))
+        want = {k: cfg.depth if k in (attn, "mlp_block") else 0 for k in counters}
+        if launches != want:
+            raise AssertionError(f"{name} ppoly forward launched {launches}, want {want}")
+        check_logits(torch, f"{name} ppoly kernel engine", logits, plain(batches[0]),
+                     cfg.num_classes, batch)
+        cpu = Engine(spec, device="cpu", kernels=False)(batches[0][:4].cpu())
+        if not torch.equal(logits[:4].cpu(), cpu):
+            raise AssertionError(
+                f"{name} ppoly kernel engine != plain engine on the CPU (4 images): "
+                f"max abs diff {(logits[:4].cpu() - cpu).abs().max().item()}")
+        rows[f"{attn}[ppoly]"]["launches"] = launches[attn]
+        key = "launches" if name == "deit_small" else "launches_swin"
+        rows["mlp_block[ppoly]"][key] = launches["mlp_block"]
+        out[name] = {"batch": batch, "launches_per_forward": launches,
+                     "ppoly_fastdiv": spec.config.ppoly_fastdiv,
+                     "img_per_s": img_per_s(torch, eng, batches, 6),
+                     "plain_img_per_s": img_per_s(torch, plain, batches, 2),
+                     "logits_std": logits.std().item()}
+        if profile:
+            emit(profile_forward(torch, f"{name} ppoly kernels=True", eng, batches[0]))
+        del eng, plain
+    emit({"phase": "engine_ppoly",
+          "config": "deit_small (ibert LN) and swin_tiny_patch4_window7_224 (ivit "
+                    "LN), gelu and softmax ppoly_backend_ibert, 224px, full depth "
+                    "(synthetic, seed 0)",
+          **out, "equal_plain_cuda": True, "equal_plain_cpu_4img": True})
+
+
 def profile_forward(torch, name, eng, images, n=3):
     """Device time by kernel over ``n`` forwards (torch.profiler, CUDA
     activity), and the device's idle share of the wall time."""
@@ -896,6 +1129,7 @@ def main(argv=None) -> int:
         raise AssertionError(f"kernels spill: {spills}")
     rows = kernel_phases(torch, kb, knl, dev)
     swin_phases(torch, kb, dev, rows)
+    ppoly_phases(torch, kb, dev, rows)
     attn_edge_phase(torch, kb, dev)
     mlp_edge_phase(torch, kb, knl, dev)
     emit({"phase": "kernel_checks_done", "seconds": time.perf_counter() - t0})
@@ -904,6 +1138,7 @@ def main(argv=None) -> int:
                 "shift_gelu_requant": knl.shift_gelu_requant}
     engine_phases(torch, counters, dev, rows, profile=args.profile)
     swin_engine_phase(torch, counters, dev, rows, profile=args.profile)
+    ppoly_engine_phase(torch, counters, dev, rows, profile=args.profile)
     emit({"phase": "engines_done", "seconds": time.perf_counter() - t0})
     emit({"kernels": list(rows.values())})
     print(smi, flush=True)

@@ -1,12 +1,13 @@
-// Fused attention half-block, ivit and ibert families, for sm_90a.
+// Fused attention half-block, ivit, ibert and ppoly softmax, for sm_90a.
 //
 // Replaces ivit_tpu/ops/pallas/block.py::attn_block_p (body _attn_kernel):
 //   LN (I-LayerNorm or ibert LN; or the hoisted int8 ln_in) -> int8
 //   requant -> qkv GEMM + bias -> requant -> per head int32 q k^T ->
 //   requant by m_attn -> softmax over the n_valid columns (Shiftmax: shift
-//   exp, exact two-limb row sum, 2**31 reciprocal; or ibert: int exp,
-//   16-bit exp requant, 2**32 reciprocal) -> probs @ v -> requant by m_av
-//   -> proj GEMM + bias -> requant -> integer residual.
+//   exp, exact two-limb row sum, 2**31 reciprocal; ibert: int exp, 16-bit
+//   exp requant, 2**32 reciprocal; ppoly: the fitted polynomial exp on the
+//   exp_bits grid, exact row sum, 2**32 reciprocal) -> probs @ v -> requant
+//   by m_av -> proj GEMM + bias -> requant -> integer residual.
 //
 // Bound on this card: operations.  At DeiT-S (B 256, N 197, C 384, 6 heads)
 // one call does 2 * B * N * (3C * C + C * C) + 2 * 2 * B * N * N * C = 75 G
@@ -34,13 +35,18 @@
 //      probabilities packed from those registers into the A fragments of
 //      probs @ v, the other warps' int32 partial sums added into the
 //      first's.  Four warps a tile keep 32 scores a thread, so two or
-//      three blocks fit an SM.  The [N, N] matrix is never stored;
+//      three blocks fit an SM.  The [N, N] matrix is never stored.  The
+//      ppoly exps are lookups in the call's 256-entry table (ppoly.cuh,
+//      one small launch before this one): int8 scores have offsets x - max
+//      + 127 in [-128, 127] only;
 //   3. proj_wgmma_kernel: 64 rows of ctx per block, proj GEMM on wgmma,
 //      requant, residual, the passes split over blocks where the row blocks
 //      would leave SMs idle.
 // The LN shift and the exp constants are derived in every thread from the
 // spec's scalar leaves, with the plain version's rdiv, so a call costs the
 // host no arithmetic launches of its own.
+
+#include <type_traits>
 
 #include "attn_chain.cuh"
 
@@ -50,18 +56,20 @@ constexpr int kCoreThreads = 256;  // 8 warps
 constexpr int kSplit = 4;          // warps a query tile: keys split 4 ways
 constexpr int kCoreGroups = kCoreThreads / (32 * kSplit);
 
-// 2. Softmax attention for one (head, image); SHIFTMAX: the ivit softmax,
-// else the ibert one.  Each group of kSplit warps takes 16 query rows at a
+// 2. Softmax attention for one (head, image); SM: the softmax family
+// (kSmShift the ivit one, kSmIbert, kSmPpoly).  Each group of kSplit warps takes 16 query rows at a
 // time, warp p of it keys 64 p .. 64 p + 63 (Np <= 256), so that a thread
 // holds at most 32 scores; MAXD: chunks of 32 channels (2: Dh <= 64, 4:
 // Dh <= 128).  Three blocks an SM (80 registers a thread) hold the
 // Shiftmax core at Dh <= 64; the ibert core, whose exp keeps more
-// constants live, and Dh 128 take two (128 registers), spilling nothing.
-template <bool SHIFTMAX, int MAXD>
-__global__ void __launch_bounds__(kCoreThreads, SHIFTMAX && MAXD <= 2 ? 3 : 2)
+// constants live, the ppoly core and Dh 128 take two (128 registers),
+// spilling nothing.
+template <int SM, int MAXD>
+__global__ void __launch_bounds__(kCoreThreads, SM == kSmShift && MAXD <= 2 ? 3 : 2)
 attn_core_mma_kernel(const int8_t* __restrict__ qkv, AttnScalars sp,
                      int8_t* __restrict__ ctx, int Np, int C, int Dh,
-                     int n_valid, int attn_bits, int fast_q, int fast_poly) {
+                     int n_valid, int attn_bits, int fast_q, int fast_poly,
+                     PpolySoftmax ps) {
   extern __shared__ __align__(16) int8_t smem[];
   const int h = blockIdx.x, b = blockIdx.y, warp = threadIdx.x >> 5;
   const int group = warp / kSplit;
@@ -74,7 +82,7 @@ attn_core_mma_kernel(const int8_t* __restrict__ qkv, AttnScalars sp,
   __syncthreads();
 
   const float m_attn = __ldg(sp.m_attn), m_av = __ldg(sp.m_av);
-  const SoftmaxConsts k = softmax_consts_of<SHIFTMAX>(sp);
+  const SoftmaxConsts k = softmax_consts_of<SM>(sp);
   const float lim_a = bits_lim(attn_bits);
   auto score = [&](int, int, int dot) {
     return requant(__int2float_rn(dot), m_attn, lim_a);
@@ -82,16 +90,17 @@ attn_core_mma_kernel(const int8_t* __restrict__ qkv, AttnScalars sp,
   int8_t* cbase = ctx + (size_t)b * Np * C + h * Dh;
   SplitReduce<kSplit> red{xch, warp % kSplit, 1 + group, 0, 0};
   for (int i0 = 16 * group; i0 < Np; i0 += 16 * kCoreGroups)
-    attn_tile<SHIFTMAX, 8 / kSplit, MAXD>(base, 3 * C, i0, Np, Dh, n_valid, Ks,
-                                          Vt, score, k, fast_q, fast_poly, m_av,
-                                          cbase, C, red);
+    attn_tile<SM, 8 / kSplit, MAXD>(base, 3 * C, i0, Np, Dh, n_valid, Ks, Vt,
+                                    score, k, ps, fast_q, fast_poly, m_av,
+                                    cbase, C, red);
 }
 
-template <int BN, bool SHIFTMAX>
+template <int BN, int SM>
 int launch_attn(const int8_t* x, const int8_t* ln_in, const float* ln_bias,
                 const float* m_ln, const int8_t* wqkv_t, const int32_t* bqkv,
                 const float* mqkv, const int8_t* wp_t, const int32_t* bp,
-                const float* mp, AttnScalars sp, int8_t* qkv, int8_t* ctx,
+                const float* mp, AttnScalars sp, PpolySoftmax ps, int8_t* qkv,
+                int8_t* ctx,
                 int8_t* out, int B, int Np, int C, int H, int n_valid,
                 int attn_bits, int proj_bits, int out_bits, int ln_ivit,
                 int fast_q, int fast_poly, cudaStream_t stream) {
@@ -102,10 +111,10 @@ int launch_attn(const int8_t* x, const int8_t* ln_in, const float* ln_bias,
   CUtensorMap mq, mpj;
   cudaError_t err;
   if ((err = prepare_gemms<BN>(wqkv_t, wp_t, C, &mq, &mpj)) != cudaSuccess ||
-      (err = cudaFuncSetAttribute(attn_core_mma_kernel<SHIFTMAX, 2>,
+      (err = cudaFuncSetAttribute(attn_core_mma_kernel<SM, 2>,
                                   cudaFuncAttributeMaxDynamicSharedMemorySize,
                                   (int)smem_core)) != cudaSuccess ||
-      (err = cudaFuncSetAttribute(attn_core_mma_kernel<SHIFTMAX, 4>,
+      (err = cudaFuncSetAttribute(attn_core_mma_kernel<SM, 4>,
                                   cudaFuncAttributeMaxDynamicSharedMemorySize,
                                   (int)smem_core)) != cudaSuccess)
     return (int)err;
@@ -115,11 +124,11 @@ int launch_attn(const int8_t* x, const int8_t* ln_in, const float* ln_bias,
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
   const dim3 core_grid(H, B);
   if (Dh <= 64)
-    attn_core_mma_kernel<SHIFTMAX, 2><<<core_grid, kCoreThreads, smem_core, stream>>>(
-        qkv, sp, ctx, Np, C, Dh, n_valid, attn_bits, fast_q, fast_poly);
+    attn_core_mma_kernel<SM, 2><<<core_grid, kCoreThreads, smem_core, stream>>>(
+        qkv, sp, ctx, Np, C, Dh, n_valid, attn_bits, fast_q, fast_poly, ps);
   else
-    attn_core_mma_kernel<SHIFTMAX, 4><<<core_grid, kCoreThreads, smem_core, stream>>>(
-        qkv, sp, ctx, Np, C, Dh, n_valid, attn_bits, fast_q, fast_poly);
+    attn_core_mma_kernel<SM, 4><<<core_grid, kCoreThreads, smem_core, stream>>>(
+        qkv, sp, ctx, Np, C, Dh, n_valid, attn_bits, fast_q, fast_poly, ps);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
   proj_wgmma_kernel<BN><<<gemm_grid(R, C, BN), kGemmThreads, smem_gemm,
                           stream>>>(mpj, x, ctx, bp, mp, sp, out, R, C,
@@ -129,6 +138,13 @@ int launch_attn(const int8_t* x, const int8_t* ln_in, const float* ln_bias,
 
 }  // namespace ivit
 
+// Pointers in the wrapper's argument order; ln_in may be null (LN in the
+// kernel); the scalar operands point at one f32 each (s_exp_act: the ibert
+// softmax only).  sm picks the softmax (0 ibert, 1 Shiftmax, 2 ppoly); for
+// ppoly, pp describes the fitted table (host memory; null otherwise) and
+// exp_table is 256 f32 of scratch for its exp table, whose launch runs
+// first.  qkv [B * Np, 3C] and ctx [B * Np, C] are int8 scratch.  Shapes
+// or a ppoly table the kernels do not take: cudaErrorInvalidValue.
 extern "C" int ivit_attn_block(const int8_t* x, const int8_t* ln_in,
                                const float* ln_bias,
                                const float* m_ln, const float* ln_shift,
@@ -141,24 +157,34 @@ extern "C" int ivit_attn_block(const int8_t* x, const int8_t* ln_in,
                                int8_t* qkv, int8_t* ctx, int8_t* out, int B,
                                int Np, int C, int H, int n_valid, int attn_bits,
                                int proj_bits, int out_bits, int ln_ivit,
-                               int sm_ivit, int fast_q, int fast_poly,
+                               int sm, int fast_q, int fast_poly,
+                               const ivit::PpolyArgs* pp, float* exp_table,
                                cudaStream_t stream) {
   using namespace ivit;
   const AttnScalars sp{ln_shift, m_attn, nullptr, s_attn, s_exp_act,
                        m_av,     m_res_x, m_res_id};
+  PpolySoftmax ps{exp_table, {}};
   // 128-column passes where C allows (DeiT-S: 3C = 1152, C = 384), else 96
   // or 64
   const int bn = pass_width(3 * C, C), dh = H > 0 ? C / H : 0;
   if (bn == 0 || C % 32 || C > 1024 || dh * H != C || dh % 4 ||
-      dh > 128 || Np < 1 || Np > 256 || n_valid < 1 || n_valid > Np)
+      dh > 128 || Np < 1 || Np > 256 || n_valid < 1 || n_valid > Np ||
+      sm < 0 || sm > 2 || (sm == kSmPpoly && !ppoly_args_ok(pp, false)))
     return (int)cudaErrorInvalidValue;
-  auto launch = sm_ivit ? (bn == 128  ? launch_attn<128, true>
-                           : bn == 96 ? launch_attn<96, true>
-                                      : launch_attn<64, true>)
-                        : (bn == 128  ? launch_attn<128, false>
-                           : bn == 96 ? launch_attn<96, false>
-                                      : launch_attn<64, false>);
+  if (sm == kSmPpoly) {
+    ps.pp = *pp;
+    const cudaError_t err = launch_ppoly_table(ps.pp, false, nullptr, exp_table, stream);
+    if (err != cudaSuccess) return (int)err;
+  }
+  auto pick = [&](auto sm_tag) {
+    constexpr int S = decltype(sm_tag)::value;
+    return bn == 128 ? launch_attn<128, S> : bn == 96 ? launch_attn<96, S>
+                                                      : launch_attn<64, S>;
+  };
+  auto launch = sm == kSmShift   ? pick(std::integral_constant<int, kSmShift>{})
+              : sm == kSmPpoly ? pick(std::integral_constant<int, kSmPpoly>{})
+                               : pick(std::integral_constant<int, kSmIbert>{});
   return launch(x, ln_in, ln_bias, m_ln, wqkv_t, bqkv, mqkv, wp_t, bp, mp, sp,
-                qkv, ctx, out, B, Np, C, H, n_valid, attn_bits, proj_bits,
+                ps, qkv, ctx, out, B, Np, C, H, n_valid, attn_bits, proj_bits,
                 out_bits, ln_ivit, fast_q, fast_poly, stream);
 }

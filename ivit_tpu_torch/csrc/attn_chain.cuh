@@ -13,9 +13,13 @@
 #pragma once
 
 #include "ivit.cuh"
+#include "ppoly.cuh"
 #include "wgmma_gemm.cuh"
 
 namespace ivit {
+
+// The softmax families of the cores (the wrappers' codes).
+constexpr int kSmIbert = 0, kSmShift = 1, kSmPpoly = 2;
 
 // ibert integer exp of x = score - row max (block.py _ibert_int_exp).
 __device__ __forceinline__ float ibert_exp(float x, float x0, float b_int,
@@ -36,6 +40,14 @@ struct AttnScalars {
       *m_res_x, *m_res_id;
 };
 
+// The ppoly softmax's operands, a parameter of the cores only: the fitted
+// table and the call's exp table (256 f32 that ppoly_table_kernel writes
+// before the core runs).
+struct PpolySoftmax {
+  const float* exp_tab;
+  PpolyArgs pp;
+};
+
 // ibert exp constants at score scale s_attn, as ibert.int_exp and
 // int_polynomial derive them: x0 = floor(-ln2 / s), b_int and c_int.
 struct ExpConsts {
@@ -52,13 +64,13 @@ struct SoftmaxConsts {
   float x0, m_exp_act;
   ExpConsts ec;
 };
-template <bool SHIFTMAX>
+template <int SM>
 __device__ __forceinline__ SoftmaxConsts softmax_consts_of(AttnScalars sp) {
   const float s_attn = __ldg(sp.s_attn);
   SoftmaxConsts k{};
-  if (SHIFTMAX) {
+  if (SM == kSmShift) {
     k.x0 = exp_shift_x0(s_attn);
-  } else {
+  } else if (SM == kSmIbert) {
     k.m_exp_act = rdiv(1.f, __ldg(sp.s_exp_act));
     k.ec = exp_consts_of(s_attn);
   }
@@ -127,6 +139,41 @@ __device__ __forceinline__ void ibert_softmax_quad(float (&v)[NV], int nv_live,
   const float factor = floorf(rdiv(4294967296.f, __int2float_rn(esum)));
 #pragma unroll
   for (int i = 0; i < NV; ++i) v[i] = floorf(v[i] * factor * 0x1p-25f);
+}
+
+// The ppoly softmax (block.py _ppoly_softmax) of one row on the
+// accumulator layout, as ibert_softmax_quad runs the ibert one: the row max
+// over the real columns, each exp from the call's table or, past it, the
+// polynomial (ppoly_exp), the exact row sum in two int32 limbs by red
+// (exp_limb_add), clamped to >= 1, factor = floor(2**32 / sum), the 8-bit
+// probability floor(exp * factor * 2**-25); columns >= n_valid padding with
+// probability 0.
+template <int NV, class Red>
+__device__ __forceinline__ void ppoly_softmax_quad(float (&v)[NV], int nv_live,
+                                                   int t, int col0, int n_valid,
+                                                   const PpolySoftmax& ps,
+                                                   Red& red) {
+  float smax = -8388608.f;  // -2**23, the reference's pad-column fill
+#pragma unroll
+  for (int i = 0; i < NV; ++i)
+    if (i < nv_live && col0 + quad_col(i, t) < n_valid) smax = fmaxf(smax, v[i]);
+  smax = red.max(smax);
+  int hi = 0, lo = 0;
+#pragma unroll
+  for (int i = 0; i < NV; ++i) {
+    float e = 0.f;
+    if (i < nv_live && col0 + quad_col(i, t) < n_valid) {
+      e = ppoly_exp(v[i], smax, ps.exp_tab, ps.pp);
+      exp_limb_add(hi, lo, e);
+    }
+    v[i] = e;
+  }
+  hi = red.sum(hi);
+  lo = red.sum(lo);
+  const float factor =
+      floorf(rdiv(4294967296.f, fmaxf(exp_limb_total(hi, lo), 1.f)));
+#pragma unroll
+  for (int i = 0; i < NV; ++i) v[i] = floorf(__fmul_rn(v[i], factor) * 0x1p-25f);
 }
 
 // Row reductions of an attention tile whose keys one warp holds: over the
@@ -248,8 +295,9 @@ __device__ __forceinline__ int pack4(float a, float b, float c, float d) {
 //   tiles of 8 keys each; the warp's chunks part * MAXC .. that hold keys
 //   computed);
 //   score(row, key, dot) -> the f32 score of a real row and key < n_valid;
-//   the softmax on the accumulator layout (shiftmax_quad or
-//   ibert_softmax_quad), each row in the 4 lanes of a quad;
+//   the softmax on the accumulator layout (shiftmax_quad,
+//   ibert_softmax_quad or ppoly_softmax_quad, by SM), each row in the 4
+//   lanes of a quad;
 //   the int8 probabilities packed from those registers into P's A
 //   fragments (keys in chunk_slot order, as Vt holds them), P v over up to
 //   MAXD chunks of 32 channels (the other parts' int32 partials added into
@@ -258,12 +306,12 @@ __device__ __forceinline__ int pack4(float a, float b, float c, float d) {
 // qbase / cbase: row 0, channel 0 of this head in qkv [n, N3] / ctx [n, ldc].
 // red: the row reductions, QuadReduce, or SplitReduce<K>, whose part says
 // which K-th of the keys this warp holds (MAXC chunks from part * MAXC).
-template <bool SHIFTMAX, int MAXC, int MAXD, class Red, class Score>
+template <int SM, int MAXC, int MAXD, class Red, class Score>
 __device__ __forceinline__ void attn_tile(
     const int8_t* __restrict__ qbase, int N3, int i0, int n, int Dh,
     int n_valid, const int8_t* Ks, const int8_t* Vt, Score score,
-    const SoftmaxConsts& k, int fast_q, int fast_poly, float m_av,
-    int8_t* __restrict__ cbase, int ldc, Red& red) {
+    const SoftmaxConsts& k, const PpolySoftmax& ps, int fast_q, int fast_poly,
+    float m_av, int8_t* __restrict__ cbase, int ldc, Red& red) {
   const int part = red.part;
   constexpr int NT = 4 * MAXC, DT = 4 * MAXD;  // 8-key and 8-channel tiles
   const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
@@ -309,9 +357,11 @@ __device__ __forceinline__ void attn_tile(
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     red.row = g + 8 * h;
-    if (SHIFTMAX)
+    if constexpr (SM == kSmShift)
       shiftmax_quad(s[h], 8 * nc, t, key0, n_valid, k.x0, shift_out_scale(8),
                     fast_q, red);
+    else if constexpr (SM == kSmPpoly)
+      ppoly_softmax_quad(s[h], 8 * nc, t, key0, n_valid, ps, red);
     else
       ibert_softmax_quad(s[h], 8 * nc, t, key0, n_valid, k, fast_q, fast_poly,
                          red);

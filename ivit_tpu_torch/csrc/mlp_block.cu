@@ -1,10 +1,10 @@
-// Fused MLP half-block, ivit and ibert families, for sm_90a.
+// Fused MLP half-block, ivit, ibert and ppoly GELUs, for sm_90a.
 //
 // Replaces ivit_tpu/ops/pallas/block.py::mlp_block_p (body _mlp_kernel):
 //   LN (I-LayerNorm or ibert LN; or the hoisted int8 ln_in) -> int8
-//   requant -> fc1 + bias -> requant -> GELU (ShiftGELU or ibert GELU) ->
-//   requant -> fc2 + bias -> requant to mlp_bits -> integer residual
-//   clip(round(y * m_res_x) + round(x * m_res_id)).
+//   requant -> fc1 + bias -> requant -> GELU (ShiftGELU, ibert GELU or the
+//   ppoly GELU) -> requant -> fc2 + bias -> requant to mlp_bits -> integer
+//   residual clip(round(y * m_res_x) + round(x * m_res_id)).
 //
 // The token stream is int8 (ViT) or int16 (Swin: int16 in, fc2 requant to
 // 8 bits, residual and output at 16 bits), read and written as it is.
@@ -28,6 +28,11 @@
 //     applies bias and requant (and the ibert GELU and its requant per
 //     element) and writes the int8 hidden tile [64, Hd] in the same
 //     swizzled K-major layout, fc2's A operand;
+//   * the ppoly GELU: its input is the int8 fc1 requant, so the GELU and
+//     its requant of all 256 inputs are one table (ppoly.cuh
+//     ppoly_table_kernel, launched first, fast-div or rdiv form), which
+//     fc1's epilogue looks up an element: the same bits as the reference's
+//     per-element Horner and divide, computed 256 times a call;
 //   * ShiftGELU: fc1's epilogue also keeps each row's max (the lane, the
 //     quad, then a shared atomicMax a row); after the last pass each row
 //     copies its max's 256-byte table of final outputs from the call's
@@ -55,9 +60,15 @@
 // version's rdiv, so a call costs the host no arithmetic launches.
 
 #include "ivit.cuh"
+#include "ppoly.cuh"
 #include "wgmma_gemm.cuh"
 
 namespace ivit {
+
+// The GELU families of the kernels (the wrapper's codes): the ibert GELU
+// per element in fc1's epilogue, ShiftGELU through the per-row tables, the
+// ppoly GELU through its 256-entry table.
+constexpr int kGeluIbert = 0, kGeluShift = 1, kGeluPpoly = 2;
 
 // ibert GELU on one int8-valued input (block.py _ibert_gelu).
 __device__ __forceinline__ float ibert_gelu(float h, float b_int, float c_int,
@@ -100,9 +111,11 @@ __host__ __device__ constexpr size_t mlp_wg_smem(int C, int Hd, int BN,
 
 // w1 / w2: the tensor maps of fc1's weight transposed [Hd, C] and fc2's
 // [C, Hd]; x and out: [R, C], int8 or (x16) int16; ln_in: the hoisted LN
-// output [R, C], or null to run the LN here.  SHIFT_GELU: ShiftGELU (ivit)
-// through gelu_table (shift_gelu_table_kernel's), else the ibert GELU.
-template <int BN, bool SHIFT_GELU>
+// output [R, C], or null to run the LN here.  GELU: kGeluShift, ShiftGELU
+// through gelu_table (shift_gelu_table_kernel's); kGeluPpoly, the ppoly
+// GELU + requant through gelu_table (ppoly_table_kernel's, 256 entries);
+// kGeluIbert, the ibert GELU.
+template <int BN, int GELU>
 __global__ void __launch_bounds__(kGemmThreads, 2)
 mlp_wgmma_kernel(const __grid_constant__ CUtensorMap w1,
                  const __grid_constant__ CUtensorMap w2,
@@ -121,6 +134,7 @@ mlp_wgmma_kernel(const __grid_constant__ CUtensorMap w1,
   int8_t* G = A + kGemmRows * gemm_kp(C);
   int8_t* T = G + kGemmRows * gemm_kp(Hd);  // ShiftGELU: [64][256] tables
   int* rmax = reinterpret_cast<int*>(T + kGemmRows * 256);
+  constexpr bool SHIFT_GELU = GELU == kGeluShift;
   uint64_t* bars = reinterpret_cast<uint64_t*>(SHIFT_GELU ? (int8_t*)(rmax + kGemmRows) : T);
   const WeightRing ring{bufs, bars, bars + kStages};
   ring_init(ring);
@@ -144,7 +158,7 @@ mlp_wgmma_kernel(const __grid_constant__ CUtensorMap w1,
   // fc1 + bias + requant (ibert: + GELU + requant) into the hidden tile,
   // two lanes' 16-bit pairs of two 8-column tiles a 4-byte word
   GeluConsts gc{};
-  if (!SHIFT_GELU) gc = gelu_consts_of(__ldg(sp.s_gelu));
+  if (GELU == kGeluIbert) gc = gelu_consts_of(__ldg(sp.s_gelu));
   const float m_gelu = __ldg(sp.m_gelu);
   const int wg = threadIdx.x >> 7;
   int vmax[2] = {-128, -128};  // this lane's max of rows wg_row(0), wg_row(2)
@@ -167,6 +181,9 @@ mlp_wgmma_kernel(const __grid_constant__ CUtensorMap w1,
           float hi = requant(__int2float_rn(a[1] + b.y), m.y, 128.f);
           if (SHIFT_GELU) {
             vmax[h] = max(vmax[h], max((int)lo, (int)hi));
+          } else if (GELU == kGeluPpoly) {
+            lo = (float)__ldg(gelu_table + (int)lo + 128);
+            hi = (float)__ldg(gelu_table + (int)hi + 128);
           } else {
             lo = requant(ibert_gelu(lo, gc.b, gc.c, gc.shift, fast_poly),
                          m_gelu, 128.f);
@@ -224,8 +241,8 @@ mlp_wgmma_kernel(const __grid_constant__ CUtensorMap w1,
 // row-major.  w1t: fc1 weight transposed, [Hd, C]; w2t: fc2 weight
 // transposed, [C, Hd].  x and out: [R, C] of XT, int8 (ViT) or int16
 // (Swin).  ln_in: the hoisted LN output [R, C], or null to run the LN here.
-// SHIFT_GELU: ShiftGELU (ivit), else the ibert GELU.
-template <int BN, int TM, bool SHIFT_GELU, typename XT>
+// GELU: as mlp_wgmma_kernel's.
+template <int BN, int TM, int GELU, typename XT>
 __global__ void __launch_bounds__(kThreads, 1)
 mlp_block_kernel(const XT* __restrict__ x, const int8_t* __restrict__ ln_in,
                  const float* __restrict__ ln_bias,
@@ -247,7 +264,7 @@ mlp_block_kernel(const XT* __restrict__ x, const int8_t* __restrict__ ln_in,
   const LnShift ln = ln_shift_of(sp.ln_shift);
   const int r0 = blockIdx.x * TM;
   GeluConsts gc{};
-  if (!SHIFT_GELU) {
+  if (GELU == kGeluIbert) {
     gc = gelu_consts_of(__ldg(sp.s_gelu));
     // pinned before the LN: their divides' slow-path calls then run while
     // little is live, not among fc1's accumulators
@@ -267,13 +284,15 @@ mlp_block_kernel(const XT* __restrict__ x, const int8_t* __restrict__ ln_in,
         int row = tile_row<TM>(e), col = n0 + tile_col<BN, TM>(j, e);
         float h = requant(__int2float_rn(acc[j][e] + __ldg(b1 + col)),
                           __ldg(m1 + col), 128.f);
-        if (!SHIFT_GELU)
+        if (GELU == kGeluIbert)
           h = requant(ibert_gelu(h, gc.b, gc.c, gc.shift, fast_poly), m_gelu,
                       128.f);
+        else if (GELU == kGeluPpoly)
+          h = (float)__ldg(gelu_table + (int)h + 128);
         Gs[row * ldg + col] = (int8_t)(int)h;
       }
   }
-  if (SHIFT_GELU) {
+  if (GELU == kGeluShift) {
     __syncthreads();  // the whole hidden tile is written
     // the weight stage, free until fc2, holds each warp's row table
     const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
@@ -313,7 +332,7 @@ constexpr size_t mlp_smem(int TM, int BN, int C, int Hd) {
 
 constexpr int kFallbackRows = 32;  // mlp_block_kernel's rows a block
 
-template <int BN, bool SHIFT_GELU, typename XT>
+template <int BN, int GELU, typename XT>
 int launch_mlp(const void* x, const int8_t* ln_in, const float* ln_bias,
                const float* m_ln, const int8_t* w1t, const int32_t* b1,
                const float* m1, const int8_t* w2t, const int32_t* b2,
@@ -323,18 +342,18 @@ int launch_mlp(const void* x, const int8_t* ln_in, const float* ln_bias,
   constexpr int TM = kFallbackRows;
   const size_t smem = mlp_smem(TM, BN, C, Hd);
   cudaError_t err = cudaFuncSetAttribute(
-      mlp_block_kernel<BN, TM, SHIFT_GELU, XT>,
+      mlp_block_kernel<BN, TM, GELU, XT>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   dim3 grid((R + TM - 1) / TM);
-  mlp_block_kernel<BN, TM, SHIFT_GELU, XT><<<grid, kThreads, smem, stream>>>(
+  mlp_block_kernel<BN, TM, GELU, XT><<<grid, kThreads, smem, stream>>>(
       static_cast<const XT*>(x), ln_in, ln_bias, m_ln, w1t, b1, m1, w2t, b2,
       m2, sp, gelu_table, static_cast<XT*>(out), R, C, Hd, mlp_bits, out_bits,
       ln_ivit, fast_poly);
   return (int)cudaGetLastError();
 }
 
-template <int BN, bool SHIFT_GELU>
+template <int BN, int GELU>
 int launch_mlp_wgmma(const void* x, const int8_t* ln_in, const float* ln_bias,
                      const float* m_ln, const int8_t* w1t, const int32_t* b1,
                      const float* m1, const int8_t* w2t, const int32_t* b2,
@@ -342,17 +361,17 @@ int launch_mlp_wgmma(const void* x, const int8_t* ln_in, const float* ln_bias,
                      void* out, int R, int C, int Hd, int mlp_bits,
                      int out_bits, int x16, int ln_ivit, int fast_poly,
                      cudaStream_t stream) {
-  const size_t smem = mlp_wg_smem(C, Hd, BN, SHIFT_GELU);
+  const size_t smem = mlp_wg_smem(C, Hd, BN, GELU == kGeluShift);
   CUtensorMap map1, map2;
   cudaError_t err;
   if ((err = weight_map(&map1, w1t, Hd, C, BN)) != cudaSuccess ||
       (err = weight_map(&map2, w2t, C, Hd, BN)) != cudaSuccess ||
-      (err = cudaFuncSetAttribute(mlp_wgmma_kernel<BN, SHIFT_GELU>,
+      (err = cudaFuncSetAttribute(mlp_wgmma_kernel<BN, GELU>,
                                   cudaFuncAttributeMaxDynamicSharedMemorySize,
                                   (int)smem)) != cudaSuccess)
     return (int)err;
   const dim3 grid((R + kGemmRows - 1) / kGemmRows);
-  mlp_wgmma_kernel<BN, SHIFT_GELU><<<grid, kGemmThreads, smem, stream>>>(
+  mlp_wgmma_kernel<BN, GELU><<<grid, kGemmThreads, smem, stream>>>(
       map1, map2, x, ln_in, ln_bias, m_ln, b1, m1, b2, m2, sp, gelu_table, out,
       R, C, Hd, mlp_bits, out_bits, x16, ln_ivit, fast_poly);
   return (int)cudaGetLastError();
@@ -361,8 +380,27 @@ int launch_mlp_wgmma(const void* x, const int8_t* ln_in, const float* ln_bias,
 // The launcher of one pass width, for the GELU family and the stream type
 // picked at run time: mlp_wgmma_kernel where its tiles fit (rows64), else
 // mlp_block_kernel.
+template <int BN, int GELU>
+int launch_mlp_rows(bool rows64, bool x16, const void* x,
+                    const int8_t* ln_in, const float* ln_bias,
+                    const float* m_ln, const int8_t* w1t, const int32_t* b1,
+                    const float* m1, const int8_t* w2t, const int32_t* b2,
+                    const float* m2, MlpScalars sp, const int8_t* gelu_table,
+                    void* out, int R, int C, int Hd, int mlp_bits,
+                    int out_bits, int ln_ivit, int fast_poly,
+                    cudaStream_t stream) {
+  if (rows64)
+    return launch_mlp_wgmma<BN, GELU>(x, ln_in, ln_bias, m_ln, w1t, b1, m1,
+                                      w2t, b2, m2, sp, gelu_table, out, R, C,
+                                      Hd, mlp_bits, out_bits, x16, ln_ivit,
+                                      fast_poly, stream);
+  return (x16 ? launch_mlp<BN, GELU, int16_t> : launch_mlp<BN, GELU, int8_t>)(
+      x, ln_in, ln_bias, m_ln, w1t, b1, m1, w2t, b2, m2, sp, gelu_table, out,
+      R, C, Hd, mlp_bits, out_bits, ln_ivit, fast_poly, stream);
+}
+
 template <int BN>
-int launch_mlp_any(bool rows64, bool gelu_ivit, bool x16, const void* x,
+int launch_mlp_any(bool rows64, int gelu, bool x16, const void* x,
                    const int8_t* ln_in, const float* ln_bias,
                    const float* m_ln, const int8_t* w1t, const int32_t* b1,
                    const float* m1, const int8_t* w2t, const int32_t* b2,
@@ -370,16 +408,11 @@ int launch_mlp_any(bool rows64, bool gelu_ivit, bool x16, const void* x,
                    void* out, int R, int C, int Hd, int mlp_bits,
                    int out_bits, int ln_ivit, int fast_poly,
                    cudaStream_t stream) {
-  if (rows64)
-    return (gelu_ivit ? launch_mlp_wgmma<BN, true> : launch_mlp_wgmma<BN, false>)(
-        x, ln_in, ln_bias, m_ln, w1t, b1, m1, w2t, b2, m2, sp, gelu_table, out,
-        R, C, Hd, mlp_bits, out_bits, x16, ln_ivit, fast_poly, stream);
-  auto launch = gelu_ivit ? (x16 ? launch_mlp<BN, true, int16_t>
-                                 : launch_mlp<BN, true, int8_t>)
-                          : (x16 ? launch_mlp<BN, false, int16_t>
-                                 : launch_mlp<BN, false, int8_t>);
-  return launch(x, ln_in, ln_bias, m_ln, w1t, b1, m1, w2t, b2, m2, sp,
-                gelu_table, out, R, C, Hd, mlp_bits, out_bits, ln_ivit,
+  auto launch = gelu == kGeluShift   ? launch_mlp_rows<BN, kGeluShift>
+               : gelu == kGeluPpoly ? launch_mlp_rows<BN, kGeluPpoly>
+                                    : launch_mlp_rows<BN, kGeluIbert>;
+  return launch(rows64, x16, x, ln_in, ln_bias, m_ln, w1t, b1, m1, w2t, b2, m2,
+                sp, gelu_table, out, R, C, Hd, mlp_bits, out_bits, ln_ivit,
                 fast_poly, stream);
 }
 
@@ -389,11 +422,14 @@ constexpr size_t kMaxSmem = 232448;  // a block's dynamic shared memory, sm_90
 
 // Pointers in the wrapper's argument order; ln_in may be null (LN in the
 // kernel); ln_shift, s_gelu, m_gelu, m_res_x and m_res_id point at one f32
-// each; gelu_table: 65,536 bytes of scratch for ShiftGELU's table (its
-// launch runs first), unused by the ibert GELU.  x16: x and out are int16 (else int8).  ln_ivit / gelu_ivit pick
-// the ivit LN / GELU over the ibert ones.  C % 32 == 0, C <= 1024, C and
-// Hd share a pass width of 128, 96 or 64 columns (ivit::pass_width), and
-// the 32-row block's tiles fit; else cudaErrorInvalidValue.
+// each.  x16: x and out are int16 (else int8).  ln_ivit picks the ivit LN
+// over the ibert one; gelu the GELU (0 ibert, 1 ShiftGELU, 2 ppoly).
+// gelu_table: scratch for the GELU's table, whose launch runs first:
+// 65,536 bytes for ShiftGELU, 256 for the ppoly GELU, whose fitted table
+// pp describes (host memory; null for the other GELUs); unused by the
+// ibert GELU.  C % 32 == 0, C <= 1024, C and Hd share a pass width of 128,
+// 96 or 64 columns (ivit::pass_width), the 32-row block's tiles fit, and a
+// ppoly table within ppoly.cuh's limits; else cudaErrorInvalidValue.
 extern "C" int ivit_mlp_block(const void* x, const int8_t* ln_in,
                               const float* ln_bias, const float* m_ln,
                               const float* ln_shift, const int8_t* w1t,
@@ -403,28 +439,31 @@ extern "C" int ivit_mlp_block(const void* x, const int8_t* ln_in,
                               const float* m2, const float* m_res_x,
                               const float* m_res_id, void* out, int R, int C,
                               int Hd, int mlp_bits, int out_bits, int x16,
-                              int ln_ivit, int gelu_ivit, int fast_exp,
+                              int ln_ivit, int gelu, int fast_exp,
                               int fast_poly, int8_t* gelu_table,
-                              cudaStream_t stream) {
+                              const ivit::PpolyArgs* pp, cudaStream_t stream) {
   using namespace ivit;
   const MlpScalars sp{ln_shift, s_gelu, m_gelu, m_res_x, m_res_id};
   const int bn = pass_width(C, Hd);
   if (C % 32 || C > 32 * kMaxLnVals || bn == 0 ||
-      mlp_smem(kFallbackRows, bn, C, Hd) > kMaxSmem)
+      mlp_smem(kFallbackRows, bn, C, Hd) > kMaxSmem || gelu < 0 || gelu > 2 ||
+      (gelu == kGeluPpoly && !ppoly_args_ok(pp, true)))
     return (int)cudaErrorInvalidValue;
   if (R == 0) return 0;
-  if (gelu_ivit) {
-    const cudaError_t err = launch_shift_gelu_table(
-        s_gelu, m_gelu, 8, (int)kShiftGeluN, 8, fast_exp, gelu_table, stream);
-    if (err != cudaSuccess) return (int)err;
-  }
+  cudaError_t err = cudaSuccess;
+  if (gelu == kGeluShift)
+    err = launch_shift_gelu_table(s_gelu, m_gelu, 8, (int)kShiftGeluN, 8,
+                                  fast_exp, gelu_table, stream);
+  else if (gelu == kGeluPpoly)
+    err = launch_ppoly_table(*pp, true, m_gelu, gelu_table, stream);
+  if (err != cudaSuccess) return (int)err;
   // the 64-row wgmma block where its tiles fit (DeiT-S, Swin-T stages 0-2),
   // the 32-row block otherwise (hidden 3072 at C 768, 4096 at C 1024)
-  const bool rows64 = mlp_wg_smem(C, Hd, bn, gelu_ivit) <= kMaxSmem;
+  const bool rows64 = mlp_wg_smem(C, Hd, bn, gelu == kGeluShift) <= kMaxSmem;
   auto launch = bn == 128 ? launch_mlp_any<128>
               : bn == 96  ? launch_mlp_any<96>
                           : launch_mlp_any<64>;
-  return launch(rows64, gelu_ivit, x16, x, ln_in, ln_bias, m_ln, w1t, b1, m1,
-                w2t, b2, m2, sp, gelu_table, out, R, C, Hd, mlp_bits, out_bits,
+  return launch(rows64, gelu, x16, x, ln_in, ln_bias, m_ln, w1t, b1, m1, w2t,
+                b2, m2, sp, gelu_table, out, R, C, Hd, mlp_bits, out_bits,
                 ln_ivit, fast_poly, stream);
 }

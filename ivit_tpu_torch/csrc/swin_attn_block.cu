@@ -1,5 +1,5 @@
-// Fused Swin window-attention half-block, ivit and ibert families, for
-// sm_90a.
+// Fused Swin window-attention half-block, ivit, ibert and ppoly softmax,
+// for sm_90a.
 //
 // Replaces ivit_tpu/ops/pallas/block.py::swin_attn_block_p (body
 // _swin_attn_kernel), per window of the rolled, window-partitioned token
@@ -9,7 +9,7 @@
 //   ln_in) -> int8 requant -> qkv GEMM + bias -> requant -> per (window,
 //   head) int32 q k^T -> clip(round(clip(round(s * m_attn)) * m_attn2) +
 //   rel_addend) to int8, then + mask_addend (shifted blocks) after the clip
-//   -> Shiftmax or the ibert softmax over the n keys -> probs @ v ->
+//   -> Shiftmax, the ibert or the ppoly softmax over the n keys -> probs @ v ->
 //   requant by m_av -> proj GEMM + bias -> requant to 16 bits -> integer
 //   residual to int16.
 //
@@ -34,7 +34,10 @@
 //      the int8 clip, then the shift mask of the window's index within its
 //      image (window w % nW).  The masked scores, about -100 / s_attn2,
 //      stay exact through the softmax, whose exp clamps them as the
-//      reference does (Shiftmax at n * x0, ibert at 30 * x0);
+//      reference does (Shiftmax at n * x0, ibert at 30 * x0); the ppoly
+//      exp has no clamp, so a masked score, whose offset lies below the
+//      call's 256-entry table, runs the polynomial itself (ppoly_exp), and
+//      the row sum stays exact in two int32 limbs;
 //   3. proj_wgmma_kernel: 64 rows of ctx per block, proj GEMM on wgmma,
 //      requant to 16 bits, residual against the int16 (or int8) input,
 //      int16 out; the passes split over blocks at the last stages, whose
@@ -51,22 +54,25 @@
 // Rolling and window partition stay outside, in torch, as the JAX engine
 // runs them.
 
+#include <type_traits>
+
 #include "attn_chain.cuh"
 
 namespace ivit {
 
 constexpr int kSwinPairsPerBlock = 8;  // one (window, head) pair a warp
 
-// 2. Window attention, one (window, head) pair a warp; SHIFTMAX: the ivit
-// softmax, else the ibert one; MAXD: chunks of 32 channels (1: Dh <= 32,
+// 2. Window attention, one (window, head) pair a warp; SM: the softmax
+// family (kSmShift the ivit one, kSmIbert, kSmPpoly); MAXD: chunks of 32 channels (1: Dh <= 32,
 // Swin-T; 4: Dh <= 128).  rel: [H, n, n] f32 rel-pos addends; mask: [nW, n,
 // n] f32 shift-mask addends, or null for an unshifted block.
-template <bool SHIFTMAX, int MAXD>
+template <int SM, int MAXD>
 __global__ void __launch_bounds__(32 * kSwinPairsPerBlock, MAXD > 1 ? 2 : 3)
 swin_core_mma_kernel(const int8_t* __restrict__ qkv, const float* __restrict__ rel,
                      const float* __restrict__ mask, AttnScalars sp,
                      int8_t* __restrict__ ctx, int n, int C, int Dh, int H,
-                     int pairs, int n_windows, int fast_q, int fast_poly) {
+                     int pairs, int n_windows, int fast_q, int fast_poly,
+                     PpolySoftmax ps) {
   extern __shared__ __align__(16) int8_t smem[];
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int p = blockIdx.x * kSwinPairsPerBlock + warp;
@@ -80,7 +86,7 @@ swin_core_mma_kernel(const int8_t* __restrict__ qkv, const float* __restrict__ r
 
   const float m_attn = __ldg(sp.m_attn), m_attn2 = __ldg(sp.m_attn2);
   const float m_av = __ldg(sp.m_av);
-  const SoftmaxConsts k = softmax_consts_of<SHIFTMAX>(sp);
+  const SoftmaxConsts k = softmax_consts_of<SM>(sp);
   const float* rel_h = rel + (size_t)h * n * n;
   const float* mask_w =
       mask == nullptr ? nullptr : mask + (size_t)(w % n_windows) * n * n;
@@ -93,16 +99,17 @@ swin_core_mma_kernel(const int8_t* __restrict__ qkv, const float* __restrict__ r
   int8_t* cbase = ctx + (size_t)w * n * C + h * Dh;
   QuadReduce red{0, 0};
   for (int i0 = 0; i0 < n; i0 += 16)
-    attn_tile<SHIFTMAX, 2, MAXD>(base, 3 * C, i0, n, Dh, n, Ks, Vt, score, k,
-                                 fast_q, fast_poly, m_av, cbase, C, red);
+    attn_tile<SM, 2, MAXD>(base, 3 * C, i0, n, Dh, n, Ks, Vt, score, k, ps,
+                           fast_q, fast_poly, m_av, cbase, C, red);
 }
 
-template <int BN, bool SHIFTMAX>
+template <int BN, int SM>
 int launch_swin(const void* x, int x16, const int8_t* ln_in,
                 const float* ln_bias, const float* m_ln, const int8_t* wqkv_t,
                 const int32_t* bqkv, const float* mqkv, const float* rel,
                 const float* mask, const int8_t* wp_t, const int32_t* bp,
-                const float* mp, AttnScalars sp, int8_t* qkv, int8_t* ctx,
+                const float* mp, AttnScalars sp, PpolySoftmax ps, int8_t* qkv,
+                int8_t* ctx,
                 int16_t* out, int BW, int n, int C, int H, int n_windows,
                 int ln_ivit, int fast_q, int fast_poly, cudaStream_t stream) {
   const int R = BW * n, Dh = C / H, pairs = BW * H;
@@ -111,10 +118,10 @@ int launch_swin(const void* x, int x16, const int8_t* ln_in,
   CUtensorMap mq, mpj;
   cudaError_t err;
   if ((err = prepare_gemms<BN>(wqkv_t, wp_t, C, &mq, &mpj)) != cudaSuccess ||
-      (err = cudaFuncSetAttribute(swin_core_mma_kernel<SHIFTMAX, 1>,
+      (err = cudaFuncSetAttribute(swin_core_mma_kernel<SM, 1>,
                                   cudaFuncAttributeMaxDynamicSharedMemorySize,
                                   (int)smem_core)) != cudaSuccess ||
-      (err = cudaFuncSetAttribute(swin_core_mma_kernel<SHIFTMAX, 4>,
+      (err = cudaFuncSetAttribute(swin_core_mma_kernel<SM, 4>,
                                   cudaFuncAttributeMaxDynamicSharedMemorySize,
                                   (int)smem_core)) != cudaSuccess)
     return (int)err;
@@ -125,13 +132,13 @@ int launch_swin(const void* x, int x16, const int8_t* ln_in,
   const int blocks = (pairs + kSwinPairsPerBlock - 1) / kSwinPairsPerBlock;
   const int threads = 32 * kSwinPairsPerBlock;
   if (Dh <= 32)  // Swin-T's heads
-    swin_core_mma_kernel<SHIFTMAX, 1><<<blocks, threads, smem_core, stream>>>(
+    swin_core_mma_kernel<SM, 1><<<blocks, threads, smem_core, stream>>>(
         qkv, rel, mask, sp, ctx, n, C, Dh, H, pairs, n_windows, fast_q,
-        fast_poly);
+        fast_poly, ps);
   else
-    swin_core_mma_kernel<SHIFTMAX, 4><<<blocks, threads, smem_core, stream>>>(
+    swin_core_mma_kernel<SM, 4><<<blocks, threads, smem_core, stream>>>(
         qkv, rel, mask, sp, ctx, n, C, Dh, H, pairs, n_windows, fast_q,
-        fast_poly);
+        fast_poly, ps);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
   proj_wgmma_kernel<BN><<<gemm_grid(R, C, BN), kGemmThreads, smem_gemm,
                           stream>>>(mpj, x, ctx, bp, mp, sp, out, R, C, 16, 16,
@@ -146,10 +153,13 @@ int launch_swin(const void* x, int x16, const int8_t* ln_in,
 // shifted block, mask [n_windows, n, n] f32 (else null); ln_shift, m_attn,
 // m_attn2, s_attn, s_exp_act (ibert softmax only), m_av, m_res_x and
 // m_res_id point at one f32 each.  qkv [BW * n, 3C] and ctx [BW * n, C] are
-// int8 scratch; out [BW, n, C] int16.  ln_ivit / sm_ivit pick the ivit LN /
-// softmax over the ibert ones.  C % 32 == 0 and C <= 1024 with a pass
-// width (ivit::pass_width of 3C and C), C / H a multiple of 4 up to 128,
-// n <= 64; else cudaErrorInvalidValue.
+// int8 scratch; out [BW, n, C] int16.  ln_ivit picks the ivit LN over the
+// ibert one; sm the softmax (0 ibert, 1 Shiftmax, 2 ppoly); for ppoly, pp
+// describes the fitted table (host memory; null otherwise) and exp_table
+// is 256 f32 of scratch for its exp table, whose launch runs first.  C % 32
+// == 0 and C <= 1024 with a pass width (ivit::pass_width of 3C and C), C /
+// H a multiple of 4 up to 128, n <= 64, a ppoly table within ppoly.cuh's
+// limits; else cudaErrorInvalidValue.
 extern "C" int ivit_swin_attn_block(
     const void* x, const int8_t* ln_in, const float* ln_bias, const float* m_ln,
     const float* ln_shift, const int8_t* wqkv_t, const int32_t* bqkv,
@@ -158,22 +168,32 @@ extern "C" int ivit_swin_attn_block(
     const float* s_exp_act, const float* m_av, const int8_t* wp_t,
     const int32_t* bp, const float* mp, const float* m_res_x,
     const float* m_res_id, int8_t* qkv, int8_t* ctx, int16_t* out, int BW,
-    int n, int C, int H, int n_windows, int x16, int ln_ivit, int sm_ivit,
-    int fast_q, int fast_poly, cudaStream_t stream) {
+    int n, int C, int H, int n_windows, int x16, int ln_ivit, int sm,
+    int fast_q, int fast_poly, const ivit::PpolyArgs* pp, float* exp_table,
+    cudaStream_t stream) {
   using namespace ivit;
   const AttnScalars sp{ln_shift, m_attn, m_attn2, s_attn, s_exp_act,
                        m_av,     m_res_x, m_res_id};
+  PpolySoftmax ps{exp_table, {}};
   const int bn = pass_width(3 * C, C), dh = H > 0 ? C / H : 0;
   if (bn == 0 || C % 32 || C > 1024 || dh * H != C || dh % 4 ||
-      dh > 128 || n < 1 || n > 64 || n_windows < 1)
+      dh > 128 || n < 1 || n > 64 || n_windows < 1 || sm < 0 || sm > 2 ||
+      (sm == kSmPpoly && !ppoly_args_ok(pp, false)))
     return (int)cudaErrorInvalidValue;
-  auto launch = sm_ivit ? (bn == 128  ? launch_swin<128, true>
-                           : bn == 96 ? launch_swin<96, true>
-                                      : launch_swin<64, true>)
-                        : (bn == 128  ? launch_swin<128, false>
-                           : bn == 96 ? launch_swin<96, false>
-                                      : launch_swin<64, false>);
+  if (sm == kSmPpoly) {
+    ps.pp = *pp;
+    const cudaError_t err = launch_ppoly_table(ps.pp, false, nullptr, exp_table, stream);
+    if (err != cudaSuccess) return (int)err;
+  }
+  auto pick = [&](auto sm_tag) {
+    constexpr int S = decltype(sm_tag)::value;
+    return bn == 128 ? launch_swin<128, S> : bn == 96 ? launch_swin<96, S>
+                                                      : launch_swin<64, S>;
+  };
+  auto launch = sm == kSmShift   ? pick(std::integral_constant<int, kSmShift>{})
+              : sm == kSmPpoly ? pick(std::integral_constant<int, kSmPpoly>{})
+                               : pick(std::integral_constant<int, kSmIbert>{});
   return launch(x, x16, ln_in, ln_bias, m_ln, wqkv_t, bqkv, mqkv, rel, mask,
-                wp_t, bp, mp, sp, qkv, ctx, out, BW, n, C, H, n_windows,
+                wp_t, bp, mp, sp, ps, qkv, ctx, out, BW, n, C, H, n_windows,
                 ln_ivit, fast_q, fast_poly, stream);
 }

@@ -3,8 +3,9 @@
 
 ``freeze_model`` itself needs the QAT sim and is not ported yet; the
 helpers here are what :mod:`ivit_tpu_torch.engine.synthetic` and the
-loader need.  All of them are numpy f32 arithmetic, whose division is
-correctly rounded and so bit-matches ``rdiv``.
+loader need.  The scale helpers are numpy f32 arithmetic, whose division
+is correctly rounded and so bit-matches ``rdiv``; the ppoly fast-div gate
+evaluates the port's own integer cores on the CPU.
 """
 
 from __future__ import annotations
@@ -13,10 +14,12 @@ import dataclasses
 from typing import Any, Dict, Optional
 
 import numpy as np
+import torch
 
 from ..models.registry import parse_layer_name
 from ..models.vit import BitWidths
 from ..ops import ibert as _ib
+from ..ops.ppoly import eval_piecewise_poly, ppoly_gelu_int
 from ..ops.quant import exp_fastdiv_ok
 
 F32_EPS = float(np.finfo(np.float32).eps)
@@ -137,3 +140,53 @@ def _poly_fast_gate(sm_base: str, gelu_base: str, s_attn, s_gelu) -> bool:
         c = abs(np.floor(np.float32(_ib.GELU_C) / np.float32(se * se)))
         ok = ok and bool(b * b + c < lim)
     return bool(ok)
+
+
+# The bits of the GELU's input, the fc1 requant (``vit_int._mlp_unfused``
+# and ``swin_int._mlp_unfused`` requant to it; the MLP kernels hold it as
+# int8): the domain that the ppoly fast-div gate enumerates.
+GELU_IN_BITS = 8
+PPOLY_FASTDIV_PATCHES = 8
+
+
+def ppoly_gelu_lut(bounds, coeffs, scale_bits: int, s_out) -> np.ndarray:
+    """The ppoly GELU of every int8 input: ``U[x + 128] = floor(rdiv(
+    poly(x) / 2**scale_bits, s_out))`` (``engine/luts.py:133``, the
+    engine's rdiv form, whose values the fast-div gate must reproduce)."""
+    x = torch.arange(256, dtype=torch.float32) - 128.0
+    return ppoly_gelu_int(x, bounds, coeffs, scale_bits,
+                          np.float32(s_out)).numpy()
+
+
+def _ppoly_fastdiv_gate(bounds, coeffs, scale_bits: int, s_out,
+                        in_bits: int = GELU_IN_BITS) -> tuple:
+    """Exhaustive proof that the ppoly GELU epilogue divide is one
+    multiply plus at most ``PPOLY_FASTDIV_PATCHES`` fixups
+    (``freeze.py:182``).  The GELU input is the int8 fc1 requant, so all
+    256 inputs are evaluated in both forms:
+
+        fast:  g = floor(poly(x) * c),  c = fl(fl(1 / s_out) * 2**-sb)
+
+    and every input where ``fast`` differs from the rdiv form becomes a
+    patch ``g += (x == h_j) * d_j``.  Returns ``(ok, c, patch_h [P],
+    patch_d [P])``, unused slots ``h = 2**30`` (never an int8 input).
+    ``in_bits``: the bits of the GELU input; the proof covers 8 only, so
+    any other width raises rather than void it."""
+    if in_bits != 8:
+        raise ValueError(f"the ppoly fast-div gate enumerates the int8 GELU "
+                         f"input domain; got a {in_bits}-bit input")
+    truth = ppoly_gelu_lut(bounds, coeffs, scale_bits, s_out)
+    minv = np.float32(np.float32(1.0) / np.float32(s_out))
+    c = np.float32(minv * np.float32(2.0 ** -scale_bits))
+    x = np.arange(256, dtype=np.float32) - 128.0
+    y_int = eval_piecewise_poly(torch.from_numpy(x), bounds, coeffs).numpy()
+    fast = np.floor(y_int * c)
+    bad = np.nonzero(truth != fast)[0]
+    P = PPOLY_FASTDIV_PATCHES
+    patch_h = np.full((P,), 2.0**30, np.float32)
+    patch_d = np.zeros((P,), np.float32)
+    if len(bad) > P:
+        return False, c, patch_h, patch_d
+    patch_h[:len(bad)] = x[bad]
+    patch_d[:len(bad)] = (truth - fast)[bad]
+    return True, c, patch_h, patch_d

@@ -19,13 +19,15 @@ kernel on every path, as in the JAX package.  The JAX fused branch pads
 Swin's 96- and 192-channel stages to 128 lanes for the FFN kernel
 (``c_valid``) and each window to 56 tokens for the attention kernel; the
 port runs both unpadded.  JAX's Swin engine has no hybrid of standalone
-nonlinearity kernels, so ``kernels="ops"`` raises.  The ivit and ibert
-families run, in any mix; ppoly and float raise.
+nonlinearity kernels, so ``kernels="ops"`` raises.  The ivit, ibert and
+ppoly softmax and GELU run, in any mix, with the ivit or ibert LayerNorm;
+the float family raises.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import itertools
 from typing import Any, Dict
 
 import torch
@@ -37,8 +39,10 @@ from ..ops.kernels.block import int8_matmul
 from ..ops.quant import exact_int_sum, rdiv
 from .convert import params_to_torch
 from .freeze import EngineConfig
+from .freeze import GELU_IN_BITS
 from .vit_int import (_base, _check_families, _gelu_requant_int, _gemm_bias,
-                      _layernorm_int, _ln_requant, _requant, _residual_requant,
+                      _layernorm_int, _ln_requant, _ppoly_gelu_kw,
+                      _ppoly_softmax_kw, _requant, _residual_requant,
                       _softmax_int, _use_int_sqrt)
 
 
@@ -136,14 +140,16 @@ def _attn_fused(cfg, blk, x, B, res, dim, heads, ws, shift):
         n_windows=(res // ws) ** 2, s_exp_act=blk.get("s_exp_act"),
         sm_bit=cfg.bitwidths.softmax, fast_exp=cfg.fast_exp,
         fast_poly=cfg.fast_poly, ln_base=_base(cfg, "ln"),
-        sm_base=_base(cfg, "softmax"), use_int_sqrt=_use_int_sqrt(cfg))
+        sm_base=_base(cfg, "softmax"), use_int_sqrt=_use_int_sqrt(cfg),
+        **_ppoly_softmax_kw(cfg, blk))
     return _from_windows(yo, B, res, dim, ws, shift)
 
 
 def _mlp_unfused(cfg, blk, x):
     y = _layernorm_int(cfg, x, blk["ln2_bias_int"], blk["ln2_shift"])
     y = _ln_requant(y, blk["m_ln2"], 8)
-    y = _requant(_gemm_bias(y, blk["fc1_w"], blk["fc1_b"]), blk["m_fc1"], 8)
+    y = _requant(_gemm_bias(y, blk["fc1_w"], blk["fc1_b"]), blk["m_fc1"],
+                 GELU_IN_BITS)
     y = _gelu_requant_int(cfg, blk, y, 8)
     y = _requant(_gemm_bias(y, blk["fc2_w"], blk["fc2_b"]), blk["m_fc2"], 8)
     return _residual_requant(y, blk["m_res2_x"], x, blk["m_res2_id"], 16)
@@ -163,7 +169,7 @@ def _mlp_fused(cfg, blk, x):
         out_bits=16, fast_exp=cfg.fast_exp, fast_poly=cfg.fast_poly,
         ln_base=_base(cfg, "ln"), gelu_base=_base(cfg, "gelu"),
         use_int_sqrt=_use_int_sqrt(cfg), fc1_wt=blk.get("fc1_wt"),
-        fc2_wt=blk.get("fc2_wt"))
+        fc2_wt=blk.get("fc2_wt"), **_ppoly_gelu_kw(cfg, blk))
     return y.reshape(B, L, C)
 
 
@@ -186,7 +192,7 @@ def check_stage_paths(cfg, stage_paths):
 
 
 def swin_engine_forward(spec: SwinEngineSpec, images, kernels=True,
-                        device=None, stage_paths=None):
+                        device=None, stage_paths=None, mlp_wt=None):
     """images: f32 NHWC [B, img, img, 3] -> f32 logits [B, classes].
 
     ``kernels``: the fused block kernels (True) or the unfused plain engine
@@ -194,7 +200,9 @@ def swin_engine_forward(spec: SwinEngineSpec, images, kernels=True,
     stage (``None``: ``kernels`` everywhere; a stage is fused only where
     ``kernels`` is True).  ``device``: where to run (default ``cuda``;
     raises without a card unless ``"cpu"``); params and images are moved
-    there if needed.
+    there if needed.  ``mlp_wt``: one dict a ``params["blocks"]`` entry of
+    its MLP weights transposed (``vit_int.transposed_mlp_weights``), or
+    None.
     """
     check_swin_kernels(kernels)
     dev = resolve_device(device)
@@ -221,7 +229,8 @@ def swin_engine_forward(spec: SwinEngineSpec, images, kernels=True,
                         -(2.0**15), 2.0**15 - 1).to(torch.int16)
 
         res, dim = g, cfg.embed_dim
-        for (kind, stage, shift), blk in zip(cfg.layout, p["blocks"]):
+        for (kind, stage, shift), blk, wt in zip(
+                cfg.layout, p["blocks"], mlp_wt or itertools.repeat({})):
             if kind == "merge":
                 x = _merge(cfg, blk["merge"], x, B, res, dim)
                 res, dim = res // 2, dim * 2
@@ -232,7 +241,7 @@ def swin_engine_forward(spec: SwinEngineSpec, images, kernels=True,
                                          or bool(stage_paths[stage]))
             if fused:
                 x = _attn_fused(cfg, blk, x, B, res, dim, heads, ws, shift)
-                x = _mlp_fused(cfg, blk, x)
+                x = _mlp_fused(cfg, {**blk, **wt}, x)
             else:
                 x = _attn_unfused(cfg, blk, x, B, res, dim, heads, ws, shift)
                 x = _mlp_unfused(cfg, blk, x)

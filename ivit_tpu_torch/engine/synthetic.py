@@ -2,10 +2,13 @@
 and the tests).
 
 :func:`synthetic_spec` builds the numpy parameter tree that
-``ivit_tpu/engine/freeze.py::freeze_model`` emits for the ivit and ibert
+``ivit_tpu/engine/freeze.py::freeze_model`` emits for the ivit, ibert and ppoly
 families, in any mix -- the same keys, shapes and dtypes -- without a
 trained checkpoint or the QAT sim; :func:`synthetic_swin_spec` does the
-same for ``ivit_tpu/engine/swin_int.py::freeze_swin_model``.  It follows the freeze step's own
+same for ``ivit_tpu/engine/swin_int.py::freeze_swin_model``.  The ppoly
+softmax and GELU take tables fitted by the port's own fit
+(``ops/ppoly.py``) over calibrated ranges, as ``fit_ppoly_tables`` fits
+them before a freeze.  It follows the freeze step's own
 arithmetic: int8 weights quantized per output column from a normal draw,
 int32 biases on the ``w_scale * s_in`` grid, and every requant multiplier
 derived by
@@ -20,6 +23,7 @@ something.  The LUT leaves (``sm_lut``, ``gelu_lut``) are left out, and
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import numpy as np
 import torch
@@ -28,10 +32,12 @@ from ..models.swin import attention_mask, relative_position_index
 from ..models.vit import BitWidths
 from ..ops import ibert as _ib
 from ..ops import ivit as _iv
-from .freeze import (EngineConfig, EngineSpec, _exp_fast_gate,
-                     _poly_fast_gate, _sym_scale, requant_const,
-                     requant_multiplier)
+from ..ops.ppoly import fit_site
+from .freeze import (GELU_IN_BITS, EngineConfig, EngineSpec, _exp_fast_gate,
+                     _poly_fast_gate, _ppoly_fastdiv_gate, _sym_scale,
+                     requant_const, requant_multiplier)
 from .swin_int import SwinEngineConfig, SwinEngineSpec
+from .vit_int import _check_families
 
 # Nonlinearity input scales as a calibrated DeiT produces them: read off a
 # JAX freeze (ivit_tpu.engine.freeze_model) of the DeiT-S geometry (224 px,
@@ -57,6 +63,22 @@ CALIBRATED_S_GELU_IVIT = (0.014047618, 0.014301606)
 # as a trained model's peaked attention does.  A mixed spec takes the
 # softmax scale of its softmax family and the GELU scale of its GELU family.
 S_ATTN_IVIT = (0.0521371, 0.061)
+# The ppoly family's sites, (scale, calibrated min, max) a block: the GELU's
+# real input range at s_gelu read off a JAX freeze of the same DeiT-S
+# geometry with depth 2, gelu and softmax "ppoly_backend_ibert" and the
+# ibert LN (bench_matrix.py's deit_small_ppoly), calibrated with the same
+# recipe (one running_stat pass, batch 4, numpy seed 0) and fitted by
+# fit_ppoly_tables.  That freeze's softmax sites (s_attn 0.004909 and
+# 0.0048266, offsets x - max + 127 down to -94 and -90) leave a random-init
+# model's attention flat: every 8-bit probability of a 197-key row floors
+# to 0, as with Shiftmax, and the logits do not depend on the image.  The
+# softmax sites take S_ATTN_IVIT's scales over the whole int8 offset
+# domain [-128, 127] instead, as the JAX ppoly tests fit the exp
+# (tests/test_ppoly.py, s 0.05 over [-128, 127]); at these scales the fit
+# clips a coefficient to int32.
+PPOLY_SOFTMAX = ((S_ATTN_IVIT[0], -128.0, 127.0), (S_ATTN_IVIT[1], -128.0, 127.0))
+PPOLY_GELU = ((0.014047618, -1.7840475, 1.6014285),
+              (0.014350488, -1.8225119, 1.6359556))
 
 SIGMA = 4.0          # calibrated range in standard deviations (~32 LSB at int8)
 W_STD = 0.02         # weight draw, before per-column int8 quantization
@@ -65,7 +87,7 @@ SCORE_SPREAD = 40.0  # int8 attention-score spread the qkv weights aim for
 # (measured on this spec's first block with the plain engine; sets the
 # m_av site), by softmax family: the ibert spec's flat attention keeps
 # little of it, the ivit spec's peaked attention more
-CTX_GAIN = {"ibert": 0.018, "ivit": 0.3}
+CTX_GAIN = {"ibert": 0.018, "ivit": 0.3, "ppoly": 0.018}
 
 
 def deit_small_config(depth: int = 12, img_size: int = 224,
@@ -134,16 +156,57 @@ def _ivit_sum_fits_int32(s_attn, n_tok):
     return bool(n_tok * float(top) < 2.0**31)
 
 
+@functools.lru_cache(maxsize=None)
+def _fitted(kind, x_lo, x_hi, scale, type_params):
+    return fit_site(kind, x_lo, x_hi, np.float32(scale), dict(type_params))
+
+
+def _ppoly_site(config, kind, scale, x_lo, x_hi):
+    """(bounds, coeffs) of one ppoly site, fitted once for each distinct
+    (kind, range, scale, parameters) in a process: a GELU fit searches its
+    segment bounds for seconds."""
+    params = tuple(sorted(config.type_params(kind).items()))
+    bounds, coeffs = _fitted(kind, float(x_lo), float(x_hi), float(scale), params)
+    return bounds.copy(), coeffs.copy()
+
+
+def _gelu_out_scale(config, gelu_base, s_g):
+    """The GELU's output scale by family, f32 as the freeze computes it:
+    ShiftGELU's shift, the ibert composite (also the ppoly GELU's ibert
+    backend), or ``s_g / 2**scale_bits`` (its float backend)."""
+    if gelu_base == "ivit":
+        return _ivit_gelu_out_scale(s_g)
+    params = config.type_params("gelu")
+    if gelu_base == "ppoly" and str(params.get("backend", "ibert")) != "ibert":
+        sb = int(params.get("scale_bits", 22))
+        return np.float32(np.float32(s_g) / np.float32(2.0**sb))
+    return _ibert_gelu_out_scale(s_g)
+
+
+def _ppoly_gelu_leaves(config, blk, s_g, s_gelu_out, gelu_range):
+    """A block's ppoly GELU leaves, as the freeze writes them: the fitted
+    table, its output grid and the fast-div gate's constants; returns
+    whether the gate passed."""
+    blk["gelu_bounds"], blk["gelu_coeffs"] = _ppoly_site(config, "gelu", s_g,
+                                                         *gelu_range)
+    blk["gelu_s_out"] = np.float32(s_gelu_out)
+    ok, c, ph, pd = _ppoly_fastdiv_gate(
+        blk["gelu_bounds"], blk["gelu_coeffs"],
+        int(config.type_params("gelu").get("scale_bits", 22)), s_gelu_out,
+        in_bits=GELU_IN_BITS)
+    blk.update(gelu_s_out_c=c, gelu_patch_h=ph, gelu_patch_d=pd)
+    return ok
+
+
 def synthetic_spec(config: EngineConfig, seed: int = 0) -> EngineSpec:
     """A seeded engine spec for ``config`` (numpy parameter tree), any mix
-    of the ivit and ibert families."""
-    sm_base, gelu_base = config.base_type("softmax"), config.base_type("gelu")
-    for which in ("softmax", "gelu", "ln"):
-        if config.base_type(which) not in ("ivit", "ibert"):
-            raise NotImplementedError(
-                "synthetic specs cover the ivit and ibert families")
-    s_attn_tab = S_ATTN_IVIT if sm_base == "ivit" else CALIBRATED_S_ATTN
-    s_gelu_tab = CALIBRATED_S_GELU_IVIT if gelu_base == "ivit" else CALIBRATED_S_GELU
+    of the ivit, ibert and ppoly softmax and GELU with the ivit or ibert
+    LayerNorm."""
+    sm_base, gelu_base = _families(config)
+    s_attn_tab = {"ivit": S_ATTN_IVIT, "ibert": CALIBRATED_S_ATTN,
+                  "ppoly": [t[0] for t in PPOLY_SOFTMAX]}[sm_base]
+    s_gelu_tab = {"ivit": CALIBRATED_S_GELU_IVIT, "ibert": CALIBRATED_S_GELU,
+                  "ppoly": [t[0] for t in PPOLY_GELU]}[gelu_base]
     cfg, bw = config, config.bitwidths
     C, H = cfg.embed_dim, cfg.num_heads
     hidden = int(C * cfg.mlp_ratio)
@@ -171,7 +234,7 @@ def synthetic_spec(config: EngineConfig, seed: int = 0) -> EngineSpec:
     p["m_x0"] = requant_multiplier(s_patch, s_block_in)
     p["s_block0"] = s_block_in
 
-    fast_exp = fast_poly = sm_sum_i32 = True
+    fast_exp = fast_poly = sm_sum_i32 = ppoly_fastdiv = True
     blocks = []
     for i in range(cfg.depth):
         s_attn = np.float32(s_attn_tab[i % 2])
@@ -194,6 +257,10 @@ def synthetic_spec(config: EngineConfig, seed: int = 0) -> EngineSpec:
             c_int = np.floor(np.float32(_ib.EXP_C) / np.float32(s_attn * s_attn))
             blk["s_exp_act"] = _sym_scale(16, np.float32(0.0),
                                           np.float32(c_int * 2.0**30))
+            s_sm = np.float32(2.0 / 2**bw.softmax)
+        elif sm_base == "ppoly":
+            blk["sm_bounds"], blk["sm_coeffs"] = _ppoly_site(
+                cfg, "softmax", *PPOLY_SOFTMAX[i % 2])
             s_sm = np.float32(2.0 / 2**bw.softmax)
         else:
             s_sm = np.float32(1.0 / 2 ** (bw.softmax - 1))
@@ -221,9 +288,11 @@ def synthetic_spec(config: EngineConfig, seed: int = 0) -> EngineSpec:
                    s_gelu=s_g)
         g_std = 0.6 * h_std                    # GELU keeps ~60% of the spread
         s_m2 = _scale(g_std)
-        s_gelu_out = (_ivit_gelu_out_scale(s_g) if gelu_base == "ivit"
-                      else _ibert_gelu_out_scale(s_g))
+        s_gelu_out = _gelu_out_scale(cfg, gelu_base, s_g)
         blk["m_gelu"] = requant_multiplier(s_gelu_out, s_m2)
+        if gelu_base == "ppoly":
+            ppoly_fastdiv &= _ppoly_gelu_leaves(cfg, blk, s_g, s_gelu_out,
+                                                PPOLY_GELU[i % 2][1:])
         w, b, s_fc2, mlp_std = site.linear(hidden, C, s_m2, g_std)
         s_mlp = _scale(mlp_std, bw.mlp_out)
         blk.update(fc2_w=w, fc2_b=b, m_fc2=requant_multiplier(s_fc2, s_mlp))
@@ -246,8 +315,15 @@ def synthetic_spec(config: EngineConfig, seed: int = 0) -> EngineSpec:
     p.update(head_w=w, head_b=b, head_scale=s_head)
     cfg = dataclasses.replace(cfg, fast_exp=fast_exp, fast_poly=fast_poly,
                               use_lut=False, sm_sum_i32=sm_sum_i32,
-                              ppoly_fastdiv=True)
+                              ppoly_fastdiv=ppoly_fastdiv)
     return EngineSpec(config=cfg, params=_f32_tree(p))
+
+
+def _families(config):
+    """(softmax, GELU) families of a config; raises for those the engines
+    do not run."""
+    _check_families(config)
+    return config.base_type("softmax"), config.base_type("gelu")
 
 
 def _f32_tree(tree):
@@ -275,7 +351,17 @@ SWIN_S_ATTN1_RATIO = 0.75
 SWIN_REL_GAIN = 0.5
 # ctx = probs @ v keeps about this fraction of v's spread over a 49-key
 # window, by softmax family (the DeiT-S values of CTX_GAIN, windowed).
-SWIN_CTX_GAIN = {"ibert": 0.15, "ivit": 0.3}
+SWIN_CTX_GAIN = {"ibert": 0.15, "ivit": 0.3, "ppoly": 0.15}
+# The ppoly family's sites, (scale, min, max) for even and odd blocks (the
+# odd ones shifted where the stage has room): stage 2's first two blocks in
+# a JAX freeze of Swin-T with gelu and softmax "ppoly_backend_ibert" and the
+# ivit LN (test_swin_engine.py's ppoly families), calibrated and fitted as
+# PPOLY_SOFTMAX's DeiT-S.  A shifted block's softmax range reaches down to
+# its mask, round(-100 / s_attn) = -18,581, below the scores' own offsets.
+SWIN_PPOLY_SOFTMAX = ((0.0052431864, -66.0, 127.0),
+                      (0.0053818272, -18633.0, 127.0))
+SWIN_PPOLY_GELU = ((0.012791909, -1.5989887, 1.6245725),
+                   (0.013311714, -1.6905876, 1.5042237))
 
 
 def swin_tiny_config(depths=(2, 2, 6, 2), img_size: int = 224,
@@ -309,7 +395,8 @@ def ibert_ln_shift(dim: int, bits: int) -> float:
 
 def synthetic_swin_spec(config: SwinEngineConfig, seed: int = 0) -> SwinEngineSpec:
     """A seeded Swin engine spec for ``config`` (numpy parameter tree and
-    the ``layout``), any mix of the ivit and ibert families; the method of
+    the ``layout``), any mix of the families :func:`synthetic_spec` takes;
+    the method of
     :func:`synthetic_spec`, site for site as ``freeze_swin_model`` emits
     them: the patch GEMM and patch norm, per block the rel-pos addend
     [H, n, n] (a drawn int8 table through ``requant_const``), ``m_attn2``
@@ -317,14 +404,12 @@ def synthetic_swin_spec(config: SwinEngineConfig, seed: int = 0) -> SwinEngineSp
     ``{"merge": ...}`` entries, the final LN, ``m_pool`` and the head.  An
     ibert LN on the 16-bit stream gets its calibrated overflow shift
     (:func:`ibert_ln_shift`)."""
-    sm_base, gelu_base = config.base_type("softmax"), config.base_type("gelu")
+    sm_base, gelu_base = _families(config)
     ln_base = config.base_type("ln")
-    for which in ("softmax", "gelu", "ln"):
-        if config.base_type(which) not in ("ivit", "ibert"):
-            raise NotImplementedError(
-                "synthetic specs cover the ivit and ibert families")
-    s_attn_tab = S_ATTN_IVIT if sm_base == "ivit" else CALIBRATED_S_ATTN
-    s_gelu_tab = CALIBRATED_S_GELU_IVIT if gelu_base == "ivit" else CALIBRATED_S_GELU
+    s_attn_tab = {"ivit": S_ATTN_IVIT, "ibert": CALIBRATED_S_ATTN,
+                  "ppoly": [t[0] for t in SWIN_PPOLY_SOFTMAX]}[sm_base]
+    s_gelu_tab = {"ivit": CALIBRATED_S_GELU_IVIT, "ibert": CALIBRATED_S_GELU,
+                  "ppoly": [t[0] for t in SWIN_PPOLY_GELU]}[gelu_base]
     cfg = config
     site = _Sites(np.random.default_rng(seed))
 
@@ -346,7 +431,7 @@ def synthetic_swin_spec(config: SwinEngineConfig, seed: int = 0) -> SwinEngineSp
                   "m_norm": requant_multiplier(pn_s, s_patch),
                   "m_x0": requant_multiplier(s_patch, s0)}
 
-    fast_exp = fast_poly = sm_sum_i32 = True
+    fast_exp = fast_poly = sm_sum_i32 = ppoly_fastdiv = True
     blocks, layout = [], []
     s_in, x_std, x_bits = s0, 1.0, 16
     grid = cfg.img_size // cfg.patch_size
@@ -361,6 +446,7 @@ def synthetic_swin_spec(config: SwinEngineConfig, seed: int = 0) -> SwinEngineSp
         for d in range(depth):
             s_attn = np.float32(s_attn_tab[i_blk % 2])
             s_g = np.float32(s_gelu_tab[i_blk % 2])
+            pp_site = i_blk % 2
             i_blk += 1
             blk = {}
             ln_b, ln_s, ln_sh = ln_site(dim, x_bits)
@@ -399,6 +485,10 @@ def synthetic_swin_spec(config: SwinEngineConfig, seed: int = 0) -> SwinEngineSp
                 blk["s_exp_act"] = _sym_scale(16, np.float32(0.0),
                                               np.float32(c_int * 2.0**30))
                 s_sm = np.float32(2.0 / 2**8)
+            elif sm_base == "ppoly":
+                blk["sm_bounds"], blk["sm_coeffs"] = _ppoly_site(
+                    cfg, "softmax", *SWIN_PPOLY_SOFTMAX[pp_site])
+                s_sm = np.float32(2.0 / 2**8)
             else:
                 s_sm = np.float32(1.0 / 2**7)
                 sm_sum_i32 = sm_sum_i32 and _ivit_sum_fits_int32(s_attn, n)
@@ -424,9 +514,11 @@ def synthetic_swin_spec(config: SwinEngineConfig, seed: int = 0) -> SwinEngineSp
                        s_gelu=s_g)
             g_std = 0.6 * h_std
             s_m2 = _scale(g_std)
-            s_gelu_out = (_ivit_gelu_out_scale(s_g) if gelu_base == "ivit"
-                          else _ibert_gelu_out_scale(s_g))
+            s_gelu_out = _gelu_out_scale(cfg, gelu_base, s_g)
             blk["m_gelu"] = requant_multiplier(s_gelu_out, s_m2)
+            if gelu_base == "ppoly":
+                ppoly_fastdiv &= _ppoly_gelu_leaves(
+                    cfg, blk, s_g, s_gelu_out, SWIN_PPOLY_GELU[pp_site][1:])
             w, b, s_fc2, mlp_std = site.linear(hidden, dim, s_m2, g_std)
             s_mlp = _scale(mlp_std)
             blk.update(fc2_w=w, fc2_b=b, m_fc2=requant_multiplier(s_fc2, s_mlp))
@@ -464,5 +556,5 @@ def synthetic_swin_spec(config: SwinEngineConfig, seed: int = 0) -> SwinEngineSp
     p.update(head_w=w, head_b=b, head_scale=s_head)
     cfg = dataclasses.replace(cfg, layout=tuple(layout), fast_exp=fast_exp,
                               fast_poly=fast_poly, use_lut=False,
-                              sm_sum_i32=sm_sum_i32, ppoly_fastdiv=True)
+                              sm_sum_i32=sm_sum_i32, ppoly_fastdiv=ppoly_fastdiv)
     return SwinEngineSpec(config=cfg, params=_f32_tree(p))

@@ -19,43 +19,50 @@ Three paths, bit-identical to each other and to the JAX engine:
 The patch-embed and head GEMMs, the input quant and the final cls-row LN
 run outside any kernel on every path, as in the JAX package.  The JAX fused
 branch pads tokens to a multiple of 8 for the TPU's tiles; the port runs
-the ``N`` real tokens unpadded.  The ivit and ibert families run, in any
-mix; ppoly and float raise.
+the ``N`` real tokens unpadded.  The ivit, ibert and ppoly softmax and
+GELU run, in any mix, with the ivit or ibert LayerNorm; the float family
+raises.  With ``"ops"`` the ppoly softmax and GELU run unfused, as in
+JAX: no standalone kernel exists for them.
 """
 
 from __future__ import annotations
 
 import functools
+import itertools
 
 import torch
 
 from .. import resolve_device
 from ..ops import ibert as ib
 from ..ops import ivit as iv
+from ..ops import ppoly as pp
 from ..ops.kernels import block as kblock
 from ..ops.kernels import nonlinear as knl
 from ..ops.kernels.block import container as _container
 from ..ops.kernels.block import int8_matmul
 from ..ops.quant import exact_int_sum, rdiv
 from .convert import params_to_torch
-from .freeze import EngineConfig, EngineSpec
+from .freeze import GELU_IN_BITS, EngineConfig, EngineSpec
 
+_FAMILIES = {"softmax": ("ivit", "ibert", "ppoly"),
+             "gelu": ("ivit", "ibert", "ppoly"), "ln": ("ivit", "ibert")}
 _NOT_PORTED = {
-    "ppoly": "ppoly comes with a later slice (ROADMAP Queue 1 items 2-4, "
-             "Queue 2 items 1-2)",
+    "ppoly": "the ppoly family has no LayerNorm (JAX's engine has none "
+             "either; ROADMAP Queue 1 item 2)",
     "float": "the float softmax and GELU come with a later slice of the "
-             "unfused engine (ROADMAP Queue 1 item 3), the float LayerNorm "
-             "with the QAT sim (item 9)",
+             "unfused engine (ROADMAP Queue 1 item 2); JAX's engine runs no "
+             "float LayerNorm",
 }
 
 
 def _base(cfg: EngineConfig, which: str) -> str:
     """The family of one nonlinearity; raises for those not ported yet."""
     base = cfg.base_type(which)
-    if base not in ("ivit", "ibert"):
+    if base not in _FAMILIES[which]:
         raise NotImplementedError(
-            f"{which} family {base!r}: the port runs the ivit and ibert "
-            f"families; {_NOT_PORTED.get(base, 'unknown family')}")
+            f"{which} family {base!r}: the port runs "
+            f"{', '.join(_FAMILIES[which])}; "
+            f"{_NOT_PORTED.get(base, 'unknown family')}")
     return base
 
 
@@ -101,6 +108,10 @@ def _softmax_int(cfg, blk, scores_int, kernels=False):
         probs, _ = iv.shiftmax_int(scores_int.float(), blk["s_attn"], bit,
                                    fast_q=cfg.fast_exp)
         return probs.to(_container(bit))
+    if _base(cfg, "softmax") == "ppoly":
+        probs = pp.ppoly_softmax_int(scores_int.float(), blk["sm_bounds"],
+                                     blk["sm_coeffs"], _exp_bits(cfg), bit)
+        return probs.to(_container(bit))
     exp_int, _ = ib.ibert_softmax_exp_int(scores_int.float(), blk["s_attn"],
                                           fast_q=cfg.fast_exp,
                                           fast_poly=cfg.fast_poly)
@@ -120,10 +131,47 @@ def _gelu_requant_int(cfg, blk, x_int, out_bits, kernels=False):
                                           fast_q=cfg.fast_exp)
         y, _ = iv.shift_gelu_int(x_int.float(), blk["s_gelu"], 8,
                                  fast_q=cfg.fast_exp)
+    elif _base(cfg, "gelu") == "ppoly":
+        y = pp.ppoly_gelu_int(x_int.float(), blk["gelu_bounds"],
+                              blk["gelu_coeffs"], _scale_bits(cfg),
+                              blk["gelu_s_out"], cfg.ppoly_fastdiv,
+                              blk.get("gelu_s_out_c"), blk.get("gelu_patch_h"),
+                              blk.get("gelu_patch_d"))
     else:
         y, _ = ib.ibert_gelu_int(x_int.float(), blk["s_gelu"],
                                  fast_poly=cfg.fast_poly)
     return _requant(y, blk["m_gelu"], out_bits)
+
+
+def _exp_bits(cfg):
+    """The ppoly softmax's exp grid bits (``exp_bits``, default 16)."""
+    return int(cfg.type_params("softmax").get("exp_bits", 16))
+
+
+def _scale_bits(cfg):
+    """The ppoly GELU's output grid bits (``scale_bits``, default 22)."""
+    return int(cfg.type_params("gelu").get("scale_bits", 22))
+
+
+def _ppoly_gelu_kw(cfg, blk):
+    """The fused MLP's ppoly GELU operands (none for another family)."""
+    if _base(cfg, "gelu") != "ppoly":
+        return {}
+    return dict(gelu_bounds=blk["gelu_bounds"], gelu_coeffs=blk["gelu_coeffs"],
+                gelu_s_out=blk["gelu_s_out"], gelu_scale_bits=_scale_bits(cfg),
+                gelu_fastdiv=cfg.ppoly_fastdiv,
+                gelu_s_out_c=blk.get("gelu_s_out_c"),
+                gelu_patch_h=blk.get("gelu_patch_h"),
+                gelu_patch_d=blk.get("gelu_patch_d"))
+
+
+def _ppoly_softmax_kw(cfg, blk):
+    """The fused attention's ppoly softmax operands (none for another
+    family)."""
+    if _base(cfg, "softmax") != "ppoly":
+        return {}
+    return dict(sm_bounds=blk["sm_bounds"], sm_coeffs=blk["sm_coeffs"],
+                exp_bits=_exp_bits(cfg))
 
 
 def _use_int_sqrt(cfg):
@@ -168,7 +216,8 @@ def _mlp_unfused(cfg, blk, x, kernels):
     bw = cfg.bitwidths
     y = _layernorm_int(cfg, x, blk["ln2_bias_int"], blk["ln2_shift"])
     y = _ln_requant(y, blk["m_ln2"], 8)
-    y = _requant(_gemm_bias(y, blk["fc1_w"], blk["fc1_b"]), blk["m_fc1"], 8)
+    y = _requant(_gemm_bias(y, blk["fc1_w"], blk["fc1_b"]), blk["m_fc1"],
+                 GELU_IN_BITS)
     y = _gelu_requant_int(cfg, blk, y, 8, kernels)
     y = _requant(_gemm_bias(y, blk["fc2_w"], blk["fc2_b"]), blk["m_fc2"],
                  bw.mlp_out)
@@ -189,7 +238,7 @@ def _attn_fused(cfg, blk, x, kernels):
         attn_bits=8, proj_bits=bw.attention_out, out_bits=bw.norm2_in,
         fast_exp=cfg.fast_exp, fast_poly=cfg.fast_poly,
         ln_base=_base(cfg, "ln"), sm_base=_base(cfg, "softmax"),
-        use_int_sqrt=_use_int_sqrt(cfg))
+        use_int_sqrt=_use_int_sqrt(cfg), **_ppoly_softmax_kw(cfg, blk))
 
 
 def _mlp_fused(cfg, blk, x, kernels):
@@ -205,18 +254,20 @@ def _mlp_fused(cfg, blk, x, kernels):
         fast_exp=cfg.fast_exp, fast_poly=cfg.fast_poly,
         ln_base=_base(cfg, "ln"), gelu_base=_base(cfg, "gelu"),
         use_int_sqrt=_use_int_sqrt(cfg), fc1_wt=blk.get("fc1_wt"),
-        fc2_wt=blk.get("fc2_wt"))
+        fc2_wt=blk.get("fc2_wt"), **_ppoly_gelu_kw(cfg, blk))
     return y.reshape(B, N, C)
 
 
-def engine_forward(spec: EngineSpec, images, kernels=True, device=None):
+def engine_forward(spec: EngineSpec, images, kernels=True, device=None,
+                   mlp_wt=None):
     """images: f32 NHWC [B, img, img, 3] -> f32 logits [B, classes].
 
     ``kernels``: the fused block kernels (True), the standalone ivit
     nonlinearity kernels in the unfused engine ("ops"), or the unfused plain
     engine (False).  ``device``: where to run (default ``cuda``; raises
     without a card unless ``"cpu"``); params and images are moved there if
-    needed.
+    needed.  ``mlp_wt``: one dict a block of its MLP weights transposed
+    (:func:`transposed_mlp_weights`), or None.
     """
     _check_kernels(kernels)
     dev = resolve_device(device)
@@ -247,7 +298,8 @@ def engine_forward(spec: EngineSpec, images, kernels=True, device=None):
 
         attn, mlp = (_attn_fused, _mlp_fused) if kernels is True else \
             (_attn_unfused, _mlp_unfused)
-        for blk in p["blocks"]:
+        for blk, wt in zip(p["blocks"], mlp_wt or itertools.repeat({})):
+            blk = {**blk, **wt}
             x = mlp(cfg, blk, attn(cfg, blk, x, kernels), kernels)
 
         # final norm on the cls row only -> head
@@ -257,16 +309,26 @@ def engine_forward(spec: EngineSpec, images, kernels=True, device=None):
         return acc.float() * p["head_scale"]
 
 
+def transposed_mlp_weights(params):
+    """Each block's MLP weights transposed to torch's Linear layout
+    (``fc1_wt``, ``fc2_wt``), which the ``mlp_block`` kernel streams: one
+    dict a block of ``params["blocks"]`` (empty for a PatchMerging entry).
+    Kept beside the spec, never in it, so the spec saves as it was given."""
+    return [{"fc1_wt": blk["fc1_w"].t().contiguous(),
+             "fc2_wt": blk["fc2_w"].t().contiguous()} if "fc1_w" in blk else {}
+            for blk in params["blocks"]]
+
+
 class Engine:
     """Callable integer inference engine for one frozen ViT or Swin spec
     (dispatching on the spec's type, as the JAX ``Engine`` does).
 
-    Moves the parameters to ``device`` once (default ``cuda``; raises
-    without a card unless ``device="cpu"``), with ``kernels=True`` adds each
-    block's MLP weights transposed to torch's Linear layout (``fc1_wt``,
-    ``fc2_wt``: the ``mlp_block`` kernel streams those, so a call neither
-    transposes nor gives its weight maps fresh addresses), and runs
-    :func:`engine_forward`
+    Keeps the caller's spec as ``spec`` and moves its parameters to
+    ``device`` once (default ``cuda``; raises without a card unless
+    ``device="cpu"``); with ``kernels=True`` keeps each block's MLP
+    weights transposed beside them (:func:`transposed_mlp_weights`: the
+    ``mlp_block`` kernel streams those, so a call neither transposes nor
+    gives its weight maps fresh addresses), and runs :func:`engine_forward`
     (a ViT spec; ``kernels`` True, "ops" or False) or
     :func:`~ivit_tpu_torch.engine.swin_int.swin_engine_forward` (a Swin
     spec; ``kernels`` True or False, ``stage_paths`` one bool per stage) on
@@ -290,15 +352,12 @@ class Engine:
             self._forward = engine_forward
         self.device = resolve_device(device)
         _check_families(spec.config)
+        self.spec = spec
         params = params_to_torch(spec.params, self.device)
-        if kernels is True:
-            for blk in params["blocks"]:
-                if "fc1_w" in blk:
-                    blk["fc1_wt"] = blk["fc1_w"].t().contiguous()
-                    blk["fc2_wt"] = blk["fc2_w"].t().contiguous()
-        self.spec = type(spec)(spec.config, params)
+        self._spec = type(spec)(spec.config, params)
+        self.mlp_wt = transposed_mlp_weights(params) if kernels is True else None
         self.kernels = kernels
 
     def __call__(self, images):
-        return self._forward(self.spec, images, kernels=self.kernels,
-                             device=self.device)
+        return self._forward(self._spec, images, kernels=self.kernels,
+                             device=self.device, mlp_wt=self.mlp_wt)

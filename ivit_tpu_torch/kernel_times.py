@@ -4,13 +4,15 @@
 
 imports ``ivit_tpu_torch`` from ``CHECKOUT`` (this checkout by default),
 builds its kernels, and prints one JSON line: the mean time of 50
-back-to-back calls (CUDA events), fast flags on, ivit and ibert families,
-of
+back-to-back calls (CUDA events), fast flags on, the ivit, ibert and
+ppoly families (ppoly: GELU and softmax ``ppoly_backend_ibert`` with the
+ibert LN on DeiT-S and the ivit LN on Swin-T, fast-div on), of
   * ``mlp_block`` and ``attn_block`` at DeiT-S shapes (batch 256 x 197
     tokens, C 384, hidden 1536, 6 heads);
   * ``swin_attn_block`` and the Swin form of ``mlp_block`` at the four
     Swin-T stage shapes of batch 64 ([4096, 49, 96] to [64, 49, 768]
-    windows, the stage's last block: shifted where the stage has one);
+    windows, the stage's last block: shifted where the stage has one; for
+    ppoly also the first, unshifted block, ``*_unshifted_*``);
   * the standalone ``shift_gelu_requant`` at [50,432, 1536] and
     ``shiftmax`` at [256, 6, 197, 197] (DeiT-S's hidden rows and scores,
     the synthetic ivit block's scales, fast quotient on);
@@ -30,6 +32,23 @@ import subprocess
 import sys
 
 SWIN_BATCH, SWIN_GRID, WIN = 64, 56, 49
+PPOLY = "ppoly_backend_ibert"
+# (gelu, softmax, ln) of each family's DeiT-S and Swin-T specs
+FAMILIES = {"ivit": (("ivit",) * 3, ("ivit",) * 3),
+            "ibert": (("ibert",) * 3, ("ibert",) * 3),
+            "ppoly": ((PPOLY, PPOLY, "ibert"), (PPOLY, PPOLY, "ivit"))}
+
+
+def ppoly_kwargs(b, which):
+    """The ppoly leaves a block kernel takes (none for another family)."""
+    if which == "gelu" and "gelu_bounds" in b:
+        return dict(gelu_bounds=b["gelu_bounds"], gelu_coeffs=b["gelu_coeffs"],
+                    gelu_s_out=b["gelu_s_out"], gelu_fastdiv=True,
+                    gelu_s_out_c=b["gelu_s_out_c"], gelu_patch_h=b["gelu_patch_h"],
+                    gelu_patch_d=b["gelu_patch_d"])
+    if which == "softmax" and "sm_bounds" in b:
+        return dict(sm_bounds=b["sm_bounds"], sm_coeffs=b["sm_coeffs"], exp_bits=16)
+    return {}
 
 
 def launch_role(name):
@@ -101,22 +120,24 @@ def main(argv=None):
     x = torch.as_tensor(np.clip(np.round(rng.normal(0, 32, (256, 197, 384))),
                                 -128, 127).astype(np.int8)).to(dev)
     rows = x.reshape(-1, 384)
-    for fam in ("ivit", "ibert"):
-        cfg = deit_small_config(depth=1, ln=fam, gelu=fam, softmax=fam)
+    for fam, ((gelu, softmax, ln), _) in FAMILIES.items():
+        cfg = deit_small_config(depth=1, ln=ln, gelu=gelu, softmax=softmax)
         b = tensors(synthetic_spec(cfg, 0).params["blocks"][0])
         mlp = dict(ln_bias=b["ln2_bias_int"], m_ln=b["m_ln2"], ln_shift=b["ln2_shift"],
                    fc1_w=b["fc1_w"], fc1_b=b["fc1_b"], m_fc1=b["m_fc1"],
                    s_gelu=b["s_gelu"], m_gelu=b["m_gelu"], fc2_w=b["fc2_w"],
                    fc2_b=b["fc2_b"], m_fc2=b["m_fc2"], m_res_x=b["m_res2_x"],
                    m_res_id=b["m_res2_id"], fast_exp=True, fast_poly=True,
-                   ln_base=fam, gelu_base=fam)
+                   ln_base=ln, gelu_base=fam,
+                   **ppoly_kwargs(b, "gelu"))
         attn = dict(ln_bias=b["ln1_bias_int"], m_ln=b["m_ln1"], ln_shift=b["ln1_shift"],
                     qkv_w=b["qkv_w"], qkv_b=b["qkv_b"], m_qkv=b["m_qkv"],
                     m_attn=b["m_attn"], s_attn=b["s_attn"], s_exp_act=b.get("s_exp_act"),
                     m_av=b["m_av"], proj_w=b["proj_w"], proj_b=b["proj_b"],
                     m_proj=b["m_proj"], m_res_x=b["m_res1_x"], m_res_id=b["m_res1_id"],
                     num_heads=6, n_valid=197, fast_exp=True, fast_poly=True,
-                    ln_base=fam, sm_base=fam)
+                    ln_base=ln, sm_base=fam,
+                    **ppoly_kwargs(b, "softmax"))
         out[f"mlp_block_{fam}_ms"] = time_ms(lambda: kb.mlp_block(rows, **mlp))
         out[f"attn_block_{fam}_ms"] = time_ms(lambda: kb.attn_block(x, **attn))
         out[f"attn_block_{fam}_split_ms"] = split_ms(lambda: kb.attn_block(x, **attn))
@@ -131,13 +152,15 @@ def main(argv=None):
                 scores, b["s_attn"], 8, fast_q=True))
             del h, scores
 
-    for fam in ("ivit", "ibert"):
-        spec = synthetic_swin_spec(swin_tiny_config(ln=fam, gelu=fam, softmax=fam), seed=0)
-        last = {}
+    for fam, (_, (gelu, softmax, ln)) in FAMILIES.items():
+        spec = synthetic_swin_spec(swin_tiny_config(ln=ln, gelu=gelu, softmax=softmax),
+                                   seed=0)
+        first, last = {}, {}
         for (kind, stage, shift), blk in zip(spec.config.layout, spec.params["blocks"]):
             if kind == "block":
+                first.setdefault(stage, (shift, blk))
                 last[stage] = (shift, blk)
-        attn_ms, split, mlp_ms = [], [], []
+        attn_ms, split, mlp_ms, unshifted_ms = [], [], [], []
         for st in sorted(last):
             shift, blk = last[st]
             b = tensors(blk)
@@ -156,20 +179,28 @@ def main(argv=None):
                       proj_w=b["proj_w"], proj_b=b["proj_b"], m_proj=b["m_proj"],
                       m_res_x=b["m_res1_x"], m_res_id=b["m_res1_id"],
                       num_heads=heads, n_windows=nw, fast_exp=True, fast_poly=True,
-                      sm_base=fam, ln_base=fam)
+                      sm_base=fam, ln_base=ln, **ppoly_kwargs(b, "softmax"))
             attn_ms.append(time_ms(lambda: kb.swin_attn_block(xw, **kw)))
             split.append(split_ms(lambda: kb.swin_attn_block(xw, **kw)))
+            if fam == "ppoly":
+                b0 = tensors(first[st][1])
+                kw0 = kw | dict(mask_addend=None, rel_addend=b0["rel_bias_addend"],
+                                **ppoly_kwargs(b0, "softmax"))
+                unshifted_ms.append(time_ms(lambda: kb.swin_attn_block(xw, **kw0)))
             mkw = dict(ln_bias=b["ln2_bias_int"], m_ln=b["m_ln2"], ln_shift=b["ln2_shift"],
                        fc1_w=b["fc1_w"], fc1_b=b["fc1_b"], m_fc1=b["m_fc1"],
                        s_gelu=b["s_gelu"], m_gelu=b["m_gelu"], fc2_w=b["fc2_w"],
                        fc2_b=b["fc2_b"], m_fc2=b["m_fc2"], m_res_x=b["m_res2_x"],
                        m_res_id=b["m_res2_id"], mlp_bits=8, out_bits=16,
-                       fast_exp=True, fast_poly=True, ln_base=fam, gelu_base=fam)
+                       fast_exp=True, fast_poly=True, ln_base=ln, gelu_base=fam,
+                       **ppoly_kwargs(b, "gelu"))
             xr = xw.reshape(-1, c)
             mlp_ms.append(time_ms(lambda: kb.mlp_block(xr, **mkw)))
         out[f"swin_attn_block_{fam}_ms_by_stage"] = attn_ms
         out[f"swin_attn_block_{fam}_split_ms_by_stage"] = split
         out[f"mlp_block_swin_{fam}_ms_by_stage"] = mlp_ms
+        if unshifted_ms:
+            out[f"swin_attn_block_{fam}_unshifted_ms_by_stage"] = unshifted_ms
     print(json.dumps(out), flush=True)
     return 0
 

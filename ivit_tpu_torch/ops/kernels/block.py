@@ -1,5 +1,5 @@
-"""The engines' three fused half-block kernels, ivit and ibert families,
-for Hopper.
+"""The engines' three fused half-block kernels, ivit, ibert and ppoly
+families, for Hopper.
 
 ``mlp_block`` replaces ``ivit_tpu/ops/pallas/block.py::mlp_block_p`` (the
 ViT form on int8 token rows and the Swin form on int16 rows),
@@ -25,10 +25,17 @@ Each wrapper counts its kernel launches in a plain integer attribute
 ``swin_attn_block.launches``), incremented only where the kernel is
 launched.
 
-Each kernel takes its LayerNorm, softmax and GELU from either family, in
-any mix (``ln_base``, ``sm_base``, ``gelu_base``), and either runs the LN
-itself or takes its int8 output as ``ln_in`` (the JAX kernels' hoisted LN,
-``block.py`` ``hoisted_ln``), which skips the LN stage.
+Each kernel takes its LayerNorm from the ivit or ibert family and its
+softmax and GELU from the ivit, ibert or ppoly family, in any mix
+(``ln_base``, ``sm_base``, ``gelu_base``), and either runs the LN itself
+or takes its int8 output as ``ln_in`` (the JAX kernels' hoisted LN,
+``block.py`` ``hoisted_ln``), which skips the LN stage.  The ppoly
+variants take the fitted table's spec leaves as JAX's kernels do
+(``gelu_bounds`` / ``gelu_coeffs`` and the GELU's output grid and fast-div
+constants; ``sm_bounds`` / ``sm_coeffs`` and ``exp_bits``); on the card a
+256-entry table of the call, one small launch before the kernel, holds
+the GELU + requant of every int8 input or the exp of every int8 offset
+(``csrc/ppoly.cuh``).
 
 Padding rows (token index >= ``n_valid``) may hold anything: their scores
 columns are masked out of the softmax and their LN output, NaN for an
@@ -50,6 +57,7 @@ import torch
 
 from .. import ibert as ib
 from .. import ivit as iv
+from .. import ppoly as pp
 from ..quant import exact_int_sum, rdiv
 from . import _build
 
@@ -104,20 +112,41 @@ def _ln8(x, ln_base, ln_bias, ln_shift, m_ln, ln_in):
     return _requant(y, m_ln, 8).to(torch.int8)
 
 
-_FAMILIES = ("ivit", "ibert")
+_FAMILIES = ("ivit", "ibert", "ppoly")   # softmax and GELU
+PPOLY_MAX_SEG, PPOLY_MAX_DEG = 64, 8    # ppoly.cuh's kPpolyMaxSeg / MaxDeg
 
 
 def _check_family(ln_base, other_base, use_int_sqrt):
-    for base in (ln_base, other_base):
-        if base not in _FAMILIES:
-            raise NotImplementedError(
-                f"fused block kernels for the {base!r} family come with a "
-                "later slice (ROADMAP Queue 2 items 1-2); the port runs the "
-                "ivit and ibert families")
+    if ln_base not in ("ivit", "ibert"):
+        raise NotImplementedError(
+            f"fused block kernels take the ivit or ibert LayerNorm, not "
+            f"{ln_base!r}")
+    if other_base not in _FAMILIES:
+        raise NotImplementedError(
+            f"fused block kernels for the {other_base!r} family come with a "
+            "later slice (ROADMAP Queue 1 item 2); the port runs the ivit, "
+            "ibert and ppoly families")
     if use_int_sqrt:
         raise NotImplementedError(
             "the fused block kernels take the floor(sqrt) ibert LayerNorm; "
             "run use_int_sqrt configs through the unfused engine")
+
+
+def _check_ppoly(bounds, coeffs, name):
+    """A fitted table's leaves on the card: bounds int32 [seg-1], coeffs
+    f32 [seg, deg+1], within the kernels' segment and degree limits."""
+    if not isinstance(coeffs, torch.Tensor) or coeffs.dim() != 2:
+        raise ValueError(f"{name}_coeffs: want a [seg, deg + 1] tensor, got "
+                         f"{_describe(coeffs)}")
+    seg, deg = coeffs.shape[0], coeffs.shape[1] - 1
+    if not (1 <= seg <= PPOLY_MAX_SEG and 0 <= deg <= PPOLY_MAX_DEG):
+        raise ValueError(
+            f"{name}: the kernels take 1-{PPOLY_MAX_SEG} segments of degree "
+            f"0-{PPOLY_MAX_DEG}; got {seg} segments of degree {deg}")
+    _check(coeffs, f"{name}_coeffs", torch.float32, (seg, deg + 1))
+    if seg > 1:
+        _check(bounds, f"{name}_bounds", torch.int32, (seg - 1,))
+    return seg, deg
 
 
 # ---------------------------------------------------------------------------
@@ -127,23 +156,65 @@ def _check_family(ln_base, other_base, use_int_sqrt):
 def mlp_block_ref(x, *, ln_bias, m_ln, ln_shift, fc1_w, fc1_b, m_fc1, s_gelu,
                   m_gelu, fc2_w, fc2_b, m_fc2, m_res_x, m_res_id, mlp_bits=8,
                   out_bits=8, fast_exp=False, fast_poly=False, ln_base="ibert",
-                  gelu_base="ibert", ln_in=None):
+                  gelu_base="ibert", ln_in=None, gelu_bounds=None,
+                  gelu_coeffs=None, gelu_s_out=None, gelu_scale_bits=22,
+                  gelu_fastdiv=False, gelu_s_out_c=None, gelu_patch_h=None,
+                  gelu_patch_d=None):
     """Plain version of the MLP kernel: x int8 or int16 [R, C] -> [R, C] in
     the ``out_bits`` container (ViT: int8 -> int8; Swin: int16 -> int16 with
     ``mlp_bits`` 8 and ``out_bits`` 16).
 
     LN (or ``ln_in``) -> requant -> fc1 + bias -> requant -> GELU (ShiftGELU
-    over the whole hidden row, or the ibert GELU) -> requant -> fc2 + bias
-    -> requant to ``mlp_bits`` -> integer residual."""
+    over the whole hidden row, the ibert GELU, or the ppoly GELU of the
+    fitted ``gelu_bounds`` / ``gelu_coeffs`` onto its ``gelu_s_out`` grid,
+    by ``rdiv`` or, with ``gelu_fastdiv``, by the freeze gate's multiply
+    and patches) -> requant -> fc2 + bias -> requant to ``mlp_bits`` ->
+    integer residual."""
     y = _ln8(x, ln_base, ln_bias, ln_shift, m_ln, ln_in)
     h = _requant(int8_matmul(y, fc1_w) + fc1_b, m_fc1, 8)
     if gelu_base == "ivit":
         g, _ = iv.shift_gelu_int(h, s_gelu, 8, fast_q=fast_exp)
+    elif gelu_base == "ppoly":
+        g = pp.ppoly_gelu_int(h, gelu_bounds, gelu_coeffs, gelu_scale_bits,
+                              gelu_s_out, gelu_fastdiv, gelu_s_out_c,
+                              gelu_patch_h, gelu_patch_d)
     else:
         g, _ = ib.ibert_gelu_int(h, s_gelu, fast_poly)
     g = _requant(g, m_gelu, 8).to(torch.int8)
     y2 = _requant(int8_matmul(g, fc2_w) + fc2_b, m_fc2, mlp_bits)
     return _residual(y2, m_res_x, x, m_res_id, out_bits)
+
+
+_KIND = {"ibert": 0, "ivit": 1, "ppoly": 2}   # the kernels' family codes
+PPOLY_MAX_PATCHES = 8                   # the fast-div gate's patch slots
+
+
+class _PpolyArgs(ctypes.Structure):
+    """``ppoly.cuh`` ``PpolyArgs``: a fitted table's device leaves and
+    its epilogue's constants, handed to the C entry points by address."""
+    _fields_ = [("bounds", ctypes.c_void_p), ("coeffs", ctypes.c_void_p),
+                ("s_out", ctypes.c_void_p), ("s_out_c", ctypes.c_void_p),
+                ("patch_h", ctypes.c_void_p), ("patch_d", ctypes.c_void_p),
+                ("seg", ctypes.c_int), ("deg", ctypes.c_int),
+                ("scale_bits", ctypes.c_int), ("fastdiv", ctypes.c_int),
+                ("npatch", ctypes.c_int), ("exp_bits", ctypes.c_int)]
+
+
+def _softmax_ppoly(sm_base, bounds, coeffs, exp_bits, device):
+    """The ppoly softmax's C arguments and its exp table's scratch (256
+    f32, built by a launch before the core), or (None, None)."""
+    if sm_base != "ppoly":
+        return None, None
+    seg, deg = _check_ppoly(bounds, coeffs, "sm")
+    if not 1 <= exp_bits <= 30:
+        raise ValueError(f"exp_bits={exp_bits}: the kernels take 1-30")
+    args = _PpolyArgs(_ptr(bounds if seg > 1 else None), _ptr(coeffs), None,
+                      None, None, None, seg, deg, 0, 0, 0, int(exp_bits))
+    return args, torch.empty(256, dtype=torch.float32, device=device)
+
+
+def _pp_ref(args):
+    return ctypes.c_void_p(None) if args is None else ctypes.byref(args)
 
 
 _STREAM = (torch.int8, torch.int16)    # the token streams the kernels take
@@ -194,21 +265,30 @@ def mlp_block(x, *, ln_bias, m_ln, ln_shift, fc1_w, fc1_b, m_fc1, s_gelu,
               m_gelu, fc2_w, fc2_b, m_fc2, m_res_x, m_res_id, mlp_bits=8,
               out_bits=8, fast_exp=False, fast_poly=False, ln_base="ibert",
               gelu_base="ibert", use_int_sqrt=False, ln_in=None, fc1_wt=None,
-              fc2_wt=None):
+              fc2_wt=None, gelu_bounds=None, gelu_coeffs=None,
+              gelu_s_out=None, gelu_scale_bits=22, gelu_fastdiv=False,
+              gelu_s_out_c=None, gelu_patch_h=None, gelu_patch_d=None):
     """Fused MLP half-block; ``x`` int8 or int16 [R, C] token rows, out in
     the ``out_bits`` container, which on the card is x's (int8 -> int8 for
     ViT, int16 -> int16 for Swin); ``ln_in``: the hoisted int8 LN output of
     ``x``, or None to run the LN in the kernel.  ``fc1_wt`` / ``fc2_wt``:
     ``fc1_w`` / ``fc2_w`` transposed to torch's Linear layout [out, in] and
     contiguous, which the kernel streams, or None to transpose them here;
-    the plain version does not read them."""
+    the plain version does not read them.  ``gelu_*``: the ppoly GELU's
+    spec leaves (``gelu_base="ppoly"``), as JAX's ``mlp_block_p`` takes
+    them; on the card its 256 outputs (GELU + requant of every int8 input)
+    are one table launch, looked up in fc1's epilogue."""
     _check_family(ln_base, gelu_base, use_int_sqrt)
     kw = dict(ln_bias=ln_bias, m_ln=m_ln, ln_shift=ln_shift, fc1_w=fc1_w,
               fc1_b=fc1_b, m_fc1=m_fc1, s_gelu=s_gelu, m_gelu=m_gelu,
               fc2_w=fc2_w, fc2_b=fc2_b, m_fc2=m_fc2, m_res_x=m_res_x,
               m_res_id=m_res_id, mlp_bits=mlp_bits, out_bits=out_bits,
               fast_exp=fast_exp, fast_poly=fast_poly, ln_base=ln_base,
-              gelu_base=gelu_base, ln_in=ln_in)
+              gelu_base=gelu_base, ln_in=ln_in, gelu_bounds=gelu_bounds,
+              gelu_coeffs=gelu_coeffs, gelu_s_out=gelu_s_out,
+              gelu_scale_bits=gelu_scale_bits, gelu_fastdiv=gelu_fastdiv,
+              gelu_s_out_c=gelu_s_out_c, gelu_patch_h=gelu_patch_h,
+              gelu_patch_d=gelu_patch_d)
     if x.device.type == "cpu":
         return mlp_block_ref(x, **kw)
     r, c = x.shape
@@ -245,18 +325,38 @@ def mlp_block(x, *, ln_bias, m_ln, ln_shift, fc1_w, fc1_b, m_fc1, s_gelu,
                     ("m_gelu", m_gelu), ("m_res_x", m_res_x),
                     ("m_res_id", m_res_id)):
         _check_scalar(t, name)
+    pp_args = None
+    if gelu_base == "ppoly":
+        seg, deg = _check_ppoly(gelu_bounds, gelu_coeffs, "gelu")
+        _check_scalar(gelu_s_out, "gelu_s_out")
+        npatch = 0
+        if gelu_fastdiv:
+            _check_scalar(gelu_s_out_c, "gelu_s_out_c")
+            npatch = gelu_patch_h.numel() if isinstance(gelu_patch_h, torch.Tensor) else -1
+            if not 0 <= npatch <= PPOLY_MAX_PATCHES:
+                raise ValueError(f"gelu_patch_h: the kernels take at most "
+                                 f"{PPOLY_MAX_PATCHES} fast-div patches, got "
+                                 f"{_describe(gelu_patch_h)}")
+            _check(gelu_patch_h, "gelu_patch_h", torch.float32, (npatch,))
+            _check(gelu_patch_d, "gelu_patch_d", torch.float32, (npatch,))
+        pp_args = _PpolyArgs(
+            _ptr(gelu_bounds if seg > 1 else None), _ptr(gelu_coeffs),
+            _ptr(gelu_s_out), _ptr(gelu_s_out_c if gelu_fastdiv else None),
+            _ptr(gelu_patch_h if npatch else None),
+            _ptr(gelu_patch_d if npatch else None), seg, deg,
+            int(gelu_scale_bits), int(bool(gelu_fastdiv)), npatch, 0)
     out = torch.empty((r, c), dtype=out_dtype, device=x.device)
-    table = (torch.empty(GELU_TABLE_BYTES, dtype=torch.int8, device=x.device)
-             if gelu_base == "ivit" else None)
+    table = (torch.empty(GELU_TABLE_BYTES if gelu_base == "ivit" else 256,
+                         dtype=torch.int8, device=x.device)
+             if gelu_base != "ibert" else None)
     lib = _build.library("mlp_block")
     err = lib.ivit_mlp_block(
         _ptr(x), _ptr(ln_in), _ptr(ln_bias), _ptr(m_ln), _ptr(ln_shift),
         _ptr(fc1_wt), _ptr(fc1_b), _ptr(m_fc1), _ptr(s_gelu), _ptr(m_gelu),
         _ptr(fc2_wt), _ptr(fc2_b), _ptr(m_fc2), _ptr(m_res_x), _ptr(m_res_id),
         _ptr(out), r, c, hd, mlp_bits, out_bits, int(x.dtype == torch.int16),
-        int(ln_base == "ivit"),
-        int(gelu_base == "ivit"), int(bool(fast_exp)), int(bool(fast_poly)),
-        _ptr(table), _stream())
+        int(ln_base == "ivit"), _KIND[gelu_base], int(bool(fast_exp)),
+        int(bool(fast_poly)), _ptr(table), _pp_ref(pp_args), _stream())
     _raise_on(err, "mlp_block")
     mlp_block.launches += 1
     return out
@@ -273,14 +373,16 @@ def attn_block_ref(x, *, ln_bias, m_ln, ln_shift, qkv_w, qkv_b, m_qkv, m_attn,
                    s_attn, m_av, proj_w, proj_b, m_proj, m_res_x, m_res_id,
                    num_heads, n_valid, s_exp_act=None, sm_bit=8, attn_bits=8,
                    proj_bits=8, out_bits=8, fast_exp=False, fast_poly=False,
-                   ln_base="ibert", sm_base="ibert", ln_in=None):
+                   ln_base="ibert", sm_base="ibert", ln_in=None,
+                   sm_bounds=None, sm_coeffs=None, exp_bits=16):
     """Plain version of the attention kernel: x int8 [B, Np, C] -> int8.
 
     LN (or ``ln_in``) -> requant -> qkv GEMM -> requant -> per head int32
     q k^T -> requant by ``m_attn`` -> softmax over the ``n_valid`` columns
-    (Shiftmax, or the ibert softmax with its 16-bit exp requant by
-    ``s_exp_act``) -> probs @ v -> requant by ``m_av`` -> proj GEMM ->
-    requant -> residual."""
+    (Shiftmax, the ibert softmax with its 16-bit exp requant by
+    ``s_exp_act``, or the ppoly softmax of ``sm_bounds`` / ``sm_coeffs`` on
+    the ``exp_bits`` grid) -> probs @ v -> requant by ``m_av`` -> proj GEMM
+    -> requant -> residual."""
     b, np_, c = x.shape
     dh = c // num_heads
     y = _ln8(x, ln_base, ln_bias, ln_shift, m_ln, ln_in)
@@ -290,7 +392,7 @@ def attn_block_ref(x, *, ln_bias, m_ln, ln_shift, qkv_w, qkv_b, m_qkv, m_attn,
     scores = int8_matmul(q, k.transpose(-1, -2))             # [B, H, Np, Np]
     s = _requant(scores, m_attn, attn_bits)
     probs = _softmax_probs(s, sm_base, s_attn, s_exp_act, sm_bit, n_valid,
-                           fast_exp, fast_poly)
+                           fast_exp, fast_poly, sm_bounds, sm_coeffs, exp_bits)
     ctx = _requant(int8_matmul(probs.to(container(sm_bit)), v), m_av, 8)
     ctx = ctx.to(torch.int8).permute(0, 2, 1, 3).reshape(b, np_, c)
     y2 = _requant(int8_matmul(ctx, proj_w) + proj_b, m_proj, proj_bits)
@@ -298,10 +400,14 @@ def attn_block_ref(x, *, ln_bias, m_ln, ln_shift, qkv_w, qkv_b, m_qkv, m_attn,
 
 
 def _softmax_probs(s, sm_base, s_attn, s_exp_act, sm_bit, n_valid, fast_exp,
-                   fast_poly):
+                   fast_poly, sm_bounds=None, sm_coeffs=None, exp_bits=16):
     """f32 integer scores -> ``sm_bit`` probabilities over the last axis,
-    the first ``n_valid`` columns real (None: all): Shiftmax, or the ibert
-    softmax with its 16-bit exp requant by ``s_exp_act``."""
+    the first ``n_valid`` columns real (None: all): Shiftmax, the ibert
+    softmax with its 16-bit exp requant by ``s_exp_act``, or the ppoly
+    softmax."""
+    if sm_base == "ppoly":
+        return pp.ppoly_softmax_int(s, sm_bounds, sm_coeffs, exp_bits, sm_bit,
+                                    n_valid)
     if sm_base == "ivit":
         probs, _ = iv.shiftmax_int(s, s_attn, sm_bit, n_valid=n_valid,
                                    fast_q=fast_exp)
@@ -319,12 +425,14 @@ def attn_block(x, *, ln_bias, m_ln, ln_shift, qkv_w, qkv_b, m_qkv, m_attn,
                num_heads, n_valid, s_exp_act=None, sm_bit=8, attn_bits=8,
                proj_bits=8, out_bits=8, fast_exp=False, fast_poly=False,
                ln_base="ibert", sm_base="ibert", use_int_sqrt=False,
-               ln_in=None):
+               ln_in=None, sm_bounds=None, sm_coeffs=None, exp_bits=16):
     """Fused attention half-block; ``x`` int8 [B, Np, C], ``n_valid`` real
     tokens per image; ``ln_in``: the hoisted int8 LN output of ``x``, or
     None to run the LN in the kernel; ``s_exp_act``: the ibert softmax's
-    exp scale (unused by Shiftmax).  On the card: three launches (LN + qkv,
-    per-(image, head) softmax attention, proj + residual) counted as one."""
+    exp scale (unused by the others); ``sm_bounds``, ``sm_coeffs``,
+    ``exp_bits``: the ppoly softmax's leaves.  On the card: three launches
+    (LN + qkv, per-(image, head) softmax attention, proj + residual), after
+    the ppoly exp table's, counted as one."""
     _check_family(ln_base, sm_base, use_int_sqrt)
     kw = dict(ln_bias=ln_bias, m_ln=m_ln, ln_shift=ln_shift, qkv_w=qkv_w,
               qkv_b=qkv_b, m_qkv=m_qkv, m_attn=m_attn, s_attn=s_attn,
@@ -333,7 +441,8 @@ def attn_block(x, *, ln_bias, m_ln, ln_shift, qkv_w, qkv_b, m_qkv, m_attn,
               num_heads=num_heads, n_valid=n_valid, sm_bit=sm_bit,
               attn_bits=attn_bits, proj_bits=proj_bits, out_bits=out_bits,
               fast_exp=fast_exp, fast_poly=fast_poly, ln_base=ln_base,
-              sm_base=sm_base, ln_in=ln_in)
+              sm_base=sm_base, ln_in=ln_in, sm_bounds=sm_bounds,
+              sm_coeffs=sm_coeffs, exp_bits=exp_bits)
     if x.device.type == "cpu":
         return attn_block_ref(x, **kw)
     b, np_, c = x.shape
@@ -367,6 +476,8 @@ def attn_block(x, *, ln_bias, m_ln, ln_shift, qkv_w, qkv_b, m_qkv, m_attn,
         scalars.append(("s_exp_act", s_exp_act))
     for name, t in scalars:
         _check_scalar(t, name)
+    pp_args, exp_table = _softmax_ppoly(sm_base, sm_bounds, sm_coeffs, exp_bits,
+                                        x.device)
     qkv = torch.empty((b * np_, 3 * c), dtype=torch.int8, device=x.device)
     ctx = torch.empty((b * np_, c), dtype=torch.int8, device=x.device)
     out = torch.empty_like(x)
@@ -378,8 +489,8 @@ def attn_block(x, *, ln_bias, m_ln, ln_shift, qkv_w, qkv_b, m_qkv, m_attn,
         _ptr(s_exp_act), _ptr(m_av), _ptr(wp_t), _ptr(proj_b), _ptr(m_proj),
         _ptr(m_res_x), _ptr(m_res_id), _ptr(qkv), _ptr(ctx), _ptr(out), b,
         np_, c, num_heads, n_valid, attn_bits, proj_bits, out_bits,
-        int(ln_base == "ivit"), int(sm_base == "ivit"), int(bool(fast_exp)),
-        int(bool(fast_poly)), _stream())
+        int(ln_base == "ivit"), _KIND[sm_base], int(bool(fast_exp)),
+        int(bool(fast_poly)), _pp_ref(pp_args), _ptr(exp_table), _stream())
     _raise_on(err, "attn_block")
     attn_block.launches += 1
     return out
@@ -397,7 +508,8 @@ def swin_attn_block_ref(xw, *, ln_bias, m_ln, ln_shift, qkv_w, qkv_b, m_qkv,
                         proj_w, proj_b, m_proj, m_res_x, m_res_id, num_heads,
                         n_windows, s_exp_act=None, sm_bit=8, fast_exp=False,
                         fast_poly=False, ln_base="ivit", sm_base="ivit",
-                        ln_in=None):
+                        ln_in=None, sm_bounds=None, sm_coeffs=None,
+                        exp_bits=16):
     """Plain version of the Swin window-attention kernel: xw int8 or int16
     [B*nW, n, C] (rolled and window-partitioned) -> int16 [B*nW, n, C].
 
@@ -420,7 +532,7 @@ def swin_attn_block_ref(xw, *, ln_bias, m_ln, ln_shift, qkv_w, qkv_b, m_qkv,
         a = a.reshape(-1, n_windows, num_heads, n, n) + mask_addend[None, :, None]
         a = a.reshape(bw, num_heads, n, n)
     probs = _softmax_probs(a, sm_base, s_attn, s_exp_act, sm_bit, None,
-                           fast_exp, fast_poly)
+                           fast_exp, fast_poly, sm_bounds, sm_coeffs, exp_bits)
     ctx = _requant(int8_matmul(probs.to(container(sm_bit)), v), m_av, 8)
     ctx = ctx.to(torch.int8).permute(0, 2, 1, 3).reshape(bw, n, c)
     y2 = _requant(int8_matmul(ctx, proj_w) + proj_b, m_proj, 16)
@@ -432,14 +544,17 @@ def swin_attn_block(xw, *, ln_bias, m_ln, ln_shift, qkv_w, qkv_b, m_qkv,
                     proj_w, proj_b, m_proj, m_res_x, m_res_id, num_heads,
                     n_windows, s_exp_act=None, sm_bit=8, fast_exp=False,
                     fast_poly=False, ln_base="ivit", sm_base="ivit",
-                    use_int_sqrt=False, ln_in=None):
+                    use_int_sqrt=False, ln_in=None, sm_bounds=None,
+                    sm_coeffs=None, exp_bits=16):
     """Fused Swin window-attention half-block; ``xw`` int8 or int16
     [B*nW, n, C], windows of ``n`` tokens, ``n_windows`` windows an image;
     ``rel_addend`` f32 [H, n, n]; ``mask_addend`` f32 [nW, n, n] for a
     shifted block, else None; ``ln_in``: the hoisted int8 LN output of
-    ``xw``, or None to run the LN in the kernel.  Returns int16
+    ``xw``, or None to run the LN in the kernel; ``sm_bounds``,
+    ``sm_coeffs``, ``exp_bits``: the ppoly softmax's leaves.  Returns int16
     [B*nW, n, C].  On the card: three launches (LN + qkv, per-(window,
-    head) softmax attention, proj + residual) counted as one."""
+    head) softmax attention, proj + residual), after the ppoly exp table's,
+    counted as one."""
     _check_family(ln_base, sm_base, use_int_sqrt)
     kw = dict(ln_bias=ln_bias, m_ln=m_ln, ln_shift=ln_shift, qkv_w=qkv_w,
               qkv_b=qkv_b, m_qkv=m_qkv, m_attn=m_attn, m_attn2=m_attn2,
@@ -448,7 +563,8 @@ def swin_attn_block(xw, *, ln_bias, m_ln, ln_shift, qkv_w, qkv_b, m_qkv,
               m_res_x=m_res_x, m_res_id=m_res_id, num_heads=num_heads,
               n_windows=n_windows, s_exp_act=s_exp_act, sm_bit=sm_bit,
               fast_exp=fast_exp, fast_poly=fast_poly, ln_base=ln_base,
-              sm_base=sm_base, ln_in=ln_in)
+              sm_base=sm_base, ln_in=ln_in, sm_bounds=sm_bounds,
+              sm_coeffs=sm_coeffs, exp_bits=exp_bits)
     if xw.device.type == "cpu":
         return swin_attn_block_ref(xw, **kw)
     bw, n, c = xw.shape
@@ -487,6 +603,8 @@ def swin_attn_block(xw, *, ln_bias, m_ln, ln_shift, qkv_w, qkv_b, m_qkv,
         scalars.append(("s_exp_act", s_exp_act))
     for name, t in scalars:
         _check_scalar(t, name)
+    pp_args, exp_table = _softmax_ppoly(sm_base, sm_bounds, sm_coeffs, exp_bits,
+                                        xw.device)
     qkv = torch.empty((bw * n, 3 * c), dtype=torch.int8, device=xw.device)
     ctx = torch.empty((bw * n, c), dtype=torch.int8, device=xw.device)
     out = torch.empty((bw, n, c), dtype=torch.int16, device=xw.device)
@@ -499,8 +617,8 @@ def swin_attn_block(xw, *, ln_bias, m_ln, ln_shift, qkv_w, qkv_b, m_qkv,
         _ptr(m_av), _ptr(wp_t), _ptr(proj_b), _ptr(m_proj), _ptr(m_res_x),
         _ptr(m_res_id), _ptr(qkv), _ptr(ctx), _ptr(out), bw, n, c, num_heads,
         n_windows, int(xw.dtype == torch.int16), int(ln_base == "ivit"),
-        int(sm_base == "ivit"), int(bool(fast_exp)), int(bool(fast_poly)),
-        _stream())
+        _KIND[sm_base], int(bool(fast_exp)), int(bool(fast_poly)),
+        _pp_ref(pp_args), _ptr(exp_table), _stream())
     _raise_on(err, "swin_attn_block")
     swin_attn_block.launches += 1
     return out

@@ -18,8 +18,12 @@ windows of 49 and 64 tokens, shifted and unshifted, int16 and int8 input.
 The MLP kernel also runs at the widths of every model it serves (C /
 hidden 96/384 to 1024/4096: the 64-row wgmma block and the 32-row block),
 ragged row counts 1, 63 and 65, int8 and int16 streams, and once at
-DeiT-S's 50,432 rows; ShiftGELU at GELU scales far from the engines'.  The
-DeiT-S and Swin-T shapes are held by ``chip_smoke.py``.  Exact equality.
+DeiT-S's 50,432 rows; ShiftGELU at GELU scales far from the engines'.
+The ppoly GELU and softmax run in both ViT kernels, both Swin kernels
+(shifted windows, whose masked scores leave the exp table), every MLP
+width, with fast-div patches that fire, one segment, and through the
+engines.  The DeiT-S and Swin-T shapes are held by ``chip_smoke.py``.
+Exact equality.
 """
 
 import dataclasses
@@ -452,3 +456,141 @@ def test_cuda_mlp_block_gelu_scales(cuda, s_gelu):
             got = kb.mlp_block(x, **kw)
             torch.cuda.synchronize()
             assert torch.equal(got, kb.mlp_block_ref(x, **kw)), (c, fast)
+
+
+# --- the ppoly family ----------------------------------------------------------
+
+# the ibert backend at the fit's defaults (16 segments of degree 2), without
+# its boundary search (seconds a site on the host); the float backend at 5
+# segments of degree 3
+PPOLY_FAMILIES = ["ppoly_backend_ibert_optim-bounds_false",
+                  "ppoly_backend_float_deg_3_seg_5_optim-bounds_false"]
+
+
+def _ppoly_gelu_kw(b, fastdiv):
+    return dict(gelu_bounds=b["gelu_bounds"], gelu_coeffs=b["gelu_coeffs"],
+                gelu_s_out=b["gelu_s_out"], gelu_fastdiv=fastdiv,
+                gelu_s_out_c=b["gelu_s_out_c"], gelu_patch_h=b["gelu_patch_h"],
+                gelu_patch_d=b["gelu_patch_d"])
+
+
+def _ppoly_sm_kw(b):
+    return dict(sm_bounds=b["sm_bounds"], sm_coeffs=b["sm_coeffs"], exp_bits=16)
+
+
+@pytest.mark.parametrize("ln", ["ibert", "ivit"])
+@pytest.mark.parametrize("fam", PPOLY_FAMILIES, ids=["ibert16x2", "float5x3"])
+def test_cuda_ppoly_block_kernels_match_plain_versions(cuda, fam, ln):
+    """Both ViT block kernels with the ppoly GELU (fast-div and rdiv forms)
+    and softmax (padding tokens), C 64, the LN in the kernel and hoisted."""
+    mix = ("ppoly", "ppoly", ln)
+    b = {k: torch.as_tensor(v).to(cuda) for k, v in synthetic_spec(
+        _small_config(1, (fam, fam, ln)), seed=3).params["blocks"][0].items()}
+    x = _x(cuda)
+    kw = dict(ln_bias=b["ln1_bias_int"], m_ln=b["m_ln1"], ln_shift=b["ln1_shift"],
+              qkv_w=b["qkv_w"], qkv_b=b["qkv_b"], m_qkv=b["m_qkv"],
+              m_attn=b["m_attn"], s_attn=b["s_attn"], m_av=b["m_av"],
+              proj_w=b["proj_w"], proj_b=b["proj_b"], m_proj=b["m_proj"],
+              m_res_x=b["m_res1_x"], m_res_id=b["m_res1_id"], num_heads=HEADS,
+              n_valid=NV, sm_base="ppoly", ln_base=ln) | _ppoly_sm_kw(b)
+    for ln_in in (None, kb._ln8(x, ln, kw["ln_bias"], kw["ln_shift"], kw["m_ln"], None)):
+        got = kb.attn_block(x, ln_in=ln_in, **kw)
+        torch.cuda.synchronize()
+        assert torch.equal(got[:, :NV], kb.attn_block_ref(x, ln_in=ln_in, **kw)[:, :NV])
+    x2 = x.reshape(B * NP, C)
+    for fastdiv in (True, False):
+        kw = _swin_mlp_kw(b, mix, True) | dict(out_bits=8) | _ppoly_gelu_kw(b, fastdiv)
+        got = kb.mlp_block(x2, **kw)
+        torch.cuda.synchronize()
+        assert torch.equal(got, kb.mlp_block_ref(x2, **kw)), fastdiv
+
+
+@pytest.mark.parametrize("c,hidden", MLP_SHAPES, ids=[f"C{c}" for c, _ in MLP_SHAPES])
+def test_cuda_ppoly_mlp_block_widths(cuda, c, hidden):
+    """The ppoly GELU in both MLP blocks (the 32-row one at hidden 3072 and
+    4096), ragged rows, int8 and int16 streams, fast-div on and off."""
+    fam = PPOLY_FAMILIES[0]
+    b = _vit_block_at(cuda, c, (fam, fam, "ivit"))
+    for r in (1, 65):
+        for bits in (8, 16):
+            x = _stream(cuda, (r, c), bits, seed=r)
+            for fastdiv in (True, False):
+                kw = _swin_mlp_kw(b, ("ppoly", "ppoly", "ivit"), True) | dict(
+                    out_bits=bits) | _ppoly_gelu_kw(b, fastdiv)
+                got = kb.mlp_block(x, **kw)
+                torch.cuda.synchronize()
+                assert torch.equal(got, kb.mlp_block_ref(x, **kw)), (r, bits, fastdiv)
+
+
+def test_cuda_ppoly_gelu_patches_and_limits(cuda):
+    """Fast-div patches that fire (inputs -5 and 3, and 8 slots), one
+    segment, and the tables the kernels refuse."""
+    fam = PPOLY_FAMILIES[0]
+    b = _vit_block_at(cuda, 64, (fam, fam, "ivit"))
+    x = _stream(cuda, (65, 64), 8, seed=3)
+    base = _swin_mlp_kw(b, ("ppoly", "ppoly", "ivit"), True) | dict(out_bits=8)
+    ph = torch.tensor([-5.0, 3.0] + [2.0**30] * 6, device=cuda)
+    pd = torch.tensor([1.0, -2.0] + [0.0] * 6, device=cuda)
+    for extra in (dict(gelu_patch_h=ph, gelu_patch_d=pd),
+                  dict(gelu_patch_h=ph[:2].contiguous(), gelu_patch_d=pd[:2].contiguous()),
+                  dict(gelu_bounds=b["gelu_bounds"][:0],
+                       gelu_coeffs=b["gelu_coeffs"][:1].contiguous())):
+        kw = base | _ppoly_gelu_kw(b, True) | extra
+        got = kb.mlp_block(x, **kw)
+        torch.cuda.synchronize()
+        assert torch.equal(got, kb.mlp_block_ref(x, **kw))
+    too_many = torch.zeros((65, 3), device=cuda)
+    with pytest.raises(ValueError, match="segments"):
+        kb.mlp_block(x, **(base | _ppoly_gelu_kw(b, True) | dict(
+            gelu_bounds=torch.zeros(64, dtype=torch.int32, device=cuda),
+            gelu_coeffs=too_many)))
+    with pytest.raises(ValueError, match="patches"):
+        kb.mlp_block(x, **(base | _ppoly_gelu_kw(b, True) | dict(
+            gelu_patch_h=torch.zeros(9, device=cuda),
+            gelu_patch_d=torch.zeros(9, device=cuda))))
+
+
+@pytest.mark.parametrize("fam", PPOLY_FAMILIES, ids=["ibert16x2", "float5x3"])
+def test_cuda_ppoly_swin_kernels_match_plain_versions(cuda, fam):
+    """The ppoly softmax of both window cores at C 96 (shifted: the masked
+    scores past the exp table run the polynomial) and 192, int16 and int8
+    input; the Swin MLP with the ppoly GELU."""
+    mix = ("ppoly", "ppoly", "ivit")
+    for i, (b, heads, nw, shift) in enumerate(_swin_blocks(_swin_spec((fam, fam, "ivit")),
+                                                           cuda)):
+        c = b["ln1_bias_int"].shape[0]
+        for bits in (16, 8):
+            x = _stream(cuda, (2 * nw, 49, c), bits, seed=i)
+            kw = _swin_attn_kw(b, mix, True, heads, nw, shift) | _ppoly_sm_kw(b)
+            got = kb.swin_attn_block(x, **kw)
+            torch.cuda.synchronize()
+            assert torch.equal(got, kb.swin_attn_block_ref(x, **kw)), (i, bits)
+        x = _stream(cuda, (2 * nw * 49, c), 16, seed=10 + i)
+        for fastdiv in (True, False):
+            kw = _swin_mlp_kw(b, mix, True) | _ppoly_gelu_kw(b, fastdiv)
+            got = kb.mlp_block(x, **kw)
+            torch.cuda.synchronize()
+            assert torch.equal(got, kb.mlp_block_ref(x, **kw)), (i, fastdiv)
+
+
+def test_cuda_ppoly_engines_match_plain_engines(cuda):
+    fam = PPOLY_FAMILIES[0]
+    images = np.random.default_rng(1).normal(size=(3, 64, 64, 3)).astype(np.float32)
+    spec = synthetic_spec(_small_config(2, (fam, fam, "ibert")), seed=0)
+    want = Engine(spec, kernels=False)(images)
+    kb.mlp_block.launches = kb.attn_block.launches = 0
+    got = Engine(spec)(images)
+    torch.cuda.synchronize()
+    assert (kb.mlp_block.launches, kb.attn_block.launches) == (2, 2)
+    assert torch.equal(got, want)
+    assert torch.equal(Engine(spec, kernels="ops")(images), want)
+    assert torch.equal(want.cpu(), Engine(spec, device="cpu", kernels=False)(images))
+    spec = _swin_spec((fam, fam, "ivit"))
+    images = images[:, :56, :56].copy()
+    want = Engine(spec, kernels=False)(images)
+    kb.mlp_block.launches = kb.swin_attn_block.launches = 0
+    got = Engine(spec)(images)
+    torch.cuda.synchronize()
+    assert (kb.mlp_block.launches, kb.swin_attn_block.launches) == (4, 4)
+    assert torch.equal(got, want)
+    assert torch.equal(want.cpu(), Engine(spec, device="cpu", kernels=False)(images))

@@ -138,22 +138,28 @@ def test_synthetic_spec_has_the_freeze_tree(calibrated):
     assert _tree(full.params) == scaled
 
 
-def test_engine_hands_the_mlp_kernel_transposed_weights(monkeypatch):
+def test_engine_hands_the_mlp_kernel_transposed_weights(monkeypatch, tmp_path):
     """``Engine(kernels=True)`` keeps each block's fc1 / fc2 weights in
-    torch's Linear layout and passes them to ``mlp_block``, which then
-    transposes nothing a call; the logits stay the plain engine's."""
-    from ivit_tpu_torch.engine import Engine
+    torch's Linear layout beside the spec (``mlp_wt``) and passes them to
+    ``mlp_block``, which then transposes nothing a call; the logits stay
+    the plain engine's; ``Engine.spec`` is the caller's spec and saves to
+    its leaf set."""
+    from ivit_tpu_torch.engine import Engine, load_engine, save_engine
     from ivit_tpu_torch.ops.kernels import block as kb
 
     cfg = dataclasses.replace(deit_small_config(depth=2, img_size=64),
                               embed_dim=64, num_heads=2, num_classes=10)
     spec = synthetic_spec(cfg, seed=0)
     eng = Engine(spec, device="cpu")
-    for blk in eng.spec.params["blocks"]:
-        assert torch.equal(blk["fc1_wt"], blk["fc1_w"].t())
-        assert torch.equal(blk["fc2_wt"], blk["fc2_w"].t())
-        assert blk["fc1_wt"].is_contiguous() and blk["fc2_wt"].is_contiguous()
-    assert "fc1_wt" not in Engine(spec, device="cpu", kernels=False).spec.params["blocks"][0]
+    assert eng.spec is spec
+    for blk, wt in zip(spec.params["blocks"], eng.mlp_wt):
+        assert torch.equal(wt["fc1_wt"], torch.from_numpy(blk["fc1_w"]).t())
+        assert torch.equal(wt["fc2_wt"], torch.from_numpy(blk["fc2_w"]).t())
+        assert wt["fc1_wt"].is_contiguous() and wt["fc2_wt"].is_contiguous()
+    assert Engine(spec, device="cpu", kernels=False).mlp_wt is None
+    save_engine(eng.spec, str(tmp_path / "eng"))
+    assert _tree(load_engine(str(tmp_path / "eng"), device="cpu").params) == \
+        _tree(spec.params)
     seen, mlp_block = [], kb.mlp_block
 
     def spy(x, **kw):
@@ -163,7 +169,6 @@ def test_engine_hands_the_mlp_kernel_transposed_weights(monkeypatch):
     monkeypatch.setattr(kb, "mlp_block", spy)
     x = _images(2, 64)
     got = eng(x)
-    blocks = eng.spec.params["blocks"]
     assert [(a.data_ptr(), b.data_ptr()) for a, b in seen] == \
-        [(b["fc1_wt"].data_ptr(), b["fc2_wt"].data_ptr()) for b in blocks]
+        [(w["fc1_wt"].data_ptr(), w["fc2_wt"].data_ptr()) for w in eng.mlp_wt]
     assert torch.equal(got, Engine(spec, device="cpu", kernels=False)(x))

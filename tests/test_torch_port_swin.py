@@ -1,4 +1,5 @@
-"""The port's Swin engine bit-exact against the JAX package (tolerance 0).
+"""The port's Swin kernels' plain versions, at the test geometry and at
+Swin-T width, bit-exact against the JAX package (tolerance 0).
 
 * the Swin geometry helpers (relative-position index, shift mask, window
   partition and reverse);
@@ -9,24 +10,17 @@
 * the Swin form of the MLP kernel's plain version (int16 in and out)
   against JAX ``mlp_block_p``, and at C 96 unpadded against JAX padded to
   128 lanes with ``c_valid=96``;
-* the engine on real JAX freezes of the geometry of
-  ``tests/test_swin_engine.py`` (56 px, embed 32, depths (2, 2), heads
-  (2, 4), window 7: a shifted stage-0 block, a merge, a stage 1 with res =
-  ws), for ivit, ibert and one mix: ``kernels=False`` against JAX
-  ``pallas=False``, ``kernels=True`` (the plain versions on the CPU)
-  against JAX ``pallas=True`` in interpret mode, every ``stage_paths``
-  mask against the unfused engine;
-* the artifact round trip both ways, and ``params_to_torch`` on the JAX
-  Swin tree (lists of dicts with ``merge`` entries);
-* the synthetic Swin spec has a JAX freeze's tree and layout;
 * Swin-T width (224 px, embed 96, heads (3, 6, 12, 24); depths cut to
   (2, 2, 2, 2)): the synthetic spec through JAX's unfused engine and both
   port paths;
-* ppoly and float Swin specs, and ``kernels="ops"``, raise.
+* float Swin specs, the ppoly LayerNorm, and ``kernels="ops"``, raise.
+
+The engine on real JAX freezes, the artifacts and the synthetic spec's
+tree are in ``tests/test_torch_port_swin_engine.py``; the ppoly family in
+``tests/test_torch_port_swin_ppoly.py``.
 """
 
 import dataclasses
-import itertools
 import os
 import sys
 
@@ -37,19 +31,14 @@ import pytest
 import torch
 
 sys.path.insert(0, os.path.dirname(__file__))
-from test_swin_engine import build_swin  # noqa: E402
-from test_torch_port_engine import LUT_KEYS, _images  # noqa: E402
-from test_torch_port_loader import _assert_same_tree  # noqa: E402
+from test_torch_port_engine import _images  # noqa: E402
 
-import ivit_tpu.ops.pallas as ppkg  # noqa: E402
 from ivit_tpu.engine import swin_int as jswin  # noqa: E402
-from ivit_tpu.engine.export import load_engine as jax_load_engine  # noqa: E402
-from ivit_tpu.engine.export import save_engine as jax_save_engine  # noqa: E402
 from ivit_tpu.models import BitWidths as JaxBitWidths  # noqa: E402
 from ivit_tpu.models import swin as jgeo  # noqa: E402
 from ivit_tpu.ops.pallas import block as jblk  # noqa: E402
 from ivit_tpu_torch.engine import (Engine, SwinEngineConfig, SwinEngineSpec,  # noqa: E402
-                                   load_engine, save_engine, swin_engine_forward)
+                                   swin_engine_forward)
 from ivit_tpu_torch.engine.convert import params_to_torch  # noqa: E402
 from ivit_tpu_torch.engine.synthetic import (swin_tiny_config,  # noqa: E402
                                               synthetic_swin_spec)
@@ -228,99 +217,6 @@ def test_swin_mlp_ref_unpadded_matches_pallas_c_valid():
     _eq(got.numpy(), np.asarray(want)[:, :96])
 
 
-# --- (d) the engine on real JAX freezes ----------------------------------------
-
-@pytest.fixture(scope="module")
-def freezes():
-    """JAX freezes of calibrated 56 px Swins: ivit, ibert, and the ivit model
-    frozen with the ibert LN (its LN sites calibrate no overflow shift)."""
-    out = {}
-    for fam in ("ivit", "ibert"):
-        model, variables = build_swin(np.random.default_rng(0), gelu_type=fam,
-                                      softmax_type=fam, layernorm_type=fam)
-        out[(fam,) * 3] = jswin.freeze_swin_model(model, variables)
-        if fam == "ivit":
-            out[("ivit", "ivit", "ibert")] = jswin.freeze_swin_model(
-                model.clone(layernorm_type="ibert"), variables)
-    return out
-
-
-def _jax_interpret(jspec, x, **kw):
-    ppkg.FORCE_INTERPRET = True
-    try:
-        return np.asarray(jswin.swin_engine_forward(jspec, jnp.asarray(x), **kw))
-    finally:
-        ppkg.FORCE_INTERPRET = False
-
-
-@pytest.mark.parametrize("mix", [IVIT, IBERT, ("ivit", "ivit", "ibert")],
-                         ids=["ivit", "ibert", "ivit/ivit/ibert"])
-def test_swin_engine_paths_match_jax(freezes, mix):
-    jspec = freezes[mix]
-    spec = _to_port(jspec)
-    x = _images(2, 56, seed=6)
-    want = np.asarray(jswin.swin_engine_forward(jspec, jnp.asarray(x), pallas=False))
-    _eq(swin_engine_forward(spec, x, kernels=False, device="cpu").numpy(), want)
-    _eq(swin_engine_forward(spec, x, kernels=True, device="cpu").numpy(),
-        _jax_interpret(jspec, x, pallas=True))
-    for mask in itertools.product((False, True), repeat=2):
-        got = Engine(spec, device="cpu", stage_paths=mask)(x)
-        _eq(got.numpy(), want)
-    assert np.isfinite(want).all() and want.std(axis=0).max() > 0
-
-
-# --- (e) artifacts --------------------------------------------------------------
-
-def test_swin_artifact_round_trip(freezes, tmp_path):
-    jspec = freezes[IBERT]
-    ref = jax.device_get(jspec.params)
-    assert any("merge" in b for b in ref["blocks"])
-    _assert_same_tree(params_to_torch(ref, "cpu"), ref)
-
-    jax_save_engine(jspec, str(tmp_path / "swin"))
-    loaded = load_engine(str(tmp_path / "swin"), device="cpu")
-    assert isinstance(loaded, SwinEngineSpec)
-    assert dataclasses.asdict(loaded.config) == dataclasses.asdict(_to_port(jspec).config)
-    assert loaded.config.layout == jspec.config.layout
-    _assert_same_tree(loaded.params, ref)
-
-    save_engine(loaded, str(tmp_path / "swin_port.npz"))
-    back = jax_load_engine(str(tmp_path / "swin_port.npz"))
-    assert back.config == jspec.config
-    _assert_same_tree(params_to_torch(jax.device_get(back.params), "cpu"), ref)
-
-
-# --- (f) the synthetic spec's tree ---------------------------------------------
-
-def _tree(params):
-    out = {}
-
-    def walk(node, prefix):
-        if isinstance(node, dict):
-            for k, v in node.items():
-                walk(v, f"{prefix}{k}/")
-        elif isinstance(node, list):
-            for i, v in enumerate(node):
-                walk(v, f"{prefix}{i}/")
-        elif prefix.split("/")[-2] not in LUT_KEYS | {"sm_sat"}:
-            out[prefix[:-1]] = (np.asarray(node).dtype, np.asarray(node).shape)
-
-    walk(params, "")
-    return out
-
-
-@pytest.mark.parametrize("mix", [IVIT, IBERT], ids=["ivit", "ibert"])
-def test_swin_synthetic_spec_has_the_freeze_tree(freezes, mix):
-    jspec = freezes[mix]
-    small = synthetic_swin_spec(_to_port(jspec).config, seed=0)
-    assert _tree(small.params) == _tree(jax.device_get(jspec.params))
-    assert small.config.layout == jspec.config.layout
-    jc, sc = dataclasses.asdict(jspec.config), dataclasses.asdict(small.config)
-    for k in ("bitwidths", "use_lut", "fast_poly", "sm_sum_i32"):
-        jc.pop(k), sc.pop(k)        # BitWidths types; no LUTs; scale-gated
-    assert sc == jc
-
-
 # --- (g) Swin-T width -----------------------------------------------------------
 
 def test_swin_tiny_width_synthetic_matches_jax():
@@ -346,7 +242,10 @@ def test_swin_tiny_width_synthetic_matches_jax():
 def test_swin_engine_refuses_families_not_ported(which):
     spec = _small_spec(IVIT, depths=(1,), img_size=28, stage_heads=(2,))
     x = np.zeros((1, 28, 28, 3), np.float32)
-    for fam, item in (("ppoly", "Queue 1 items 2-4"), ("float", "Queue 1 item")):
+    refused = [("float", "Queue 1 item 2")]
+    if which == "layernorm_type":
+        refused.append(("ppoly", "no LayerNorm"))
+    for fam, item in refused:
         bad = dataclasses.replace(spec, config=dataclasses.replace(
             spec.config, **{which: fam}))
         with pytest.raises(NotImplementedError, match=item):
