@@ -66,7 +66,20 @@ Phases, each printing one JSON line:
 15. engine_ppoly: the synthetic DeiT-S ppoly engine (ibert LN, batch 256)
    and Swin-T ppoly engine (ivit LN, batch 64), gelu and softmax
    ``ppoly_backend_ibert``, as phases 7 and 13: 12 + 12 launches, logits
-   bitwise equal to the plain engine on the card and the CPU, img/s.
+   bitwise equal to the plain engine on the card and the CPU, img/s;
+16. int16_kernels: the INT16 configuration's variants (bitwidths
+   ``8,8,8,8,16,8,16,8``) bitwise equal to their plain versions at DeiT-S
+   shapes, ivit, ibert and ppoly, fast flags on and off, the LN in the
+   kernel and hoisted: ``attn_block`` at ``sm_bit`` 16 with an int16 output
+   (also padded), ``mlp_block`` from int16 rows to int8; their times beside
+   the 8-bit variants' and the MLP's Swin form (int16 in and out);
+17. int16_edges: the 16-bit attention core at its edges: a one-hot row
+   (probability 2**15 - 1), v at -128 and 127 on every channel, flat rows,
+   hot padding keys past ``n_valid``; DeiT-S width, C 64 and head dim 128;
+18. engine_int16: synthetic DeiT-S INT16 ivit and ibert engines (batch
+   256), as phase 7; one DeiT-S float-family forward (batch 4) through the
+   fused entry, which runs it unfused as JAX does, within
+   ``tests/test_torch_port_float.py``'s bound of the CPU's logits.
 
 The build phase reports ptxas's registers and spill bytes per kernel and
 fails if any kernel spills.
@@ -103,6 +116,9 @@ H100_BYTES = 3.35e12         # HBM3 bandwidth, H100 SXM data sheet
 # requant (4: multiply, round, clamp both ways).
 SHIFTMAX_F32_OPS = 24
 SHIFT_GELU_REQUANT_F32_OPS = 32
+# the float family's logits, card against CPU: tests/test_torch_port_float.py's
+# bound (torch's f32 exp and erf differ between devices in the last ulp)
+FLOAT_LOGIT_TOL = 0.05
 IVIT = ("ivit", "ivit", "ivit")                  # (gelu, softmax, ln)
 MIXES = [IVIT, ("ivit", "ivit", "ibert"), ("ibert", "ibert", "ivit")]
 
@@ -678,6 +694,286 @@ def ppoly_phases(torch, kb, dev, rows):
           "swin_tiny": swin, "max_abs_err": max(errs_m + errs_a + errs_s + errs_ms)})
 
 
+INT16 = "8,8,8,8,16,8,16,8"    # the reference's INT16 run: softmax, norm2_in 16
+# (gelu, softmax, ln) of each family's spec, and as the kernels name them
+INT16_SPECS = {"ivit": IVIT, "ibert": ("ibert",) * 3, "ppoly": (PPOLY, PPOLY, "ibert")}
+INT16_KERNEL_MIX = {"ivit": IVIT, "ibert": ("ibert",) * 3, "ppoly": ("ppoly", "ppoly", "ibert")}
+
+
+def deit_block(torch, dev, fam, bits=INT16, **small):
+    """Block 0 of the synthetic DeiT-S spec of one family at ``bits``
+    (``small``: config fields to cut, as embed_dim and num_heads)."""
+    from ivit_tpu_torch.engine.synthetic import deit_small_config, synthetic_spec
+    gelu, softmax, ln = INT16_SPECS[fam]
+    cfg = deit_small_config(depth=1, img_size=64 if small else 224, ln=ln, gelu=gelu,
+                            softmax=softmax, bitwidths=bits)
+    cfg = dataclasses.replace(cfg, **small)
+    return block_args(torch, synthetic_spec(cfg, 0).params["blocks"][0], dev)
+
+
+def family_kwargs(b, fam, which):
+    """The ppoly leaves of one half-block's kernel (none for the others)."""
+    if fam != "ppoly":
+        return {}
+    return ppoly_sm_kwargs(b) if which == "attn" else ppoly_gelu_kwargs(b, True)
+
+
+def int16_kernel_phase(torch, kb, dev, rows):
+    """Phase 16: the INT16 variants at DeiT-S shapes, each bitwise against
+    its plain version, fast flags on and off, ivit, ibert and ppoly:
+    ``attn_block`` at ``sm_bit`` 16 with an int16 output (int8 in), full and
+    padded (17 of 24 tokens), the LN in the kernel and hoisted;
+    ``mlp_block`` from int16 rows to int8, the LN in the kernel and
+    hoisted.  Times beside the 8-bit variants and, for the MLP, the Swin
+    form (int16 in and out) at the same shape; adds the two int16 rows."""
+    import numpy as np
+
+    rng = np.random.default_rng(5)
+
+    def stream(shape, bits):
+        lim = 2 ** (bits - 1)
+        x = np.clip(np.round(rng.normal(0, lim / 4, shape)), -lim, lim - 1)
+        return torch.as_tensor(x.astype(np.int16 if bits > 8 else np.int8)).to(dev)
+
+    xa = stream((BATCH, TOKENS, 384), 8)
+    xs = stream((2, 24, 384), 8)
+    xr = stream((BATCH * TOKENS, 384), 16)
+    x8 = stream((BATCH * TOKENS, 384), 8)
+    errs_a, errs_m, fams = [], [], {}
+    for fam, mix in INT16_KERNEL_MIX.items():
+        b, b8 = deit_block(torch, dev, fam), deit_block(torch, dev, fam, "8")
+        for flags in (True, False):
+            kw = attn_kwargs(b, flags, 6, TOKENS, mix) | family_kwargs(b, fam, "attn") | dict(
+                sm_bit=16, out_bits=16)
+            got = kb.attn_block(xa, **kw)
+            torch.cuda.synchronize()
+            errs_a.append(check_equal(torch, f"attn_block int16 {fam} fast={flags}", got,
+                                      kb.attn_block_ref(xa, **kw)))
+            kws = kw | dict(n_valid=17)
+            errs_a.append(check_equal(torch, f"attn_block int16 {fam} padded fast={flags}",
+                                      kb.attn_block(xs, **kws), kb.attn_block_ref(xs, **kws),
+                                      rows=17))
+            kw = mlp_kwargs(b, flags, mix) | family_kwargs(b, fam, "mlp") | dict(
+                mlp_bits=8, out_bits=8)
+            got = kb.mlp_block(xr, **kw)
+            torch.cuda.synchronize()
+            errs_m.append(check_equal(torch, f"mlp_block int16->int8 {fam} fast={flags}",
+                                      got, kb.mlp_block_ref(xr, **kw)))
+        kw_a = attn_kwargs(b, True, 6, TOKENS, mix) | family_kwargs(b, fam, "attn") | dict(
+            sm_bit=16, out_bits=16)
+        kw_m = mlp_kwargs(b, True, mix) | family_kwargs(b, fam, "mlp") | dict(
+            mlp_bits=8, out_bits=8)
+        ln_a = kb._ln8(xa, mix[2], kw_a["ln_bias"], kw_a["ln_shift"], kw_a["m_ln"], None)
+        ln_m = kb._ln8(xr, mix[2], kw_m["ln_bias"], kw_m["ln_shift"], kw_m["m_ln"], None)
+        errs_a.append(check_equal(torch, f"attn_block int16 {fam} ln_in",
+                                  kb.attn_block(xa, ln_in=ln_a, **kw_a),
+                                  kb.attn_block_ref(xa, ln_in=ln_a, **kw_a)))
+        errs_m.append(check_equal(torch, f"mlp_block int16->int8 {fam} ln_in",
+                                  kb.mlp_block(xr, ln_in=ln_m, **kw_m),
+                                  kb.mlp_block_ref(xr, ln_in=ln_m, **kw_m)))
+        kw_a8 = attn_kwargs(b8, True, 6, TOKENS, mix) | family_kwargs(b8, fam, "attn")
+        kw_m8 = mlp_kwargs(b8, True, mix) | family_kwargs(b8, fam, "mlp")
+        fams[fam] = dict(
+            attn_ms=time_ms(torch, lambda: kb.attn_block(xa, **kw_a), iters=20),
+            attn_8bit_ms=time_ms(torch, lambda: kb.attn_block(xa, **kw_a8), iters=20),
+            mlp_ms=time_ms(torch, lambda: kb.mlp_block(xr, **kw_m), iters=20),
+            mlp_swin_form_ms=time_ms(torch, lambda: kb.mlp_block(
+                xr, **(kw_m | dict(out_bits=16))), iters=20),
+            mlp_8bit_ms=time_ms(torch, lambda: kb.mlp_block(x8, **kw_m8), iters=20),
+            ln2_shift=float(b["ln2_shift"]))
+        if fam == "ivit":
+            fams[fam].update(
+                attn_plain_ms=time_ms(torch, lambda: kb.attn_block_ref(xa, **kw_a),
+                                      iters=3, warmup=1),
+                mlp_plain_ms=time_ms(torch, lambda: kb.mlp_block_ref(xr, **kw_m),
+                                     iters=3, warmup=1))
+            out16 = kb.attn_block(xa, **kw_a)
+            if out16.dtype != torch.int16 or out16.abs().max().item() <= 127:
+                raise AssertionError("attn_block int16: the output does not use 16 bits")
+    b = deit_block(torch, dev, "ivit")
+    xa2, r = xa.reshape(-1, 384), xa.shape[0] * TOKENS
+    h = torch.empty((r, 1536), dtype=torch.int8, device=dev)
+    attn_lib = time_ms(torch, lambda: (torch._int_mm(xa2, b["qkv_w"]),
+                                       torch._int_mm(xa2, b["proj_w"])), iters=20)
+    mlp_lib = time_ms(torch, lambda: (torch._int_mm(x8, b["fc1_w"]),
+                                      torch._int_mm(h, b["fc2_w"])), iters=20)
+    # the bound counts P v as one product, whatever the split; bytes: int8 x
+    # in and int16 out (attention), int16 rows in and int8 out (MLP)
+    attn_ops = 2 * r * (4 * 384 * 384) + 2 * 2 * BATCH * TOKENS * TOKENS * 384
+    out16 = torch.empty((BATCH, TOKENS, 384), dtype=torch.int16, device=dev)
+    attn_nb = nbytes(xa, out16, b["qkv_w"], b["proj_w"], b["qkv_b"], b["proj_b"],
+                     b["m_qkv"], b["m_proj"], b["m_ln1"], b["ln1_bias_int"])
+    mlp_ops = 2 * r * 384 * 1536 * 2
+    mlp_nb = nbytes(xr, x8, b["fc1_w"], b["fc2_w"], b["fc1_b"], b["fc2_b"], b["m_fc1"],
+                    b["m_fc2"], b["m_ln2"], b["ln2_bias_int"])
+    a_ms, a_by = bound(attn_ops, attn_nb)
+    m_ms, m_by = bound(mlp_ops, mlp_nb)
+    rows["attn_block[int16]"] = dict(
+        name="attn_block[int16]", route="cuda", source="ivit_tpu_torch/csrc/attn_block.cu",
+        replaces="ivit_tpu/ops/pallas/block.py:1112", launches=None,
+        max_abs_err=max(errs_a), ms=fams["ivit"]["attn_ms"],
+        plain_ms=fams["ivit"]["attn_plain_ms"], bound_ms=a_ms, bound_by=a_by,
+        library_ms=attn_lib, ms_by_family={f: d["attn_ms"] for f, d in fams.items()},
+        ms_8bit_by_family={f: d["attn_8bit_ms"] for f, d in fams.items()},
+        times_are="DeiT-S [256, 197, 384], 6 heads, sm_bit 16, int8 in, int16 out")
+    rows["mlp_block[int16]"] = dict(
+        name="mlp_block[int16]", route="cuda", source="ivit_tpu_torch/csrc/mlp_block.cu",
+        replaces="ivit_tpu/ops/pallas/block.py:783", launches=None,
+        max_abs_err=max(errs_m), ms=fams["ivit"]["mlp_ms"],
+        plain_ms=fams["ivit"]["mlp_plain_ms"], bound_ms=m_ms, bound_by=m_by,
+        library_ms=mlp_lib, ms_by_family={f: d["mlp_ms"] for f, d in fams.items()},
+        ms_swin_form_by_family={f: d["mlp_swin_form_ms"] for f, d in fams.items()},
+        ms_8bit_by_family={f: d["mlp_8bit_ms"] for f, d in fams.items()},
+        times_are="DeiT-S [50,432, 384], hidden 1536, int16 rows in, int8 out")
+    emit({"phase": "int16_kernels", "equal": True, "config": INT16,
+          "families": fams, "attn_bound_ms": [a_ms, a_by], "mlp_bound_ms": [m_ms, m_by],
+          "attn_library_ms": attn_lib, "mlp_library_ms": mlp_lib,
+          "max_abs_err": max(errs_a + errs_m)})
+
+
+def int16_edge_inputs(torch, b, heads, batch, np_, n_valid, dev):
+    """Inputs that drive the 16-bit attention core to its edges, for the
+    LN-hoisted kernel (``ln_in``): qkv is the LN output itself (q = k = y,
+    v = y scaled so that y = +-127 gives v = 127 / -128 on every channel),
+    each image's tokens y = +127 (one hot token), -127 (cold) or 0 (zero)
+    on every channel, and its padding keys past ``n_valid`` hot.  The hot
+    token's row is one-hot (scores 127 against -127 and 0), the cold rows
+    are flat over the cold keys, the zero rows flat over every key.
+    ``s_attn`` 0.1 drives the ibert and ppoly exps of the far keys to 0, so
+    the hot row's probability is 2**15 - 1; ``m_av`` keeps a one-hot ctx
+    inside int8.  Returns (x, ln_in, the operands to override)."""
+    from ivit_tpu_torch.engine.freeze import _sym_scale
+    from ivit_tpu_torch.ops.ibert import EXP_C
+
+    c = b["qkv_w"].shape[0]
+    dh = c // heads
+    y = torch.zeros((batch, np_, c), dtype=torch.int8)
+    for i in range(batch):
+        hot = (37 * i) % n_valid
+        y[i, [j for j in range(n_valid) if j % 3]] = -127
+        y[i, hot] = 127
+        y[i, n_valid:] = 127
+    eye = torch.eye(c, dtype=torch.int8)
+    s_attn = 0.1
+    c_int = float(int(EXP_C / (s_attn * s_attn)))
+    over = dict(
+        qkv_w=torch.cat([eye, eye, eye], 1), qkv_b=torch.zeros(3 * c, dtype=torch.int32),
+        m_qkv=torch.cat([torch.ones(2 * c), torch.full((c,), 128 / 127)]),
+        m_attn=torch.tensor(1 / (127 * dh)), s_attn=torch.tensor(s_attn),
+        s_exp_act=torch.tensor(float(_sym_scale(16, 0.0, c_int * 2.0**30))),
+        m_av=torch.tensor(2.0 ** -15))
+    over = {k: v.to(device=dev, dtype=v.dtype if v.dtype != torch.float64
+                    else torch.float32).contiguous() for k, v in over.items()}
+    x = torch.as_tensor(y).to(dev)
+    return x, x, over
+
+
+def edge_probs(torch, kb, x, kw, heads):
+    """The f32 probabilities of the edge inputs before their conversion, as
+    the plain version computes them (q = k = x)."""
+    b_, n, c = x.shape
+    q = x.reshape(b_, n, heads, c // heads).permute(0, 2, 1, 3)
+    s = kb._requant(kb.int8_matmul(q, q.transpose(-1, -2)), kw["m_attn"], 8)
+    return kb._softmax_probs(s, kw["sm_base"], kw["s_attn"], kw.get("s_exp_act"),
+                             kw["sm_bit"], kw["n_valid"], kw["fast_exp"], kw["fast_poly"],
+                             kw.get("sm_bounds"), kw.get("sm_coeffs"), 16)
+
+
+def int16_edge_phase(torch, kb, dev):
+    """Phase 17: the attention core at its edges (int16_edge_inputs),
+    bitwise against its plain version, each family, 16-bit probabilities
+    with an int16 output and 8-bit ones with an int8 output, at DeiT-S
+    width (197 tokens, 190 real), at C 64 (24 tokens, 17 real) and at C 128
+    with one head (256 tokens, 250 real: head dim 128).  The ibert one-hot
+    row's probability rounds to 2**(bits - 1) before its conversion, which
+    saturates it at 2**(bits - 1) - 1."""
+    checked, top = 0, {}
+    for fam, mix in INT16_KERNEL_MIX.items():
+        for c, heads, np_, nv, batch in ((384, 6, TOKENS, 190, 4), (64, 2, 24, 17, 2),
+                                         (128, 1, 256, 250, 2)):
+            small = {} if c == 384 else dict(embed_dim=c, num_heads=heads, num_classes=10)
+            b = deit_block(torch, dev, fam, **small)
+            x, ln_in, over = int16_edge_inputs(torch, b, heads, batch, np_, nv, dev)
+            for bits in (16, 8):
+                for flags in (True, False):
+                    kw = attn_kwargs(b, flags, heads, nv, mix) | family_kwargs(
+                        b, fam, "attn") | dict(sm_bit=bits, out_bits=bits) | over
+                    check_equal(torch, f"attn_block edge {fam} bits={bits} C={c} "
+                                f"Np={np_} n_valid={nv} fast={flags}",
+                                kb.attn_block(x, ln_in=ln_in, **kw),
+                                kb.attn_block_ref(x, ln_in=ln_in, **kw), rows=nv)
+                    checked += 1
+                top[f"{fam} bits={bits} C={c}"] = edge_probs(torch, kb, x, kw, heads).max().item()
+    for bits in (16, 8):
+        if top[f"ibert bits={bits} C=384"] != 2 ** (bits - 1):
+            raise AssertionError(f"edge: the ibert one-hot row's probability is "
+                                 f"{top[f'ibert bits={bits} C=384']} before saturation")
+    emit({"phase": "int16_edges", "equal": True, "checks": checked,
+          "max_probability_before_saturation": top,
+          "rows": "one-hot, flat, zero; padded keys hot", "v": [-128, 127]})
+
+
+def int16_engine_phase(torch, counters, dev, rows, profile=False):
+    """Phase 18: the synthetic DeiT-S INT16 ivit and ibert engines (224 px,
+    depth 12, batch 256) through ``Engine``: 12 + 12 launches, logits bitwise
+    equal to the plain engine on the card and, for 4 images, on the CPU;
+    img/s.  Then one DeiT-S float-family forward (gelu and softmax float,
+    ibert LN) at batch 4: the fused entry takes the unfused forward (no
+    kernel launches, logits equal to the plain engine's), and the card's
+    logits are within the CPU test's bound of the CPU's."""
+    from ivit_tpu_torch.engine import Engine
+    from ivit_tpu_torch.engine.synthetic import deit_small_config, synthetic_spec
+
+    gen = torch.Generator(device=dev).manual_seed(3)
+    batches = [torch.randn((BATCH, 224, 224, 3), generator=gen, device=dev)
+               for _ in range(3)]
+    out = {}
+    for fam in ("ivit", "ibert"):
+        cfg = deit_small_config(ln=fam, gelu=fam, softmax=fam, bitwidths=INT16)
+        spec = synthetic_spec(cfg, seed=0)
+        eng, plain = Engine(spec), Engine(spec, kernels=False)
+        logits, launches = run_counted(torch, counters, lambda: eng(batches[0]))
+        want = {k: cfg.depth if k in ("attn_block", "mlp_block") else 0 for k in counters}
+        if launches != want:
+            raise AssertionError(f"int16 {fam} forward launched {launches}, want {want}")
+        check_logits(torch, f"int16 {fam} kernel engine", logits, plain(batches[0]),
+                     cfg.num_classes)
+        cpu = Engine(spec, device="cpu", kernels=False)(batches[0][:4].cpu())
+        if not torch.equal(logits[:4].cpu(), cpu):
+            raise AssertionError(
+                f"int16 {fam} kernel engine != plain engine on the CPU (4 images): "
+                f"max abs diff {(logits[:4].cpu() - cpu).abs().max().item()}")
+        if fam == "ivit":
+            rows["attn_block[int16]"]["launches"] = launches["attn_block"]
+            rows["mlp_block[int16]"]["launches"] = launches["mlp_block"]
+        out[fam] = {"launches_per_forward": launches,
+                    "img_per_s": img_per_s(torch, eng, batches, 6),
+                    "plain_img_per_s": img_per_s(torch, plain, batches, 2),
+                    "logits_std": logits.std().item()}
+        if profile:
+            emit(profile_forward(torch, f"int16 {fam} kernels=True", eng, batches[0]))
+        del eng, plain
+    cfg = deit_small_config(ln="ibert", gelu="float", softmax="float")
+    spec = synthetic_spec(cfg, seed=0)
+    images = batches[1][:4]
+    logits, launches = run_counted(torch, counters, lambda: Engine(spec)(images))
+    if any(launches.values()):
+        raise AssertionError(f"float forward launched kernels: {launches}")
+    check_logits(torch, "float entry", logits, Engine(spec, kernels=False)(images),
+                 cfg.num_classes, 4)
+    cpu = Engine(spec, device="cpu")(images.cpu())
+    diff = (logits.cpu() - cpu).abs().max().item()
+    if diff > FLOAT_LOGIT_TOL * cpu.abs().max().item():
+        raise AssertionError(f"float forward: card logits off the CPU's by {diff}")
+    emit({"phase": "engine_int16",
+          "config": f"deit_small 224px depth 12 bitwidths {INT16} (synthetic, seed 0)",
+          "batch": BATCH, **out, "equal_plain_cuda": True, "equal_plain_cpu_4img": True,
+          "float": {"config": "deit_small gelu/softmax float, ibert LN, batch 4",
+                    "max_abs_diff_cpu": diff, "max_abs_logit": cpu.abs().max().item(),
+                    "tolerance": f"{FLOAT_LOGIT_TOL} of the largest logit magnitude",
+                    "launches": launches}})
+
+
 def ptxas_report(log):
     """Registers and spill bytes of every kernel in one ``-Xptxas -v`` log."""
     out, name, spill = [], None, 0
@@ -1130,6 +1426,8 @@ def main(argv=None) -> int:
     rows = kernel_phases(torch, kb, knl, dev)
     swin_phases(torch, kb, dev, rows)
     ppoly_phases(torch, kb, dev, rows)
+    int16_kernel_phase(torch, kb, dev, rows)
+    int16_edge_phase(torch, kb, dev)
     attn_edge_phase(torch, kb, dev)
     mlp_edge_phase(torch, kb, knl, dev)
     emit({"phase": "kernel_checks_done", "seconds": time.perf_counter() - t0})
@@ -1139,6 +1437,7 @@ def main(argv=None) -> int:
     engine_phases(torch, counters, dev, rows, profile=args.profile)
     swin_engine_phase(torch, counters, dev, rows, profile=args.profile)
     ppoly_engine_phase(torch, counters, dev, rows, profile=args.profile)
+    int16_engine_phase(torch, counters, dev, rows, profile=args.profile)
     emit({"phase": "engines_done", "seconds": time.perf_counter() - t0})
     emit({"kernels": list(rows.values())})
     print(smi, flush=True)

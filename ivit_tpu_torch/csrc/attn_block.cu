@@ -8,6 +8,12 @@
 //   exp requant, 2**32 reciprocal; ppoly: the fitted polynomial exp on the
 //   exp_bits grid, exact row sum, 2**32 reciprocal) -> probs @ v -> requant
 //   by m_av -> proj GEMM + bias -> requant -> integer residual.
+// The token stream in and out is int8 or int16, each read and written as
+// it is: the reference's INT16 configuration (softmax and norm2_in at 16
+// bits) takes int8 x to an int16 out.  The probabilities are 8 or 16 bits
+// (sm_bit); the 16-bit ones go through P v exactly as two 8-bit products
+// (attn_chain.cuh attn_tile), each softmax family's core an instantiation
+// of its own.
 //
 // Bound on this card: operations.  At DeiT-S (B 256, N 197, C 384, 6 heads)
 // one call does 2 * B * N * (3C * C + C * C) + 2 * 2 * B * N * N * C = 75 G
@@ -57,15 +63,18 @@ constexpr int kSplit = 4;          // warps a query tile: keys split 4 ways
 constexpr int kCoreGroups = kCoreThreads / (32 * kSplit);
 
 // 2. Softmax attention for one (head, image); SM: the softmax family
-// (kSmShift the ivit one, kSmIbert, kSmPpoly).  Each group of kSplit warps takes 16 query rows at a
+// (kSmShift the ivit one, kSmIbert, kSmPpoly); SB: the probabilities'
+// bits, 8 or 16.  Each group of kSplit warps takes 16 query rows at a
 // time, warp p of it keys 64 p .. 64 p + 63 (Np <= 256), so that a thread
 // holds at most 32 scores; MAXD: chunks of 32 channels (2: Dh <= 64, 4:
-// Dh <= 128).  Three blocks an SM (80 registers a thread) hold the
+// Dh <= 128).  Three blocks an SM (80 registers a thread) hold the 8-bit
 // Shiftmax core at Dh <= 64; the ibert core, whose exp keeps more
-// constants live, the ppoly core and Dh 128 take two (128 registers),
-// spilling nothing.
-template <int SM, int MAXD>
-__global__ void __launch_bounds__(kCoreThreads, SM == kSmShift && MAXD <= 2 ? 3 : 2)
+// constants live, the ppoly core, Dh 128 and the 16-bit cores, whose
+// probabilities stay live through P v, take two (128 registers), spilling
+// nothing.
+template <int SM, int MAXD, int SB>
+__global__ void __launch_bounds__(kCoreThreads,
+                                  SM == kSmShift && MAXD <= 2 && SB == 8 ? 3 : 2)
 attn_core_mma_kernel(const int8_t* __restrict__ qkv, AttnScalars sp,
                      int8_t* __restrict__ ctx, int Np, int C, int Dh,
                      int n_valid, int attn_bits, int fast_q, int fast_poly,
@@ -90,20 +99,20 @@ attn_core_mma_kernel(const int8_t* __restrict__ qkv, AttnScalars sp,
   int8_t* cbase = ctx + (size_t)b * Np * C + h * Dh;
   SplitReduce<kSplit> red{xch, warp % kSplit, 1 + group, 0, 0};
   for (int i0 = 16 * group; i0 < Np; i0 += 16 * kCoreGroups)
-    attn_tile<SM, 8 / kSplit, MAXD>(base, 3 * C, i0, Np, Dh, n_valid, Ks, Vt,
-                                    score, k, ps, fast_q, fast_poly, m_av,
-                                    cbase, C, red);
+    attn_tile<SM, 8 / kSplit, MAXD, SB>(base, 3 * C, i0, Np, Dh, n_valid, Ks,
+                                        Vt, score, k, ps, fast_q, fast_poly,
+                                        m_av, cbase, C, red);
 }
 
-template <int BN, int SM>
-int launch_attn(const int8_t* x, const int8_t* ln_in, const float* ln_bias,
-                const float* m_ln, const int8_t* wqkv_t, const int32_t* bqkv,
-                const float* mqkv, const int8_t* wp_t, const int32_t* bp,
-                const float* mp, AttnScalars sp, PpolySoftmax ps, int8_t* qkv,
-                int8_t* ctx,
-                int8_t* out, int B, int Np, int C, int H, int n_valid,
-                int attn_bits, int proj_bits, int out_bits, int ln_ivit,
-                int fast_q, int fast_poly, cudaStream_t stream) {
+template <int BN, int SM, int SB>
+int launch_attn(const void* x, int x16, const int8_t* ln_in,
+                const float* ln_bias, const float* m_ln, const int8_t* wqkv_t,
+                const int32_t* bqkv, const float* mqkv, const int8_t* wp_t,
+                const int32_t* bp, const float* mp, AttnScalars sp,
+                PpolySoftmax ps, int8_t* qkv, int8_t* ctx, void* out, int B,
+                int Np, int C, int H, int n_valid, int attn_bits,
+                int proj_bits, int out_bits, int ln_ivit, int fast_q,
+                int fast_poly, cudaStream_t stream) {
   const int R = B * Np, Dh = C / H;
   const size_t smem_gemm = wg_smem(C, BN);
   const size_t smem_core =
@@ -111,28 +120,28 @@ int launch_attn(const int8_t* x, const int8_t* ln_in, const float* ln_bias,
   CUtensorMap mq, mpj;
   cudaError_t err;
   if ((err = prepare_gemms<BN>(wqkv_t, wp_t, C, &mq, &mpj)) != cudaSuccess ||
-      (err = cudaFuncSetAttribute(attn_core_mma_kernel<SM, 2>,
+      (err = cudaFuncSetAttribute(attn_core_mma_kernel<SM, 2, SB>,
                                   cudaFuncAttributeMaxDynamicSharedMemorySize,
                                   (int)smem_core)) != cudaSuccess ||
-      (err = cudaFuncSetAttribute(attn_core_mma_kernel<SM, 4>,
+      (err = cudaFuncSetAttribute(attn_core_mma_kernel<SM, 4, SB>,
                                   cudaFuncAttributeMaxDynamicSharedMemorySize,
                                   (int)smem_core)) != cudaSuccess)
     return (int)err;
   const int row_blocks = (R + kGemmRows - 1) / kGemmRows;
   ln_qkv_wgmma_kernel<BN><<<row_blocks, kGemmThreads, smem_gemm, stream>>>(
-      mq, x, ln_in, ln_bias, m_ln, bqkv, mqkv, sp, qkv, R, C, 0, ln_ivit);
+      mq, x, ln_in, ln_bias, m_ln, bqkv, mqkv, sp, qkv, R, C, x16, ln_ivit);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
   const dim3 core_grid(H, B);
   if (Dh <= 64)
-    attn_core_mma_kernel<SM, 2><<<core_grid, kCoreThreads, smem_core, stream>>>(
+    attn_core_mma_kernel<SM, 2, SB><<<core_grid, kCoreThreads, smem_core, stream>>>(
         qkv, sp, ctx, Np, C, Dh, n_valid, attn_bits, fast_q, fast_poly, ps);
   else
-    attn_core_mma_kernel<SM, 4><<<core_grid, kCoreThreads, smem_core, stream>>>(
+    attn_core_mma_kernel<SM, 4, SB><<<core_grid, kCoreThreads, smem_core, stream>>>(
         qkv, sp, ctx, Np, C, Dh, n_valid, attn_bits, fast_q, fast_poly, ps);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
   proj_wgmma_kernel<BN><<<gemm_grid(R, C, BN), kGemmThreads, smem_gemm,
                           stream>>>(mpj, x, ctx, bp, mp, sp, out, R, C,
-                                    proj_bits, out_bits, 0, 0);
+                                    proj_bits, out_bits, x16, out_bits > 8);
   return (int)cudaGetLastError();
 }
 
@@ -140,12 +149,14 @@ int launch_attn(const int8_t* x, const int8_t* ln_in, const float* ln_bias,
 
 // Pointers in the wrapper's argument order; ln_in may be null (LN in the
 // kernel); the scalar operands point at one f32 each (s_exp_act: the ibert
-// softmax only).  sm picks the softmax (0 ibert, 1 Shiftmax, 2 ppoly); for
-// ppoly, pp describes the fitted table (host memory; null otherwise) and
-// exp_table is 256 f32 of scratch for its exp table, whose launch runs
-// first.  qkv [B * Np, 3C] and ctx [B * Np, C] are int8 scratch.  Shapes
-// or a ppoly table the kernels do not take: cudaErrorInvalidValue.
-extern "C" int ivit_attn_block(const int8_t* x, const int8_t* ln_in,
+// softmax only).  x: int8, or int16 with x16; out: int8, or int16 where
+// out_bits > 8.  sm picks the softmax (0 ibert, 1 Shiftmax, 2 ppoly) and
+// sm_bit its probabilities' bits (8 or 16); for ppoly, pp describes the
+// fitted table (host memory; null otherwise) and exp_table is 256 f32 of
+// scratch for its exp table, whose launch runs first.  qkv [B * Np, 3C] and
+// ctx [B * Np, C] are int8 scratch.  Shapes, bits or a ppoly table the
+// kernels do not take: cudaErrorInvalidValue.
+extern "C" int ivit_attn_block(const void* x, const int8_t* ln_in,
                                const float* ln_bias,
                                const float* m_ln, const float* ln_shift,
                                const int8_t* wqkv_t, const int32_t* bqkv,
@@ -154,10 +165,11 @@ extern "C" int ivit_attn_block(const int8_t* x, const int8_t* ln_in,
                                const float* m_av, const int8_t* wp_t,
                                const int32_t* bp, const float* mp,
                                const float* m_res_x, const float* m_res_id,
-                               int8_t* qkv, int8_t* ctx, int8_t* out, int B,
-                               int Np, int C, int H, int n_valid, int attn_bits,
-                               int proj_bits, int out_bits, int ln_ivit,
-                               int sm, int fast_q, int fast_poly,
+                               int8_t* qkv, int8_t* ctx, void* out, int B,
+                               int Np, int C, int H, int n_valid, int sm_bit,
+                               int attn_bits, int proj_bits, int out_bits,
+                               int x16, int ln_ivit, int sm, int fast_q,
+                               int fast_poly,
                                const ivit::PpolyArgs* pp, float* exp_table,
                                cudaStream_t stream) {
   using namespace ivit;
@@ -169,6 +181,8 @@ extern "C" int ivit_attn_block(const int8_t* x, const int8_t* ln_in,
   const int bn = pass_width(3 * C, C), dh = H > 0 ? C / H : 0;
   if (bn == 0 || C % 32 || C > 1024 || dh * H != C || dh % 4 ||
       dh > 128 || Np < 1 || Np > 256 || n_valid < 1 || n_valid > Np ||
+      (sm_bit != 8 && sm_bit != 16) || attn_bits < 2 || attn_bits > 8 ||
+      proj_bits < 2 || proj_bits > 16 || out_bits < 2 || out_bits > 16 ||
       sm < 0 || sm > 2 || (sm == kSmPpoly && !ppoly_args_ok(pp, false)))
     return (int)cudaErrorInvalidValue;
   if (sm == kSmPpoly) {
@@ -176,15 +190,19 @@ extern "C" int ivit_attn_block(const int8_t* x, const int8_t* ln_in,
     const cudaError_t err = launch_ppoly_table(ps.pp, false, nullptr, exp_table, stream);
     if (err != cudaSuccess) return (int)err;
   }
+  auto pick_bn = [&](auto sm_tag, auto sb_tag) {
+    constexpr int S = decltype(sm_tag)::value, P = decltype(sb_tag)::value;
+    return bn == 128 ? launch_attn<128, S, P> : bn == 96 ? launch_attn<96, S, P>
+                                                         : launch_attn<64, S, P>;
+  };
   auto pick = [&](auto sm_tag) {
-    constexpr int S = decltype(sm_tag)::value;
-    return bn == 128 ? launch_attn<128, S> : bn == 96 ? launch_attn<96, S>
-                                                      : launch_attn<64, S>;
+    return sm_bit == 16 ? pick_bn(sm_tag, std::integral_constant<int, 16>{})
+                        : pick_bn(sm_tag, std::integral_constant<int, 8>{});
   };
   auto launch = sm == kSmShift   ? pick(std::integral_constant<int, kSmShift>{})
               : sm == kSmPpoly ? pick(std::integral_constant<int, kSmPpoly>{})
                                : pick(std::integral_constant<int, kSmIbert>{});
-  return launch(x, ln_in, ln_bias, m_ln, wqkv_t, bqkv, mqkv, wp_t, bp, mp, sp,
-                ps, qkv, ctx, out, B, Np, C, H, n_valid, attn_bits, proj_bits,
-                out_bits, ln_ivit, fast_q, fast_poly, stream);
+  return launch(x, x16, ln_in, ln_bias, m_ln, wqkv_t, bqkv, mqkv, wp_t, bp, mp,
+                sp, ps, qkv, ctx, out, B, Np, C, H, n_valid, attn_bits,
+                proj_bits, out_bits, ln_ivit, fast_q, fast_poly, stream);
 }

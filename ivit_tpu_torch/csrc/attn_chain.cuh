@@ -93,17 +93,31 @@ __device__ __forceinline__ float ibert_exp_i32(int x, int x0, unsigned magic,
   return fmaxf(__int2float_rn(z) * __int_as_float((157 - q) << 23), 0.f);
 }
 
+// The scale 2**-(32 - bits + 1) that turns the ibert and ppoly softmaxes'
+// exp * factor (<= 2**32) into a ``bits``-bit probability.
+__host__ __device__ constexpr float prob_scale(int bits) {
+  return 1.f / (float)(1u << (33 - bits));
+}
+
+// The largest f32 below 2**32: exp * factor clamped to it floors to at most
+// 2**(bits - 1) - 1, so a one-hot row, whose exp * factor rounds to 2**32,
+// saturates at its container's top as the reference's f32 -> int
+// conversion does, where the probability 2**(bits - 1) would wrap.
+constexpr float kProbProductMax = 4294967040.f;
+
 // The ibert softmax (int exp, 16-bit exp requant, 2**32 reciprocal) of one
 // row on the accumulator layout, as shiftmax_quad runs Shiftmax: values
 // v[i] at columns col0 + quad_col(i, t), those of i < nv_live computed,
-// columns >= n_valid padding with probability 0; max and int32 sum by red.
-// The exp runs in int32 where ibert_exp_int_ok, else in f32.
+// columns >= n_valid padding with probability 0; max and int32 sum by red;
+// out_scale = prob_scale(bits), the product saturating at kProbProductMax.
+// The exp runs in int32 where
+// ibert_exp_int_ok, else in f32.
 template <int NV, class Red>
 __device__ __forceinline__ void ibert_softmax_quad(float (&v)[NV], int nv_live,
                                                    int t, int col0, int n_valid,
                                                    const SoftmaxConsts& k,
                                                    int fast_q, int fast_poly,
-                                                   Red& red) {
+                                                   float out_scale, Red& red) {
   float smax = -8388608.f;  // -2**23, the reference's pad-column fill
 #pragma unroll
   for (int i = 0; i < NV; ++i)
@@ -138,21 +152,23 @@ __device__ __forceinline__ void ibert_softmax_quad(float (&v)[NV], int nv_live,
   esum = red.sum(esum);
   const float factor = floorf(rdiv(4294967296.f, __int2float_rn(esum)));
 #pragma unroll
-  for (int i = 0; i < NV; ++i) v[i] = floorf(v[i] * factor * 0x1p-25f);
+  for (int i = 0; i < NV; ++i)
+    v[i] = floorf(fminf(v[i] * factor, kProbProductMax) * out_scale);
 }
 
 // The ppoly softmax (block.py _ppoly_softmax) of one row on the
 // accumulator layout, as ibert_softmax_quad runs the ibert one: the row max
 // over the real columns, each exp from the call's table or, past it, the
 // polynomial (ppoly_exp), the exact row sum in two int32 limbs by red
-// (exp_limb_add), clamped to >= 1, factor = floor(2**32 / sum), the 8-bit
-// probability floor(exp * factor * 2**-25); columns >= n_valid padding with
+// (exp_limb_add), clamped to >= 1, factor = floor(2**32 / sum), the
+// probability floor(exp * factor * out_scale), out_scale = prob_scale(bits),
+// the product saturating at kProbProductMax; columns >= n_valid padding with
 // probability 0.
 template <int NV, class Red>
 __device__ __forceinline__ void ppoly_softmax_quad(float (&v)[NV], int nv_live,
                                                    int t, int col0, int n_valid,
                                                    const PpolySoftmax& ps,
-                                                   Red& red) {
+                                                   float out_scale, Red& red) {
   float smax = -8388608.f;  // -2**23, the reference's pad-column fill
 #pragma unroll
   for (int i = 0; i < NV; ++i)
@@ -173,7 +189,8 @@ __device__ __forceinline__ void ppoly_softmax_quad(float (&v)[NV], int nv_live,
   const float factor =
       floorf(rdiv(4294967296.f, fmaxf(exp_limb_total(hi, lo), 1.f)));
 #pragma unroll
-  for (int i = 0; i < NV; ++i) v[i] = floorf(__fmul_rn(v[i], factor) * 0x1p-25f);
+  for (int i = 0; i < NV; ++i)
+    v[i] = floorf(fminf(__fmul_rn(v[i], factor), kProbProductMax) * out_scale);
 }
 
 // Row reductions of an attention tile whose keys one warp holds: over the
@@ -287,6 +304,15 @@ __device__ __forceinline__ int pack4(float a, float b, float c, float d) {
                (((uint32_t)(int)c & 0xff) << 16) | ((uint32_t)(int)d << 24));
 }
 
+// The high bytes p >> 8 of four 16-bit probabilities p (f32-held), packed
+// as pack4 packs their low bytes.
+__device__ __forceinline__ int pack4_hi(const float* p) {
+  uint32_t w = 0;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) w |= (((uint32_t)(int)p[i] >> 8) & 0xff) << (8 * i);
+  return (int)w;
+}
+
 // One warp, or the K warps of a split (part 0 .. K - 1, each with a K-th of
 // the keys): the 16 query rows i0 .. i0 + 15 of one head against all
 // its n keys, on mma.sync m16n8k32 s8 (rows past n are zero and never
@@ -298,15 +324,22 @@ __device__ __forceinline__ int pack4(float a, float b, float c, float d) {
 //   the softmax on the accumulator layout (shiftmax_quad,
 //   ibert_softmax_quad or ppoly_softmax_quad, by SM), each row in the 4
 //   lanes of a quad;
-//   the int8 probabilities packed from those registers into P's A
+//   the SB-bit probabilities packed from those registers into P's A
 //   fragments (keys in chunk_slot order, as Vt holds them), P v over up to
 //   MAXD chunks of 32 channels (the other parts' int32 partials added into
 //   part 0's through shared memory), requant by m_av, 4-byte stores of ctx
 //   rows by part 0.
+// SB: the probabilities' bits, 8 (one s8 product a chunk) or 16: a
+// probability p in [0, 2**15 - 1] is split p = 256 hi + lo, hi = p >> 8 in
+// [0, 127] and lo = p & 255, and P v = 256 (hi v) + lo v, hi on mma s8 x s8
+// and lo on mma u8 x s8: two products a chunk, exact in int32, the hi and lo
+// fragments packed a chunk at a time inside the P v loop.  The softmaxes
+// saturate their probabilities at 2**(SB - 1) - 1, as the reference's
+// conversion into the probabilities' container does.
 // qbase / cbase: row 0, channel 0 of this head in qkv [n, N3] / ctx [n, ldc].
 // red: the row reductions, QuadReduce, or SplitReduce<K>, whose part says
 // which K-th of the keys this warp holds (MAXC chunks from part * MAXC).
-template <int SM, int MAXC, int MAXD, class Red, class Score>
+template <int SM, int MAXC, int MAXD, int SB = 8, class Red, class Score>
 __device__ __forceinline__ void attn_tile(
     const int8_t* __restrict__ qbase, int N3, int i0, int n, int Dh,
     int n_valid, const int8_t* Ks, const int8_t* Vt, Score score,
@@ -358,39 +391,74 @@ __device__ __forceinline__ void attn_tile(
   for (int h = 0; h < 2; ++h) {
     red.row = g + 8 * h;
     if constexpr (SM == kSmShift)
-      shiftmax_quad(s[h], 8 * nc, t, key0, n_valid, k.x0, shift_out_scale(8),
+      shiftmax_quad(s[h], 8 * nc, t, key0, n_valid, k.x0, shift_out_scale(SB),
                     fast_q, red);
     else if constexpr (SM == kSmPpoly)
-      ppoly_softmax_quad(s[h], 8 * nc, t, key0, n_valid, ps, red);
+      ppoly_softmax_quad(s[h], 8 * nc, t, key0, n_valid, ps, prob_scale(SB),
+                         red);
     else
       ibert_softmax_quad(s[h], 8 * nc, t, key0, n_valid, k, fast_q, fast_poly,
-                         red);
+                         prob_scale(SB), red);
   }
-  // P's A fragments, chunk c: registers 0-1 rows g / g + 8 of tiles 4c and
-  // 4c + 1, registers 2-3 those of tiles 4c + 2 and 4c + 3
-  int pa[MAXC][4];
-#pragma unroll
-  for (int c = 0; c < MAXC; ++c)
-#pragma unroll
-    for (int r = 0; r < 4; ++r) {
-      const float* v = &s[r & 1][8 * c + 4 * (r >> 1)];
-      pa[c][r] = pack4(v[0], v[1], v[2], v[3]);
-    }
   int o[DT][4];
+  if constexpr (SB == 8) {
+    // P's A fragments, chunk c: registers 0-1 rows g / g + 8 of tiles 4c
+    // and 4c + 1, registers 2-3 those of tiles 4c + 2 and 4c + 3
+    int pa[MAXC][4];
 #pragma unroll
-  for (int d = 0; d < DT; ++d)
+    for (int c = 0; c < MAXC; ++c)
 #pragma unroll
-    for (int e = 0; e < 4; ++e) o[d][e] = 0;
+      for (int r = 0; r < 4; ++r) {
+        const float* v = &s[r & 1][8 * c + 4 * (r >> 1)];
+        pa[c][r] = pack4(v[0], v[1], v[2], v[3]);
+      }
 #pragma unroll
-  for (int c = 0; c < MAXC; ++c) {
-    if (c < nc) {
+    for (int d = 0; d < DT; ++d)
 #pragma unroll
-      for (int d = 0; d < DT; ++d) {
-        if (d < 4 * nd) {
-          const int8_t* vr = Vt + (8 * d + g) * ldv + key0 + 32 * c + 4 * t;
-          mma_s8(o[d], pa[c][0], pa[c][1], pa[c][2], pa[c][3],
-                 *reinterpret_cast<const int*>(vr),
-                 *reinterpret_cast<const int*>(vr + 16));
+      for (int e = 0; e < 4; ++e) o[d][e] = 0;
+#pragma unroll
+    for (int c = 0; c < MAXC; ++c) {
+      if (c < nc) {
+#pragma unroll
+        for (int d = 0; d < DT; ++d) {
+          if (d < 4 * nd) {
+            const int8_t* vr = Vt + (8 * d + g) * ldv + key0 + 32 * c + 4 * t;
+            mma_s8(o[d], pa[c][0], pa[c][1], pa[c][2], pa[c][3],
+                   *reinterpret_cast<const int*>(vr),
+                   *reinterpret_cast<const int*>(vr + 16));
+          }
+        }
+      }
+    }
+  } else {
+    static_assert(SB == 16, "probabilities of 8 or 16 bits");
+#pragma unroll
+    for (int d = 0; d < DT; ++d)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) o[d][e] = 0;
+#pragma unroll
+    for (int c = 0; c < MAXC; ++c) {
+      if (c < nc) {
+        // this chunk's hi and lo fragments, laid out as pa above
+        int ph[4], pl[4];
+#pragma unroll
+        for (int r = 0; r < 4; ++r) {
+          const float* v = &s[r & 1][8 * c + 4 * (r >> 1)];
+          ph[r] = pack4_hi(v);
+          pl[r] = pack4(v[0], v[1], v[2], v[3]);
+        }
+#pragma unroll
+        for (int d = 0; d < DT; ++d) {
+          if (d < 4 * nd) {
+            const int8_t* vr = Vt + (8 * d + g) * ldv + key0 + 32 * c + 4 * t;
+            const int b0 = *reinterpret_cast<const int*>(vr);
+            const int b1 = *reinterpret_cast<const int*>(vr + 16);
+            int hv[4] = {0, 0, 0, 0};
+            mma_s8(hv, ph[0], ph[1], ph[2], ph[3], b0, b1);
+#pragma unroll
+            for (int e = 0; e < 4; ++e) o[d][e] += hv[e] * 256;
+            mma_u8s8(o[d], pl[0], pl[1], pl[2], pl[3], b0, b1);
+          }
         }
       }
     }

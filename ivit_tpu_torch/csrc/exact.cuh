@@ -330,6 +330,16 @@ __device__ __forceinline__ void mma_s8(int (&c)[4], int a0, int a1, int a2,
       : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
 }
 
+// The same product with an unsigned A: u8 x s8 -> s32.
+__device__ __forceinline__ void mma_u8s8(int (&c)[4], int a0, int a1, int a2,
+                                         int a3, int b0, int b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k32.row.col.s32.u8.s8.s32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
+}
+
 __device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
   unsigned s = (unsigned)__cvta_generic_to_shared(smem);
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),

@@ -54,16 +54,24 @@ __device__ __forceinline__ float int_exp_shift(float x, float x0, float n,
   return fmaxf(floorf((r * 0.5f - x0) * pow2(n - q)), 0.f);
 }
 
+// The largest f32 below 2**31: Shiftmax's exp * factor clamped to it floors
+// to at most 2**(bits - 1) - 1, the top of the probabilities' container,
+// where the reference's f32 -> int conversion saturates (a one-column row
+// whose exp is a power of two reaches 2**(bits - 1)).
+constexpr float kShiftProductMax = 2147483520.f;
+
 // One warp: Shiftmax of one row, column lane + 32 t in v[t], columns >=
 // n_valid padding (kept out of the max, probability 0).  In place: v[t]
-// becomes floor(exp * factor * out_scale), out_scale = 2**-(32 - bits).
+// becomes floor(min(exp * factor, pmax) * out_scale), out_scale =
+// 2**-(32 - bits), pmax kShiftProductMax where the probabilities fill their
+// container.
 // The row sum is the two-limb exact sum clamped to INT32_MAX: a row of N
 // exps sums to up to N * (-x0) * 2**15, past f32's exact integers (2**24)
 // for ViT's 197 tokens at any scale below ~0.3.
 template <int MAXV>
 __device__ __forceinline__ void shiftmax_row(float (&v)[MAXV], int n_valid,
                                              float x0, float out_scale,
-                                             int fast_q, int lane) {
+                                             float pmax, int fast_q, int lane) {
   float vmax = -8388608.f;  // -2**23, the reference's pad-column fill
 #pragma unroll
   for (int t = 0; t < MAXV; ++t)
@@ -83,7 +91,7 @@ __device__ __forceinline__ void shiftmax_row(float (&v)[MAXV], int n_valid,
       floorf(rdiv(kInt32Max, fminf(limb_total(sh, sl), kInt32Max)));
 #pragma unroll
   for (int t = 0; t < MAXV; ++t)
-    v[t] = floorf(__fmul_rn(v[t], factor) * out_scale);
+    v[t] = floorf(fminf(__fmul_rn(v[t], factor), pmax) * out_scale);
 }
 
 // The column of this lane's i-th value of a row in an mma accumulator tile
@@ -132,7 +140,8 @@ __device__ __noinline__ float int_exp_shift15_f32(float x, float x0, int fast_q)
 // computed, the columns >= n_valid padding.  red reduces over the row's
 // lanes: red.max(float), red.sum(int).  The max and the two-limb int32
 // sums do not depend on the order of the columns, so every value gets
-// shiftmax_row's bits.  For -2**13 < x0 < -1 the exp runs in int32
+// shiftmax_row's bits, saturated as the standalone kernel stores them
+// (kShiftProductMax).  For -2**13 < x0 < -1 the exp runs in int32
 // (int_exp_shift15; the limbs of an int e >= 0 are e >> 8 and e & 255),
 // else in f32 as int_exp_shift.
 template <int NV, class Red>
@@ -179,7 +188,7 @@ __device__ __forceinline__ void shiftmax_quad(float (&v)[NV], int nv_live,
   const float factor = floorf(rdiv(kInt32Max, fminf(total, kInt32Max)));
 #pragma unroll
   for (int i = 0; i < NV; ++i)
-    v[i] = floorf(__fmul_rn(v[i], factor) * out_scale);
+    v[i] = floorf(fminf(__fmul_rn(v[i], factor), kShiftProductMax) * out_scale);
 }
 
 // ShiftGELU + requant as a table.  The output of an element depends only

@@ -6,8 +6,10 @@
 //   ppoly GELU) -> requant -> fc2 + bias -> requant to mlp_bits -> integer
 //   residual clip(round(y * m_res_x) + round(x * m_res_id)).
 //
-// The token stream is int8 (ViT) or int16 (Swin: int16 in, fc2 requant to
-// 8 bits, residual and output at 16 bits), read and written as it is.
+// The token stream in and out is int8 or int16, each read and written as it
+// is: int8 -> int8 (ViT), int16 -> int16 (Swin: fc2 requant to 8 bits,
+// residual and output at 16 bits), int16 -> int8 (the reference's INT16
+// configuration: norm2_in 16 bits, att_block_out 8).
 //
 // Bound on this card: operations.  At DeiT-S (R = 256 * 197 rows, C 384,
 // hidden 1536) one launch does 2 * R * C * hidden * 2 = 119 G int8 ops
@@ -110,7 +112,7 @@ __host__ __device__ constexpr size_t mlp_wg_smem(int C, int Hd, int BN,
 }
 
 // w1 / w2: the tensor maps of fc1's weight transposed [Hd, C] and fc2's
-// [C, Hd]; x and out: [R, C], int8 or (x16) int16; ln_in: the hoisted LN
+// [C, Hd]; x and out: [R, C], int8 or (x16 / o16) int16; ln_in: the hoisted LN
 // output [R, C], or null to run the LN here.  GELU: kGeluShift, ShiftGELU
 // through gelu_table (shift_gelu_table_kernel's); kGeluPpoly, the ppoly
 // GELU + requant through gelu_table (ppoly_table_kernel's, 256 entries);
@@ -126,7 +128,7 @@ mlp_wgmma_kernel(const __grid_constant__ CUtensorMap w1,
                  const float* __restrict__ m2, MlpScalars sp,
                  const int8_t* __restrict__ gelu_table,
                  void* __restrict__ out, int R, int C, int Hd, int mlp_bits,
-                 int out_bits, int x16, int ln_ivit, int fast_poly) {
+                 int out_bits, int x16, int o16, int ln_ivit, int fast_poly) {
   constexpr int WN = BN / 2;
   extern __shared__ uint8_t mlp_raw[];
   int8_t* bufs = smem_aligned(mlp_raw);
@@ -231,7 +233,7 @@ mlp_wgmma_kernel(const __grid_constant__ CUtensorMap w1,
   for (int n0 = 0; n0 < C; n0 += BN) {
     ring_consume<BN>(ring, G, Hd, it, acc);
     residual_epilogue<BN>(acc, n0 + wg * WN, r0, R, C, x, b2, m2, m_res_x,
-                          m_res_id, lim_mlp, lim_out, x16, x16, out);
+                          m_res_id, lim_mlp, lim_out, x16, o16, out);
   }
 }
 
@@ -239,9 +241,9 @@ mlp_wgmma_kernel(const __grid_constant__ CUtensorMap w1,
 // shared memory: TM token rows per block on mma.sync (exact.cuh
 // gemm_tile), the LN one row a warp (ln_row), the hidden tile [TM, Hd]
 // row-major.  w1t: fc1 weight transposed, [Hd, C]; w2t: fc2 weight
-// transposed, [C, Hd].  x and out: [R, C] of XT, int8 (ViT) or int16
-// (Swin).  ln_in: the hoisted LN output [R, C], or null to run the LN here.
-// GELU: as mlp_wgmma_kernel's.
+// transposed, [C, Hd].  x: [R, C] of XT, int8 or int16; out: [R, C], int8
+// or (o16) int16.  ln_in: the hoisted LN output [R, C], or null to run the
+// LN here.  GELU: as mlp_wgmma_kernel's.
 template <int BN, int TM, int GELU, typename XT>
 __global__ void __launch_bounds__(kThreads, 1)
 mlp_block_kernel(const XT* __restrict__ x, const int8_t* __restrict__ ln_in,
@@ -250,9 +252,9 @@ mlp_block_kernel(const XT* __restrict__ x, const int8_t* __restrict__ ln_in,
                  const int32_t* __restrict__ b1, const float* __restrict__ m1,
                  const int8_t* __restrict__ w2t, const int32_t* __restrict__ b2,
                  const float* __restrict__ m2, MlpScalars sp,
-                 const int8_t* __restrict__ gelu_table, XT* __restrict__ out,
-                 int R, int C, int Hd, int mlp_bits, int out_bits, int ln_ivit,
-                 int fast_poly) {
+                 const int8_t* __restrict__ gelu_table, void* __restrict__ out,
+                 int R, int C, int Hd, int mlp_bits, int out_bits, int o16,
+                 int ln_ivit, int fast_poly) {
   constexpr int NT = GemmShape<BN, TM>::NT;
   extern __shared__ __align__(16) int8_t smem[];
   const int lda = tile_ld(C), ldg = tile_ld(Hd);
@@ -318,7 +320,11 @@ mlp_block_kernel(const XT* __restrict__ x, const int8_t* __restrict__ ln_in,
                            __ldg(m2 + col), lim_mlp);
         size_t idx = (size_t)gr * C + col;
         float o = rintf(y2 * m_res_x) + rintf((float)x[idx] * m_res_id);
-        out[idx] = (XT)(int)clampf(o, -lim_out, lim_out - 1.f);
+        const int v = (int)clampf(o, -lim_out, lim_out - 1.f);
+        if (o16)
+          static_cast<int16_t*>(out)[idx] = (int16_t)v;
+        else
+          static_cast<int8_t*>(out)[idx] = (int8_t)v;
       }
   }
 }
@@ -338,7 +344,7 @@ int launch_mlp(const void* x, const int8_t* ln_in, const float* ln_bias,
                const float* m1, const int8_t* w2t, const int32_t* b2,
                const float* m2, MlpScalars sp, const int8_t* gelu_table,
                void* out, int R, int C, int Hd, int mlp_bits, int out_bits,
-               int ln_ivit, int fast_poly, cudaStream_t stream) {
+               int o16, int ln_ivit, int fast_poly, cudaStream_t stream) {
   constexpr int TM = kFallbackRows;
   const size_t smem = mlp_smem(TM, BN, C, Hd);
   cudaError_t err = cudaFuncSetAttribute(
@@ -348,8 +354,8 @@ int launch_mlp(const void* x, const int8_t* ln_in, const float* ln_bias,
   dim3 grid((R + TM - 1) / TM);
   mlp_block_kernel<BN, TM, GELU, XT><<<grid, kThreads, smem, stream>>>(
       static_cast<const XT*>(x), ln_in, ln_bias, m_ln, w1t, b1, m1, w2t, b2,
-      m2, sp, gelu_table, static_cast<XT*>(out), R, C, Hd, mlp_bits, out_bits,
-      ln_ivit, fast_poly);
+      m2, sp, gelu_table, out, R, C, Hd, mlp_bits, out_bits, o16, ln_ivit,
+      fast_poly);
   return (int)cudaGetLastError();
 }
 
@@ -359,8 +365,8 @@ int launch_mlp_wgmma(const void* x, const int8_t* ln_in, const float* ln_bias,
                      const float* m1, const int8_t* w2t, const int32_t* b2,
                      const float* m2, MlpScalars sp, const int8_t* gelu_table,
                      void* out, int R, int C, int Hd, int mlp_bits,
-                     int out_bits, int x16, int ln_ivit, int fast_poly,
-                     cudaStream_t stream) {
+                     int out_bits, int x16, int o16, int ln_ivit,
+                     int fast_poly, cudaStream_t stream) {
   const size_t smem = mlp_wg_smem(C, Hd, BN, GELU == kGeluShift);
   CUtensorMap map1, map2;
   cudaError_t err;
@@ -373,15 +379,15 @@ int launch_mlp_wgmma(const void* x, const int8_t* ln_in, const float* ln_bias,
   const dim3 grid((R + kGemmRows - 1) / kGemmRows);
   mlp_wgmma_kernel<BN, GELU><<<grid, kGemmThreads, smem, stream>>>(
       map1, map2, x, ln_in, ln_bias, m_ln, b1, m1, b2, m2, sp, gelu_table, out,
-      R, C, Hd, mlp_bits, out_bits, x16, ln_ivit, fast_poly);
+      R, C, Hd, mlp_bits, out_bits, x16, o16, ln_ivit, fast_poly);
   return (int)cudaGetLastError();
 }
 
-// The launcher of one pass width, for the GELU family and the stream type
+// The launcher of one pass width, for the GELU family and the stream types
 // picked at run time: mlp_wgmma_kernel where its tiles fit (rows64), else
 // mlp_block_kernel.
 template <int BN, int GELU>
-int launch_mlp_rows(bool rows64, bool x16, const void* x,
+int launch_mlp_rows(bool rows64, bool x16, bool o16, const void* x,
                     const int8_t* ln_in, const float* ln_bias,
                     const float* m_ln, const int8_t* w1t, const int32_t* b1,
                     const float* m1, const int8_t* w2t, const int32_t* b2,
@@ -392,15 +398,15 @@ int launch_mlp_rows(bool rows64, bool x16, const void* x,
   if (rows64)
     return launch_mlp_wgmma<BN, GELU>(x, ln_in, ln_bias, m_ln, w1t, b1, m1,
                                       w2t, b2, m2, sp, gelu_table, out, R, C,
-                                      Hd, mlp_bits, out_bits, x16, ln_ivit,
-                                      fast_poly, stream);
+                                      Hd, mlp_bits, out_bits, x16, o16,
+                                      ln_ivit, fast_poly, stream);
   return (x16 ? launch_mlp<BN, GELU, int16_t> : launch_mlp<BN, GELU, int8_t>)(
       x, ln_in, ln_bias, m_ln, w1t, b1, m1, w2t, b2, m2, sp, gelu_table, out,
-      R, C, Hd, mlp_bits, out_bits, ln_ivit, fast_poly, stream);
+      R, C, Hd, mlp_bits, out_bits, o16, ln_ivit, fast_poly, stream);
 }
 
 template <int BN>
-int launch_mlp_any(bool rows64, int gelu, bool x16, const void* x,
+int launch_mlp_any(bool rows64, int gelu, bool x16, bool o16, const void* x,
                    const int8_t* ln_in, const float* ln_bias,
                    const float* m_ln, const int8_t* w1t, const int32_t* b1,
                    const float* m1, const int8_t* w2t, const int32_t* b2,
@@ -411,9 +417,9 @@ int launch_mlp_any(bool rows64, int gelu, bool x16, const void* x,
   auto launch = gelu == kGeluShift   ? launch_mlp_rows<BN, kGeluShift>
                : gelu == kGeluPpoly ? launch_mlp_rows<BN, kGeluPpoly>
                                     : launch_mlp_rows<BN, kGeluIbert>;
-  return launch(rows64, x16, x, ln_in, ln_bias, m_ln, w1t, b1, m1, w2t, b2, m2,
-                sp, gelu_table, out, R, C, Hd, mlp_bits, out_bits, ln_ivit,
-                fast_poly, stream);
+  return launch(rows64, x16, o16, x, ln_in, ln_bias, m_ln, w1t, b1, m1, w2t,
+                b2, m2, sp, gelu_table, out, R, C, Hd, mlp_bits, out_bits,
+                ln_ivit, fast_poly, stream);
 }
 
 constexpr size_t kMaxSmem = 232448;  // a block's dynamic shared memory, sm_90
@@ -422,7 +428,8 @@ constexpr size_t kMaxSmem = 232448;  // a block's dynamic shared memory, sm_90
 
 // Pointers in the wrapper's argument order; ln_in may be null (LN in the
 // kernel); ln_shift, s_gelu, m_gelu, m_res_x and m_res_id point at one f32
-// each.  x16: x and out are int16 (else int8).  ln_ivit picks the ivit LN
+// each.  x16: x is int16 (else int8); out is int16 where out_bits > 8 (else
+// int8).  ln_ivit picks the ivit LN
 // over the ibert one; gelu the GELU (0 ibert, 1 ShiftGELU, 2 ppoly).
 // gelu_table: scratch for the GELU's table, whose launch runs first:
 // 65,536 bytes for ShiftGELU, 256 for the ppoly GELU, whose fitted table
@@ -447,6 +454,7 @@ extern "C" int ivit_mlp_block(const void* x, const int8_t* ln_in,
   const int bn = pass_width(C, Hd);
   if (C % 32 || C > 32 * kMaxLnVals || bn == 0 ||
       mlp_smem(kFallbackRows, bn, C, Hd) > kMaxSmem || gelu < 0 || gelu > 2 ||
+      mlp_bits < 2 || mlp_bits > 16 || out_bits < 2 || out_bits > 16 ||
       (gelu == kGeluPpoly && !ppoly_args_ok(pp, true)))
     return (int)cudaErrorInvalidValue;
   if (R == 0) return 0;
@@ -463,7 +471,7 @@ extern "C" int ivit_mlp_block(const void* x, const int8_t* ln_in,
   auto launch = bn == 128 ? launch_mlp_any<128>
               : bn == 96  ? launch_mlp_any<96>
                           : launch_mlp_any<64>;
-  return launch(rows64, gelu, x16, x, ln_in, ln_bias, m_ln, w1t, b1, m1, w2t,
-                b2, m2, sp, gelu_table, out, R, C, Hd, mlp_bits, out_bits,
-                ln_ivit, fast_poly, stream);
+  return launch(rows64, gelu, x16, out_bits > 8, x, ln_in, ln_bias, m_ln, w1t,
+                b1, m1, w2t, b2, m2, sp, gelu_table, out, R, C, Hd, mlp_bits,
+                out_bits, ln_ivit, fast_poly, stream);
 }

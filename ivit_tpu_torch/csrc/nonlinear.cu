@@ -56,6 +56,11 @@ shiftmax_kernel(const int8_t* __restrict__ x, const float* __restrict__ s_attn,
   OutT* orow = out + (size_t)row * N;
   const float x0 = exp_shift_x0(__ldg(s_attn));
   const float out_scale = shift_out_scale(output_bit);
+  // where output_bit fills its container, a probability of
+  // 2**(output_bit - 1) (a one-column row whose exp is a power of two)
+  // saturates at the container's top, as the reference's f32 -> int
+  // conversion does; narrower probabilities always fit
+  const float pmax = output_bit == 8 || output_bit == 16 ? kShiftProductMax : kInt32Max;
   if constexpr (WIDE) {
     __shared__ float exps[kRowsPerBlock][1024];
     float* e_row = exps[threadIdx.x >> 5];
@@ -74,7 +79,7 @@ shiftmax_kernel(const int8_t* __restrict__ x, const float* __restrict__ s_attn,
     const float factor =
         floorf(rdiv(kInt32Max, fminf(limb_total(sh, sl), kInt32Max)));
     for (int j = lane; j < N; j += 32)
-      orow[j] = (OutT)(int)floorf(__fmul_rn(e_row[j], factor) * out_scale);
+      orow[j] = (OutT)(int)floorf(fminf(__fmul_rn(e_row[j], factor), pmax) * out_scale);
   } else {
     float v[8];
 #pragma unroll
@@ -82,7 +87,7 @@ shiftmax_kernel(const int8_t* __restrict__ x, const float* __restrict__ s_attn,
       const int j = lane + 32 * t;
       v[t] = j < N ? (float)xr[j] : 0.f;
     }
-    shiftmax_row(v, n_valid, x0, out_scale, fast_q, lane);
+    shiftmax_row(v, n_valid, x0, out_scale, pmax, fast_q, lane);
 #pragma unroll
     for (int t = 0; t < 8; ++t) {
       const int j = lane + 32 * t;

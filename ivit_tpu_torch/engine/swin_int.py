@@ -19,9 +19,12 @@ kernel on every path, as in the JAX package.  The JAX fused branch pads
 Swin's 96- and 192-channel stages to 128 lanes for the FFN kernel
 (``c_valid``) and each window to 56 tokens for the attention kernel; the
 port runs both unpadded.  JAX's Swin engine has no hybrid of standalone
-nonlinearity kernels, so ``kernels="ops"`` raises.  The ivit, ibert and
-ppoly softmax and GELU run, in any mix, with the ivit or ibert LayerNorm;
-the float family raises.
+nonlinearity kernels, so ``kernels="ops"`` raises.  The ivit, ibert, ppoly
+and float softmax and GELU run, in any mix, with the ivit or ibert
+LayerNorm.  As in JAX (``swin_int.py:496-502``), each half-block of a
+fused stage is fused only where its nonlinearity has a kernel: a float
+softmax runs its attention half, a float GELU its MLP half, unfused
+(``vit_int.fused_halves``; no float kernel exists in either package).
 """
 
 from __future__ import annotations
@@ -43,7 +46,7 @@ from .freeze import GELU_IN_BITS
 from .vit_int import (_base, _check_families, _gelu_requant_int, _gemm_bias,
                       _layernorm_int, _ln_requant, _ppoly_gelu_kw,
                       _ppoly_softmax_kw, _requant, _residual_requant,
-                      _softmax_int, _use_int_sqrt)
+                      _softmax_int, _use_int_sqrt, fused_halves)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -229,6 +232,7 @@ def swin_engine_forward(spec: SwinEngineSpec, images, kernels=True,
                         -(2.0**15), 2.0**15 - 1).to(torch.int16)
 
         res, dim = g, cfg.embed_dim
+        attn_kernel, mlp_kernel = fused_halves(cfg)
         for (kind, stage, shift), blk, wt in zip(
                 cfg.layout, p["blocks"], mlp_wt or itertools.repeat({})):
             if kind == "merge":
@@ -239,11 +243,13 @@ def swin_engine_forward(spec: SwinEngineSpec, images, kernels=True,
             ws = min(cfg.window_size, res)
             fused = kernels is True and (stage_paths is None
                                          or bool(stage_paths[stage]))
-            if fused:
+            if fused and attn_kernel:
                 x = _attn_fused(cfg, blk, x, B, res, dim, heads, ws, shift)
-                x = _mlp_fused(cfg, {**blk, **wt}, x)
             else:
                 x = _attn_unfused(cfg, blk, x, B, res, dim, heads, ws, shift)
+            if fused and mlp_kernel:
+                x = _mlp_fused(cfg, {**blk, **wt}, x)
+            else:
                 x = _mlp_unfused(cfg, blk, x)
 
         y = _layernorm_int(cfg, x, p["lnf_bias_int"], p["lnf_shift"])

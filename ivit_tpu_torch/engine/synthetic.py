@@ -2,8 +2,10 @@
 and the tests).
 
 :func:`synthetic_spec` builds the numpy parameter tree that
-``ivit_tpu/engine/freeze.py::freeze_model`` emits for the ivit, ibert and ppoly
-families, in any mix -- the same keys, shapes and dtypes -- without a
+``ivit_tpu/engine/freeze.py::freeze_model`` emits for the ivit, ibert, ppoly
+and float softmax and GELU, in any mix and at any bitwidth vector (the
+reference's INT16 configuration ``8,8,8,8,16,8,16,8`` included) -- the same
+keys, shapes and dtypes -- without a
 trained checkpoint or the QAT sim; :func:`synthetic_swin_spec` does the
 same for ``ivit_tpu/engine/swin_int.py::freeze_swin_model``.  The ppoly
 softmax and GELU take tables fitted by the port's own fit
@@ -79,26 +81,41 @@ S_ATTN_IVIT = (0.0521371, 0.061)
 PPOLY_SOFTMAX = ((S_ATTN_IVIT[0], -128.0, 127.0), (S_ATTN_IVIT[1], -128.0, 127.0))
 PPOLY_GELU = ((0.014047618, -1.7840475, 1.6014285),
               (0.014350488, -1.8225119, 1.6359556))
+# The float family (jax.nn.softmax / gelu on the dequantized input): the
+# GELU takes the calibrated ibert GELU scales of the same geometry; the
+# softmax takes S_ATTN_IVIT, where the attention of a 197-key row is peaked
+# enough that its 8-bit probabilities do not all floor to 0.
+S_ATTN_TABLE = {"ivit": S_ATTN_IVIT, "ibert": CALIBRATED_S_ATTN,
+                "ppoly": tuple(t[0] for t in PPOLY_SOFTMAX), "float": S_ATTN_IVIT}
+S_GELU_TABLE = {"ivit": CALIBRATED_S_GELU_IVIT, "ibert": CALIBRATED_S_GELU,
+                "ppoly": tuple(t[0] for t in PPOLY_GELU), "float": CALIBRATED_S_GELU}
 
 SIGMA = 4.0          # calibrated range in standard deviations (~32 LSB at int8)
 W_STD = 0.02         # weight draw, before per-column int8 quantization
 SCORE_SPREAD = 40.0  # int8 attention-score spread the qkv weights aim for
 # ctx = probs @ v keeps about this fraction of v's spread at DeiT-S widths
-# (measured on this spec's first block with the plain engine; sets the
-# m_av site), by softmax family: the ibert spec's flat attention keeps
-# little of it, the ivit spec's peaked attention more
-CTX_GAIN = {"ibert": 0.018, "ivit": 0.3, "ppoly": 0.018}
+# (measured on this spec's first block with the plain engine, so that the
+# int8 ctx spreads about 32 LSB; sets the m_av site), by softmax family and
+# probability bits: the ibert spec's flat attention keeps little of it at 8
+# bits, where most of a row's probabilities floor to 0, and ten times more
+# at 16; the peaked attention of the other specs' scales keeps more
+CTX_GAIN = {("ibert", 8): 0.018, ("ivit", 8): 0.3, ("ppoly", 8): 0.21,
+            ("float", 8): 0.3, ("ibert", 16): 0.19, ("ivit", 16): 0.33,
+            ("ppoly", 16): 0.26, ("float", 16): 0.35}
 
 
 def deit_small_config(depth: int = 12, img_size: int = 224,
                       ln: str = "ibert", gelu: str = "ibert",
-                      softmax: str = "ibert") -> EngineConfig:
-    """DeiT-S, all bitwidths 8: ibert everywhere is the headline
+                      softmax: str = "ibert", bitwidths="8") -> EngineConfig:
+    """DeiT-S, all bitwidths 8 by default: ibert everywhere is the headline
     configuration (bench.py), ivit everywhere the compile entry's
-    (``__graft_entry__.py``); ``depth`` may be cut for tests."""
+    (``__graft_entry__.py``); ``bitwidths`` takes a ``BitWidths`` or its
+    spec string, ``"8,8,8,8,16,8,16,8"`` the reference's INT16 run
+    (softmax and norm2_in 16); ``depth`` may be cut for tests."""
     return EngineConfig(img_size=img_size, patch_size=16, embed_dim=384,
                         depth=depth, num_heads=6, mlp_ratio=4.0,
-                        num_classes=1000, bitwidths=BitWidths(),
+                        num_classes=1000,
+                        bitwidths=BitWidths.from_spec(bitwidths),
                         gelu_type=gelu, softmax_type=softmax,
                         layernorm_type=ln)
 
@@ -200,19 +217,24 @@ def _ppoly_gelu_leaves(config, blk, s_g, s_gelu_out, gelu_range):
 
 def synthetic_spec(config: EngineConfig, seed: int = 0) -> EngineSpec:
     """A seeded engine spec for ``config`` (numpy parameter tree), any mix
-    of the ivit, ibert and ppoly softmax and GELU with the ivit or ibert
-    LayerNorm."""
+    of the ivit, ibert, ppoly and float softmax and GELU with the ivit or
+    ibert LayerNorm, at the config's bitwidths: the softmax's scale and
+    ``m_av`` from its bits, each residual stream's scale from its own, and
+    an ibert LayerNorm's overflow shift from the bits of the stream it
+    reads (:func:`ibert_ln_shift`: 2 on DeiT-S's 16-bit norm2 input, 0 on
+    an 8-bit stream)."""
     sm_base, gelu_base = _families(config)
-    s_attn_tab = {"ivit": S_ATTN_IVIT, "ibert": CALIBRATED_S_ATTN,
-                  "ppoly": [t[0] for t in PPOLY_SOFTMAX]}[sm_base]
-    s_gelu_tab = {"ivit": CALIBRATED_S_GELU_IVIT, "ibert": CALIBRATED_S_GELU,
-                  "ppoly": [t[0] for t in PPOLY_GELU]}[gelu_base]
+    s_attn_tab, s_gelu_tab = S_ATTN_TABLE[sm_base], S_GELU_TABLE[gelu_base]
     cfg, bw = config, config.bitwidths
     C, H = cfg.embed_dim, cfg.num_heads
     hidden = int(C * cfg.mlp_ratio)
     n_tok = cfg.num_patches + 1
     site = _Sites(np.random.default_rng(seed))
     p = {}
+
+    def ln_site(bits):
+        shift = ibert_ln_shift(C, bits) if config.base_type("ln") == "ibert" else 0.0
+        return site.layernorm(C, shift)
 
     s_input = _scale(1.0)                      # images ~ N(0, 1)
     p["s_input"] = s_input
@@ -236,11 +258,12 @@ def synthetic_spec(config: EngineConfig, seed: int = 0) -> EngineSpec:
 
     fast_exp = fast_poly = sm_sum_i32 = ppoly_fastdiv = True
     blocks = []
+    x_bits = bw.block_input
     for i in range(cfg.depth):
         s_attn = np.float32(s_attn_tab[i % 2])
         s_g = np.float32(s_gelu_tab[i % 2])
         blk = {}
-        ln_b, ln_s, ln_sh = site.layernorm(C)
+        ln_b, ln_s, ln_sh = ln_site(x_bits)
         s_a1 = _scale(1.0)
         blk.update(ln1_bias_int=ln_b, ln1_shift=ln_sh, s_ln1=ln_s,
                    m_ln1=requant_multiplier(ln_s, s_a1))
@@ -262,10 +285,12 @@ def synthetic_spec(config: EngineConfig, seed: int = 0) -> EngineSpec:
             blk["sm_bounds"], blk["sm_coeffs"] = _ppoly_site(
                 cfg, "softmax", *PPOLY_SOFTMAX[i % 2])
             s_sm = np.float32(2.0 / 2**bw.softmax)
+        elif sm_base == "float":
+            s_sm = np.float32(2.0 / 2**bw.softmax)
         else:
             s_sm = np.float32(1.0 / 2 ** (bw.softmax - 1))
             sm_sum_i32 = sm_sum_i32 and _ivit_sum_fits_int32(s_attn, n_tok)
-        ctx_std = CTX_GAIN[sm_base] * q_std
+        ctx_std = CTX_GAIN[sm_base, bw.softmax] * q_std
         s_a2 = _scale(ctx_std)
         blk["m_av"] = requant_multiplier(np.float32(s_sm * s_q), s_a2)
         w, b, s_pj, proj_std = site.linear(C, C, s_a2, ctx_std)
@@ -276,7 +301,7 @@ def synthetic_spec(config: EngineConfig, seed: int = 0) -> EngineSpec:
         blk["m_res1_x"] = requant_multiplier(s_a3, s_res1)
         blk["m_res1_id"] = requant_multiplier(s_block_in, s_res1)
 
-        ln_b, ln_s, ln_sh = site.layernorm(C)
+        ln_b, ln_s, ln_sh = ln_site(bw.norm2_in)
         s_m1 = _scale(1.0)
         blk.update(ln2_bias_int=ln_b, ln2_shift=ln_sh, s_ln2=ln_s,
                    m_ln2=requant_multiplier(ln_s, s_m1))
@@ -288,7 +313,9 @@ def synthetic_spec(config: EngineConfig, seed: int = 0) -> EngineSpec:
                    s_gelu=s_g)
         g_std = 0.6 * h_std                    # GELU keeps ~60% of the spread
         s_m2 = _scale(g_std)
-        s_gelu_out = _gelu_out_scale(cfg, gelu_base, s_g)
+        # freeze_model quantizes the float GELU on its input grid
+        s_gelu_out = (np.float32(s_g) if gelu_base == "float"
+                      else _gelu_out_scale(cfg, gelu_base, s_g))
         blk["m_gelu"] = requant_multiplier(s_gelu_out, s_m2)
         if gelu_base == "ppoly":
             ppoly_fastdiv &= _ppoly_gelu_leaves(cfg, blk, s_g, s_gelu_out,
@@ -304,10 +331,10 @@ def synthetic_spec(config: EngineConfig, seed: int = 0) -> EngineSpec:
         fast_exp = fast_exp and _exp_fast_gate(sm_base, gelu_base, s_attn, s_g)
         fast_poly = fast_poly and _poly_fast_gate(sm_base, gelu_base, s_attn, s_g)
         blocks.append(blk)
-        s_block_in = s_block_out
+        s_block_in, x_bits = s_block_out, bw.att_block_out
     p["blocks"] = blocks
 
-    ln_b, ln_s, ln_sh = site.layernorm(C)
+    ln_b, ln_s, ln_sh = ln_site(x_bits)
     s_cls = _scale(1.0)
     p.update(lnf_bias_int=ln_b, lnf_shift=ln_sh, s_lnf=ln_s,
              m_lnf=requant_multiplier(ln_s, s_cls))
@@ -351,7 +378,7 @@ SWIN_S_ATTN1_RATIO = 0.75
 SWIN_REL_GAIN = 0.5
 # ctx = probs @ v keeps about this fraction of v's spread over a 49-key
 # window, by softmax family (the DeiT-S values of CTX_GAIN, windowed).
-SWIN_CTX_GAIN = {"ibert": 0.15, "ivit": 0.3, "ppoly": 0.15}
+SWIN_CTX_GAIN = {"ibert": 0.15, "ivit": 0.3, "ppoly": 0.15, "float": 0.3}
 # The ppoly family's sites, (scale, min, max) for even and odd blocks (the
 # odd ones shifted where the stage has room): stage 2's first two blocks in
 # a JAX freeze of Swin-T with gelu and softmax "ppoly_backend_ibert" and the
@@ -406,10 +433,9 @@ def synthetic_swin_spec(config: SwinEngineConfig, seed: int = 0) -> SwinEngineSp
     (:func:`ibert_ln_shift`)."""
     sm_base, gelu_base = _families(config)
     ln_base = config.base_type("ln")
-    s_attn_tab = {"ivit": S_ATTN_IVIT, "ibert": CALIBRATED_S_ATTN,
+    s_attn_tab = {**S_ATTN_TABLE,
                   "ppoly": [t[0] for t in SWIN_PPOLY_SOFTMAX]}[sm_base]
-    s_gelu_tab = {"ivit": CALIBRATED_S_GELU_IVIT, "ibert": CALIBRATED_S_GELU,
-                  "ppoly": [t[0] for t in SWIN_PPOLY_GELU]}[gelu_base]
+    s_gelu_tab = {**S_GELU_TABLE, "ppoly": [t[0] for t in SWIN_PPOLY_GELU]}[gelu_base]
     cfg = config
     site = _Sites(np.random.default_rng(seed))
 
@@ -489,6 +515,8 @@ def synthetic_swin_spec(config: SwinEngineConfig, seed: int = 0) -> SwinEngineSp
                 blk["sm_bounds"], blk["sm_coeffs"] = _ppoly_site(
                     cfg, "softmax", *SWIN_PPOLY_SOFTMAX[pp_site])
                 s_sm = np.float32(2.0 / 2**8)
+            elif sm_base == "float":
+                s_sm = np.float32(2.0 / 2**8)
             else:
                 s_sm = np.float32(1.0 / 2**7)
                 sm_sum_i32 = sm_sum_i32 and _ivit_sum_fits_int32(s_attn, n)
@@ -514,6 +542,7 @@ def synthetic_swin_spec(config: SwinEngineConfig, seed: int = 0) -> SwinEngineSp
                        s_gelu=s_g)
             g_std = 0.6 * h_std
             s_m2 = _scale(g_std)
+            # freeze_swin_model takes the ibert composite for a float GELU too
             s_gelu_out = _gelu_out_scale(cfg, gelu_base, s_g)
             blk["m_gelu"] = requant_multiplier(s_gelu_out, s_m2)
             if gelu_base == "ppoly":

@@ -5,7 +5,12 @@ Three paths, bit-identical to each other and to the JAX engine:
 * ``kernels=True`` (the JAX fused branch, ``vit_int.py:527-596``): each
   block is one :func:`~ivit_tpu_torch.ops.kernels.block.attn_block` and one
   :func:`~ivit_tpu_torch.ops.kernels.block.mlp_block` call -- the CUDA
-  kernels for tensors on the card, their plain versions on the CPU;
+  kernels for tensors on the card, their plain versions on the CPU -- at
+  any bitwidth vector the kernels take (the reference's INT16
+  configuration, ``8,8,8,8,16,8,16,8``, included).  A spec with the float
+  softmax or GELU takes the unfused forward instead, as JAX's
+  ``use_blocks`` routes it (``vit_int.py:496-500``): no float kernel
+  exists in either package, so this is JAX's routing, not a fallback;
 * ``kernels="ops"`` (JAX's ``pallas="ops"`` hybrid, ``vit_int.py:37-45``):
   the unfused engine with the standalone kernels
   :func:`~ivit_tpu_torch.ops.kernels.nonlinear.shiftmax` and
@@ -19,10 +24,16 @@ Three paths, bit-identical to each other and to the JAX engine:
 The patch-embed and head GEMMs, the input quant and the final cls-row LN
 run outside any kernel on every path, as in the JAX package.  The JAX fused
 branch pads tokens to a multiple of 8 for the TPU's tiles; the port runs
-the ``N`` real tokens unpadded.  The ivit, ibert and ppoly softmax and
-GELU run, in any mix, with the ivit or ibert LayerNorm; the float family
-raises.  With ``"ops"`` the ppoly softmax and GELU run unfused, as in
-JAX: no standalone kernel exists for them.
+the ``N`` real tokens unpadded.  The ivit, ibert, ppoly and float softmax
+and GELU run, in any mix, with the ivit or ibert LayerNorm; the float and
+ppoly LayerNorms raise, as in JAX.  With ``"ops"`` the ppoly and float
+softmax and GELU run unfused, as in JAX: no standalone kernel exists for
+them.  The float family is JAX's golden ``jax.nn.softmax`` /
+``jax.nn.gelu`` with a quantized output, here ``torch.softmax`` in f32 and
+``F.gelu(approximate="none")`` before the same floor and clip: torch's and
+XLA's f32 ``exp`` / ``erf`` may differ in the last ulp, which moves a
+quantized probability or GELU output by at most 1 on a few elements
+(``tests/test_torch_port_float.py`` states the bound).
 """
 
 from __future__ import annotations
@@ -31,6 +42,7 @@ import functools
 import itertools
 
 import torch
+import torch.nn.functional as F
 
 from .. import resolve_device
 from ..ops import ibert as ib
@@ -39,36 +51,45 @@ from ..ops import ppoly as pp
 from ..ops.kernels import block as kblock
 from ..ops.kernels import nonlinear as knl
 from ..ops.kernels.block import container as _container
-from ..ops.kernels.block import int8_matmul
+from ..ops.kernels.block import int8_matmul, to_container
 from ..ops.quant import exact_int_sum, rdiv
 from .convert import params_to_torch
 from .freeze import GELU_IN_BITS, EngineConfig, EngineSpec
 
-_FAMILIES = {"softmax": ("ivit", "ibert", "ppoly"),
-             "gelu": ("ivit", "ibert", "ppoly"), "ln": ("ivit", "ibert")}
-_NOT_PORTED = {
+_FAMILIES = {"softmax": ("ivit", "ibert", "ppoly", "float"),
+             "gelu": ("ivit", "ibert", "ppoly", "float"),
+             "ln": ("ivit", "ibert")}
+# the LayerNorm families the integer engines do not run, in JAX as here
+_NO_LN = {
     "ppoly": "the ppoly family has no LayerNorm (JAX's engine has none "
-             "either; ROADMAP Queue 1 item 2)",
-    "float": "the float softmax and GELU come with a later slice of the "
-             "unfused engine (ROADMAP Queue 1 item 2); JAX's engine runs no "
-             "float LayerNorm",
+             "either)",
+    "float": "the integer engine runs no float LayerNorm (JAX's raises too, "
+             "vit_int.py:458-461: the QAT sim evaluates the float family)",
 }
 
 
 def _base(cfg: EngineConfig, which: str) -> str:
-    """The family of one nonlinearity; raises for those not ported yet."""
+    """The family of one nonlinearity; raises for those the engines do not
+    run."""
     base = cfg.base_type(which)
     if base not in _FAMILIES[which]:
+        why = _NO_LN.get(base) if which == "ln" else None
         raise NotImplementedError(
             f"{which} family {base!r}: the port runs "
-            f"{', '.join(_FAMILIES[which])}; "
-            f"{_NOT_PORTED.get(base, 'unknown family')}")
+            f"{', '.join(_FAMILIES[which])}; {why or 'unknown family'}")
     return base
 
 
 def _check_families(cfg: EngineConfig):
     for which in ("softmax", "gelu", "ln"):
         _base(cfg, which)
+
+
+def fused_halves(cfg: EngineConfig):
+    """(attention, MLP): which half-blocks have a fused kernel for the
+    config's families -- all but the float softmax and the float GELU, as
+    JAX's engines decide (``vit_int.py:496-500``, ``swin_int.py:496-502``)."""
+    return _base(cfg, "softmax") != "float", _base(cfg, "gelu") != "float"
 
 
 def _check_kernels(kernels):
@@ -107,11 +128,16 @@ def _softmax_int(cfg, blk, scores_int, kernels=False):
                                 fast_q=cfg.fast_exp)
         probs, _ = iv.shiftmax_int(scores_int.float(), blk["s_attn"], bit,
                                    fast_q=cfg.fast_exp)
-        return probs.to(_container(bit))
+        return to_container(probs, bit)
     if _base(cfg, "softmax") == "ppoly":
         probs = pp.ppoly_softmax_int(scores_int.float(), blk["sm_bounds"],
                                      blk["sm_coeffs"], _exp_bits(cfg), bit)
-        return probs.to(_container(bit))
+        return to_container(probs, bit)
+    if _base(cfg, "softmax") == "float":
+        probs = torch.softmax(scores_int.float() * blk["s_attn"], dim=-1)
+        qmax = 2 ** (bit - 1) - 1
+        return torch.clamp(torch.floor(probs / (2.0 / 2**bit)), 0,
+                           qmax).to(_container(bit))
     exp_int, _ = ib.ibert_softmax_exp_int(scores_int.float(), blk["s_attn"],
                                           fast_q=cfg.fast_exp,
                                           fast_poly=cfg.fast_poly)
@@ -119,7 +145,7 @@ def _softmax_int(cfg, blk, scores_int, kernels=False):
     exp16 = torch.clamp(torch.round(exp_int * rdiv(1.0, blk["s_exp_act"])),
                         -(2.0**15), 2.0**15 - 1)
     factor = torch.floor(rdiv(2.0**32, exact_int_sum(exp16)))
-    return torch.floor(exp16 * factor / 2 ** (32 - bit + 1)).to(_container(bit))
+    return to_container(torch.floor(exp16 * factor / 2 ** (32 - bit + 1)), bit)
 
 
 def _gelu_requant_int(cfg, blk, x_int, out_bits, kernels=False):
@@ -131,6 +157,9 @@ def _gelu_requant_int(cfg, blk, x_int, out_bits, kernels=False):
                                           fast_q=cfg.fast_exp)
         y, _ = iv.shift_gelu_int(x_int.float(), blk["s_gelu"], 8,
                                  fast_q=cfg.fast_exp)
+    elif _base(cfg, "gelu") == "float":
+        y = F.gelu(x_int.float() * blk["s_gelu"], approximate="none")
+        y = torch.clamp(torch.floor(y / blk["s_gelu"]), -128, 127)
     elif _base(cfg, "gelu") == "ppoly":
         y = pp.ppoly_gelu_int(x_int.float(), blk["gelu_bounds"],
                               blk["gelu_coeffs"], _scale_bits(cfg),
@@ -296,7 +325,10 @@ def engine_forward(spec: EngineSpec, images, kernels=True, device=None,
         x = torch.clamp(torch.round(x.float() * p["m_x0"]) + p["pos_addend"],
                         -lim, lim - 1).to(_container(bw.block_input))
 
-        attn, mlp = (_attn_fused, _mlp_fused) if kernels is True else \
+        # the fused kernels where JAX runs them: no half-block is fused
+        # when the softmax or the GELU is float (vit_int.py:496-500)
+        fused = kernels is True and all(fused_halves(cfg))
+        attn, mlp = (_attn_fused, _mlp_fused) if fused else \
             (_attn_unfused, _mlp_unfused)
         for blk, wt in zip(p["blocks"], mlp_wt or itertools.repeat({})):
             blk = {**blk, **wt}
@@ -325,7 +357,8 @@ class Engine:
 
     Keeps the caller's spec as ``spec`` and moves its parameters to
     ``device`` once (default ``cuda``; raises without a card unless
-    ``device="cpu"``); with ``kernels=True`` keeps each block's MLP
+    ``device="cpu"``); with ``kernels=True``, where the MLP half-blocks run
+    fused (:func:`fused_halves`), keeps each block's MLP
     weights transposed beside them (:func:`transposed_mlp_weights`: the
     ``mlp_block`` kernel streams those, so a call neither transposes nor
     gives its weight maps fresh addresses), and runs :func:`engine_forward`
@@ -339,23 +372,26 @@ class Engine:
         # imported here: swin_int builds on this module
         from .swin_int import (SwinEngineSpec, check_stage_paths,
                                check_swin_kernels, swin_engine_forward)
+        _check_families(spec.config)
+        attn_fused, mlp_fused = fused_halves(spec.config)
         if isinstance(spec, SwinEngineSpec):
             check_swin_kernels(kernels)
             check_stage_paths(spec.config, stage_paths)
             self._forward = functools.partial(swin_engine_forward,
                                               stage_paths=stage_paths)
         else:
+            mlp_fused = attn_fused and mlp_fused
             _check_kernels(kernels)
             if stage_paths is not None:
                 raise ValueError("stage_paths picks a path per Swin stage; "
                                  "a ViT spec has none")
             self._forward = engine_forward
         self.device = resolve_device(device)
-        _check_families(spec.config)
         self.spec = spec
         params = params_to_torch(spec.params, self.device)
         self._spec = type(spec)(spec.config, params)
-        self.mlp_wt = transposed_mlp_weights(params) if kernels is True else None
+        self.mlp_wt = (transposed_mlp_weights(params)
+                       if kernels is True and mlp_fused else None)
         self.kernels = kernels
 
     def __call__(self, images):

@@ -37,6 +37,14 @@ constants; ``sm_bounds`` / ``sm_coeffs`` and ``exp_bits``); on the card a
 the GELU + requant of every int8 input or the exp of every int8 offset
 (``csrc/ppoly.cuh``).
 
+The ViT kernels take the token stream in and out as int8 or int16, each
+in its own container: the reference's INT16 configuration (bitwidths
+``8,8,8,8,16,8,16,8``) has ``attn_block`` take int8 x to an int16 output
+at 16-bit probabilities (``sm_bit`` 16; P v then runs as two exact 8-bit
+tensor-core products, ``csrc/attn_chain.cuh``) and ``mlp_block`` take the
+int16 rows back to int8.  Probabilities go into their container saturating
+at its top (:func:`to_container`), as the reference's conversion does.
+
 Padding rows (token index >= ``n_valid``) may hold anything: their scores
 columns are masked out of the softmax and their LN output, NaN for an
 all-zero ibert row, is pinned to 0.  Only valid rows of the output are
@@ -76,6 +84,16 @@ def int8_matmul(a, w):
 def container(bits):
     """Narrowest signed integer dtype holding a ``bits``-clamped value."""
     return torch.int8 if bits <= 8 else (torch.int16 if bits <= 16 else torch.int32)
+
+
+def to_container(x, bits):
+    """f32-held integers into the ``bits`` container, saturating at its
+    range as the reference's f32 -> int conversion (XLA's) does: a
+    probability of 2**(bits - 1), which a one-hot row's exp * factor can
+    round to, becomes 2**(bits - 1) - 1, where torch's conversion would wrap
+    it (the kernels saturate alike)."""
+    dt = container(bits)
+    return torch.clamp(x, torch.iinfo(dt).min, torch.iinfo(dt).max).to(dt)
 
 
 def _pass_width(n1, n2):
@@ -123,9 +141,9 @@ def _check_family(ln_base, other_base, use_int_sqrt):
             f"{ln_base!r}")
     if other_base not in _FAMILIES:
         raise NotImplementedError(
-            f"fused block kernels for the {other_base!r} family come with a "
-            "later slice (ROADMAP Queue 1 item 2); the port runs the ivit, "
-            "ibert and ppoly families")
+            f"no fused block kernel runs the {other_base!r} family (the JAX "
+            "package's engines run it unfused, as the port's do); the kernels "
+            "take the ivit, ibert and ppoly families")
     if use_int_sqrt:
         raise NotImplementedError(
             "the fused block kernels take the floor(sqrt) ibert LayerNorm; "
@@ -269,8 +287,9 @@ def mlp_block(x, *, ln_bias, m_ln, ln_shift, fc1_w, fc1_b, m_fc1, s_gelu,
               gelu_s_out=None, gelu_scale_bits=22, gelu_fastdiv=False,
               gelu_s_out_c=None, gelu_patch_h=None, gelu_patch_d=None):
     """Fused MLP half-block; ``x`` int8 or int16 [R, C] token rows, out in
-    the ``out_bits`` container, which on the card is x's (int8 -> int8 for
-    ViT, int16 -> int16 for Swin); ``ln_in``: the hoisted int8 LN output of
+    the ``out_bits`` container, int8 or int16 (int8 -> int8 for ViT, int16
+    -> int16 for Swin, int16 -> int8 for the INT16 configuration's ViT:
+    ``norm2_in`` 16, ``att_block_out`` 8); ``ln_in``: the hoisted int8 LN output of
     ``x``, or None to run the LN in the kernel.  ``fc1_wt`` / ``fc2_wt``:
     ``fc1_w`` / ``fc2_w`` transposed to torch's Linear layout [out, in] and
     contiguous, which the kernel streams, or None to transpose them here;
@@ -298,11 +317,12 @@ def mlp_block(x, *, ln_bias, m_ln, ln_shift, fc1_w, fc1_b, m_fc1, s_gelu,
     # memory, the 32-row block (this formula, mlp_smem) every other
     smem = 32 * (c + hd + 32) + 2 * _pass_width(c, hd) * 80
     if (c % 32 or c > 1024 or not _pass_width(c, hd) or smem > _MAX_SMEM
-            or x.dtype not in _STREAM or out_dtype != x.dtype or mlp_bits > 16):
+            or x.dtype not in _STREAM or out_dtype not in _STREAM
+            or not 2 <= mlp_bits <= 16 or out_bits < 2):
         raise ValueError(
             f"mlp_block kernel takes C a multiple of 32 (<= 1024) sharing a "
-            f"128-, 96- or 64-column pass with the hidden width, and an int8 "
-            f"or int16 stream that the output keeps (out_bits 8 or 16); got "
+            f"128-, 96- or 64-column pass with the hidden width, an int8 or "
+            f"int16 stream in and out (mlp_bits and out_bits 2-16); got "
             f"C={c}, hidden={hd}, x {x.dtype}, bits={mlp_bits}/{out_bits}")
     for name, t, dt, shp in (
             ("x", x, x.dtype, (r, c)), ("ln_bias", ln_bias, torch.float32, (c,)),
@@ -375,14 +395,16 @@ def attn_block_ref(x, *, ln_bias, m_ln, ln_shift, qkv_w, qkv_b, m_qkv, m_attn,
                    proj_bits=8, out_bits=8, fast_exp=False, fast_poly=False,
                    ln_base="ibert", sm_base="ibert", ln_in=None,
                    sm_bounds=None, sm_coeffs=None, exp_bits=16):
-    """Plain version of the attention kernel: x int8 [B, Np, C] -> int8.
+    """Plain version of the attention kernel: x int8 or int16 [B, Np, C] ->
+    the ``out_bits`` container (int8, or int16 for the INT16
+    configuration's ``norm2_in`` 16).
 
     LN (or ``ln_in``) -> requant -> qkv GEMM -> requant -> per head int32
     q k^T -> requant by ``m_attn`` -> softmax over the ``n_valid`` columns
-    (Shiftmax, the ibert softmax with its 16-bit exp requant by
-    ``s_exp_act``, or the ppoly softmax of ``sm_bounds`` / ``sm_coeffs`` on
-    the ``exp_bits`` grid) -> probs @ v -> requant by ``m_av`` -> proj GEMM
-    -> requant -> residual."""
+    to ``sm_bit`` probabilities (Shiftmax, the ibert softmax with its 16-bit
+    exp requant by ``s_exp_act``, or the ppoly softmax of ``sm_bounds`` /
+    ``sm_coeffs`` on the ``exp_bits`` grid) -> probs @ v -> requant by
+    ``m_av`` -> proj GEMM -> requant -> residual."""
     b, np_, c = x.shape
     dh = c // num_heads
     y = _ln8(x, ln_base, ln_bias, ln_shift, m_ln, ln_in)
@@ -393,7 +415,7 @@ def attn_block_ref(x, *, ln_bias, m_ln, ln_shift, qkv_w, qkv_b, m_qkv, m_attn,
     s = _requant(scores, m_attn, attn_bits)
     probs = _softmax_probs(s, sm_base, s_attn, s_exp_act, sm_bit, n_valid,
                            fast_exp, fast_poly, sm_bounds, sm_coeffs, exp_bits)
-    ctx = _requant(int8_matmul(probs.to(container(sm_bit)), v), m_av, 8)
+    ctx = _requant(int8_matmul(to_container(probs, sm_bit), v), m_av, 8)
     ctx = ctx.to(torch.int8).permute(0, 2, 1, 3).reshape(b, np_, c)
     y2 = _requant(int8_matmul(ctx, proj_w) + proj_b, m_proj, proj_bits)
     return _residual(y2, m_res_x, x, m_res_id, out_bits)
@@ -426,13 +448,16 @@ def attn_block(x, *, ln_bias, m_ln, ln_shift, qkv_w, qkv_b, m_qkv, m_attn,
                proj_bits=8, out_bits=8, fast_exp=False, fast_poly=False,
                ln_base="ibert", sm_base="ibert", use_int_sqrt=False,
                ln_in=None, sm_bounds=None, sm_coeffs=None, exp_bits=16):
-    """Fused attention half-block; ``x`` int8 [B, Np, C], ``n_valid`` real
-    tokens per image; ``ln_in``: the hoisted int8 LN output of ``x``, or
-    None to run the LN in the kernel; ``s_exp_act``: the ibert softmax's
-    exp scale (unused by the others); ``sm_bounds``, ``sm_coeffs``,
-    ``exp_bits``: the ppoly softmax's leaves.  On the card: three launches
-    (LN + qkv, per-(image, head) softmax attention, proj + residual), after
-    the ppoly exp table's, counted as one."""
+    """Fused attention half-block; ``x`` int8 or int16 [B, Np, C],
+    ``n_valid`` real tokens per image, out in the ``out_bits`` container
+    (int8 or int16); ``sm_bit`` 8 or 16: the probabilities' bits (16: the
+    INT16 configuration; P v takes them exactly as two 8-bit products);
+    ``ln_in``: the hoisted int8 LN output of ``x``, or None to run the LN
+    in the kernel; ``s_exp_act``: the ibert softmax's exp scale (unused by
+    the others); ``sm_bounds``, ``sm_coeffs``, ``exp_bits``: the ppoly
+    softmax's leaves.  On the card: three launches (LN + qkv, per-(image,
+    head) softmax attention, proj + residual), after the ppoly exp table's,
+    counted as one."""
     _check_family(ln_base, sm_base, use_int_sqrt)
     kw = dict(ln_bias=ln_bias, m_ln=m_ln, ln_shift=ln_shift, qkv_w=qkv_w,
               qkv_b=qkv_b, m_qkv=m_qkv, m_attn=m_attn, s_attn=s_attn,
@@ -449,16 +474,18 @@ def attn_block(x, *, ln_bias, m_ln, ln_shift, qkv_w, qkv_b, m_qkv, m_attn,
     dh = c // num_heads
     if (c % 32 or c > 1024 or not _pass_width(3 * c, c)
             or dh * num_heads != c or dh % 4 or dh > 128
-            or np_ > 256 or not 0 < n_valid <= np_ or sm_bit != 8
-            or max(attn_bits, proj_bits, out_bits) > 8):
+            or np_ > 256 or not 0 < n_valid <= np_ or sm_bit not in (8, 16)
+            or not 2 <= attn_bits <= 8 or not 2 <= proj_bits <= 16
+            or not 2 <= out_bits <= 16 or x.dtype not in _STREAM):
         raise ValueError(
-            f"attn_block kernel takes C a multiple of 32 (<= 1024) with a "
-            f"128-, 96- or 64-column pass over 3C and C, head dim "
-            f"a multiple of 4 (<= 128), <= 256 tokens, 8-bit probs and "
-            f"outputs; got C={c}, heads={num_heads}, Np={np_}, "
-            f"n_valid={n_valid}, sm_bit={sm_bit}")
+            f"attn_block kernel takes an int8 or int16 stream, C a multiple "
+            f"of 32 (<= 1024) with a 128-, 96- or 64-column pass over 3C and "
+            f"C, head dim a multiple of 4 (<= 128), <= 256 tokens, 8- or "
+            f"16-bit probs, 8-bit scores and outputs of up to 16 bits; got "
+            f"{x.dtype} C={c}, heads={num_heads}, Np={np_}, n_valid={n_valid}, "
+            f"sm_bit={sm_bit}, bits={attn_bits}/{proj_bits}/{out_bits}")
     for name, t, dt, shp in (
-            ("x", x, torch.int8, (b, np_, c)),
+            ("x", x, x.dtype, (b, np_, c)),
             ("ln_bias", ln_bias, torch.float32, (c,)),
             ("m_ln", m_ln, torch.float32, (c,)),
             ("qkv_w", qkv_w, torch.int8, (c, 3 * c)),
@@ -480,7 +507,7 @@ def attn_block(x, *, ln_bias, m_ln, ln_shift, qkv_w, qkv_b, m_qkv, m_attn,
                                         x.device)
     qkv = torch.empty((b * np_, 3 * c), dtype=torch.int8, device=x.device)
     ctx = torch.empty((b * np_, c), dtype=torch.int8, device=x.device)
-    out = torch.empty_like(x)
+    out = torch.empty((b, np_, c), dtype=container(out_bits), device=x.device)
     lib = _build.library("attn_block")
     wqkv_t, wp_t = qkv_w.t().contiguous(), proj_w.t().contiguous()
     err = lib.ivit_attn_block(
@@ -488,8 +515,9 @@ def attn_block(x, *, ln_bias, m_ln, ln_shift, qkv_w, qkv_b, m_qkv, m_attn,
         _ptr(wqkv_t), _ptr(qkv_b), _ptr(m_qkv), _ptr(m_attn), _ptr(s_attn),
         _ptr(s_exp_act), _ptr(m_av), _ptr(wp_t), _ptr(proj_b), _ptr(m_proj),
         _ptr(m_res_x), _ptr(m_res_id), _ptr(qkv), _ptr(ctx), _ptr(out), b,
-        np_, c, num_heads, n_valid, attn_bits, proj_bits, out_bits,
-        int(ln_base == "ivit"), _KIND[sm_base], int(bool(fast_exp)),
+        np_, c, num_heads, n_valid, sm_bit, attn_bits, proj_bits, out_bits,
+        int(x.dtype == torch.int16), int(ln_base == "ivit"), _KIND[sm_base],
+        int(bool(fast_exp)),
         int(bool(fast_poly)), _pp_ref(pp_args), _ptr(exp_table), _stream())
     _raise_on(err, "attn_block")
     attn_block.launches += 1
@@ -533,7 +561,7 @@ def swin_attn_block_ref(xw, *, ln_bias, m_ln, ln_shift, qkv_w, qkv_b, m_qkv,
         a = a.reshape(bw, num_heads, n, n)
     probs = _softmax_probs(a, sm_base, s_attn, s_exp_act, sm_bit, None,
                            fast_exp, fast_poly, sm_bounds, sm_coeffs, exp_bits)
-    ctx = _requant(int8_matmul(probs.to(container(sm_bit)), v), m_av, 8)
+    ctx = _requant(int8_matmul(to_container(probs, sm_bit), v), m_av, 8)
     ctx = ctx.to(torch.int8).permute(0, 2, 1, 3).reshape(bw, n, c)
     y2 = _requant(int8_matmul(ctx, proj_w) + proj_b, m_proj, 16)
     return _residual(y2, m_res_x, xw, m_res_id, 16)

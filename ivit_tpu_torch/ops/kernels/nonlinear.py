@@ -26,15 +26,16 @@ import torch
 from .. import ivit as iv
 from . import _build
 from .block import (GELU_TABLE_BYTES, _check, _check_scalar, _ptr, _raise_on,
-                    _stream, container)
+                    _stream, container, to_container)
 
 
 def shiftmax_ref(scores, s_attn, output_bit=8, *, n_valid=None, fast_q=False):
     """Plain version of the Shiftmax kernel: int8 scores [..., N] -> probs
-    in the ``output_bit`` container (int8 up to 8 bits, int16 up to 16)."""
+    in the ``output_bit`` container (int8 up to 8 bits, int16 up to 16),
+    saturating at its range."""
     probs, _ = iv.shiftmax_int(scores.float(), s_attn, output_bit,
                                n_valid=n_valid, fast_q=fast_q)
-    return probs.to(container(output_bit))
+    return to_container(probs, output_bit)
 
 
 def shift_gelu_requant_ref(x, s_gelu, m_out, output_bit=8, n=23, out_bits=8,

@@ -22,8 +22,15 @@ DeiT-S's 50,432 rows; ShiftGELU at GELU scales far from the engines'.
 The ppoly GELU and softmax run in both ViT kernels, both Swin kernels
 (shifted windows, whose masked scores leave the exp table), every MLP
 width, with fast-div patches that fire, one segment, and through the
-engines.  The DeiT-S and Swin-T shapes are held by ``chip_smoke.py``.
-Exact equality.
+engines.  The reference's INT16 configuration (bitwidths
+``8,8,8,8,16,8,16,8``) runs its variants: ``attn_block`` at 16-bit
+probabilities with an int16 output for the three softmaxes (head dims 32
+and 128), ``mlp_block`` from int16 rows to int8 at every MLP width, the
+attention core's edges (a one-hot row, v at -128 and 127, flat rows, hot
+padding keys) at 8 and 16 bits, the INT16 engines; a float-family engine
+runs no kernel, as JAX routes it.  The DeiT-S and Swin-T shapes are held
+by ``chip_smoke.py``.  Exact equality, but for the float family's logits
+against the CPU's (``tests/test_torch_port_float.py``'s bound).
 """
 
 import dataclasses
@@ -35,6 +42,7 @@ import torch
 from ivit_tpu_torch.engine import Engine
 from ivit_tpu_torch.engine.synthetic import (deit_small_config, swin_tiny_config,
                                               synthetic_spec, synthetic_swin_spec)
+from ivit_tpu_torch.models import BitWidths
 from ivit_tpu_torch.ops.kernels import block as kb
 from ivit_tpu_torch.ops.kernels import nonlinear as knl
 
@@ -149,7 +157,9 @@ def test_cuda_ivit_block_kernels_match_plain_versions(cuda, mix, hoisted):
 @pytest.mark.parametrize("shape,s,bit,n_valid", [
     ((4, 6, 37, 197), 0.0521371, 8, None), ((130, 50), 0.061, 8, None),
     ((16, 197), 0.0521371, 16, None), ((4, 6, 37, 197), 0.0045778966, 8, 180),
-    ((3, 700), 0.02, 8, 650)])
+    ((3, 700), 0.02, 8, 650),
+    # one column at x0 = -1: probability 2**(bits - 1), saturated
+    ((4, 1), 2.0, 8, None), ((4, 1), 2.0, 16, None)])
 def test_cuda_shiftmax_matches_plain_version(cuda, shape, s, bit, n_valid):
     scores = torch.from_numpy(np.random.default_rng(0).integers(
         -127, 128, shape).astype(np.int8)).to(cuda)
@@ -594,3 +604,146 @@ def test_cuda_ppoly_engines_match_plain_engines(cuda):
     assert (kb.mlp_block.launches, kb.swin_attn_block.launches) == (4, 4)
     assert torch.equal(got, want)
     assert torch.equal(want.cpu(), Engine(spec, device="cpu", kernels=False)(images))
+
+
+# --- the INT16 configuration and the float family ------------------------------
+
+INT16 = "8,8,8,8,16,8,16,8"
+# (spec families, kernel families) of the INT16 variants' three softmaxes
+INT16_FAMILIES = {"ivit": (("ivit",) * 3, ("ivit",) * 3),
+                  "ibert": (("ibert",) * 3, ("ibert",) * 3),
+                  "ppoly": ((PPOLY_FAMILIES[0],) * 2 + ("ibert",), ("ppoly", "ppoly", "ibert"))}
+
+
+def _int16_block(dev, fam, c=C, heads=HEADS, bits=INT16):
+    gelu, softmax, ln = INT16_FAMILIES[fam][0]
+    cfg = dataclasses.replace(
+        deit_small_config(depth=1, img_size=64, ln=ln, gelu=gelu, softmax=softmax,
+                          bitwidths=bits),
+        embed_dim=c, num_heads=heads, num_classes=10)
+    blk = synthetic_spec(cfg, seed=3).params["blocks"][0]
+    return {k: torch.as_tensor(v).to(dev) for k, v in blk.items()}
+
+
+def _attn_kw(b, mix, heads, n_valid, fast=True):
+    kw = dict(ln_bias=b["ln1_bias_int"], m_ln=b["m_ln1"], ln_shift=b["ln1_shift"],
+              qkv_w=b["qkv_w"], qkv_b=b["qkv_b"], m_qkv=b["m_qkv"],
+              m_attn=b["m_attn"], s_attn=b["s_attn"], s_exp_act=b.get("s_exp_act"),
+              m_av=b["m_av"], proj_w=b["proj_w"], proj_b=b["proj_b"],
+              m_proj=b["m_proj"], m_res_x=b["m_res1_x"], m_res_id=b["m_res1_id"],
+              num_heads=heads, n_valid=n_valid, fast_exp=fast, fast_poly=fast,
+              sm_base=mix[1], ln_base=mix[2])
+    return kw | (_ppoly_sm_kw(b) if mix[1] == "ppoly" else {})
+
+
+@pytest.mark.parametrize("fam", list(INT16_FAMILIES))
+def test_cuda_attn_block_16bit_probs(cuda, fam):
+    """``attn_block`` at ``sm_bit`` 16 with an int16 output: int8 and int16
+    input, padding tokens, the LN in the kernel and hoisted, fast flags both
+    ways, head dims 32 (C 64) and 128 (C 128, one head, 256 tokens)."""
+    mix = INT16_FAMILIES[fam][1]
+    for c, heads, np_, nv in ((C, HEADS, NP, NV), (128, 1, 256, 250)):
+        b = _int16_block(cuda, fam, c, heads)
+        for bits in (8, 16):
+            x = _stream(cuda, (2, np_, c), bits, seed=c + bits)
+            for fast in (False, True):
+                kw = _attn_kw(b, mix, heads, nv, fast) | dict(sm_bit=16, out_bits=16)
+                for ln_in in (None, kb._ln8(x, mix[2], kw["ln_bias"], kw["ln_shift"],
+                                            kw["m_ln"], None)):
+                    got = kb.attn_block(x, ln_in=ln_in, **kw)
+                    torch.cuda.synchronize()
+                    assert got.dtype == torch.int16
+                    want = kb.attn_block_ref(x, ln_in=ln_in, **kw)
+                    assert torch.equal(got[:, :nv], want[:, :nv]), (c, bits, fast)
+
+
+@pytest.mark.parametrize("c,hidden", MLP_SHAPES, ids=[f"C{c}" for c, _ in MLP_SHAPES])
+def test_cuda_mlp_block_int16_to_int8(cuda, c, hidden):
+    """``mlp_block`` from int16 rows to int8 (and int8 rows to int16) in both
+    MLP blocks (the 32-row one at hidden 3072 and 4096), the three GELUs,
+    ragged rows, the LN in the kernel and hoisted."""
+    for fam, (_, mix) in INT16_FAMILIES.items():
+        b = _int16_block(cuda, fam, c, c // 32)
+        assert tuple(b["fc1_w"].shape) == (c, hidden)
+        extra = _ppoly_gelu_kw(b, True) if fam == "ppoly" else {}
+        for r in (1, 65):
+            for x_bits, out_bits in ((16, 8), (8, 16)):
+                x = _stream(cuda, (r, c), x_bits, seed=r + x_bits)
+                kw = _swin_mlp_kw(b, mix, True) | dict(out_bits=out_bits) | extra
+                for ln_in in (None, kb._ln8(x, mix[2], kw["ln_bias"], kw["ln_shift"],
+                                            kw["m_ln"], None)):
+                    got = kb.mlp_block(x, ln_in=ln_in, **kw)
+                    torch.cuda.synchronize()
+                    assert got.dtype == (torch.int8 if out_bits == 8 else torch.int16)
+                    want = kb.mlp_block_ref(x, ln_in=ln_in, **kw)
+                    assert torch.equal(got, want), (fam, r, x_bits, ln_in is None)
+
+
+@pytest.mark.parametrize("bits", [16, 8])
+@pytest.mark.parametrize("fam", list(INT16_FAMILIES))
+def test_cuda_attn_block_edges(cuda, fam, bits):
+    """``chip_smoke.int16_edge_inputs``: a one-hot row (whose ibert
+    probability rounds to 2**(bits - 1) and saturates), v at -128 and 127,
+    flat rows, hot padding keys."""
+    import os
+    import sys
+    sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+    from chip_smoke import int16_edge_inputs
+    mix = INT16_FAMILIES[fam][1]
+    b = _int16_block(cuda, fam)
+    x, ln_in, over = int16_edge_inputs(torch, b, HEADS, B, NP, NV, cuda)
+    kw = _attn_kw(b, mix, HEADS, NV) | dict(sm_bit=bits, out_bits=bits) | over
+    got = kb.attn_block(x, ln_in=ln_in, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(got[:, :NV], kb.attn_block_ref(x, ln_in=ln_in, **kw)[:, :NV])
+
+
+def test_cuda_int16_and_float_engines(cuda):
+    """INT16 ivit and ibert engines: 2 + 2 launches, logits equal to the
+    plain engine on the card and the CPU.  A float-family engine launches
+    no kernel, equals its unfused forward on the card, and is within
+    ``tests/test_torch_port_float.py``'s bound of the CPU's logits."""
+    images = np.random.default_rng(1).normal(size=(3, 64, 64, 3)).astype(np.float32)
+    for fam in ("ivit", "ibert"):
+        cfg = dataclasses.replace(_small_config(2, (fam,) * 3),
+                                  bitwidths=BitWidths.from_spec(INT16))
+        spec = synthetic_spec(cfg, seed=0)
+        want = Engine(spec, kernels=False)(images)
+        kb.mlp_block.launches = kb.attn_block.launches = 0
+        got = Engine(spec)(images)
+        torch.cuda.synchronize()
+        assert (kb.mlp_block.launches, kb.attn_block.launches) == (2, 2)
+        assert torch.equal(got, want)
+        assert torch.equal(want.cpu(), Engine(spec, device="cpu", kernels=False)(images))
+    spec = synthetic_spec(_small_config(2, ("float", "float", "ibert")), seed=0)
+    kb.mlp_block.launches = kb.attn_block.launches = 0
+    got = Engine(spec)(images)
+    torch.cuda.synchronize()
+    assert (kb.mlp_block.launches, kb.attn_block.launches) == (0, 0)
+    assert torch.equal(got, Engine(spec, kernels=False)(images))
+    cpu = Engine(spec, device="cpu")(images)
+    assert (got.cpu() - cpu).abs().max() <= 0.05 * cpu.abs().max()
+
+
+def test_cuda_wrappers_refuse_what_no_kernel_runs(cuda):
+    """Bits the kernels do not take, the floor(sqrt)-free ibert LN and the
+    float family raise; nothing falls back."""
+    mix = INT16_FAMILIES["ibert"][1]
+    b, x = _int16_block(cuda, "ibert"), _x(cuda)
+    kw = _attn_kw(b, mix, HEADS, NV)
+    for bad in (dict(sm_bit=4), dict(sm_bit=12), dict(attn_bits=16), dict(out_bits=32)):
+        with pytest.raises(ValueError, match="attn_block kernel"):
+            kb.attn_block(x, **(kw | bad))
+    with pytest.raises(NotImplementedError, match="use_int_sqrt"):
+        kb.attn_block(x, use_int_sqrt=True, **kw)
+    with pytest.raises(NotImplementedError, match="no fused block kernel"):
+        kb.attn_block(x, **(kw | dict(sm_base="float")))
+    x2 = _stream(cuda, (B * NP, C), 16, seed=2)
+    kw = _swin_mlp_kw(b, mix, True)
+    for bad in (dict(out_bits=32), dict(mlp_bits=24)):
+        with pytest.raises(ValueError, match="mlp_block kernel"):
+            kb.mlp_block(x2, **(kw | bad))
+    with pytest.raises(NotImplementedError, match="use_int_sqrt"):
+        kb.mlp_block(x2, use_int_sqrt=True, **kw)
+    with pytest.raises(NotImplementedError, match="no fused block kernel"):
+        kb.mlp_block(x2, **(kw | dict(gelu_base="float")))

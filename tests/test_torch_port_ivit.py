@@ -125,6 +125,10 @@ SHIFTMAX_CASES = [  # (shape, s, output_bit, n_valid): test_pallas.py's shapes
     ((130, 50), 0.061, 8, None),
     ((16, 197), 0.0521371, 16, None),
     ((4, 6, 37, 197), 0.0045778966, 8, 180),
+    # one column at x0 = -1: its exp is 2**15, its probability 2**(bits - 1),
+    # which the conversion saturates at the container's top
+    ((4, 1), 2.0, 8, None),
+    ((4, 1), 2.0, 16, None),
 ]
 
 
@@ -323,9 +327,14 @@ def test_engine_refuses_families_not_ported(which):
         num_heads=2, num_classes=10), seed=0)
     field = {"gelu": "gelu_type", "softmax": "softmax_type",
              "ln": "layernorm_type"}[which]
-    refused = [("float", "Queue 1 item 2")]
+    # every softmax and GELU family runs (float: tests/test_torch_port_float.py);
+    # the LayerNorm is ivit or ibert, as in JAX's engine
+    refused = [("sigmoid", "unknown family")]
     if which == "ln":
-        refused.append(("ppoly", "no LayerNorm"))
+        refused += [("float", "no float LayerNorm"), ("ppoly", "no LayerNorm")]
+    else:
+        Engine(dataclasses.replace(spec, config=dataclasses.replace(
+            spec.config, **{field: "float"})), device="cpu")
     for fam, item in refused:
         bad = dataclasses.replace(spec, config=dataclasses.replace(
             spec.config, **{field: fam}))

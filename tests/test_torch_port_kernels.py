@@ -91,7 +91,7 @@ def test_attn_block_matches_pallas(blk, fast_exp, fast_poly):
 def test_wrappers_refuse_what_the_kernels_do_not_run(blk):
     x = torch.from_numpy(_x(0).reshape(B * NP, C))
     kw = _mlp_kw(blk, True, torch.as_tensor)
-    with pytest.raises(NotImplementedError, match="later slice"):
+    with pytest.raises(NotImplementedError, match="no fused block kernel"):
         kb.mlp_block(x, gelu_base="float", **kw)
     for ln_base in ("float", "ppoly"):
         with pytest.raises(NotImplementedError, match="ivit or ibert LayerNorm"):

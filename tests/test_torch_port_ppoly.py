@@ -11,8 +11,9 @@
   each site's calibrated range gives the freeze's leaves, and its fast-div
   gate JAX's ``(ok, c, patch_h, patch_d)``;
 * the plain versions of the MLP and attention kernels with the ppoly GELU
-  (fast-div on and off) and softmax (``n_valid`` below the token count)
-  against JAX ``mlp_block_p`` / ``attn_block_p`` in interpret mode;
+  (fast-div on and off) and softmax (``n_valid`` below the token count;
+  8- and 16-bit probabilities) against JAX ``mlp_block_p`` /
+  ``attn_block_p`` in interpret mode;
 * the engine on that freeze: ``kernels=False`` / ``True`` / ``"ops"``
   against JAX ``pallas=False`` / ``True`` (interpret) / ``"ops"``, fast-div
   on and off;
@@ -208,6 +209,25 @@ def test_ppoly_block_refs_match_pallas(frozen, fastdiv):
     got = kb.attn_block(torch.from_numpy(x), **flags,
                         **_kw(blk, ATTN_KEYS, torch.as_tensor))
     assert kb.attn_block.launches == before          # the CPU runs no kernel
+    _eq(got.numpy()[:, :NV], np.asarray(want)[:, :NV])
+
+
+def test_ppoly_attn_block_ref_16bit_matches_pallas(frozen):
+    """The ppoly softmax at 16-bit probabilities with an int16 output (the
+    INT16 configuration's attention half) on the freeze's fitted tables:
+    ``attn_block_ref`` against ``attn_block_p`` in interpret mode."""
+    jspec = frozen[2]
+    blk = jax.device_get(jspec.params)["blocks"][0]
+    x = _x(1, jspec.config.embed_dim)
+    flags = dict(ln_base="ibert", sm_base="ppoly", fast_exp=True,
+                 fast_poly=True, num_heads=jspec.config.num_heads, n_valid=NV,
+                 exp_bits=16, sm_bit=16, out_bits=16)
+    want = jblk.attn_block_p(jnp.asarray(x), s_ln=jnp.asarray(blk["s_ln1"]),
+                             out_dtype=jnp.int16, interpret=True, **flags,
+                             **_kw(blk, ATTN_KEYS, jnp.asarray))
+    got = kb.attn_block(torch.from_numpy(x), **flags,
+                        **_kw(blk, ATTN_KEYS, torch.as_tensor))
+    assert got.dtype == torch.int16
     _eq(got.numpy()[:, :NV], np.asarray(want)[:, :NV])
 
 

@@ -242,9 +242,14 @@ def test_swin_tiny_width_synthetic_matches_jax():
 def test_swin_engine_refuses_families_not_ported(which):
     spec = _small_spec(IVIT, depths=(1,), img_size=28, stage_heads=(2,))
     x = np.zeros((1, 28, 28, 3), np.float32)
-    refused = [("float", "Queue 1 item 2")]
+    # every softmax and GELU family runs (float: tests/test_torch_port_float.py);
+    # the LayerNorm is ivit or ibert, as in JAX's engine
+    refused = [("sigmoid", "unknown family")]
     if which == "layernorm_type":
-        refused.append(("ppoly", "no LayerNorm"))
+        refused += [("float", "no float LayerNorm"), ("ppoly", "no LayerNorm")]
+    else:
+        Engine(dataclasses.replace(spec, config=dataclasses.replace(
+            spec.config, **{which: "float"})), device="cpu")
     for fam, item in refused:
         bad = dataclasses.replace(spec, config=dataclasses.replace(
             spec.config, **{which: fam}))
