@@ -21,8 +21,11 @@ Phases, each printing one JSON line:
    to its plain version at DeiT-S shapes ([256, 6, 197, 197] scores;
    [50,432, 1536] hidden rows), fast quotient on and off, 8- and 16-bit
    probs, and at small shapes with a ragged row count and padding columns
-   (ShiftGELU: rows held in registers up to 4096, rows read a word or a
-   byte a lane); kernel and plain times, and the bound;
+   (Shiftmax also at its row tiles' edges: 1 to 1,537 rows, N 1 to 1,024,
+   a base a byte off 16-byte alignment, 2- to 16-bit probabilities, x0
+   below -2**13, flat rows whose exp sum wraps past 2**31; ShiftGELU: rows held in registers up to 4096, rows read a
+   word or a byte a lane); kernel and plain times (Shiftmax: 8-bit with
+   either quotient and 16-bit), and the bound;
 7. engine: a seeded synthetic DeiT-S ibert engine (224 px, depth 12, batch
    256) through ``Engine``: the launch counts of one forward, its logits
    bitwise equal to the unfused plain engine on the card and, for 4
@@ -95,7 +98,6 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
-import re
 import subprocess
 import sys
 import time
@@ -327,6 +329,44 @@ def kernel_phases(torch, kb, knl, dev):
                     torch, f"shiftmax small {shape} n_valid={n_valid} bits={bit} fast_q={fq}",
                     knl.shiftmax(xs, s_attn, bit, n_valid=n_valid, fast_q=fq),
                     knl.shiftmax_ref(xs, s_attn, bit, n_valid=n_valid, fast_q=fq)))
+    # the row tiles' edges: row counts off the 32- and 16-row tiles, widths
+    # about the 224-column split and 256, a base a byte past 16-byte
+    # alignment (the byte path), n_valid 1 and N - 1, 2- to 16-bit
+    # probabilities, x0 past -2**13 (s 1e-4)
+    s_small = torch.tensor(1e-4, dtype=torch.float32, device=dev)
+    for shape, n_valid in (((1, TOKENS), None), ((15, TOKENS), TOKENS - 1),
+                           ((1537, TOKENS), 1), ((17, 224), 223), ((17, 225), None),
+                           ((17, 256), 255), ((17, 257), None),
+                           ((1537, 1024), 1023), ((33, 1), None)):
+        xs = torch.as_tensor(rng.integers(-128, 128, shape).astype(np.int8)).to(dev)
+        for offset in (0, 1):
+            buf = torch.empty(xs.numel() + 16, dtype=torch.int8, device=dev)
+            xo = buf[offset:offset + xs.numel()].view(shape)
+            xo.copy_(xs)
+            for bit, sa, fq in ((2, s_attn, True), (8, s_small, False),
+                                (15, s_attn, False), (16, s_small, True)):
+                errs.append(check_equal(
+                    torch, f"shiftmax edge {shape} n_valid={n_valid} offset={offset} "
+                    f"bits={bit} s={sa.item()} fast_q={fq}",
+                    knl.shiftmax(xo, sa, bit, n_valid=n_valid, fast_q=fq),
+                    knl.shiftmax_ref(xs, sa, bit, n_valid=n_valid, fast_q=fq)))
+    # flat rows whose exps sum past 2**31: the high limbs' int32 sum wraps,
+    # as in the reference, and the probabilities come out negative
+    for shape, s in (((3, 700), 3e-5), ((17, 1024), 5e-5)):
+        xs = torch.full(shape, 5, dtype=torch.int8, device=dev)
+        sa = torch.tensor(s, dtype=torch.float32, device=dev)
+        for offset in (0, 1):
+            buf = torch.empty(xs.numel() + 16, dtype=torch.int8, device=dev)
+            xo = buf[offset:offset + xs.numel()].view(shape)
+            xo.copy_(xs)
+            for bit in (8, 16):
+                for fq in (True, False):
+                    want = knl.shiftmax_ref(xs, sa, bit, fast_q=fq)
+                    if not (want < 0).all():
+                        raise AssertionError(f"shiftmax wrap {shape}: no wrapped row sum")
+                    errs.append(check_equal(
+                        torch, f"shiftmax wrap {shape} offset={offset} bits={bit} "
+                        f"s={s} fast_q={fq}", knl.shiftmax(xo, sa, bit, fast_q=fq), want))
     for bit in (8, 16):
         for fq in (True, False):
             got = knl.shiftmax(scores, s_attn, bit, fast_q=fq)
@@ -338,20 +378,25 @@ def kernel_phases(torch, kb, knl, dev):
                             knl.shiftmax_ref(scores, s_attn, 8, n_valid=180, fast_q=True)))
     if not (got[..., :180] > 0).any() or (got[..., 180:] != 0).any():
         raise AssertionError("shiftmax: no live probabilities, or live padding")
-    ms = time_ms(torch, lambda: knl.shiftmax(scores, s_attn, 8, fast_q=True), iters=20)
+    ms = {f"{bit}bit_fast_q={fq}": time_ms(
+        torch, lambda: knl.shiftmax(scores, s_attn, bit, fast_q=fq), iters=20)
+        for bit, fq in ((8, True), (8, False), (16, True))}
     plain_ms = time_ms(torch, lambda: knl.shiftmax_ref(scores, s_attn, 8, fast_q=True),
                        iters=3, warmup=1)
     nb, f32_ops = nbytes(scores, got), SHIFTMAX_F32_OPS * scores.numel()
     b_ms, b_by = bound(f32_ops, nb, H100_F32_OPS)
+    b16_ms, _ = bound(f32_ops, 3 * nbytes(scores), H100_F32_OPS)  # int16 out
     rows["shiftmax"] = dict(
         name="shiftmax", route="cuda", source="ivit_tpu_torch/csrc/nonlinear.cu",
         replaces="ivit_tpu/ops/pallas/nonlinear.py:135", launches=None,
-        max_abs_err=max(errs), ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-        bound_by=b_by, library_ms=None)
+        max_abs_err=max(errs), ms=ms["8bit_fast_q=True"], plain_ms=plain_ms,
+        bound_ms=b_ms, bound_by=b_by, library_ms=None, ms_by_variant=ms,
+        bound_ms_16bit=b16_ms)
     emit({"phase": "shiftmax", "equal": True, "shape": list(scores.shape),
           "s_attn": s_attn.item(), "kernel_ms": ms, "plain_ms": plain_ms,
-          "library_ms": None, "bound_ms": b_ms, "bound_by": b_by, "bytes": nb,
-          "f32_ops": f32_ops, "live_prob_share": (got > 0).float().mean().item(),
+          "library_ms": None, "bound_ms": b_ms, "bound_ms_16bit": b16_ms,
+          "bound_by": b_by, "bytes": nb, "f32_ops": f32_ops,
+          "live_prob_share": (got > 0).float().mean().item(), "checks": len(errs),
           "max_abs_err": max(errs)})
 
     # --- shift_gelu_requant ---
@@ -974,26 +1019,6 @@ def int16_engine_phase(torch, counters, dev, rows, profile=False):
                     "launches": launches}})
 
 
-def ptxas_report(log):
-    """Registers and spill bytes of every kernel in one ``-Xptxas -v`` log."""
-    out, name, spill = [], None, 0
-    for line in log.splitlines():
-        m = re.search(r"Compiling entry function '(\w+)'", line)
-        if m:
-            name, spill = m.group(1), 0
-            continue
-        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
-        if m:
-            spill = int(m.group(1)) + int(m.group(2))
-            continue
-        m = re.search(r"Used (\d+) registers", line)
-        if m and name is not None:
-            out.append({"kernel": name[:72], "registers": int(m.group(1)),
-                        "spill_bytes": spill})
-            name = None
-    return out
-
-
 def swin_stage_blocks(torch, spec, dev):
     """Per Swin-T stage: (C, heads, windows an image, [(shift, block
     tensors) of its first two blocks]) of a synthetic spec."""
@@ -1417,7 +1442,7 @@ def main(argv=None) -> int:
           "cuda": torch.version.cuda, "name": torch.cuda.get_device_name(0)})
     t0 = time.perf_counter()
     times = _build.build_all()
-    ptxas = {n: ptxas_report(log) for n, log in _build.compiler_logs().items()}
+    ptxas = {n: _build.ptxas_report(log) for n, log in _build.compiler_logs().items()}
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "per_source_s": times, "ptxas": ptxas})
     spills = [k for n in _build.SOURCES for k in ptxas.get(n, []) if k["spill_bytes"]]

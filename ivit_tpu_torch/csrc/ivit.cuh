@@ -1,11 +1,10 @@
 // The ivit nonlinearities as device functions, shared by the standalone
 // kernels (nonlinear.cu) and the block kernels (mlp_block.cu, attn_block.cu)
 // so that the two forms cannot drift apart:
-//   * int_exp_shift (ivit_tpu/ops/pallas/nonlinear.py _int_exp_shift);
-//   * shiftmax_row, one warp's Shiftmax of a row held in registers
-//     (nonlinear.py _shiftmax_kernel, block.py _shiftmax), and
-//     shiftmax_quad, the same for a row spread over a quad of an mma
-//     accumulator tile (the attention cores);
+//   * int_exp_shift (ivit_tpu/ops/pallas/nonlinear.py _int_exp_shift),
+//     which the standalone Shiftmax kernel tabulates (nonlinear.cu);
+//   * shiftmax_quad, the Shiftmax of a row spread over a quad of an mma
+//     accumulator tile (the attention cores; block.py _shiftmax);
 //   * shift_gelu_table_kernel, the table of ShiftGELU + requant outputs of
 //     every (row max, value) pair, and shift_gelu_row, one warp's ShiftGELU
 //     + requant of an int8 row in global or shared memory through that
@@ -60,40 +59,6 @@ __device__ __forceinline__ float int_exp_shift(float x, float x0, float n,
 // whose exp is a power of two reaches 2**(bits - 1)).
 constexpr float kShiftProductMax = 2147483520.f;
 
-// One warp: Shiftmax of one row, column lane + 32 t in v[t], columns >=
-// n_valid padding (kept out of the max, probability 0).  In place: v[t]
-// becomes floor(min(exp * factor, pmax) * out_scale), out_scale =
-// 2**-(32 - bits), pmax kShiftProductMax where the probabilities fill their
-// container.
-// The row sum is the two-limb exact sum clamped to INT32_MAX: a row of N
-// exps sums to up to N * (-x0) * 2**15, past f32's exact integers (2**24)
-// for ViT's 197 tokens at any scale below ~0.3.
-template <int MAXV>
-__device__ __forceinline__ void shiftmax_row(float (&v)[MAXV], int n_valid,
-                                             float x0, float out_scale,
-                                             float pmax, int fast_q, int lane) {
-  float vmax = -8388608.f;  // -2**23, the reference's pad-column fill
-#pragma unroll
-  for (int t = 0; t < MAXV; ++t)
-    if (lane + 32 * t < n_valid) vmax = fmaxf(vmax, v[t]);
-  vmax = warp_max(vmax);
-  int sh = 0, sl = 0;
-#pragma unroll
-  for (int t = 0; t < MAXV; ++t) {
-    float e = 0.f;
-    if (lane + 32 * t < n_valid) {
-      e = int_exp_shift(v[t] - vmax, x0, kShiftmaxN, fast_q);
-      limb_add(sh, sl, e);
-    }
-    v[t] = e;
-  }
-  const float factor =
-      floorf(rdiv(kInt32Max, fminf(limb_total(sh, sl), kInt32Max)));
-#pragma unroll
-  for (int t = 0; t < MAXV; ++t)
-    v[t] = floorf(fminf(__fmul_rn(v[t], factor), pmax) * out_scale);
-}
-
 // The column of this lane's i-th value of a row in an mma accumulator tile
 // (m16n8, or wgmma's m64nN): 8-column tile i / 2, columns 2t and 2t + 1 of
 // it, t = lane % 4.
@@ -134,13 +99,19 @@ __device__ __noinline__ float int_exp_shift15_f32(float x, float x0, int fast_q)
   return int_exp_shift(x, x0, kShiftmaxN, fast_q);
 }
 
-// shiftmax_row on the accumulator layout: one row held by the four lanes
-// of a quad (and, where K warps split the keys, by a quad of each), this
-// lane's values v[i] at columns col0 + quad_col(i, t), those of i < nv_live
-// computed, the columns >= n_valid padding.  red reduces over the row's
-// lanes: red.max(float), red.sum(int).  The max and the two-limb int32
-// sums do not depend on the order of the columns, so every value gets
-// shiftmax_row's bits, saturated as the standalone kernel stores them
+// Shiftmax of one row on the accumulator layout: the row held by the four
+// lanes of a quad (and, where K warps split the keys, by a quad of each),
+// this lane's values v[i] at columns col0 + quad_col(i, t), those of i <
+// nv_live computed, the columns >= n_valid padding (kept out of the max,
+// probability 0).  In place: v[i] becomes floor(min(exp * factor, 2**31 -
+// 128) * out_scale), out_scale = 2**-(32 - bits), factor = floor(2**31 /
+// the row's exp sum).  red reduces over the row's lanes: red.max(float),
+// red.sum(int).  The row sum is the two-limb exact int32 sum clamped to
+// INT32_MAX: a row of N exps sums to up to N * (-x0) * 2**15, past f32's
+// exact integers (2**24) for ViT's 197 tokens at any scale below ~0.3.
+// The max and the limb sums do not depend on the order of the columns, so
+// every value gets the bits of the reference's row Shiftmax (block.py
+// _shiftmax), saturated as the standalone kernel stores them
 // (kShiftProductMax).  For -2**13 < x0 < -1 the exp runs in int32
 // (int_exp_shift15; the limbs of an int e >= 0 are e >> 8 and e & 255),
 // else in f32 as int_exp_shift.

@@ -535,19 +535,24 @@ inline cudaError_t weight_map(CUtensorMap* map, const int8_t* w, int N, int K,
   return cudaSuccess;
 }
 
+// The card's SM count, read once (1 if it cannot be read).
+inline int sm_count() {
+  static const int sms = [] {
+    int dev = 0, n = 0;
+    if (cudaGetDevice(&dev) != cudaSuccess ||
+        cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess)
+      return 1;
+    return n;
+  }();
+  return sms;
+}
+
 // Blocks of the proj launch over R rows and N columns: ceil(R / 64) row
 // blocks, times a split of the BN-column passes where the row blocks alone
 // would leave SMs idle (Swin-T's last stage has 49 of them for 132 SMs).
 // ln_qkv is not split: each split block would rerun the LN of its rows.
 inline dim3 gemm_grid(int R, int N, int BN) {
-  static int sms = 0;
-  if (sms == 0) {
-    int dev = 0;
-    if (cudaGetDevice(&dev) != cudaSuccess ||
-        cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) !=
-            cudaSuccess)
-      sms = 1;
-  }
+  const int sms = sm_count();
   const int rows = (R + kGemmRows - 1) / kGemmRows, passes = N / BN;
   const int split = min(passes, max(1, (2 * sms + rows - 1) / rows));
   return dim3(rows, split);

@@ -15,12 +15,16 @@ ibert LN on DeiT-S and the ivit LN on Swin-T, fast-div on), of
     ppoly also the first, unshifted block, ``*_unshifted_*``);
   * the standalone ``shift_gelu_requant`` at [50,432, 1536] and
     ``shiftmax`` at [256, 6, 197, 197] (DeiT-S's hidden rows and scores,
-    the synthetic ivit block's scales, fast quotient on);
+    the synthetic ivit block's scales, fast quotient on; ``shiftmax`` also
+    with the rdiv quotient, ``shiftmax_rdiv_ms``, and into 16-bit
+    probabilities, ``shiftmax_16bit_ms``), and ptxas's registers and
+    spill bytes of the standalone kernels (``nonlinear_ptxas``);
 and, for both attention kernels, the device time of each of the three
 launches of their chain (LN + qkv, attention core, proj), summed by kernel
 name over 10 calls under ``torch.profiler`` (``*_split_ms``; "other" is
 the wrapper's weight transposes).  Run it for two checkouts in one call,
-in the order A, B, B, A, to compare them on one card.
+in the order A, B, B, A, to compare them on one card.  ``--only
+nonlinear`` times the standalone kernels alone.
 """
 
 from __future__ import annotations
@@ -64,6 +68,8 @@ def main(argv=None):
     ap.add_argument("--root", default=os.path.dirname(os.path.dirname(
         os.path.abspath(__file__))), help="the checkout whose package to time")
     ap.add_argument("--label", default="", help="a name for the output line")
+    ap.add_argument("--only", choices=("all", "nonlinear"), default="all",
+                    help="time every kernel, or the standalone ones alone")
     args = ap.parse_args(argv)
     root = os.path.abspath(args.root)
     sys.path.insert(0, root)
@@ -116,11 +122,14 @@ def main(argv=None):
                          text=True, check=True).stdout.strip()
     rng = np.random.default_rng(0)
     out = {"label": args.label, "card": torch.cuda.get_device_name(0),
-           "nvidia_smi": smi}
+           "nvidia_smi": smi,
+           "nonlinear_ptxas": _build.ptxas_report(_build.compiler_logs()["nonlinear"])}
     x = torch.as_tensor(np.clip(np.round(rng.normal(0, 32, (256, 197, 384))),
                                 -128, 127).astype(np.int8)).to(dev)
     rows = x.reshape(-1, 384)
     for fam, ((gelu, softmax, ln), _) in FAMILIES.items():
+        if args.only == "nonlinear" and fam != "ivit":
+            continue
         cfg = deit_small_config(depth=1, ln=ln, gelu=gelu, softmax=softmax)
         b = tensors(synthetic_spec(cfg, 0).params["blocks"][0])
         mlp = dict(ln_bias=b["ln2_bias_int"], m_ln=b["m_ln2"], ln_shift=b["ln2_shift"],
@@ -138,9 +147,11 @@ def main(argv=None):
                     num_heads=6, n_valid=197, fast_exp=True, fast_poly=True,
                     ln_base=ln, sm_base=fam,
                     **ppoly_kwargs(b, "softmax"))
-        out[f"mlp_block_{fam}_ms"] = time_ms(lambda: kb.mlp_block(rows, **mlp))
-        out[f"attn_block_{fam}_ms"] = time_ms(lambda: kb.attn_block(x, **attn))
-        out[f"attn_block_{fam}_split_ms"] = split_ms(lambda: kb.attn_block(x, **attn))
+        if args.only == "all":
+            out[f"mlp_block_{fam}_ms"] = time_ms(lambda: kb.mlp_block(rows, **mlp))
+            out[f"attn_block_{fam}_ms"] = time_ms(lambda: kb.attn_block(x, **attn))
+            out[f"attn_block_{fam}_split_ms"] = split_ms(
+                lambda: kb.attn_block(x, **attn))
         if fam == "ivit":
             h = torch.as_tensor(np.clip(np.round(rng.normal(0, 32, (rows.shape[0], 1536))),
                                         -128, 127).astype(np.int8)).to(dev)
@@ -148,9 +159,15 @@ def main(argv=None):
                 h, b["s_gelu"], b["m_gelu"], fast_q=True))
             scores = torch.as_tensor(rng.integers(-127, 128, (256, 6, 197, 197))
                                      .astype(np.int8)).to(dev)
-            out["shiftmax_ms"] = time_ms(lambda: knl.shiftmax(
-                scores, b["s_attn"], 8, fast_q=True))
+            for key, bits, fq in (("shiftmax_ms", 8, True), ("shiftmax_rdiv_ms", 8, False),
+                                  ("shiftmax_16bit_ms", 16, True)):
+                out[key] = time_ms(lambda: knl.shiftmax(scores, b["s_attn"], bits,
+                                                        fast_q=fq))
             del h, scores
+
+    if args.only == "nonlinear":
+        print(json.dumps(out), flush=True)
+        return 0
 
     for fam, (_, (gelu, softmax, ln)) in FAMILIES.items():
         spec = synthetic_swin_spec(swin_tiny_config(ln=ln, gelu=gelu, softmax=softmax),

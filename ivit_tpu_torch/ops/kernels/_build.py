@@ -17,6 +17,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -113,6 +114,27 @@ def compiler_logs() -> dict:
     for name in SOURCES:
         with open(_log_path(name, digest)) as f:
             out[name] = f.read()
+    return out
+
+
+def ptxas_report(log: str) -> list:
+    """Registers and spill bytes of every kernel in one ``-Xptxas -v`` log:
+    ``[{"kernel", "registers", "spill_bytes"}, ...]``."""
+    out, name, spill = [], None, 0
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            name, spill = m.group(1), 0
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m:
+            spill = int(m.group(1)) + int(m.group(2))
+            continue
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name is not None:
+            out.append({"kernel": name[:72], "registers": int(m.group(1)),
+                        "spill_bytes": spill})
+            name = None
     return out
 
 

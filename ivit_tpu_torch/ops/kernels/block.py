@@ -240,13 +240,13 @@ _MAX_SMEM = 232448                     # a block's shared memory on sm_90
 GELU_TABLE_BYTES = 256 * 256           # ShiftGELU's [row max][value] outputs
 
 
-def _check(t, name, dtype, shape):
+def _check(t, name, dtype, shape, align=16):
     if not isinstance(t, torch.Tensor) or t.device.type != "cuda" \
             or t.dtype != dtype or tuple(t.shape) != shape \
-            or not t.is_contiguous() or t.data_ptr() % 16:
+            or not t.is_contiguous() or t.data_ptr() % align:
         raise ValueError(
-            f"{name}: want a contiguous 16-byte-aligned cuda {dtype} tensor "
-            f"of shape {shape}, got {_describe(t)}")
+            f"{name}: want a contiguous {align}-byte-aligned cuda {dtype} "
+            f"tensor of shape {shape}, got {_describe(t)}")
 
 
 def _check_scalar(t, name):

@@ -59,7 +59,9 @@ def shiftmax(scores, s_attn, output_bit=8, *, n_valid=None, fast_q=False):
         raise ValueError(f"shiftmax kernel takes rows of at most 1024 with "
                          f"0 < n_valid <= N and output bits in 2..16; got "
                          f"N={n}, n_valid={n_valid}, bits={output_bit}")
-    _check(scores, "scores", torch.int8, tuple(scores.shape))
+    # any base address: the kernel moves a tensor that is not 16-byte
+    # aligned through its byte path
+    _check(scores, "scores", torch.int8, tuple(scores.shape), align=1)
     _check_scalar(s_attn, "s_attn")
     out = torch.empty(scores.shape, dtype=container(output_bit),
                       device=scores.device)

@@ -9,7 +9,10 @@ where only PyTorch is installed:
 (``--noconftest``: the suite's conftest pins JAX to the CPU.)  Shapes are
 small: B 2, Np 24 of which n_valid 17 real tokens, C 64, 2 heads, MLP 256
 for the block kernels, the shapes of ``tests/test_pallas.py`` for the
-standalone ones; for Swin, a 56 px Swin-T-width spec (C 96 and 192, heads 3
+standalone ones, and Shiftmax at the edges of its row tiles (row counts
+1 to 1,537, N 1 to 1,024, a base off the 16-byte alignment, n_valid 1 and
+N - 1, 2- to 16-bit probabilities, x0 below -2**13, flat rows whose exp
+sum wraps past 2**31); for Swin, a 56 px Swin-T-width spec (C 96 and 192, heads 3
 and 6, windows of 49 tokens, a shifted block) and one at C 384 and 768
 (hidden 3072); and edge shapes of the attention kernels' 16-row query
 tiles, 32-key chunks and 32-channel head chunks at C 128 (head dims 32, 64
@@ -154,23 +157,58 @@ def test_cuda_ivit_block_kernels_match_plain_versions(cuda, mix, hoisted):
         assert torch.equal(got, kb.mlp_block_ref(x2, **kw))
 
 
-@pytest.mark.parametrize("shape,s,bit,n_valid", [
-    ((4, 6, 37, 197), 0.0521371, 8, None), ((130, 50), 0.061, 8, None),
-    ((16, 197), 0.0521371, 16, None), ((4, 6, 37, 197), 0.0045778966, 8, 180),
-    ((3, 700), 0.02, 8, 650),
-    # one column at x0 = -1: probability 2**(bits - 1), saturated
-    ((4, 1), 2.0, 8, None), ((4, 1), 2.0, 16, None)])
-def test_cuda_shiftmax_matches_plain_version(cuda, shape, s, bit, n_valid):
-    scores = torch.from_numpy(np.random.default_rng(0).integers(
-        -127, 128, shape).astype(np.int8)).to(cuda)
+def _at_byte_offset(t, offset):
+    """A contiguous copy of ``t`` whose base lies ``offset`` bytes past a
+    16-byte boundary."""
+    buf = torch.empty(t.numel() + 16, dtype=t.dtype, device=t.device)
+    view = buf[offset:offset + t.numel()].view(t.shape)
+    view.copy_(t)
+    return view
+
+
+@pytest.mark.parametrize("shape,s,bit,n_valid,flat", [
+    *[(*case, False) for case in [
+        ((4, 6, 37, 197), 0.0521371, 8, None), ((130, 50), 0.061, 8, None),
+        ((16, 197), 0.0521371, 16, None), ((4, 6, 37, 197), 0.0045778966, 8, 180),
+        ((3, 700), 0.02, 8, 650),
+        # one column at x0 = -1: probability 2**(bits - 1), saturated
+        ((4, 1), 2.0, 8, None), ((4, 1), 2.0, 16, None),
+        # the tiles' edges: row counts off the 32-row (N <= 224) and 16-row
+        # tiles, widths about the 224-column split and 256, n_valid 1 and
+        # N - 1, bits 2 and 15, x0 = -10,000 and -33,334 (past the int32
+        # exp's -2**13)
+        ((1, 197), 0.0521371, 8, None), ((15, 197), 1e-4, 15, 196),
+        ((17, 16), 0.061, 2, 1), ((1537, 197), 0.0521371, 8, 196),
+        ((1537, 197), 3e-5, 16, None), ((33, 1), 0.061, 15, None),
+        ((17, 224), 0.061, 8, 223), ((17, 225), 1e-4, 16, None),
+        ((17, 256), 3e-5, 8, 255), ((15, 257), 0.061, 16, 1),
+        ((1537, 257), 0.0521371, 2, None), ((17, 1024), 1e-4, 8, 1023),
+        ((1, 1024), 0.061, 16, None)]],
+    # flat rows whose exps sum past 2**31: the high limbs' int32 sum wraps,
+    # as in the reference, and the probabilities come out negative
+    *[(shape, s, bit, None, True) for shape, s in (((3, 700), 3e-5), ((17, 1024), 5e-5))
+      for bit in (8, 16)]])
+def test_cuda_shiftmax_matches_plain_version(cuda, shape, s, bit, n_valid, flat):
+    """Both quotient forms, each from a 16-byte-aligned base (whole tiles
+    by bulk copies) and from one a byte past it (the byte path)."""
+    if flat:
+        scores = torch.full(shape, 5, dtype=torch.int8, device=cuda)
+    else:
+        scores = torch.from_numpy(np.random.default_rng(0).integers(
+            -128, 128, shape).astype(np.int8)).to(cuda)
     s = torch.tensor(s, dtype=torch.float32, device=cuda)
     for fast_q in (False, True):
-        before = knl.shiftmax.launches
-        got = knl.shiftmax(scores, s, bit, n_valid=n_valid, fast_q=fast_q)
-        torch.cuda.synchronize()
-        assert knl.shiftmax.launches == before + 1
-        assert torch.equal(got, knl.shiftmax_ref(scores, s, bit, n_valid=n_valid,
-                                                 fast_q=fast_q))
+        want = knl.shiftmax_ref(scores, s, bit, n_valid=n_valid, fast_q=fast_q)
+        if flat:
+            assert (want < 0).all()
+        for offset in (0, 1):
+            x = _at_byte_offset(scores, offset)
+            assert x.data_ptr() % 16 == offset
+            before = knl.shiftmax.launches
+            got = knl.shiftmax(x, s, bit, n_valid=n_valid, fast_q=fast_q)
+            torch.cuda.synchronize()
+            assert knl.shiftmax.launches == before + 1
+            assert torch.equal(got, want), (fast_q, offset)
 
 
 @pytest.mark.parametrize("shape,s,m_out", [((64, 384), 0.0417093, 0.031727),
