@@ -82,7 +82,17 @@ Phases, each printing one JSON line:
 18. engine_int16: synthetic DeiT-S INT16 ivit and ibert engines (batch
    256), as phase 7; one DeiT-S float-family forward (batch 4) through the
    fused entry, which runs it unfused as JAX does, within
-   ``tests/test_torch_port_float.py``'s bound of the CPU's logits.
+   ``tests/test_torch_port_float.py``'s bound of the CPU's logits;
+19. qat_freeze: the port's QAT sim and its freeze: seeded DeiT-S sims
+   (ivit and ibert at full depth, ppoly at depth 2, INT16 ivit at depth 4),
+   calibrated on the card and on the CPU from the same state and batches
+   (ranges and frozen specs equal leaf for leaf), fitted and frozen; at
+   batch 64 the sim's logits bitwise equal to ``Engine(spec)`` on the block
+   kernels (depth launches each), to the plain engine and, for ivit, to
+   the standalone kernels (INT16 within JAX's bound); live ivit attention,
+   image-dependent logits, one backward pass of the full ivit sim; the
+   sim's img/s, a calibration step's ms, the freeze's host seconds, the
+   engine's img/s on the frozen and the synthetic spec.
 
 The build phase reports ptxas's registers and spill bytes per kernel and
 fails if any kernel spills.
@@ -1389,6 +1399,178 @@ def ppoly_engine_phase(torch, counters, dev, rows, profile=False):
           **out, "equal_plain_cuda": True, "equal_plain_cpu_4img": True})
 
 
+# The qat_freeze phase's configurations: (name, gelu, softmax, ln, bitwidths,
+# depth).  DeiT-S at full depth for the ivit and ibert families; the ppoly
+# family at depth 2, since its GELU fit takes seconds a site on the host;
+# the INT16 bitwidths at depth 4.
+QAT_CONFIGS = [("ivit", "ivit", "ivit", "ivit", "8", 12),
+               ("ibert", "ibert", "ibert", "ibert", "8", 12),
+               ("ppoly", PPOLY, PPOLY, "ibert", "8", 2),
+               ("int16", "ivit", "ivit", "ivit", INT16, 4)]
+QAT_SEED, QAT_CALIB, QAT_CALIB_BATCH, QAT_BATCH = 0, 2, 8, 64
+# A random-init DeiT-S's attention is flat: its calibrated Shiftmax scale
+# is about 0.005 (a JAX freeze of this geometry gives 0.0046-0.0049,
+# ivit_tpu_torch/engine/synthetic.py), where the 8-bit probabilities of a
+# 197-key row all but vanish and the logits barely depend on the image, so
+# a bitwise match would pass through dead attention.  Scaling every
+# block's qkv kernel by 3 after the seeded init multiplies the scores by 9:
+# the calibrated scale lands near the JAX Shiftmax tests'
+# (tests/test_pallas.py) and the synthetic ivit spec's (0.052, 0.061); the
+# phase prints the share of nonzero probabilities.  Every configuration
+# takes the same factor.
+QAT_QKV_GAIN = 3.0
+
+
+def qat_sim(torch, name, device):
+    """The phase's seeded DeiT-S QAT sim of configuration ``name`` on
+    ``device``: the same parameters on either device (drawn on the CPU)."""
+    from ivit_tpu_torch.models import deit_small_patch16_224
+    _, gelu, softmax, ln, bits, depth = next(c for c in QAT_CONFIGS if c[0] == name)
+    sim = deit_small_patch16_224(depth=depth, gelu_type=gelu, softmax_type=softmax,
+                                 layernorm_type=ln, bitwidths=bits, device="cpu",
+                                 seed=QAT_SEED)
+    with torch.no_grad():
+        for blk in sim.blocks:
+            blk.attn.qkv.kernel.mul_(QAT_QKV_GAIN)
+    return sim.to(device)
+
+
+def qat_freeze_phase(torch, counters, dev, rows, smi, profile=False):
+    """Phase 19: the port's QAT sim and its freeze on the card, for each of
+    QAT_CONFIGS: build it from the seed, calibrate it (running_stat) on
+    QAT_CALIB seeded batches of QAT_CALIB_BATCH images, fit the ppoly
+    tables, freeze; the same on the CPU from the same state and batches,
+    whose quant_stats and spec must equal the card's leaf for leaf; at batch
+    QAT_BATCH the sim's logits bitwise equal to Engine(spec) on the block
+    kernels (depth launches each), to the plain engine and, for ivit, to
+    the standalone kernels (INT16 within JAX's bound,
+    tests/test_engine.py:144); the ivit probabilities live and the logits
+    image-dependent; one backward pass of the full ivit sim.  Timings:
+    the sim's img/s, one calibration step, the host freeze, the engine's
+    img/s on the frozen and on the synthetic spec; with ``profile``, the
+    sim's frozen forward under torch.profiler."""
+    import torch.nn.functional as F
+    from ivit_tpu_torch.engine import Engine
+    from ivit_tpu_torch.engine.freeze import freeze_model
+    from ivit_tpu_torch.engine.synthetic import deit_small_config, synthetic_spec
+    from ivit_tpu_torch.models.convert import differing_leaves, variables_to_numpy
+    from ivit_tpu_torch.models.model_utils import freeze_model as fit_tables
+
+    gen = torch.Generator().manual_seed(QAT_SEED + 11)
+    calib = [torch.randn((QAT_CALIB_BATCH, 224, 224, 3), generator=gen)
+             for _ in range(QAT_CALIB)]
+    images = torch.randn((QAT_BATCH, 224, 224, 3), generator=gen).to(dev)
+    out = {}
+    for name, gelu, softmax, ln, bits, depth in QAT_CONFIGS:
+        sim, cpu_sim = qat_sim(torch, name, dev), qat_sim(torch, name, "cpu")
+        calib_ms = []
+        with torch.no_grad():
+            for xb in calib:
+                xd = xb.to(dev)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                sim(xd, running_stat=True)
+                torch.cuda.synchronize()
+                calib_ms.append((time.perf_counter() - t0) * 1e3)
+                cpu_sim(xb, running_stat=True)
+        bad = differing_leaves(variables_to_numpy(sim)["quant_stats"],
+                               variables_to_numpy(cpu_sim)["quant_stats"])
+        if bad:
+            raise AssertionError(f"qat {name}: card calibration != CPU's at {bad[:5]}")
+        t0 = time.perf_counter()
+        spec = freeze_model(fit_tables(sim))
+        freeze_s = time.perf_counter() - t0
+        cpu_spec = freeze_model(fit_tables(cpu_sim))
+        bad = differing_leaves(spec.params, cpu_spec.params)
+        if bad or spec.config != cpu_spec.config:
+            raise AssertionError(f"qat {name}: card spec != CPU spec at {bad[:5]} "
+                                 f"(configs equal: {spec.config == cpu_spec.config})")
+        del cpu_sim
+
+        probs = []
+        hooks = [b.attn.int_softmax.register_forward_hook(
+            lambda mod, args, o: probs.append(float((o[0] != 0).float().mean())))
+            for b in sim.blocks]
+        with torch.no_grad():
+            want = sim(images)
+        for h in hooks:
+            h.remove()
+        live = sum(probs) / len(probs)
+        if softmax == "ivit" and live == 0:
+            raise AssertionError(f"qat {name}: every probability is 0 (dead attention)")
+        if not torch.isfinite(want).all() or not (want.std(dim=0) > 0).any():
+            raise AssertionError(f"qat {name}: sim logits non-finite or image-independent")
+
+        paths = {True: ("attn_block", "mlp_block"), False: ()}
+        if softmax == "ivit":
+            paths["ops"] = ("shiftmax", "shift_gelu_requant")
+        results = {}
+        for path, kernels in paths.items():
+            eng = Engine(spec, kernels=path)
+            logits, launches = run_counted(torch, counters, lambda: eng(images))
+            expect = {k: depth if k in kernels else 0 for k in counters}
+            if launches != expect:
+                raise AssertionError(f"qat {name} kernels={path!r} launched "
+                                     f"{launches}, want {expect}")
+            diff = (logits - want).abs().max().item()
+            if bits == INT16:
+                ok = diff < 1e-5 * want.abs().max().item() + 1e-6
+            else:
+                ok = torch.equal(logits, want)
+            if not ok:
+                raise AssertionError(f"qat {name} Engine(kernels={path!r}) != sim: "
+                                     f"max abs diff {diff}")
+            results[str(path)] = {"launches_per_forward": launches,
+                                  "max_abs_diff_sim": diff}
+            if path is True:
+                results["True"]["img_per_s"] = img_per_s(torch, eng, [images], 4)
+                row = {"ppoly": "[ppoly]", "int16": "[int16]"}.get(name, "")
+                for k in kernels:
+                    rows[k + row][f"launches_qat_{name}"] = launches[k]
+            elif path == "ops":
+                for k in kernels:
+                    rows[k][f"launches_qat_{name}"] = launches[k]
+            del eng
+        synth = Engine(synthetic_spec(deit_small_config(
+            depth=depth, ln=ln, gelu=gelu, softmax=softmax, bitwidths=bits), seed=0))
+        synth_img_s = img_per_s(torch, synth, [images], 4)
+        del synth
+        with torch.no_grad():
+            sim_img_s = img_per_s(torch, sim, [images], 2)
+            if profile:
+                emit(profile_forward(torch, f"qat {name} sim (frozen)", sim, images, n=1))
+
+        entry = {"depth": depth, "bitwidths": bits, "calibration_ms": calib_ms,
+                 "freeze_host_s": freeze_s, "sim_img_per_s": sim_img_s,
+                 "engine_img_per_s_frozen": results["True"]["img_per_s"],
+                 "engine_img_per_s_synthetic": synth_img_s,
+                 "nonzero_prob_share": live, "s_attn_block0": float(
+                     spec.params["blocks"][0]["s_attn"]),
+                 "fast_exp": spec.config.fast_exp, "use_lut": spec.config.use_lut,
+                 "paths": results, "logits_std": want.std().item(),
+                 "equal_cpu_stats_and_spec": True}
+        if name == "ivit":
+            labels = torch.arange(QAT_CALIB_BATCH, device=dev)
+            loss = F.cross_entropy(sim(calib[0].to(dev)), labels)
+            loss.backward()
+            grads = {n: p.grad for n, p in sim.named_parameters() if p.grad is not None}
+            if not all(torch.isfinite(g).all() for g in grads.values()):
+                raise AssertionError("qat ivit backward: non-finite gradients")
+            reach = [sim.patch_embed.proj.kernel] + [b.attn.qkv.kernel for b in sim.blocks]
+            if any(p.grad is None or p.grad.abs().sum() == 0 for p in reach):
+                raise AssertionError("qat ivit backward: no gradient at the patch "
+                                     "projection or a block's qkv")
+            entry["backward"] = {"images": QAT_CALIB_BATCH, "loss": loss.item(),
+                                 "grads_finite": True, "tensors_with_grad": len(grads)}
+        out[name] = entry
+        del sim
+        torch.cuda.empty_cache()
+    emit({"phase": "qat_freeze", "nvidia_smi": smi,
+          "config": "deit_small_patch16_224 QAT sim, 224px, seed 0, qkv kernels x "
+                    f"{QAT_QKV_GAIN}; calibration {QAT_CALIB} x {QAT_CALIB_BATCH} "
+                    f"images, eval batch {QAT_BATCH}", **out})
+
+
 def profile_forward(torch, name, eng, images, n=3):
     """Device time by kernel over ``n`` forwards (torch.profiler, CUDA
     activity), and the device's idle share of the wall time."""
@@ -1464,6 +1646,8 @@ def main(argv=None) -> int:
     ppoly_engine_phase(torch, counters, dev, rows, profile=args.profile)
     int16_engine_phase(torch, counters, dev, rows, profile=args.profile)
     emit({"phase": "engines_done", "seconds": time.perf_counter() - t0})
+    qat_freeze_phase(torch, counters, dev, rows, smi, profile=args.profile)
+    emit({"phase": "qat_freeze_done", "seconds": time.perf_counter() - t0})
     emit({"kernels": list(rows.values())})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

@@ -18,9 +18,12 @@ from .swin_int import SwinEngineConfig, SwinEngineSpec
 
 
 def _flatten(tree, prefix=""):
+    """``a/b/0/c`` keys, each dict's in sorted order: the order JAX's
+    ``save_engine`` writes (its ``jax.device_get`` sorts a pytree's dict
+    keys), so that both packages save the same bytes."""
     out = {}
     if isinstance(tree, dict):
-        for k, v in tree.items():
+        for k, v in sorted(tree.items()):
             out.update(_flatten(v, f"{prefix}{k}/"))
     elif isinstance(tree, list):
         for i, v in enumerate(tree):

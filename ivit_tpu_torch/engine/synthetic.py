@@ -28,16 +28,16 @@ import dataclasses
 import functools
 
 import numpy as np
-import torch
 
 from ..models.swin import attention_mask, relative_position_index
 from ..models.vit import BitWidths
 from ..ops import ibert as _ib
-from ..ops import ivit as _iv
 from ..ops.ppoly import fit_site
+from . import luts
 from .freeze import (GELU_IN_BITS, EngineConfig, EngineSpec, _exp_fast_gate,
-                     _poly_fast_gate, _ppoly_fastdiv_gate, _sym_scale,
-                     requant_const, requant_multiplier)
+                     _gelu_out_scale, _poly_fast_gate, _ppoly_fastdiv_gate,
+                     _quant_w, _sym_scale, requant_const, requant_multiplier,
+                     spec_tree)
 from .swin_int import SwinEngineConfig, SwinEngineSpec
 from .vit_int import _check_families
 
@@ -134,12 +134,12 @@ class _Sites:
         freeze step's ``_linear`` on a normal draw."""
         w = self.rng.normal(0.0, w_std, (fan_in, fan_out)).astype(np.float32)
         w_scale = _sym_scale(8, w.min(axis=0), w.max(axis=0))
-        w_int = np.clip(np.round(w / w_scale[None, :]), -128, 127).astype(np.int8)
+        w_int = _quant_w(w, 8, w_scale[None, :]).astype(np.int8)
         bias_scale = (w_scale.astype(np.float64)
                       * np.float64(s_in)).astype(np.float32)
         out_std = float(np.sqrt(fan_in) * in_std * w_std)
         b = self.rng.normal(0.0, 0.1 * out_std, fan_out).astype(np.float32)
-        b_int = np.clip(np.round(b / bias_scale), -(2**31), 2**31 - 1)
+        b_int = _quant_w(b, 32, bias_scale)
         return w_int, b_int.astype(np.int32), bias_scale, out_std
 
     def layernorm(self, dim, shift=0.0):
@@ -152,25 +152,10 @@ class _Sites:
         return bias_int, base * gamma, np.float32(shift)
 
 
-def _ibert_gelu_out_scale(s_g):
-    """The ibert GELU output scale, f32 step for step as freeze computes it."""
-    sk = np.float32(np.float32(s_g) / np.float32(_ib.GELU_K))
-    sig = np.float32(np.float32(np.float32(sk * sk) * np.float32(_ib.GELU_A))
-                     * np.float32(2.0**_ib.GELU_N))
-    return np.float32(np.float32(np.float32(s_g) * sig) / np.float32(2.0))
-
-
-def _ivit_gelu_out_scale(s_g):
-    """The ShiftGELU output scale, ``s_g / 2**7`` (an exact shift)."""
-    return np.float32(np.float32(s_g) / np.float32(2.0**7))
-
-
 def _ivit_sum_fits_int32(s_attn, n_tok):
     """May the Shiftmax row sum run as one int32 reduction?  The freeze
-    step's ``luts.sum_fits_int32`` on its table's largest entry, the exp of
-    a zero difference."""
-    top, _ = _iv.int_exp_shift(torch.zeros(1), torch.tensor(np.float32(s_attn)), 15)
-    return bool(n_tok * float(top) < 2.0**31)
+    step's gate on the block's exp table."""
+    return luts.sum_fits_int32(luts.shiftmax_exp_lut(s_attn), n_tok)
 
 
 @functools.lru_cache(maxsize=None)
@@ -185,19 +170,6 @@ def _ppoly_site(config, kind, scale, x_lo, x_hi):
     params = tuple(sorted(config.type_params(kind).items()))
     bounds, coeffs = _fitted(kind, float(x_lo), float(x_hi), float(scale), params)
     return bounds.copy(), coeffs.copy()
-
-
-def _gelu_out_scale(config, gelu_base, s_g):
-    """The GELU's output scale by family, f32 as the freeze computes it:
-    ShiftGELU's shift, the ibert composite (also the ppoly GELU's ibert
-    backend), or ``s_g / 2**scale_bits`` (its float backend)."""
-    if gelu_base == "ivit":
-        return _ivit_gelu_out_scale(s_g)
-    params = config.type_params("gelu")
-    if gelu_base == "ppoly" and str(params.get("backend", "ibert")) != "ibert":
-        sb = int(params.get("scale_bits", 22))
-        return np.float32(np.float32(s_g) / np.float32(2.0**sb))
-    return _ibert_gelu_out_scale(s_g)
 
 
 def _ppoly_gelu_leaves(config, blk, s_g, s_gelu_out, gelu_range):
@@ -248,8 +220,7 @@ def synthetic_spec(config: EngineConfig, seed: int = 0) -> EngineSpec:
     pos_std = patch_std / 2
     s_pos = _scale(pos_std, bw.pos_encoding)
     pos = site.rng.normal(0.0, pos_std, (1, n_tok, C)).astype(np.float32)
-    n_pos = 2 ** (bw.pos_encoding - 1) - 1
-    pos_int = np.clip(np.round(pos / s_pos), -n_pos - 1, n_pos)
+    pos_int = _quant_w(pos, bw.pos_encoding, s_pos)
     x_std = float(np.hypot(patch_std, pos_std))
     s_block_in = _scale(x_std, bw.block_input)
     p["pos_addend"] = requant_const(pos_int, s_pos, s_block_in).astype(np.float32)
@@ -314,8 +285,7 @@ def synthetic_spec(config: EngineConfig, seed: int = 0) -> EngineSpec:
         g_std = 0.6 * h_std                    # GELU keeps ~60% of the spread
         s_m2 = _scale(g_std)
         # freeze_model quantizes the float GELU on its input grid
-        s_gelu_out = (np.float32(s_g) if gelu_base == "float"
-                      else _gelu_out_scale(cfg, gelu_base, s_g))
+        s_gelu_out = _gelu_out_scale(cfg, gelu_base, s_g)
         blk["m_gelu"] = requant_multiplier(s_gelu_out, s_m2)
         if gelu_base == "ppoly":
             ppoly_fastdiv &= _ppoly_gelu_leaves(cfg, blk, s_g, s_gelu_out,
@@ -343,7 +313,7 @@ def synthetic_spec(config: EngineConfig, seed: int = 0) -> EngineSpec:
     cfg = dataclasses.replace(cfg, fast_exp=fast_exp, fast_poly=fast_poly,
                               use_lut=False, sm_sum_i32=sm_sum_i32,
                               ppoly_fastdiv=ppoly_fastdiv)
-    return EngineSpec(config=cfg, params=_f32_tree(p))
+    return EngineSpec(config=cfg, params=spec_tree(p))
 
 
 def _families(config):
@@ -351,19 +321,6 @@ def _families(config):
     do not run."""
     _check_families(config)
     return config.base_type("softmax"), config.base_type("gelu")
-
-
-def _f32_tree(tree):
-    """int8/int32 leaves as they are, every other leaf as an f32 array (the
-    freeze step's ``_to_device`` dtype rule)."""
-    if isinstance(tree, dict):
-        return {k: _f32_tree(v) for k, v in tree.items()}
-    if isinstance(tree, list):
-        return [_f32_tree(v) for v in tree]
-    arr = np.asarray(tree, order="C")
-    if arr.dtype in (np.int8, np.int32):
-        return arr
-    return arr.astype(np.float32)
 
 
 # --- Swin ---------------------------------------------------------------------
@@ -495,7 +452,7 @@ def synthetic_swin_spec(config: SwinEngineConfig, seed: int = 0) -> SwinEngineSp
             table = site.rng.normal(0.0, SWIN_REL_GAIN * SCORE_SPREAD * s_attn1,
                                     ((2 * ws - 1) ** 2, heads)).astype(np.float32)
             s_table = _sym_scale(8, table.min(), table.max())
-            table_int = np.clip(np.round(table / s_table), -128, 127)
+            table_int = _quant_w(table, 8, s_table)
             bias_int = table_int[relative_position_index(ws).reshape(-1)]
             bias_int = bias_int.reshape(n, n, heads).transpose(2, 0, 1)
             blk["rel_bias_addend"] = requant_const(bias_int, s_table, s_attn)
@@ -543,7 +500,8 @@ def synthetic_swin_spec(config: SwinEngineConfig, seed: int = 0) -> SwinEngineSp
             g_std = 0.6 * h_std
             s_m2 = _scale(g_std)
             # freeze_swin_model takes the ibert composite for a float GELU too
-            s_gelu_out = _gelu_out_scale(cfg, gelu_base, s_g)
+            s_gelu_out = _gelu_out_scale(
+                cfg, "ibert" if gelu_base == "float" else gelu_base, s_g)
             blk["m_gelu"] = requant_multiplier(s_gelu_out, s_m2)
             if gelu_base == "ppoly":
                 ppoly_fastdiv &= _ppoly_gelu_leaves(
@@ -586,4 +544,4 @@ def synthetic_swin_spec(config: SwinEngineConfig, seed: int = 0) -> SwinEngineSp
     cfg = dataclasses.replace(cfg, layout=tuple(layout), fast_exp=fast_exp,
                               fast_poly=fast_poly, use_lut=False,
                               sm_sum_i32=sm_sum_i32, ppoly_fastdiv=ppoly_fastdiv)
-    return SwinEngineSpec(config=cfg, params=_f32_tree(p))
+    return SwinEngineSpec(config=cfg, params=spec_tree(p))

@@ -1,18 +1,22 @@
 """I-BERT integer nonlinearities on f32-held integers (counterpart of
-``ivit_tpu/ops/ibert.py``, the inference forms the engine calls).
+``ivit_tpu/ops/ibert.py``): the integer cores the engine calls and the
+fake-quant wrappers of the QAT sim.
 
-LayerNorm runs with a frozen shift only (``overflow_handling=False`` in the
-JAX package); the weight/bias fold of the JAX core is zero for the engine's
-``weight=1, bias=0`` call, so the port leaves it out and the engine adds
-the frozen integer bias itself.
+The engine's LayerNorm (:func:`ibert_layernorm_int`) runs with a frozen
+shift and without the weight/bias fold (zero for its ``weight=1, bias=0``
+call; the engine adds the frozen integer bias itself).  The sim's
+(:func:`ibert_layernorm_affine_int`) folds its weight and bias and, while
+calibrating, raises the shift where the variance would pass 2**32 (the
+dynamic overflow shift, ``ibert.py:179``).  The cores carry JAX's
+gradients, as ``ops/ivit.py`` does.
 """
 
 from __future__ import annotations
 
 import torch
 
-from .quant import exact_fma, exact_int_sum, exact_sq_sum, f32, floor_div_int
-from .quant import pow2, rdiv
+from .quant import (clip, exact_fma, exact_int_sum, exact_sq_sum, f32,
+                    floor_div_int, floor_ste, pow2, rdiv, round_ste)
 
 # --- GELU (int_erf) constants, ibert_modules.py:192-195 ---
 GELU_K = 1.4142
@@ -32,8 +36,8 @@ EXP_C = 1.0 / EXP_A
 def int_polynomial(x_int, scaling_factor, fast_poly: bool = False):
     """2nd-order polynomial a(x+b)x + c in integer domain (ibert:275-283)."""
     s = f32(scaling_factor, x_int.device)
-    b_int = torch.floor(rdiv(EXP_B, s))
-    c_int = torch.floor(rdiv(EXP_C, s * s))
+    b_int = torch.floor(rdiv(EXP_B, s)).detach()
+    c_int = torch.floor(rdiv(EXP_C, s * s)).detach()
     if fast_poly:
         z = x_int * (x_int + b_int) + c_int
     else:
@@ -45,27 +49,27 @@ def int_exp(x_int, scaling_factor, n: int = EXP_N, fast_q: bool = False,
             fast_poly: bool = False):
     """I-BERT integer exp via range reduction by -ln2 (ibert:285-295)."""
     s = f32(scaling_factor, x_int.device)
-    x0_int = torch.floor(rdiv(EXP_X0, s))
+    x0_int = torch.floor(rdiv(EXP_X0, s)).detach()
     x_int = torch.maximum(x_int, n * x0_int)
     if fast_q:
         q = floor_div_int(x_int, x0_int)
     else:
-        q = torch.floor(rdiv(x_int, x0_int))
+        q = floor_ste(rdiv(x_int, x0_int))
     r = x_int - x0_int * q
     exp_int, exp_scale = int_polynomial(r, s, fast_poly)
-    exp_int = torch.clamp(torch.floor(exp_int * pow2(n - q)), min=0)
+    exp_int = clip(floor_ste(exp_int * pow2(n - q)), 0)
     return exp_int, exp_scale / 2**n
 
 
 def int_erf(x_int, scaling_factor, fast_poly: bool = False):
     """sign(x) * (a*(clamp(|x|,-b)+b)**2 + c) integer erf (ibert:203-218)."""
     s = f32(scaling_factor, x_int.device)
-    b_int = torch.floor(rdiv(GELU_B, s))
-    c_int = torch.floor(rdiv(GELU_C, s * s))
-    sign = torch.sign(x_int)
+    b_int = torch.floor(rdiv(GELU_B, s)).detach()
+    c_int = torch.floor(rdiv(GELU_C, s * s)).detach()
+    sign = torch.sign(x_int).detach()
     t = torch.minimum(torch.abs(x_int), -b_int) + b_int
     y_int = sign * (t * t + c_int) if fast_poly else sign * exact_fma(t, t, c_int)
-    y_int = torch.floor(y_int / 2**GELU_N)
+    y_int = floor_ste(y_int / 2**GELU_N)
     return y_int, s * s * f32(GELU_A, s.device) * 2**GELU_N
 
 
@@ -74,10 +78,10 @@ def ibert_gelu_int(x_int, scaling_factor, fast_poly: bool = False):
 
     Returns ``(y_int, out_scale)``; ``y_int = x_int * (erf_int + shift)``.
     """
-    x_int = torch.round(x_int)
+    x_int = round_ste(x_int)
     s = f32(scaling_factor, x_int.device)
     sigmoid_int, sigmoid_scale = int_erf(x_int, rdiv(s, GELU_K), fast_poly)
-    shift_int = torch.floor(rdiv(1.0, sigmoid_scale))
+    shift_int = torch.floor(rdiv(1.0, sigmoid_scale)).detach()
     y_int = x_int * (sigmoid_int + shift_int)
     return y_int, s * sigmoid_scale / 2
 
@@ -88,7 +92,7 @@ def ibert_softmax_exp_int(x_int, scaling_factor, n_valid=None,
 
     ``n_valid``: padded columns are excluded from the max and produce
     exactly zero exp."""
-    x_int = torch.round(x_int)
+    x_int = round_ste(x_int)
     mask = None
     if n_valid is not None and n_valid != x_int.shape[-1]:
         col = torch.arange(x_int.shape[-1], device=x_int.device)
@@ -105,27 +109,100 @@ def ibert_softmax_exp_int(x_int, scaling_factor, n_valid=None,
 def int_bitlength_sqrt(n, iters: int = 4):
     """Vectorized integer sqrt, bit-length seed + Newton (ibert:85-109)."""
     mask = n > 0
-    n = torch.clamp(n, min=0)
-    bits = torch.floor(torch.log2(torch.clamp(n, min=1))) + 1
+    n = clip(n, 0)
+    bits = torch.floor(torch.log2(clip(n, 1))) + 1
     x = pow2(torch.ceil(bits / 2))
     for _ in range(iters):
-        inv = torch.floor(rdiv(n, torch.clamp(x, min=1)))
-        x = torch.floor((x + inv) / 2)
+        inv = floor_ste(rdiv(n, clip(x, 1)))
+        x = floor_ste((x + inv) / 2)
     return torch.where(mask, x, torch.zeros_like(x))
+
+
+def _ibert_ln(x_int, shift, use_int_sqrt, overflow_handling):
+    """The I-BERT LayerNorm core without its bias (ibert:112-158): returns
+    ``(floor(y * floor(2**31 / std) / 2), shift)``, ``y = x - mean``.  With
+    ``overflow_handling`` the shift is first raised, where the variance at
+    the given shift reaches 2**32, to the least shift that brings every
+    row's below it (the branchless ``set_shift`` of ``ibert.py:208-217``,
+    the max over the whole batch)."""
+    dim = x_int.shape[-1]
+    x_int = round_ste(x_int)
+    mean_int = round_ste(rdiv(exact_int_sum(x_int), f32(dim, x_int.device)))
+    y_int = x_int - mean_int
+    shift = f32(shift, x_int.device)
+
+    def var(s):
+        return exact_sq_sum(floor_ste(y_int / pow2(s)))
+
+    if overflow_handling:
+        with torch.no_grad():
+            raw_var = exact_sq_sum(y_int)
+            needed = torch.amax(torch.ceil(torch.log2(torch.sqrt(raw_var / 2.0**32))))
+            overflow = torch.amax(var(shift)) >= 2.0**32
+            shift = torch.where(overflow, torch.maximum(shift, needed), shift)
+    var_int = var(shift)
+    pw = pow2(shift)
+    if use_int_sqrt:
+        std = floor_ste(int_bitlength_sqrt(var_int)) * pw
+    else:
+        std = floor_ste(torch.sqrt(var_int)) * pw
+    factor = floor_ste(rdiv(2.0**31, std))
+    return floor_ste(y_int * factor / 2), shift
 
 
 def ibert_layernorm_int(x_int, shift, use_int_sqrt: bool = False):
     """I-BERT LayerNorm core on integer tensors with a frozen ``shift``
-    (ibert:112-158, ``overflow_handling=False``).  Returns ``y_int``."""
-    dim = x_int.shape[-1]
-    x_int = torch.round(x_int)
-    mean_int = torch.round(rdiv(exact_int_sum(x_int), f32(dim, x_int.device)))
-    y_int = x_int - mean_int
-    pw = pow2(f32(shift, x_int.device))
-    var_int = exact_sq_sum(torch.floor(y_int / pw))
-    if use_int_sqrt:
-        std = torch.floor(int_bitlength_sqrt(var_int)) * pw
-    else:
-        std = torch.floor(torch.sqrt(var_int)) * pw
-    factor = torch.floor(rdiv(2.0**31, std))
-    return torch.floor(y_int * factor / 2)
+    (ibert:112-158, ``overflow_handling=False``), the engine's form: no
+    weight or bias.  Returns ``y_int``."""
+    return _ibert_ln(x_int, shift, use_int_sqrt, False)[0]
+
+
+def ibert_layernorm_affine_int(x_int, weight, bias, shift,
+                               overflow_handling: bool = True,
+                               use_int_sqrt: bool = False):
+    """The sim's I-BERT LayerNorm core (``ibert.py:179``): the bias folded
+    through the per-channel weight, ``out_scale = sqrt(C) / 2**30 *
+    weight``, and the dynamic overflow shift while ``overflow_handling``.
+    Returns ``(y_int, out_scale, new_shift)``."""
+    dev = x_int.device
+    y_int, new_shift = _ibert_ln(x_int, shift, use_int_sqrt, overflow_handling)
+    out_scale = torch.sqrt(f32(x_int.shape[-1], dev)) / 2.0**30
+    w, b = f32(weight, dev), f32(bias, dev)
+    bias_int = torch.floor(rdiv(rdiv(b.detach(), w.detach()), out_scale))
+    return y_int + bias_int, out_scale * w, new_shift
+
+
+# ---------------------------------------------------------------------------
+# Fake-quant wrappers (the QAT sim)
+# ---------------------------------------------------------------------------
+
+def ibert_gelu(x, scaling_factor):
+    """I-BERT GELU on fake-quant floats (``ibert.py:120``)."""
+    y_int, out_scale = ibert_gelu_int(rdiv(x, scaling_factor), scaling_factor)
+    return y_int * out_scale, out_scale
+
+
+def ibert_softmax_exp(x, scaling_factor):
+    """First half of I-BERT softmax on fake-quant floats (``ibert.py:147``):
+    ``(exp_int, exp_scale)``, for the caller's 16-bit requant."""
+    return ibert_softmax_exp_int(rdiv(x, scaling_factor), scaling_factor)
+
+
+def ibert_softmax_normalize(exp_int, output_bit: int):
+    """Second half of I-BERT softmax (``ibert.py:156``): the 2**32
+    reciprocal of the exact row sum; returns ``(probs, out_scale)``."""
+    factor = floor_ste(rdiv(2.0**32, exact_int_sum(exp_int)))
+    out_int = floor_ste(exp_int * factor / 2 ** (32 - output_bit + 1))
+    out_scale = f32([2.0 / 2**output_bit], exp_int.device)
+    return out_int * out_scale, out_scale
+
+
+def ibert_layernorm(x, scaling_factor, weight, bias, shift,
+                    overflow_handling: bool = True, use_int_sqrt: bool = False):
+    """I-BERT LayerNorm on fake-quant floats (``ibert.py:233``; a plain
+    divide, as JAX has it): returns ``(x_out, out_scale, new_shift,
+    y_int)``."""
+    y_int, out_scale, new_shift = ibert_layernorm_affine_int(
+        x / scaling_factor, weight, bias, shift,
+        overflow_handling=overflow_handling, use_int_sqrt=use_int_sqrt)
+    return y_int * out_scale, out_scale, new_shift, y_int

@@ -1,14 +1,16 @@
-"""Exact f32 integer arithmetic (counterpart of ``ivit_tpu/ops/quant.py``,
-inference forms only).
+"""Exact f32 integer arithmetic and the QAT sim's quantizers (counterpart of
+``ivit_tpu/ops/quant.py``).
 
 Every function here reproduces the JAX construction operation for
-operation, so that the plain PyTorch engine and the CUDA kernels
-(``csrc/exact.cuh``) give the reference's bits:
+operation, so that the QAT sim, the plain PyTorch engine and the CUDA
+kernels (``csrc/exact.cuh``) give the reference's bits:
 
 * ``rdiv`` and ``exact_fma`` keep the Dekker residual / two-product built
-  from 12-bit bitmask splits.  PyTorch runs each elementwise op as its own
-  kernel, so no multiply is contracted into a following add; the JAX forms
-  are built so that contraction is value-neutral anyway.
+  from 12-bit bitmask splits.  PyTorch eager runs each elementwise op as
+  its own kernel, so no multiply is contracted into a following add: JAX's
+  ``_pin`` and ``mul_add_2r`` exist only against XLA's contraction, and the
+  port writes the two-rounding form as two ops.  The sim must therefore
+  never go through ``torch.compile``, whose fused kernels may contract.
 * The two-limb sums keep their int32 limbs and their fixed f32
   recombination: they round twice above 2**24, and an int64 sum cast once
   to f32 would give other bits there.
@@ -17,8 +19,14 @@ operation, so that the plain PyTorch engine and the CUDA kernels
   reciprocal, which is not the correctly rounded quotient.
 
 JAX's ``pack_rows`` is a relayout for the TPU's lanes; the port applies the
-per-row function directly.  The straight-through estimators and VJPs come
-with the QAT sim.
+per-row function directly.
+
+The straight-through estimators (``floor_ste``, ``round_ste``), ``pow2``'s
+gradient, the sums' backward rules and the three requant VJPs are
+``torch.autograd.Function``s with JAX's rules.  Each dispatches to the
+plain op when no gradient is being recorded, so the engine pays nothing
+for them.  ``clip`` is ``jnp.clip``'s maximum-then-minimum, whose gradient
+splits 1/2 at a bound (``torch.clamp`` passes all of it).
 """
 
 from __future__ import annotations
@@ -80,11 +88,38 @@ def exp_fastdiv_ok(x0, n: int) -> bool:
     return -x0 <= 2.0 ** (23 - int(math.floor(math.log2(n))))
 
 
-def pow2(k):
-    """Exact 2**k for integer-valued f32 ``k`` in [-126, 127] (a bit
-    construction, not ``exp2``)."""
+LN2 = 0.6931471805599453
+
+
+def _grad_on(*xs) -> bool:
+    """Is autograd recording a graph through any of ``xs``?"""
+    return torch.is_grad_enabled() and any(
+        isinstance(x, torch.Tensor) and x.requires_grad for x in xs)
+
+
+def _pow2_value(k):
     ki = torch.clamp(k, -126, 127).to(torch.int32)
     return ((ki + 127) << 23).view(torch.float32)
+
+
+class _Pow2(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, k):
+        y = _pow2_value(k)
+        ctx.save_for_backward(y)
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        (y,) = ctx.saved_tensors
+        return (LN2 * y) * g
+
+
+def pow2(k):
+    """Exact 2**k for integer-valued f32 ``k`` in [-126, 127] (a bit
+    construction, not ``exp2``); gradient ``ln2 * 2**k``, as torch's
+    ``2**k`` and JAX's ``pow2`` jvp."""
+    return _Pow2.apply(k) if _grad_on(k) else _pow2_value(k)
 
 
 def _two_sum(x, y):
@@ -112,17 +147,216 @@ def _limb_sum(v):
     return v.to(torch.int32).sum(dim=-1, keepdim=True).to(torch.int32).float()
 
 
-def exact_int_sum(x):
-    """Two-limb last-axis sum of integer-valued f32 (keepdims)."""
+def _exact_int_sum(x):
     x = torch.clamp(x, -(2.0**31), 2.0**31)
     h = torch.floor(x * (2.0**-8))
     l = x - h * (2.0**8)
     return _limb_sum(h) * 2.0**8 + _limb_sum(l)
 
 
-def exact_sq_sum(y):
-    """Two-limb last-axis sum of squares of integer-valued f32 (keepdims)."""
+def _exact_sq_sum(y):
     a = torch.floor(y * (2.0**-8))
     b = y - a * (2.0**8)
     return (_limb_sum(a * a) * 2.0**16
             + (_limb_sum(a * b) * 2.0**9 + _limb_sum(b * b)))
+
+
+class _ExactIntSum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x):
+        ctx.shape = x.shape
+        return _exact_int_sum(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.expand(ctx.shape)
+
+
+class _ExactSqSum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, y):
+        ctx.save_for_backward(y)
+        return _exact_sq_sum(y)
+
+    @staticmethod
+    def backward(ctx, g):
+        (y,) = ctx.saved_tensors
+        return (2.0 * y) * g
+
+
+def exact_int_sum(x):
+    """Two-limb last-axis sum of integer-valued f32 (keepdims); gradient
+    that of ``sum`` (``quant.py:473``)."""
+    return _ExactIntSum.apply(x) if _grad_on(x) else _exact_int_sum(x)
+
+
+def exact_sq_sum(y):
+    """Two-limb last-axis sum of squares of integer-valued f32 (keepdims);
+    gradient ``2 y g`` (``quant.py:512``)."""
+    return _ExactSqSum.apply(y) if _grad_on(y) else _exact_sq_sum(y)
+
+
+# ---------------------------------------------------------------------------
+# Straight-through estimators and clipping (the QAT sim's gradients)
+# ---------------------------------------------------------------------------
+
+class _FloorSTE(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x):
+        return torch.floor(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g
+
+
+class _RoundSTE(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x):
+        return torch.round(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g
+
+
+def floor_ste(x):
+    """floor with identity gradient (``quant.py:305``)."""
+    return _FloorSTE.apply(x) if _grad_on(x) else torch.floor(x)
+
+
+def round_ste(x):
+    """round-half-to-even with identity gradient (``quant.py:346``)."""
+    return _RoundSTE.apply(x) if _grad_on(x) else torch.round(x)
+
+
+def clip(x, lo=None, hi=None):
+    """``jnp.clip``: ``minimum(maximum(x, lo), hi)``.  The values of
+    ``torch.clamp``, and, where a gradient is recorded, JAX's gradient,
+    which splits 1/2 where ``x`` sits on a bound (``torch.clamp`` passes
+    all of it)."""
+    if not _grad_on(x):
+        return torch.clamp(x, lo, hi)
+    if lo is not None:
+        x = torch.maximum(x, f32(lo, x.device))
+    if hi is not None:
+        x = torch.minimum(x, f32(hi, x.device))
+    return x
+
+
+# ---------------------------------------------------------------------------
+# Scales, fake quantization and the dyadic requant (QAT sim)
+# ---------------------------------------------------------------------------
+
+F32_EPS = float(torch.finfo(torch.float32).eps)
+
+
+def ema_update(old, new, m: float):
+    """``fl(old*m + fl(new*(1-m)))`` from two :func:`exact_fma` calls, the
+    activation-range EMA (``quant.py:86``)."""
+    return exact_fma(old, m, exact_fma(new, 1.0 - m, 0.0))
+
+
+def symmetric_quant_params(num_bits: int, x_min, x_max):
+    """Symmetric scale ``max(-min, max) / (2**(b-1) - 1)`` by ``rdiv``,
+    clamped at f32 eps; no gradient (``quant.py:366``)."""
+    n = 2 ** (num_bits - 1) - 1
+    mag = torch.maximum(-x_min, x_max)
+    return torch.clamp(rdiv(mag, float(n)), min=F32_EPS).detach()
+
+
+def quantize_int(x, num_bits: int, scale):
+    """``clip(round(x / scale), -2**(b-1), 2**(b-1) - 1)`` with gradient
+    ``g / scale`` through ``rdiv`` (``quant.py:386``); integer-valued f32.
+    ``scale`` must broadcast against ``x``."""
+    n = 2 ** (num_bits - 1) - 1
+    x_int = round_ste(rdiv(x, scale.detach()))
+    return clip(x_int, -n - 1, n)
+
+
+def fake_quantize(x, num_bits: int, scale):
+    """``quantize_int(x) * scale``; overall straight-through gradient."""
+    scale = scale.detach()
+    return quantize_int(x, num_bits, scale) * scale
+
+
+def _requant_value(num_bits, x, pre_scale, out_scale, identity=None,
+                   identity_scale=None, z_int=None):
+    """``round(z * M)`` with ``M = fl32(pre_scale / out_scale)`` (and the
+    identity branch's own term), clipped, times ``out_scale``
+    (``quant.py:533``; ``z_int`` given: the LN edges' exact integer,
+    ``quant.py:599``)."""
+    n = 2 ** (num_bits - 1) - 1
+    z = torch.round(rdiv(x, pre_scale)) if z_int is None else z_int
+    out = torch.round(z * rdiv(pre_scale, out_scale))
+    if identity is not None:
+        zi = torch.round(rdiv(identity, identity_scale))
+        out = out + torch.round(zi * rdiv(identity_scale, out_scale))
+    if num_bits in (4, 8, 16, 32):
+        out = torch.clamp(out, -n - 1, n)
+    return out * out_scale
+
+
+class _Requant(torch.autograd.Function):
+    """Gradient identity to ``x``, none to the scales (``quant.py:560``)."""
+
+    @staticmethod
+    def forward(ctx, num_bits, x, pre_scale, out_scale):
+        return _requant_value(num_bits, x, pre_scale, out_scale)
+
+    @staticmethod
+    def backward(ctx, g):
+        return None, g, None, None
+
+
+class _RequantId(torch.autograd.Function):
+    """Gradient identity to ``x`` and ``identity`` (``quant.py:578``)."""
+
+    @staticmethod
+    def forward(ctx, num_bits, x, pre_scale, out_scale, identity, identity_scale):
+        return _requant_value(num_bits, x, pre_scale, out_scale, identity,
+                              identity_scale)
+
+    @staticmethod
+    def backward(ctx, g):
+        return None, g, None, None, g, None
+
+
+class _RequantExact(torch.autograd.Function):
+    """Requant from the producer's exact integer; gradient identity to
+    ``x``, none to the integer (``quant.py:599``)."""
+
+    @staticmethod
+    def forward(ctx, num_bits, x, z_int, pre_scale, out_scale):
+        return _requant_value(num_bits, x, pre_scale, out_scale, z_int=z_int)
+
+    @staticmethod
+    def backward(ctx, g):
+        return None, g, None, None, None
+
+
+def fixedpoint_requant(x, pre_scale, num_bits: int, out_scale, identity=None,
+                       identity_scale=None, exact_int=None):
+    """Fake-quant dyadic requantization with the optional fused residual
+    add (``quant.py:638``): ``clip(round(round(x / pre) * M) [+ the same of
+    the identity]) * out``.  Straight-through gradient to ``x`` and
+    ``identity``, none to the scales."""
+    pre_scale, out_scale = pre_scale.detach(), out_scale.detach()
+    if exact_int is not None:
+        if identity is not None:
+            raise ValueError("exact_int requant has no identity branch "
+                             "(LN edges carry no residual)")
+        exact_int = exact_int.detach()
+        if _grad_on(x):
+            return _RequantExact.apply(num_bits, x, exact_int, pre_scale, out_scale)
+        return _requant_value(num_bits, x, pre_scale, out_scale, z_int=exact_int)
+    if identity is None:
+        if _grad_on(x):
+            return _Requant.apply(num_bits, x, pre_scale, out_scale)
+        return _requant_value(num_bits, x, pre_scale, out_scale)
+    identity_scale = identity_scale.detach()
+    if _grad_on(x, identity):
+        return _RequantId.apply(num_bits, x, pre_scale, out_scale, identity,
+                                identity_scale)
+    return _requant_value(num_bits, x, pre_scale, out_scale, identity,
+                          identity_scale)

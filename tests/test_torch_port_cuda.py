@@ -32,8 +32,9 @@ and 128), ``mlp_block`` from int16 rows to int8 at every MLP width, the
 attention core's edges (a one-hot row, v at -128 and 127, flat rows, hot
 padding keys) at 8 and 16 bits, the INT16 engines; a float-family engine
 runs no kernel, as JAX routes it.  The DeiT-S and Swin-T shapes are held
-by ``chip_smoke.py``.  Exact equality, but for the float family's logits
-against the CPU's (``tests/test_torch_port_float.py``'s bound).
+by ``chip_smoke.py``.  The QAT sim calibrates and freezes on the card as on
+the CPU and its logits equal the kernel engine's.  Exact equality, but for
+the float family's logits against the CPU's (``tests/test_torch_port_float.py``'s bound).
 """
 
 import dataclasses
@@ -785,3 +786,48 @@ def test_cuda_wrappers_refuse_what_no_kernel_runs(cuda):
         kb.mlp_block(x2, use_int_sqrt=True, **kw)
     with pytest.raises(NotImplementedError, match="no fused block kernel"):
         kb.mlp_block(x2, **(kw | dict(gelu_base="float")))
+
+
+# --- the QAT sim and its freeze on the card ------------------------------------
+
+QAT_MIXES = [("ivit", "ivit", "ivit", "8"), ("ibert", "ibert", "ibert", "8"),
+             ("ivit", "ivit", "ivit", "8,8,8,8,16,8,16,8")]
+
+
+def _qat_sim(dev, gelu, softmax, ln, bits):
+    from ivit_tpu_torch.models import VisionTransformer
+    return VisionTransformer(img_size=64, patch_size=16, embed_dim=C, depth=2,
+                             num_heads=HEADS, num_classes=10, gelu_type=gelu,
+                             softmax_type=softmax, layernorm_type=ln,
+                             bitwidths=bits, device=dev, seed=0)
+
+
+@pytest.mark.parametrize("mix", QAT_MIXES, ids=["/".join(m[:3]) + "@" + m[3] for m in QAT_MIXES])
+def test_cuda_qat_sim_calibrates_and_freezes_as_cpu(cuda, mix):
+    """At 64 px: the sim calibrated on the card gives the CPU's ranges, its
+    freeze the CPU's spec, its frozen forward the CPU's logits, and
+    ``Engine(spec)`` on the block kernels the sim's logits (the INT16
+    configuration within JAX's bound, tests/test_engine.py:144)."""
+    from ivit_tpu_torch.engine.freeze import freeze_model
+    from ivit_tpu_torch.models.convert import differing_leaves, variables_to_numpy
+    gen = torch.Generator().manual_seed(0)
+    xs = [torch.randn((4, 64, 64, 3), generator=gen) for _ in range(3)]
+    card, cpu = _qat_sim(cuda, *mix), _qat_sim("cpu", *mix)
+    with torch.no_grad():
+        for x in xs[:2]:
+            assert torch.equal(card(x.to(cuda), running_stat=True).cpu(),
+                               cpu(x, running_stat=True))
+        assert differing_leaves(variables_to_numpy(card), variables_to_numpy(cpu)) == []
+        spec, cpu_spec = freeze_model(card), freeze_model(cpu)
+        assert differing_leaves(spec.params, cpu_spec.params) == []
+        assert spec.config == cpu_spec.config
+        sim = card(xs[2].to(cuda))
+        assert torch.equal(sim.cpu(), cpu(xs[2]))
+    kb.mlp_block.launches = kb.attn_block.launches = 0
+    got = Engine(spec)(xs[2].to(cuda))
+    torch.cuda.synchronize()
+    assert (kb.mlp_block.launches, kb.attn_block.launches) == (2, 2)
+    if mix[3] == "8":
+        assert torch.equal(got, sim)
+    else:
+        assert (got - sim).abs().max() < 1e-5 * sim.abs().max() + 1e-6

@@ -283,3 +283,46 @@ def test_ppoly_synthetic_spec_has_the_freeze_tree(frozen):
     for k in ("bitwidths", "use_lut"):      # BitWidths types differ; no LUTs
         jc.pop(k), sc.pop(k)
     assert sc == jc
+
+
+# --- (f) the port's fit and freeze of the same model ---------------------------
+
+def test_port_fit_and_freeze_match_jax(frozen):
+    """The port's ``fit_ppoly_tables`` over the calibrated ranges gives JAX's
+    tables; its ``freeze_model`` gives the JAX freeze leaf for leaf (the
+    fast-div constants and the LUTs included); and the port's sim, frozen,
+    gives its engine's logits on every path, bitwise."""
+    from ivit_tpu_torch.engine import Engine
+    from ivit_tpu_torch.engine.freeze import freeze_model as port_freeze
+    from ivit_tpu_torch.models import VisionTransformer as PortViT
+    from ivit_tpu_torch.models.convert import variables_to_numpy, variables_to_torch
+    from ivit_tpu_torch.models.model_utils import freeze_model as fix, unfreeze_model
+    model, variables, jspec = frozen
+    want = jax.device_get(variables)
+    sim = PortViT(img_size=64, patch_size=16, embed_dim=64, depth=1, num_heads=2,
+                  num_classes=10, gelu_type=PPOLY, softmax_type=PPOLY,
+                  layernorm_type="ibert", device="cpu")
+    unfreeze_model(variables_to_torch(sim, want))
+    assert float(sim.blocks[0].mlp.act.fitted[0]) == 0
+    with pytest.raises(ValueError, match="not fitted"):
+        port_freeze(sim)
+    got = variables_to_numpy(fix(sim))["quant_stats"]["blocks_0"]
+    for path in (("attn", "int_softmax"), ("mlp", "act")):
+        g, w = got[path[0]][path[1]], want["quant_stats"]["blocks_0"][path[0]][path[1]]
+        for k in w:
+            _eq(g[k], w[k])
+            assert g[k].dtype == np.asarray(w[k]).dtype, k
+    spec = port_freeze(sim)
+    jc, sc = dataclasses.asdict(jspec.config), dataclasses.asdict(spec.config)
+    assert jc.pop("bitwidths") == sc.pop("bitwidths")
+    assert sc == jc
+    jblk0 = jax.device_get(jspec.params)["blocks"][0]
+    assert set(spec.params["blocks"][0]) == set(jblk0)
+    for k, w in jblk0.items():
+        _eq(spec.params["blocks"][0][k], w)
+        assert spec.params["blocks"][0][k].dtype == np.asarray(w).dtype, k
+    x = torch.from_numpy(_images(2, 64, seed=5))
+    with torch.no_grad():
+        want_logits = sim(x)
+    for path in (False, True, "ops"):
+        assert torch.equal(Engine(spec, device="cpu", kernels=path)(x), want_logits)
