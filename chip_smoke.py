@@ -92,7 +92,27 @@ Phases, each printing one JSON line:
    the standalone kernels (INT16 within JAX's bound); live ivit attention,
    image-dependent logits, one backward pass of the full ivit sim; the
    sim's img/s, a calibration step's ms, the freeze's host seconds, the
-   engine's img/s on the frozen and the synthetic spec.
+   engine's img/s on the frozen and the synthetic spec;
+20. qat_freeze_swin: the same for seeded Swin-T sims (224 px, depths (2,
+   2, 6, 2)), ivit and ibert at full depth, ppoly (``ppoly_backend_ibert``
+   GELU and softmax, ivit LN) at depths (2, 2, 2, 2), its GELU fits taking
+   seconds a site on the host: card calibration == CPU's
+   (ppoly's within 5%: before its fit its softmax runs the golden float
+   exp, whose last ulp differs between devices), spec == CPU's, and at batch 64 the sim's logits bitwise equal to ``Engine(spec)``
+   on ``swin_attn_block`` + ``mlp_block`` launches, one each a block (12 +
+   12 at full depth), and to the plain
+   engine; live attention, image-dependent logits, one backward of the full
+   ivit sim; sim img/s, a calibration step, the host fit and freeze, engine
+   img/s on the frozen beside the synthetic spec;
+21. serving: ``ServingEngine`` (batch 64, max_wait_ms 5, inflight 2) over
+   the synthetic DeiT-S ibert spec, 2,048 seeded requests from 4 client
+   threads (each with at most 64 outstanding): every answer bitwise equal
+   to ``Engine(spec)``'s, 12 + 12 launches a served batch, served img/s
+   beside ``Engine`` alone at batch 64, p50 / p95 / p99 latency; the frozen
+   Swin-T ivit spec of phase 20 served (256 requests, bitwise); a burst of
+   1,024 past ``max_queue`` 128 (rejections counted, every admitted answer
+   bitwise) and one past ``deadline_ms`` 20 (sheds counted); under
+   ``--profile`` the card's idle share while it serves.
 
 The build phase reports ptxas's registers and spill bytes per kernel and
 fails if any kernel spills.
@@ -1571,6 +1591,366 @@ def qat_freeze_phase(torch, counters, dev, rows, smi, profile=False):
                     f"images, eval batch {QAT_BATCH}", **out})
 
 
+# The qat_freeze_swin phase's configurations: (name, gelu, softmax, ln,
+# depths), each a seeded Swin-T sim (swin_tiny_patch4_window7_224, 224 px):
+# ivit and ibert at full depth, ppoly at depths (2, 2, 2, 2), since its GELU
+# fits take some 5 s a site on the host (57 s for the 12 of full depth on
+# the H100 machine).  A random-init Swin-T's attention is live (rows of 49
+# keys: a nonzero ivit probability share of 0.57-1.0 a block), so no qkv
+# gain is taken.
+SWIN_QAT_CONFIGS = [("ivit", "ivit", "ivit", "ivit", (2, 2, 6, 2)),
+                    ("ibert", "ibert", "ibert", "ibert", (2, 2, 6, 2)),
+                    ("ppoly", PPOLY, PPOLY, "ivit", (2, 2, 2, 2))]
+SWIN_QAT_CALIB, SWIN_QAT_CALIB_BATCH, SWIN_QAT_BATCH = 2, 8, SWIN_BATCH
+
+
+def qat_freeze_swin_phase(torch, counters, dev, rows, smi, profile=False):
+    """Phase 20: the port's Swin QAT sim and its freeze on the card, for each
+    of SWIN_QAT_CONFIGS: build Swin-T from the seed, calibrate it on
+    SWIN_QAT_CALIB seeded batches of SWIN_QAT_CALIB_BATCH images, on the
+    card and on the CPU from the same state (ranges equal leaf for leaf;
+    ppoly's within FLOAT_LOGIT_TOL, since its softmax calibrates through
+    the golden float exp before its fit),
+    fit the ppoly tables (on the card's sim; the CPU sim takes them: the fit
+    runs on the host from the ranges just shown equal), freeze both (specs
+    equal leaf for leaf); at batch SWIN_QAT_BATCH the sim's logits bitwise
+    equal to Engine(spec) on the block kernels (one swin_attn_block and
+    one mlp_block launch a block) and to the plain engine; live ivit attention,
+    image-dependent logits, one backward pass of the full ivit sim.
+    Timings: the sim's img/s, a calibration step, the host fit and freeze,
+    the engine's img/s on the frozen and on the synthetic spec.  Returns
+    the frozen ivit spec (phase 21 serves it)."""
+    import torch.nn.functional as F
+    from ivit_tpu_torch.engine import Engine
+    from ivit_tpu_torch.engine.swin_int import freeze_swin_model
+    from ivit_tpu_torch.engine.synthetic import swin_tiny_config, synthetic_swin_spec
+    from ivit_tpu_torch.models import swin_tiny_patch4_window7_224
+    from ivit_tpu_torch.models.convert import (differing_leaves, variables_to_numpy,
+                                               variables_to_torch)
+    from ivit_tpu_torch.models.model_utils import freeze_model as fit_tables
+
+    gen = torch.Generator().manual_seed(QAT_SEED + 20)
+    calib = [torch.randn((SWIN_QAT_CALIB_BATCH, 224, 224, 3), generator=gen)
+             for _ in range(SWIN_QAT_CALIB)]
+    images = torch.randn((SWIN_QAT_BATCH, 224, 224, 3), generator=gen).to(dev)
+    out, frozen = {}, {}
+    for name, gelu, softmax, ln, depths in SWIN_QAT_CONFIGS:
+        sims = [swin_tiny_patch4_window7_224(gelu_type=gelu, softmax_type=softmax,
+                                             layernorm_type=ln, depths=depths,
+                                             device="cpu", seed=QAT_SEED)
+                for _ in range(2)]
+        sim, cpu_sim = sims[0].to(dev), sims[1]
+        depth = sum(sim.depths)
+        calib_ms = []
+        with torch.no_grad():
+            for xb in calib:
+                xd = xb.to(dev)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                sim(xd, running_stat=True)
+                torch.cuda.synchronize()
+                calib_ms.append((time.perf_counter() - t0) * 1e3)
+                cpu_sim(xb, running_stat=True)
+        card_qs = variables_to_numpy(sim)["quant_stats"]
+        cpu_qs = variables_to_numpy(cpu_sim)["quant_stats"]
+        off_cpu = differing_leaves(card_qs, cpu_qs)
+        calib_rel = 0.0
+        if off_cpu and softmax != PPOLY:
+            raise AssertionError(f"swin qat {name}: card calibration != CPU's at "
+                                 f"{off_cpu[:5]}")
+        if off_cpu:
+            # before its fit the ppoly softmax runs the golden float exp (JAX
+            # layers.py:536-537), whose last ulp differs between the card
+            # and the CPU: its ranges are held to the float family's bound
+            calib_rel = leaf_rel_diff(card_qs, cpu_qs, off_cpu)
+            if calib_rel > FLOAT_LOGIT_TOL:
+                raise AssertionError(f"swin qat {name}: card ranges off the CPU's by "
+                                     f"{calib_rel} (relative) at {off_cpu[:5]}")
+        t0 = time.perf_counter()
+        fit_tables(sim)
+        fit_s = time.perf_counter() - t0
+        # the CPU sim takes the card's fitted state: the fit runs on the host
+        # from the ranges (equal but for ppoly's golden exp, above)
+        variables_to_torch(cpu_sim, variables_to_numpy(sim))
+        t0 = time.perf_counter()
+        spec = freeze_swin_model(sim)
+        freeze_s = time.perf_counter() - t0
+        cpu_spec = freeze_swin_model(cpu_sim)
+        bad = differing_leaves(spec.params, cpu_spec.params)
+        if bad or spec.config != cpu_spec.config:
+            raise AssertionError(f"swin qat {name}: card spec != CPU spec at {bad[:5]} "
+                                 f"(configs equal: {spec.config == cpu_spec.config})")
+        del cpu_sim, sims
+
+        probs = []
+        hooks = [b.attn.int_softmax.register_forward_hook(
+            lambda mod, args, o: probs.append(float((o[0] != 0).float().mean())))
+            for blocks, _ in sim.stages for b in blocks]
+        with torch.no_grad():
+            want = sim(images)
+        for h in hooks:
+            h.remove()
+        live = sum(probs) / len(probs)
+        if softmax == "ivit" and min(probs) == 0:
+            raise AssertionError(f"swin qat {name}: a block's probabilities are all 0")
+        if not torch.isfinite(want).all() or not (want.std(dim=0) > 0).any():
+            raise AssertionError(f"swin qat {name}: sim logits non-finite or "
+                                 "image-independent")
+        results = {}
+        for path, kernels in ((True, ("swin_attn_block", "mlp_block")), (False, ())):
+            eng = Engine(spec, device=dev, kernels=path)
+            logits, launches = run_counted(torch, counters, lambda: eng(images))
+            expect = {k: depth if k in kernels else 0 for k in counters}
+            if launches != expect:
+                raise AssertionError(f"swin qat {name} kernels={path!r} launched "
+                                     f"{launches}, want {expect}")
+            if not torch.equal(logits, want):
+                raise AssertionError(f"swin qat {name} Engine(kernels={path!r}) != sim: "
+                                     f"max abs diff {(logits - want).abs().max().item()}")
+            results[str(path)] = {"launches_per_forward": launches}
+            if path is True:
+                results["True"]["img_per_s"] = img_per_s(torch, eng, [images], 4)
+                row = "[ppoly]" if name == "ppoly" else ""
+                for k in kernels:
+                    rows[k + row][f"launches_qat_swin_{name}"] = launches[k]
+            del eng
+        synth = Engine(synthetic_swin_spec(swin_tiny_config(
+            depths=depths, ln=ln, gelu=gelu, softmax=softmax), seed=0), device=dev)
+        synth_img_s = img_per_s(torch, synth, [images], 4)
+        del synth
+        with torch.no_grad():
+            sim_img_s = img_per_s(torch, sim, [images], 2)
+            if profile:
+                emit(profile_forward(torch, f"swin qat {name} sim (frozen)", sim,
+                                     images, n=1))
+        entry = {"depths": list(sim.depths), "calibration_ms": calib_ms,
+                 "fit_host_s": fit_s, "freeze_host_s": freeze_s,
+                 "sim_img_per_s": sim_img_s,
+                 "engine_img_per_s_frozen": results["True"]["img_per_s"],
+                 "engine_img_per_s_synthetic": synth_img_s,
+                 "nonzero_prob_share": live, "nonzero_prob_share_min": min(probs),
+                 "s_attn_block0": float(spec.params["blocks"][0]["s_attn"]),
+                 "sm_sat_blocks": sum("sm_sat" in b for b in spec.params["blocks"]),
+                 "fast_exp": spec.config.fast_exp, "use_lut": spec.config.use_lut,
+                 "sm_sum_i32": spec.config.sm_sum_i32, "paths": results,
+                 "logits_std": want.std().item(), "equal_cpu_spec": True,
+                 "calibration_leaves_off_cpu": len(off_cpu),
+                 "first_off_cpu": off_cpu[:3],
+                 "calibration_max_rel_diff_cpu": calib_rel}
+        if name == "ivit":
+            labels = torch.arange(SWIN_QAT_CALIB_BATCH, device=dev)
+            loss = F.cross_entropy(sim(calib[0].to(dev)), labels)
+            loss.backward()
+            grads = {n: p.grad for n, p in sim.named_parameters() if p.grad is not None}
+            if not all(torch.isfinite(g).all() for g in grads.values()):
+                raise AssertionError("swin qat ivit backward: non-finite gradients")
+            blocks = [b for blocks, _ in sim.stages for b in blocks]
+            reach = ([sim.patch_embed.proj.kernel] + [b.attn.qkv.kernel for b in blocks]
+                     + [b.attn.relative_position_bias_table for b in blocks])
+            if any(p.grad is None or p.grad.abs().sum() == 0 for p in reach):
+                raise AssertionError("swin qat ivit backward: no gradient at the patch "
+                                     "projection, a qkv or a bias table")
+            entry["backward"] = {"images": SWIN_QAT_CALIB_BATCH, "loss": loss.item(),
+                                 "grads_finite": True, "tensors_with_grad": len(grads)}
+        out[name] = entry
+        frozen[name] = spec
+        del sim
+        torch.cuda.empty_cache()
+    emit({"phase": "qat_freeze_swin", "nvidia_smi": smi,
+          "config": "swin_tiny_patch4_window7_224 QAT sim, 224px, depths (2, 2, 6, 2) "
+                    f"(ppoly (2, 2, 2, 2)), seed {QAT_SEED}, no qkv gain; calibration "
+                    f"{SWIN_QAT_CALIB} x "
+                    f"{SWIN_QAT_CALIB_BATCH} images, eval batch {SWIN_QAT_BATCH}", **out})
+    return frozen["ivit"]
+
+
+def leaf_rel_diff(a, b, paths):
+    """The largest |a - b| / |b| over the leaves at ``paths`` of two trees."""
+    import numpy as np
+    worst = 0.0
+    for path in paths:
+        x, y = a, b
+        for k in path.strip("/").split("/"):
+            x, y = x[k], y[k]
+        x, y = np.asarray(x, np.float64), np.asarray(y, np.float64)
+        worst = max(worst, float(np.max(np.abs(x - y) / np.maximum(np.abs(y), 1e-30))))
+    return worst
+
+
+# The serving phase's traffic: SERVE_REQUESTS distinct seeded images from
+# SERVE_CLIENTS threads, each keeping at most SERVE_WINDOW requests
+# outstanding, into ServingEngine(batch_size=BATCH_SERVE, max_wait_ms 5,
+# inflight 2) over the synthetic DeiT-S ibert spec; then SERVE_SWIN requests
+# of the frozen Swin-T ivit spec, and bursts of SERVE_BURST past max_queue
+# SERVE_MAX_QUEUE and past deadline_ms SERVE_DEADLINE_MS.
+SERVE_REQUESTS, SERVE_CLIENTS, SERVE_WINDOW, BATCH_SERVE = 2048, 4, 64, 64
+SERVE_SWIN, SERVE_BURST, SERVE_MAX_QUEUE, SERVE_DEADLINE_MS = 256, 1024, 128, 20.0
+
+
+def serve_clients(srv, images, clients, window):
+    """``clients`` threads submit disjoint slices of ``images``, each with at
+    most ``window`` requests outstanding; returns the futures in image
+    order and the wall seconds from the first submit to the last answer."""
+    import collections
+    import threading
+    futs = [None] * len(images)
+    errors = []
+
+    def client(idx):
+        outstanding = collections.deque()
+        try:
+            for i in idx:
+                if len(outstanding) >= window:
+                    outstanding.popleft().result(timeout=300)
+                futs[i] = srv.submit(images[i])
+                outstanding.append(futs[i])
+            for f in outstanding:
+                f.result(timeout=300)
+        except Exception as exc:          # reported by the caller
+            errors.append(exc)
+
+    threads = [threading.Thread(target=client, args=(range(c, len(images), clients),))
+               for c in range(clients)]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=600)
+    wall = time.perf_counter() - t0
+    if errors or any(t.is_alive() for t in threads):
+        raise AssertionError(f"serving clients failed: {errors[:3]}")
+    return futs, wall
+
+
+def check_served(np, name, futs, want):
+    got = np.stack([f.result() for f in futs])
+    if got.shape != want.shape or not (got == want).all():
+        bad = (got != want).any(axis=-1).nonzero()[0]
+        raise AssertionError(f"serving {name}: {len(bad)} answers != Engine(spec) "
+                             f"(first request {bad[:4].tolist()})")
+
+
+def serving_phase(torch, counters, dev, rows, smi, swin_spec, profile=False):
+    """Phase 21: ServingEngine on the card.  The DeiT-S ibert synthetic spec
+    under SERVE_CLIENTS client threads: every answer bitwise equal to
+    Engine(spec) on the same images, 12 + 12 launches a served batch;
+    served img/s beside Engine alone at the same batch in this process, and
+    p50 / p95 / p99 latency.  Then the frozen Swin-T ivit spec of phase 20,
+    bitwise; a burst past max_queue (rejections counted, every admitted
+    request answered bitwise) and one past deadline_ms (sheds counted);
+    with ``profile``, the card's idle share while it serves."""
+    import numpy as np
+    from ivit_tpu_torch.engine import Engine
+    from ivit_tpu_torch.engine.serving import DeadlineExceeded, QueueFull, ServingEngine
+    from ivit_tpu_torch.engine.synthetic import deit_small_config, synthetic_spec
+
+    gen = torch.Generator().manual_seed(21)
+    images = torch.randn((SERVE_REQUESTS, 224, 224, 3), generator=gen)
+    spec = synthetic_spec(deit_small_config(), seed=0)
+    eng = Engine(spec, device=dev)
+    want = torch.cat([eng(images[i:i + BATCH_SERVE].to(dev)).cpu()
+                      for i in range(0, SERVE_REQUESTS, BATCH_SERVE)]).numpy()
+    host = images[:BATCH_SERVE].pin_memory()
+    alone_host = img_per_s(torch, eng, [host], 16)
+    alone_dev = img_per_s(torch, eng, [host.to(dev)], 16)
+    images = images.numpy()
+
+    kw = dict(batch_size=BATCH_SERVE, max_wait_ms=5.0, inflight=2, device=dev)
+    with ServingEngine(spec, **kw) as srv:
+        for c in counters.values():
+            c.launches = 0
+        futs, wall = serve_clients(srv, images, SERVE_CLIENTS, SERVE_WINDOW)
+        torch.cuda.synchronize()
+        launches = {n: c.launches for n, c in counters.items()}
+        m = srv.metrics.summary()
+        idle = None
+        if profile:
+            idle = profile_serving(torch, srv, images[:SERVE_REQUESTS // 4])
+    check_served(np, "deit_small ibert", futs, want)
+    depth = spec.config.depth
+    expect = {k: depth * m["batches"] if k in ("attn_block", "mlp_block") else 0
+              for k in counters}
+    if launches != expect:
+        raise AssertionError(f"serving launched {launches} in {m['batches']} batches, "
+                             f"want {expect}")
+    for k in ("attn_block", "mlp_block"):
+        rows[k]["launches_served_batch"] = launches[k] // m["batches"]
+    served = {"requests": SERVE_REQUESTS, "clients": SERVE_CLIENTS,
+              "window_per_client": SERVE_WINDOW, "batches": m["batches"],
+              "served_img_per_s": SERVE_REQUESTS / wall,
+              "engine_img_per_s_host_input": alone_host,
+              "engine_img_per_s_device_input": alone_dev,
+              "latency_ms_p50": m["latency_ms_p50"], "latency_ms_p95": m["latency_ms_p95"],
+              "latency_ms_p99": m["latency_ms_p99"], "latency_ms_max": m["latency_ms_max"],
+              "launches": launches, "idle_share_serving": idle}
+    del eng
+
+    # the frozen Swin-T ivit spec of phase 20
+    swin_images = images[:SERVE_SWIN]
+    swin_eng = Engine(swin_spec, device=dev)
+    swin_want = torch.cat([swin_eng(torch.from_numpy(swin_images[i:i + SWIN_BATCH]).to(dev))
+                           .cpu() for i in range(0, SERVE_SWIN, SWIN_BATCH)]).numpy()
+    del swin_eng
+    with ServingEngine(swin_spec, **kw) as srv:
+        futs, wall = serve_clients(srv, swin_images, SERVE_CLIENTS, SERVE_WINDOW)
+        ms = srv.metrics.summary()
+    check_served(np, "swin_tiny frozen ivit", futs, swin_want)
+    swin = {"requests": SERVE_SWIN, "served_img_per_s": SERVE_SWIN / wall,
+            "latency_ms_p50": ms["latency_ms_p50"], "latency_ms_p99": ms["latency_ms_p99"]}
+
+    # a burst past max_queue, then one past deadline_ms, from one thread
+    burst = images[:SERVE_BURST]
+    with ServingEngine(spec, max_queue=SERVE_MAX_QUEUE, **kw) as srv:
+        admitted, rejected = {}, 0
+        for i, im in enumerate(burst):
+            try:
+                admitted[i] = srv.submit(im)
+            except QueueFull:
+                rejected += 1
+        idx = sorted(admitted)
+        check_served(np, "max_queue burst", [admitted[i] for i in idx], want[idx])
+        mq = srv.metrics.summary()
+    if rejected == 0 or mq["rejected"] != rejected or len(idx) + rejected != len(burst):
+        raise AssertionError(f"max_queue burst: {rejected} rejected, metrics "
+                             f"{mq['rejected']}, {len(idx)} admitted")
+    with ServingEngine(spec, deadline_ms=SERVE_DEADLINE_MS, **kw) as srv:
+        futs = [srv.submit(im) for im in burst]
+        answered, shed = [], 0
+        for i, f in enumerate(futs):
+            try:
+                f.result(timeout=300)
+                answered.append(i)
+            except DeadlineExceeded:
+                shed += 1
+        check_served(np, "deadline burst", [futs[i] for i in answered], want[answered])
+        md = srv.metrics.summary()
+    if shed == 0 or md["shed"] != shed or len(answered) + shed != len(burst):
+        raise AssertionError(f"deadline burst: {shed} shed, metrics {md['shed']}, "
+                             f"{len(answered)} answered")
+    emit({"phase": "serving", "nvidia_smi": smi,
+          "config": f"ServingEngine batch_size {BATCH_SERVE}, max_wait_ms 5, inflight 2; "
+                    "deit_small ibert 224px depth 12 (synthetic, seed 0)",
+          "deit_small_ibert": served, "swin_tiny_frozen_ivit": swin,
+          "max_queue_burst": {"offered": SERVE_BURST, "max_queue": SERVE_MAX_QUEUE,
+                              "rejected": rejected, "answered": len(idx)},
+          "deadline_burst": {"offered": SERVE_BURST, "deadline_ms": SERVE_DEADLINE_MS,
+                             "shed": shed, "answered": len(answered)},
+          "equal_engine": True})
+
+
+def profile_serving(torch, srv, images):
+    """The card's idle share while ``srv`` serves ``images`` (torch.profiler,
+    CUDA activity): 1 - device busy time / wall time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        _, wall = serve_clients(srv, images, SERVE_CLIENTS, SERVE_WINDOW)
+        torch.cuda.synchronize()
+    busy_ms = sum(a.self_device_time_total for a in prof.key_averages()
+                  if a.device_type == DeviceType.CUDA) / 1e3
+    return max(0.0, 1.0 - busy_ms / (wall * 1e3))
+
+
 def profile_forward(torch, name, eng, images, n=3):
     """Device time by kernel over ``n`` forwards (torch.profiler, CUDA
     activity), and the device's idle share of the wall time."""
@@ -1648,6 +2028,11 @@ def main(argv=None) -> int:
     emit({"phase": "engines_done", "seconds": time.perf_counter() - t0})
     qat_freeze_phase(torch, counters, dev, rows, smi, profile=args.profile)
     emit({"phase": "qat_freeze_done", "seconds": time.perf_counter() - t0})
+    swin_spec = qat_freeze_swin_phase(torch, counters, dev, rows, smi,
+                                      profile=args.profile)
+    emit({"phase": "qat_freeze_swin_done", "seconds": time.perf_counter() - t0})
+    serving_phase(torch, counters, dev, rows, smi, swin_spec, profile=args.profile)
+    emit({"phase": "serving_done", "seconds": time.perf_counter() - t0})
     emit({"kernels": list(rows.values())})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

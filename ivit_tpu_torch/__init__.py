@@ -6,8 +6,11 @@ bit-exact against the JAX package by ``tests/test_torch_port_*.py``.
 
 Entry points (:class:`~ivit_tpu_torch.engine.vit_int.Engine`,
 :func:`~ivit_tpu_torch.engine.vit_int.engine_forward`,
-:func:`~ivit_tpu_torch.engine.export.load_engine`) run on ``cuda`` unless
-the caller passes ``device="cpu"``.
+:func:`~ivit_tpu_torch.engine.export.load_engine`,
+:class:`~ivit_tpu_torch.engine.serving.ServingEngine`, the QAT sims
+:class:`~ivit_tpu_torch.models.vit.VisionTransformer` and
+:class:`~ivit_tpu_torch.models.swin.SwinTransformer` and their factories)
+run on ``cuda`` unless the caller passes ``device="cpu"``.
 """
 
 import torch

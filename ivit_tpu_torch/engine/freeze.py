@@ -287,6 +287,59 @@ def _gelu_out_scale(cfg, gelu_base, s_g) -> np.float32:
     return np.float32(s_g)            # float golden: quantized on the input grid
 
 
+def _patch_gemm(conv, s_input):
+    """The patch conv as one GEMM over flattened HWIO patches: (int8 w [K,
+    D], int32 b [D], the GEMM's output scale [D])."""
+    kernel = _np(conv["kernel"]).astype(np.float32)
+    wf = kernel.reshape(-1, kernel.shape[-1])
+    w_scale = _sym_scale(8, wf.min(axis=0), wf.max(axis=0))
+    out_scale = (w_scale.astype(np.float64) * np.float64(s_input)).astype(np.float32)
+    return (_quant_w(wf, 8, w_scale[None, :]).astype(np.int8),
+            _quant_w(_np(conv["bias"]), 32, out_scale).astype(np.int32), out_scale)
+
+
+def _mlp_half(cfg, blk, bp, bq, dim, s_res1, site, gelu_scale_base,
+              mlp_bits: int, out_bits: int):
+    """One block's MLP half into ``blk`` (LN2, fc1, the GELU, fc2 and the
+    residual; ViT ``freeze.py:468-533``, Swin ``swin_int.py:200-266``):
+    ``gelu_scale_base`` the family whose output grid the GELU takes,
+    ``mlp_bits`` / ``out_bits`` the fc2 and residual QuantActs' bits.
+    Returns ``(s_gelu, s_out, fastdiv_ok)``: the GELU's input and the
+    block's output scale, and whether a ppoly GELU passed the fast-div
+    gate (True for the other families)."""
+    mp, mq = bp["mlp"], bq["mlp"]
+    ln_bias, ln_scale, ln_shift = _ln_site(bp["norm2"], dim, bq.get("norm2"))
+    s_m1 = _act_scale(bq, "qact3", 8)
+    blk.update(ln2_bias_int=ln_bias, ln2_shift=ln_shift, s_ln2=ln_scale,
+               m_ln2=requant_multiplier(ln_scale, s_m1))
+    fc1_w, fc1_b, fc1_scale = _linear(mp["fc1"], s_m1)
+    s_g = _act_scale(mq, "qact_gelu", 8)
+    blk.update(fc1_w=fc1_w, fc1_b=fc1_b, m_fc1=requant_multiplier(fc1_scale, s_g),
+               s_gelu=np.float32(s_g))
+    ppoly = cfg.base_type("gelu") == "ppoly"
+    if ppoly:
+        _require_fitted(mq["act"], f"{site}.mlp.act")
+        blk["gelu_bounds"] = _np(mq["act"]["bounds"]).astype(np.int32)
+        blk["gelu_coeffs"] = _np(mq["act"]["coeffs"]).astype(np.float32)
+    s_gelu_out = _gelu_out_scale(cfg, gelu_scale_base, s_g)
+    s_m2 = _act_scale(mq, "qact1", 8)
+    blk["m_gelu"] = requant_multiplier(s_gelu_out, s_m2)
+    fastdiv_ok = True
+    if ppoly:
+        blk["gelu_s_out"] = np.float32(s_gelu_out)
+        fastdiv_ok, c, ph, pd = _ppoly_fastdiv_gate(
+            blk["gelu_bounds"], blk["gelu_coeffs"],
+            int(cfg.type_params("gelu").get("scale_bits", 22)), s_gelu_out)
+        blk.update(gelu_s_out_c=c, gelu_patch_h=ph, gelu_patch_d=pd)
+    fc2_w, fc2_b, fc2_scale = _linear(mp["fc2"], s_m2)
+    s_mlp_out = _act_scale(mq, "qact2", mlp_bits)
+    blk.update(fc2_w=fc2_w, fc2_b=fc2_b, m_fc2=requant_multiplier(fc2_scale, s_mlp_out))
+    s_out = _act_scale(bq, "qact4", out_bits)
+    blk["m_res2_x"] = requant_multiplier(s_mlp_out, s_out)
+    blk["m_res2_id"] = requant_multiplier(s_res1, s_out)
+    return s_g, s_out, fastdiv_ok
+
+
 def freeze_model(model) -> EngineSpec:
     """The integer engine spec of a calibrated (and, for ppoly, fitted) QAT
     sim (``freeze.py:348``): numpy leaves, int8 weights, int32 biases, f32
@@ -307,17 +360,9 @@ def freeze_model(model) -> EngineSpec:
 
     s_input = _act_scale(Q, "qact_input", 8)
     p["s_input"] = s_input
-    # the patch embedding as one GEMM over flattened HWIO patches
-    kernel = _np(P["patch_embed"]["proj"]["kernel"]).astype(np.float32)
-    wf = kernel.reshape(-1, kernel.shape[-1])
-    w_scale = _sym_scale(8, wf.min(axis=0), wf.max(axis=0))
-    conv_out_scale = (w_scale.astype(np.float64) * np.float64(s_input)).astype(np.float32)
+    w, b, conv_out_scale = _patch_gemm(P["patch_embed"]["proj"], s_input)
     s_patch = _act_scale(Q["patch_embed"], "qact", bw.patch_embed)
-    p["patch"] = {
-        "w": _quant_w(wf, 8, w_scale[None, :]).astype(np.int8),
-        "b": _quant_w(_np(P["patch_embed"]["proj"]["bias"]), 32,
-                      conv_out_scale).astype(np.int32),
-        "m": requant_multiplier(conv_out_scale, s_patch)}
+    p["patch"] = {"w": w, "b": b, "m": requant_multiplier(conv_out_scale, s_patch)}
     p["s_patch"] = s_patch
     # cls token + positional embedding, freeze-time integer constants
     p["cls_int"] = np.round(_np(P["cls_token"]).astype(np.float32)
@@ -334,7 +379,7 @@ def freeze_model(model) -> EngineSpec:
     fast_exp = fast_poly = use_lut = sm_sum_i32 = ppoly_fastdiv = True
     for i in range(cfg.depth):
         bp, bq = P[f"blocks_{i}"], Q[f"blocks_{i}"]
-        aq, ap, mp, mq = bq["attn"], bp["attn"], bp["mlp"], bq["mlp"]
+        aq, ap = bq["attn"], bp["attn"]
         blk: Dict[str, Any] = {}
 
         ln_bias, ln_scale, ln_shift = _ln_site(bp["norm1"], cfg.embed_dim,
@@ -370,37 +415,10 @@ def freeze_model(model) -> EngineSpec:
         blk["m_res1_x"] = requant_multiplier(s_a3, s_res1)
         blk["m_res1_id"] = requant_multiplier(s_block_in, s_res1)
 
-        ln_bias, ln_scale, ln_shift = _ln_site(bp["norm2"], cfg.embed_dim,
-                                               bq.get("norm2"))
-        s_m1 = _act_scale(bq, "qact3", 8)
-        blk.update(ln2_bias_int=ln_bias, ln2_shift=ln_shift, s_ln2=ln_scale,
-                   m_ln2=requant_multiplier(ln_scale, s_m1))
-        fc1_w, fc1_b, fc1_scale = _linear(mp["fc1"], s_m1)
-        s_g = _act_scale(mq, "qact_gelu", 8)
-        blk.update(fc1_w=fc1_w, fc1_b=fc1_b, m_fc1=requant_multiplier(fc1_scale, s_g),
-                   s_gelu=np.float32(s_g))
-        if gelu_base == "ppoly":
-            gq = mq["act"]
-            _require_fitted(gq, f"blocks_{i}.mlp.act")
-            blk["gelu_bounds"] = _np(gq["bounds"]).astype(np.int32)
-            blk["gelu_coeffs"] = _np(gq["coeffs"]).astype(np.float32)
-        s_gelu_out = _gelu_out_scale(cfg, gelu_base, s_g)
-        s_m2 = _act_scale(mq, "qact1", 8)
-        blk["m_gelu"] = requant_multiplier(s_gelu_out, s_m2)
-        if gelu_base == "ppoly":
-            blk["gelu_s_out"] = np.float32(s_gelu_out)
-            ok, c, ph, pd = _ppoly_fastdiv_gate(
-                blk["gelu_bounds"], blk["gelu_coeffs"],
-                int(cfg.type_params("gelu").get("scale_bits", 22)), s_gelu_out)
-            ppoly_fastdiv = ppoly_fastdiv and ok
-            blk.update(gelu_s_out_c=c, gelu_patch_h=ph, gelu_patch_d=pd)
-        fc2_w, fc2_b, fc2_scale = _linear(mp["fc2"], s_m2)
-        s_mlp_out = _act_scale(mq, "qact2", bw.mlp_out)
-        blk.update(fc2_w=fc2_w, fc2_b=fc2_b,
-                   m_fc2=requant_multiplier(fc2_scale, s_mlp_out))
-        s_block_out = _act_scale(bq, "qact4", bw.att_block_out)
-        blk["m_res2_x"] = requant_multiplier(s_mlp_out, s_block_out)
-        blk["m_res2_id"] = requant_multiplier(s_res1, s_block_out)
+        s_g, s_block_out, ok = _mlp_half(cfg, blk, bp, bq, cfg.embed_dim, s_res1,
+                                         f"blocks_{i}", gelu_base, bw.mlp_out,
+                                         bw.att_block_out)
+        ppoly_fastdiv = ppoly_fastdiv and ok
 
         fast_exp = fast_exp and _exp_fast_gate(sm_base, gelu_base, s_attn, s_g)
         fast_poly = fast_poly and _poly_fast_gate(sm_base, gelu_base, s_attn, s_g)

@@ -77,6 +77,28 @@ def ppoly_gelu_lut(bounds, coeffs, scale_bits: int, s_out) -> np.ndarray:
     return _np(ppoly_gelu_int(_int8(), bounds, coeffs, scale_bits, np.float32(s_out)))
 
 
+def swin_shift_sat(sm_base: str, s_attn, mask_min: float, s_exp_act=None):
+    """Saturation gate of a shifted Swin block's masked softmax positions
+    (``luts.py:150``): ``(ok, sat)``, whether the exp tower is one constant
+    ``sat`` over the whole masked range ``d = x_max - (a + M)``, ``a`` and
+    ``x_max`` in [-128, 127], ``M = mask_min`` (so ``d`` in [max(0, |M| -
+    255), |M| + 255]), where it clamps its argument.  ppoly extrapolates its
+    leftmost segment and never saturates: ``(False, 0.0)``."""
+    if sm_base not in ("ivit", "ibert"):
+        return False, np.float32(0.0)
+    m = abs(float(mask_min))
+    d = -torch.arange(max(0.0, m - 255.0), m + 256.0, dtype=torch.float32)
+    if sm_base == "ivit":
+        vals = int_exp_shift(d, _t(s_attn), 15)[0]
+    else:
+        vals = int_exp(d, _t(s_attn))[0]
+        vals = torch.clamp(torch.round(vals * rdiv(1.0, _t(s_exp_act))),
+                           -(2.0**15), 2.0**15 - 1)
+    v = _np(vals)
+    ok = bool(v.size > 0 and np.all(v == v[0]))
+    return ok, (v[0] if ok else np.float32(0.0))
+
+
 def sum_fits_int32(lut: np.ndarray, n: int) -> bool:
     """May the softmax exp row sum of ``n`` keys run as one int32
     reduction (``n * max|T| < 2**31``, ``luts.py:183``)?"""

@@ -33,16 +33,22 @@ import dataclasses
 import itertools
 from typing import Any, Dict
 
+import numpy as np
 import torch
 
 from .. import resolve_device
-from ..models.swin import window_partition, window_reverse
+from ..models.swin import (attention_mask, relative_position_index, stage_geometry,
+                           window_partition, window_reverse)
+from ..models.vit import BitWidths
 from ..ops.kernels import block as kblock
 from ..ops.kernels.block import int8_matmul
 from ..ops.quant import exact_int_sum, rdiv
 from .convert import params_to_torch
-from .freeze import EngineConfig
-from .freeze import GELU_IN_BITS
+from .freeze import (GELU_IN_BITS, EngineConfig, _act_scale, _block_luts,
+                     _exp_fast_gate, _linear, _ln_site, _mlp_half, _patch_gemm,
+                     _poly_fast_gate, _quant_w, _require_fitted, requant_const,
+                     requant_multiplier, spec_tree)
+from .luts import swin_shift_sat
 from .vit_int import (_base, _check_families, _gelu_requant_int, _gemm_bias,
                       _layernorm_int, _ln_requant, _ppoly_gelu_kw,
                       _ppoly_softmax_kw, _requant, _residual_requant,
@@ -69,6 +75,161 @@ class SwinEngineSpec:
 
     config: SwinEngineConfig
     params: Dict[str, Any]
+
+
+def freeze_swin_model(model) -> SwinEngineSpec:
+    """The integer engine spec of a calibrated (and, for ppoly, fitted)
+    Swin QAT sim (``swin_int.py:70``), leaf for leaf as JAX's
+    ``freeze_swin_model`` writes it: the patch GEMM and patch norm, per
+    block the quantized relative-position addend, ``mask_int`` on shifted
+    blocks and ``sm_sat`` where :func:`~ivit_tpu_torch.engine.luts.swin_shift_sat`
+    passes, each ``{"merge": ...}``, the final LN, the pool and the head;
+    the ``layout`` and the five gate flags folded over every block; the
+    default bitwidths.  A sim with the absolute position embedding
+    (``ape=True``) is refused: JAX's freeze leaves the embedding out, and
+    its engine then differs from the sim (ROADMAP Queue 3)."""
+    if model.ape:
+        raise ValueError(
+            "freeze_swin_model: ape=True is not frozen; the reference's "
+            "freeze_swin_model (ivit_tpu/engine/swin_int.py:70) never reads "
+            "absolute_pos_embed, so its engine leaves the embedding out and "
+            "differs from the sim")
+    from ..models.convert import variables_to_numpy
+    variables = variables_to_numpy(model)
+    cfg = SwinEngineConfig(
+        img_size=model.img_size, patch_size=model.patch_size,
+        embed_dim=model.embed_dim, depth=sum(model.depths),
+        num_heads=model.num_heads[0], mlp_ratio=model.mlp_ratio,
+        num_classes=model.num_classes, bitwidths=BitWidths(),
+        gelu_type=model.gelu_type, softmax_type=model.softmax_type,
+        layernorm_type=model.layernorm_type, depths=tuple(model.depths),
+        stage_heads=tuple(model.num_heads), window_size=model.window_size)
+    P, Q = variables["params"], variables["quant_stats"]
+    sm_base, gelu_base = cfg.base_type("softmax"), cfg.base_type("gelu")
+    p: Dict[str, Any] = {}
+
+    s_input = _act_scale(Q, "qact_input", 8)
+    p["s_input"] = s_input
+    # the patch GEMM, the patch norm and its qact, then the 16-bit stage input
+    w, b, conv_out_scale = _patch_gemm(P["patch_embed"]["proj"], s_input)
+    s_bn = _act_scale(Q["patch_embed"], "qact_before_norm", 8)
+    pn_bias, pn_scale, pn_shift = _ln_site(P["patch_embed"]["norm"], cfg.embed_dim,
+                                           Q["patch_embed"].get("norm"))
+    s_patch = _act_scale(Q["patch_embed"], "qact", 8)
+    s0 = _act_scale(Q, "qact1", 16)
+    p["patch"] = {
+        "w": w, "b": b, "m": requant_multiplier(conv_out_scale, s_bn),
+        "pn_bias_int": pn_bias, "pn_shift": pn_shift, "s_pn": pn_scale,
+        "m_norm": requant_multiplier(pn_scale, s_patch),
+        "m_x0": requant_multiplier(s_patch, s0)}
+
+    blocks, layout = [], []
+    s_in = s0
+    fast_exp = fast_poly = use_lut = sm_sum_i32 = ppoly_fastdiv = True
+    grid = cfg.img_size // cfg.patch_size
+    for i, depth in enumerate(cfg.depths):
+        dim, heads, res = cfg.embed_dim * 2 ** i, cfg.stage_heads[i], grid // 2 ** i
+        for d in range(depth):
+            name = f"layers_{i}_blocks_{d}"
+            bp, bq = P[name], Q[name]
+            aq, ap = bq["attn"], bp["attn"]
+            ws, shift = stage_geometry(res, cfg.window_size,
+                                       0 if d % 2 == 0 else cfg.window_size // 2)
+            n = ws * ws
+            blk: Dict[str, Any] = {}
+            ln_bias, ln_scale, ln_shift = _ln_site(bp["norm1"], dim, bq.get("norm1"))
+            s_a1 = _act_scale(bq, "qact1", 8)
+            blk.update(ln1_bias_int=ln_bias, ln1_shift=ln_shift, s_ln1=ln_scale,
+                       m_ln1=requant_multiplier(ln_scale, s_a1))
+            qkv_w, qkv_b, qkv_scale = _linear(ap["qkv"], s_a1)
+            s_q = _act_scale(aq, "qact1", 8)
+            blk.update(qkv_w=qkv_w, qkv_b=qkv_b, m_qkv=requant_multiplier(qkv_scale, s_q))
+            s_attn1 = _act_scale(aq, "qact_attn1", 8)
+            # f32 op for op as the sim (quant_matmul's s1 * s1, then the
+            # head scale), swin_int.py:151-152
+            s_scores = np.float32(np.float32(s_q * s_q)
+                                  * np.float32((dim // heads) ** -0.5))
+            blk["m_attn"] = requant_multiplier(s_scores, s_attn1)
+            # the quantized bias table, gathered and requanted onto s_attn2
+            s_table = _act_scale(aq, "qact_table", 8)
+            table = np.asarray(ap["relative_position_bias_table"]).astype(np.float32)
+            bias_int = _quant_w(table, 8, s_table)[relative_position_index(ws).reshape(-1)]
+            bias_int = bias_int.reshape(n, n, heads).transpose(2, 0, 1)
+            s_attn2 = _act_scale(aq, "qact2", 8)
+            blk["rel_bias_addend"] = requant_const(bias_int, s_table,
+                                                   s_attn2).astype(np.float32)
+            blk["m_attn2"] = requant_multiplier(s_attn1, s_attn2)
+            blk["s_attn"] = np.float32(s_attn2)
+            layout.append(("block", i, shift))
+            if shift > 0:
+                mask = attention_mask((res, res), ws, shift)
+                blk["mask_int"] = np.round(mask / np.float32(s_attn2)).astype(np.float32)
+            if sm_base == "ibert":
+                blk["s_exp_act"] = _act_scale(aq["int_softmax"], "act", 16)
+            elif sm_base == "ppoly":
+                _require_fitted(aq["int_softmax"], f"{name}.attn.int_softmax")
+                blk["sm_bounds"] = np.asarray(aq["int_softmax"]["bounds"]).astype(np.int32)
+                blk["sm_coeffs"] = np.asarray(aq["int_softmax"]["coeffs"]).astype(np.float32)
+            s_sm = np.float32(1.0 / 2**7) if sm_base == "ivit" else np.float32(2.0 / 2**8)
+            s_a3 = _act_scale(aq, "qact3", 8)
+            blk["m_av"] = requant_multiplier(np.float32(s_sm * s_q), s_a3)
+            proj_w, proj_b, proj_scale = _linear(ap["proj"], s_a3)
+            s_a4 = _act_scale(aq, "qact4", 16)
+            blk.update(proj_w=proj_w, proj_b=proj_b,
+                       m_proj=requant_multiplier(proj_scale, s_a4))
+            s_res1 = _act_scale(bq, "qact2", 16)
+            blk["m_res1_x"] = requant_multiplier(s_a4, s_res1)
+            blk["m_res1_id"] = requant_multiplier(s_in, s_res1)
+
+            # JAX's Swin freeze takes the ibert GELU grid for a float GELU
+            # too (swin_int.py:219-236); fc2 requants to 8 bits, the residual
+            # to 16
+            s_g, s_out, ok = _mlp_half(cfg, blk, bp, bq, dim, s_res1, name,
+                                       "ibert" if gelu_base == "float" else gelu_base,
+                                       8, 16)
+            ppoly_fastdiv = ppoly_fastdiv and ok
+            fast_exp = fast_exp and _exp_fast_gate(sm_base, gelu_base, blk["s_attn"], s_g)
+            fast_poly = fast_poly and _poly_fast_gate(sm_base, gelu_base, blk["s_attn"], s_g)
+            ok, s_ok = _block_luts(cfg, blk, sm_base, gelu_base, blk["s_attn"], s_g, n)
+            use_lut, sm_sum_i32 = use_lut and ok, sm_sum_i32 and s_ok
+            if shift > 0 and "sm_lut" in blk:
+                # masked positions saturate the exp tower where the gate
+                # proves it; only then does the spec carry the constant
+                sat_ok, sat = swin_shift_sat(sm_base, blk["s_attn"],
+                                             float(blk["mask_int"].min()),
+                                             blk.get("s_exp_act"))
+                if sat_ok:
+                    blk["sm_sat"] = sat
+            blocks.append(blk)
+            s_in = s_out
+
+        if i < len(cfg.depths) - 1:
+            dp, dq = P[f"layers_{i}_downsample"], Q[f"layers_{i}_downsample"]
+            layout.append(("merge", i, 0))
+            nb, nscale, nshift = _ln_site(dp["norm"], 4 * dim, dq.get("norm"))
+            s_n = _act_scale(dq, "qact1", 8)
+            red_w, _, red_scale = _linear(dp["reduction"], s_n)
+            s_r = _act_scale(dq, "qact2", 8)
+            blocks.append({"merge": {
+                "norm_bias_int": nb, "norm_shift": nshift, "s_norm": nscale,
+                "m_norm": requant_multiplier(nscale, s_n), "red_w": red_w,
+                "m_red": requant_multiplier(red_scale, s_r)}})
+            s_in = s_r
+    p["blocks"] = blocks
+
+    ln_bias, ln_scale, ln_shift = _ln_site(
+        P["norm"], cfg.embed_dim * 2 ** (len(cfg.depths) - 1), Q.get("norm"))
+    s_cls = _act_scale(Q, "qact2", 8)
+    p.update(lnf_bias_int=ln_bias, lnf_shift=ln_shift, s_lnf=ln_scale,
+             m_lnf=requant_multiplier(ln_scale, s_cls))
+    s_pool = _act_scale(Q, "qact3", 8)
+    p["m_pool"] = requant_multiplier(s_cls, s_pool)
+    head_w, head_b, head_scale = _linear(P["head"], s_pool)
+    p.update(head_w=head_w, head_b=head_b, head_scale=head_scale)
+    cfg = dataclasses.replace(cfg, layout=tuple(layout), fast_exp=fast_exp,
+                              fast_poly=fast_poly, use_lut=use_lut,
+                              sm_sum_i32=sm_sum_i32, ppoly_fastdiv=ppoly_fastdiv)
+    return SwinEngineSpec(config=cfg, params=spec_tree(p))
 
 
 def check_swin_kernels(kernels):

@@ -1,11 +1,13 @@
 """Model factories (counterpart of ``ivit_tpu/models/factories.py``; ref
 vit_quant.py:315-406).  Each builds the QAT sim on ``cuda`` unless
 ``device=`` says otherwise; ``seed=`` picks its initial parameters, and
-any architecture keyword (``depth=`` to cut a model for a test) overrides
-the published one.  The Swin factories come with the Swin sim."""
+any architecture keyword (``depth=`` or ``depths=`` to cut a model for a
+test) overrides the published one."""
 
 from __future__ import annotations
 
+from .swin import (swin_base_patch4_window7_224, swin_small_patch4_window7_224,
+                   swin_tiny_patch4_window7_224)
 from .vit import BitWidths, VisionTransformer
 
 
@@ -43,6 +45,9 @@ MODEL_REGISTRY = {
     "deit_base_patch16_224": deit_base_patch16_224,
     "vit_base_patch16_224": vit_base_patch16_224,
     "vit_large_patch16_224": vit_large_patch16_224,
+    "swin_tiny_patch4_window7_224": swin_tiny_patch4_window7_224,
+    "swin_small_patch4_window7_224": swin_small_patch4_window7_224,
+    "swin_base_patch4_window7_224": swin_base_patch4_window7_224,
 }
 
 
@@ -51,6 +56,5 @@ def str2model(name: str):
     try:
         return MODEL_REGISTRY[name]
     except KeyError:
-        raise ValueError(f"unknown model {name!r}; options: {sorted(MODEL_REGISTRY)}"
-                         + (" (the Swin sim is not ported yet)"
-                            if name.startswith("swin") else "")) from None
+        raise ValueError(f"unknown model {name!r}; options: "
+                         f"{sorted(MODEL_REGISTRY)}") from None

@@ -285,24 +285,31 @@ class VisionTransformer(nn.Module):
     def device(self) -> torch.device:
         return self.cls_token.device
 
+    def embed(self, x, *, running_stat=False):
+        """The input quant, the patch embedding, the cls token (sharing the
+        patch scale, vit:290-293) and the positional add."""
+        b = x.shape[0]
+        x, s = self.qact_input(x, running_stat=running_stat)
+        x, s = self.patch_embed(x, s, running_stat=running_stat)
+        x = torch.cat([self.cls_token.expand(b, 1, self.embed_dim), x], dim=1)
+        x_pos, s_pos = self.qact_pos(self.pos_embed, running_stat=running_stat)
+        return self.qact1(x, s, identity=x_pos.expand_as(x), identity_scale=s_pos,
+                          running_stat=running_stat)
+
+    def tail(self, x, s, *, running_stat=False):
+        """The final LN on the cls row and the head."""
+        x, s, x_int = self.norm(x, s, running_stat=running_stat)
+        x, s = self.qact2(x[:, 0], s, running_stat=running_stat,
+                          exact_int=x_int[:, 0])
+        return self.head(x, s)[0]
+
     def forward(self, x, *, running_stat: bool = False, train: bool = False,
                 generator=None):
         x = torch.as_tensor(x, dtype=torch.float32, device=self.device)
         kw = dict(train=train, generator=generator)
         with exact_f32():
-            b = x.shape[0]
-            x, s = self.qact_input(x, running_stat=running_stat)
-            x, s = self.patch_embed(x, s, running_stat=running_stat)
-            # the cls token shares the patch scale (vit:290-293)
-            x = torch.cat([self.cls_token.expand(b, 1, self.embed_dim), x], dim=1)
-            x_pos, s_pos = self.qact_pos(self.pos_embed, running_stat=running_stat)
-            x, s = self.qact1(x, s, identity=x_pos.expand_as(x),
-                              identity_scale=s_pos, running_stat=running_stat)
+            x, s = self.embed(x, running_stat=running_stat)
             x = _dropout(x, self.drop_rate, train, generator)
             for blk in self.blocks:
                 x, s = blk(x, s, running_stat=running_stat, **kw)
-            x, s, x_int = self.norm(x, s, running_stat=running_stat)
-            x, s = self.qact2(x[:, 0], s, running_stat=running_stat,
-                              exact_int=x_int[:, 0])
-            x, _ = self.head(x, s)
-            return x
+            return self.tail(x, s, running_stat=running_stat)

@@ -32,8 +32,10 @@ and 128), ``mlp_block`` from int16 rows to int8 at every MLP width, the
 attention core's edges (a one-hot row, v at -128 and 127, flat rows, hot
 padding keys) at 8 and 16 bits, the INT16 engines; a float-family engine
 runs no kernel, as JAX routes it.  The DeiT-S and Swin-T shapes are held
-by ``chip_smoke.py``.  The QAT sim calibrates and freezes on the card as on
-the CPU and its logits equal the kernel engine's.  Exact equality, but for
+by ``chip_smoke.py``.  The QAT sims, ViT and Swin (56 px at Swin-T's
+widths), calibrate and freeze on the card as on the CPU and their logits
+equal the kernel engine's; the server's answers equal ``Engine(spec)``'s
+on the card.  Exact equality, but for
 the float family's logits against the CPU's (``tests/test_torch_port_float.py``'s bound).
 """
 
@@ -831,3 +833,61 @@ def test_cuda_qat_sim_calibrates_and_freezes_as_cpu(cuda, mix):
         assert torch.equal(got, sim)
     else:
         assert (got - sim).abs().max() < 1e-5 * sim.abs().max() + 1e-6
+
+
+SWIN_QAT_GEOM = dict(img_size=56, patch_size=4, embed_dim=96, depths=(2, 2),
+                     num_heads=(3, 6), window_size=7, num_classes=10,
+                     drop_path_rate=0.0)
+
+
+def _swin_qat_sim(dev, fam):
+    from ivit_tpu_torch.models import SwinTransformer
+    return SwinTransformer(gelu_type=fam, softmax_type=fam, layernorm_type=fam,
+                           device=dev, seed=0, **SWIN_QAT_GEOM)
+
+
+@pytest.mark.parametrize("fam", ["ivit", "ibert"])
+def test_cuda_swin_qat_sim_calibrates_and_freezes_as_cpu(cuda, fam):
+    """At 56 px, Swin-T's widths (C 96 and 192; a shifted stage, a clamped
+    one): the card's ranges, spec and frozen logits equal the CPU's, and
+    ``Engine(spec)`` on ``swin_attn_block`` / ``mlp_block`` (4 + 4
+    launches) gives the sim's logits."""
+    from ivit_tpu_torch.engine.swin_int import freeze_swin_model
+    from ivit_tpu_torch.models.convert import differing_leaves, variables_to_numpy
+    gen = torch.Generator().manual_seed(0)
+    xs = [torch.randn((4, 56, 56, 3), generator=gen) for _ in range(3)]
+    card, cpu = _swin_qat_sim(cuda, fam), _swin_qat_sim("cpu", fam)
+    with torch.no_grad():
+        for x in xs[:2]:
+            assert torch.equal(card(x.to(cuda), running_stat=True).cpu(),
+                               cpu(x, running_stat=True))
+        assert differing_leaves(variables_to_numpy(card), variables_to_numpy(cpu)) == []
+        spec, cpu_spec = freeze_swin_model(card), freeze_swin_model(cpu)
+        assert differing_leaves(spec.params, cpu_spec.params) == []
+        assert spec.config == cpu_spec.config
+        sim = card(xs[2].to(cuda))
+        assert torch.equal(sim.cpu(), cpu(xs[2]))
+    kb.mlp_block.launches = kb.swin_attn_block.launches = 0
+    got = Engine(spec)(xs[2].to(cuda))
+    torch.cuda.synchronize()
+    assert (kb.mlp_block.launches, kb.swin_attn_block.launches) == (4, 4)
+    assert torch.equal(got, sim)
+    assert torch.equal(Engine(spec, kernels=False)(xs[2].to(cuda)), sim)
+
+
+def test_cuda_serving_matches_engine(cuda):
+    """ServingEngine on the card (pinned ring, events, the caller's
+    stream): every answer equal to ``Engine(spec)``'s on the same images,
+    for a ViT and a Swin spec, with a padded last batch."""
+    from ivit_tpu_torch.engine.serving import ServingEngine
+    specs = [(synthetic_spec(_small_config(2), seed=0), 64),
+             (synthetic_swin_spec(swin_tiny_config(depths=(2, 2), img_size=56), seed=0), 56)]
+    gen = torch.Generator().manual_seed(1)
+    for spec, size in specs:
+        images = torch.randn((11, size, size, 3), generator=gen)
+        want = Engine(spec)(images.to(cuda)).cpu().numpy()
+        with ServingEngine(spec, batch_size=4, max_wait_ms=20, inflight=2) as srv:
+            got = srv.infer(images.numpy())
+            m = srv.metrics.summary()
+        np.testing.assert_array_equal(got, want)
+        assert m["images"] == 11 and m["batches"] >= 3

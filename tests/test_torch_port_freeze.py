@@ -79,6 +79,18 @@ def _config(cfg):
     return d
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread for this file's CPU forwards: Tier-1 runs six
+    workers at once, and a pool per worker as wide as the machine
+    oversubscribes its cores (the integer paths' bits do not depend on the
+    thread count)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(scope="module", params=FAMILIES, ids=IDS)
 def frozen(request):
     """(port model, its spec, JAX's spec of the same variables, rng)."""

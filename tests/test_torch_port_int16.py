@@ -64,6 +64,18 @@ def _eq(got, want):
     np.testing.assert_array_equal(np.asarray(got), np.asarray(want))
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread for this file's CPU forwards: Tier-1 runs six
+    workers at once, and a pool per worker as wide as the machine
+    oversubscribes its cores (the integer paths' bits do not depend on the
+    thread count)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(scope="module")
 def freezes():
     """JAX freezes of ``test_engine.py``'s INT16 model (64 px, embed 64,

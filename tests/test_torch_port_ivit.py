@@ -64,6 +64,18 @@ def _t(a):
 
 # --- (a) the integer cores --------------------------------------------------
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread for this file's CPU forwards: Tier-1 runs six
+    workers at once, and a pool per worker as wide as the machine
+    oversubscribes its cores (the integer paths' bits do not depend on the
+    thread count)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.mark.parametrize("s", SCALES)
 def test_ivit_cores_whole_int8_domain(s):
     rows = np.stack([np.random.default_rng(i).permutation(INT8) for i in range(4)])

@@ -58,6 +58,18 @@ def _eq(got, want):
 
 # --- (a) evaluation --------------------------------------------------------
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread for this file's CPU forwards: Tier-1 runs six
+    workers at once, and a pool per worker as wide as the machine
+    oversubscribes its cores (the integer paths' bits do not depend on the
+    thread count)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.mark.parametrize("seg,deg", [(1, 2), (4, 1), (16, 2), (8, 3)])
 def test_eval_piecewise_poly_matches_jax(seg, deg):
     gelu = jpp.fit_gelu_table(-6.4, 6.35, 0.05, backend="float", seg=seg,

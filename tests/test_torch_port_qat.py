@@ -99,6 +99,18 @@ def _assert_stats(want, got, tol=None):
                                        err_msg="/".join(path))
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread for this file's CPU forwards: Tier-1 runs six
+    workers at once, and a pool per worker as wide as the machine
+    oversubscribes its cores (the integer paths' bits do not depend on the
+    thread count)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.mark.parametrize("gelu,softmax,ln,bits,depth", FAMILIES,
                          ids=["/".join(f[:3]) + f"@{f[3]}" for f in FAMILIES])
 def test_calibration_and_eval_match_jax(gelu, softmax, ln, bits, depth):
@@ -269,5 +281,7 @@ def test_entry_points_default_to_cuda():
         str2model("deit_tiny_patch16_224")(img_size=64, depth=1)
     m = str2model("deit_tiny_patch16_224")(img_size=64, depth=1, device="cpu")
     assert m.embed_dim == 192 and m.device.type == "cpu"
-    with pytest.raises(ValueError, match="Swin sim"):
-        str2model("swin_tiny_patch4_window7_224")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        str2model("swin_tiny_patch4_window7_224")()
+    with pytest.raises(ValueError, match="unknown model"):
+        str2model("swin_huge")

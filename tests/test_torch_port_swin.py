@@ -88,6 +88,18 @@ def _stream(shape, bits, seed):
 
 # --- (a) geometry ---------------------------------------------------------------
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread for this file's CPU forwards: Tier-1 runs six
+    workers at once, and a pool per worker as wide as the machine
+    oversubscribes its cores (the integer paths' bits do not depend on the
+    thread count)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.mark.parametrize("res", [14, 56])
 def test_swin_geometry_matches_jax(res):
     _eq(tgeo.relative_position_index(7), jgeo.relative_position_index(7))

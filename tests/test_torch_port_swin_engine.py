@@ -21,6 +21,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch
 
 sys.path.insert(0, os.path.dirname(__file__))
 from test_swin_engine import build_swin  # noqa: E402
@@ -39,6 +40,18 @@ from ivit_tpu_torch.engine.synthetic import synthetic_swin_spec  # noqa: E402
 
 
 # --- (d) the engine on real JAX freezes ----------------------------------------
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread for this file's CPU forwards: Tier-1 runs six
+    workers at once, and a pool per worker as wide as the machine
+    oversubscribes its cores (the integer paths' bits do not depend on the
+    thread count)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
 
 @pytest.fixture(scope="module")
 def freezes():

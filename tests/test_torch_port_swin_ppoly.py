@@ -49,6 +49,18 @@ from ivit_tpu_torch.ops.kernels import block as kb  # noqa: E402
 PPOLY = ("ppoly_backend_ibert_optim-bounds_false", "ppoly_backend_ibert", "ivit")
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread for this file's CPU forwards: Tier-1 runs six
+    workers at once, and a pool per worker as wide as the machine
+    oversubscribes its cores (the integer paths' bits do not depend on the
+    thread count)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(scope="module")
 def jspec():
     """``build_swin``'s model, calibrated on the batch of its init (jitted:
