@@ -112,7 +112,20 @@ Phases, each printing one JSON line:
    Swin-T ivit spec of phase 20 served (256 requests, bitwise); a burst of
    1,024 past ``max_queue`` 128 (rejections counted, every admitted answer
    bitwise) and one past ``deadline_ms`` 20 (sheds counted); under
-   ``--profile`` the card's idle share while it serves.
+   ``--profile`` the card's idle share while it serves;
+22. train: QAT training (``ivit_tpu_torch.train``) of seeded DeiT-S ivit
+   (the qkv gain of phase 19, soft distillation from a seeded bf16 float
+   DeiT-S teacher) and Swin-T ibert (drop-path 0.1) at full width and
+   depth: calibrated on 2 x 8 images on the card and the CPU (ranges
+   equal); one 4-image step on each from the same state (quant_stats
+   equal, gradients within 1e-4 of each tensor's largest, params within 2
+   * lr); 8 steps of 16 images on one seeded batch (a Mixup step, the last
+   two under MultiSteps 2, the EMA after each), the loss finite and
+   falling; a checkpoint read into a fresh sim (logits bitwise, state leaf
+   for leaf); the trained sim frozen, its logits bitwise equal to
+   ``Engine(spec)`` on 12 + 12 block-kernel launches (DeiT-S also on 12 +
+   12 standalone ones) and to the plain engine; step ms and img/s, the
+   calibration, save, load and freeze seconds.
 
 The build phase reports ptxas's registers and spill bytes per kernel and
 fails if any kernel spills.
@@ -1938,6 +1951,304 @@ def serving_phase(torch, counters, dev, rows, smi, swin_spec, profile=False):
           "equal_engine": True})
 
 
+# The train phase's configurations: (name, model, gelu, softmax, ln, distill).
+# DeiT-S ivit takes qat_freeze's qkv gain (QAT_QKV_GAIN) and soft distillation
+# from a seeded float DeiT-S teacher (bf16, models/vit_float.py); Swin-T
+# ibert keeps its default drop-path 0.1, drawn from a CPU generator, so that
+# the card's masks are its CPU twin's.  Both at full width and depth.
+TRAIN_CONFIGS = [("deit_s_ivit", "deit_small_patch16_224", "ivit", "ivit", "ivit", True),
+                 ("swin_t_ibert", "swin_tiny_patch4_window7_224", "ibert", "ibert",
+                  "ibert", False)]
+# Calibration on TRAIN_CALIB x TRAIN_CALIB_BATCH seeded images; one step of
+# TRAIN_GATE_BATCH images on the card and on the CPU from the same state
+# (the gate); then TRAIN_STEPS steps of TRAIN_BATCH on one fixed seeded
+# batch with seeded labels: step TRAIN_MIXUP_STEP on its Mixup (images and
+# soft targets), the last two through MultiSteps (accumulation 2) over the
+# same AdamW state; the EMA (decay TRAIN_EMA) after every step; the trained
+# sim against its checkpoint and its engines at batch TRAIN_EVAL_BATCH.
+TRAIN_CALIB, TRAIN_CALIB_BATCH, TRAIN_GATE_BATCH = 2, 8, 4
+TRAIN_BATCH, TRAIN_STEPS, TRAIN_MIXUP_STEP, TRAIN_EVAL_BATCH = 16, 8, 2, 64
+TRAIN_LR, TRAIN_EMA, TRAIN_GRAD_RTOL, TRAIN_CLASSES = 5e-4, 0.9, 1e-4, 1000
+TRAIN_PROFILE_STEP = 4          # a plain step, profiled under --profile
+
+
+def train_config(name):
+    """The phase's TrainConfig for configuration ``name``: AdamW at
+    TRAIN_LR, cosine to lr / 15 over the run, clip 1.0, weight decay 0.05."""
+    from ivit_tpu_torch.train.trainer import TrainConfig
+    _, model, gelu, softmax, ln, _ = next(c for c in TRAIN_CONFIGS if c[0] == name)
+    return TrainConfig(model=model, gelu_type=gelu, softmax_type=softmax,
+                       layernorm_type=ln, lr=TRAIN_LR, weight_decay=0.05,
+                       clip_grad=1.0, epochs=1, batch_size=TRAIN_BATCH,
+                       model_ema_decay=TRAIN_EMA,
+                       num_classes=TRAIN_CLASSES, seed=QAT_SEED)
+
+
+def train_sim(torch, name, device, seed=QAT_SEED):
+    """The phase's seeded sim of configuration ``name`` on ``device`` (drawn
+    on the CPU: the same on either device)."""
+    from ivit_tpu_torch.train.trainer import build_model
+    cfg = dataclasses.replace(train_config(name), seed=seed)
+    sim = build_model(cfg, device="cpu")
+    if cfg.model.startswith("deit"):
+        with torch.no_grad():
+            for blk in sim.blocks:
+                blk.attn.qkv.kernel.mul_(QAT_QKV_GAIN)
+    return sim.to(device)
+
+
+def train_gate(torch, name, sim, cpu_sim, batch, teacher_logits):
+    """One step of ``sim`` (on the card) and of its CPU twin from the same
+    state and batch (the teacher's logits, if any, computed once): the
+    quant_stats equal leaf for leaf, the gradients within TRAIN_GRAD_RTOL of
+    each tensor's largest, the params within 2 * lr (Adam normalises: a
+    near-zero gradient whose sign differs moves a weight by up to 2 * lr)."""
+    import numpy as np
+    from ivit_tpu_torch.models.convert import differing_leaves, variables_to_numpy
+    from ivit_tpu_torch.train.steps import init_train_state, make_train_step
+    from ivit_tpu_torch.train.trainer import build_optimizer
+    out = {}
+    for where, model in (("card", sim), ("cpu", cpu_sim)):
+        tx = build_optimizer(train_config(name), 1)[0]
+        kw = {}
+        if teacher_logits is not None:
+            kw = dict(teacher_fn=lambda images: teacher_logits.to(images.device),
+                      distillation_type="soft")
+        step = make_train_step(model, tx, TRAIN_CLASSES, **kw)
+        t0 = time.perf_counter()
+        _, met = step(init_train_state(model, tx), batch,
+                      torch.Generator().manual_seed(QAT_SEED + 1))
+        seconds = time.perf_counter() - t0
+        grads = {n: (torch.zeros_like(p) if p.grad is None else p.grad).cpu()
+                 for n, p in model.named_parameters()}
+        out[where] = (variables_to_numpy(model), grads, float(met["loss"]), seconds)
+    (card_v, card_g, card_loss, _), (cpu_v, cpu_g, cpu_loss, cpu_s) = \
+        out["card"], out["cpu"]
+    bad = differing_leaves(card_v["quant_stats"], cpu_v["quant_stats"])
+    if bad:
+        raise AssertionError(f"train {name}: card quant_stats after a step != the "
+                             f"CPU's at {bad[:5]}")
+    grad_rel = max((card_g[n] - g).abs().max().item() / max(g.abs().max().item(), 1e-30)
+                   for n, g in cpu_g.items())
+    if grad_rel > TRAIN_GRAD_RTOL:
+        raise AssertionError(f"train {name}: card gradients off the CPU's by {grad_rel} "
+                             "of a tensor's largest")
+    worst, off = 0.0, 0
+    for path in differing_leaves(card_v["params"], cpu_v["params"]):
+        x, y = card_v["params"], cpu_v["params"]
+        for k in path.strip("/").split("/"):
+            x, y = x[k], y[k]
+        d = np.abs(x - y)
+        worst, off = max(worst, float(d.max())), off + int((d > 1e-3 * TRAIN_LR).sum())
+    if worst > 2 * TRAIN_LR * (1 + 1e-6):
+        raise AssertionError(f"train {name}: card params off the CPU's by {worst} > 2 * lr")
+    return {"images": TRAIN_GATE_BATCH, "loss_card": card_loss, "loss_cpu": cpu_loss,
+            "quant_stats_equal_cpu": True, "grad_max_rel_diff": grad_rel,
+            "param_max_abs_diff": worst, "params_off_over_1e-3_lr": off,
+            "cpu_step_s": cpu_s}
+
+
+def train_run(torch, name, sim, batches, teacher_fn, profile=False):
+    """A step of ``sim`` on each of ``batches`` (the last two under
+    MultiSteps 2 over the same AdamW state), the EMA after each; returns the
+    state, the EMA, the last step's transformation and the run's numbers.
+    Every loss must be finite and the last below the first.  With
+    ``profile`` the step TRAIN_PROFILE_STEP runs under torch.profiler
+    (its time then left out of ``step_ms``)."""
+    import math
+    from ivit_tpu_torch.train.optim import MultiSteps, tree_leaves
+    from ivit_tpu_torch.train.steps import init_train_state, make_train_step
+    from ivit_tpu_torch.train.trainer import build_optimizer, init_ema, update_ema
+    cfg = train_config(name)
+    tx = build_optimizer(cfg, len(batches))[0]
+    accum = MultiSteps(tx, every_k_schedule=2)
+    kw = dict(teacher_fn=teacher_fn, distillation_type="soft") if teacher_fn else {}
+    steps = [make_train_step(sim, tx, TRAIN_CLASSES, **kw),
+             make_train_step(sim, accum, TRAIN_CLASSES, **kw)]
+    state = init_train_state(sim, tx)
+    ema = init_ema(state["params"])
+    gen = torch.Generator().manual_seed(QAT_SEED + 2)
+    losses, step_ms, prof = [], [], None
+    for i, batch in enumerate(batches):
+        multi = i >= len(batches) - 2
+        if i == len(batches) - 2:               # the AdamW state carries over
+            ms = accum.init(state["params"])
+            ms["inner_opt_state"] = state["opt_state"]
+            state["opt_state"] = ms
+
+        def one_step():
+            out = steps[multi](state, batch, gen)
+            update_ema(ema, out[0]["params"], cfg.model_ema_decay)
+            return out[0], float(out[1]["loss"])
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if profile and i == TRAIN_PROFILE_STEP:
+            (state, loss), prof = profile_call(torch, one_step)
+        else:
+            state, loss = one_step()
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(loss)
+        if not math.isfinite(losses[-1]):
+            raise AssertionError(f"train {name}: loss {losses[-1]} at step {i}")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"train {name}: the loss did not fall: {losses}")
+    if not all(bool(torch.isfinite(e).all()) for e in tree_leaves(ema)):
+        raise AssertionError(f"train {name}: non-finite EMA")
+    if not accum.has_updated(state["opt_state"]):
+        raise AssertionError(f"train {name}: MultiSteps applied no update")
+    return state, ema, accum, {"losses": losses, "step_ms": step_ms,
+                               "profile_step": prof}
+
+
+def train_checkpoint(torch, name, sim, state, ema, tx, images, directory):
+    """Save the trained state and EMA, read them into a fresh sim (another
+    seed) on the card: its logits bitwise equal to ``sim``'s, the optimizer
+    state and the EMA leaf for leaf; returns the numbers."""
+    import os
+    from ivit_tpu_torch.models.convert import differing_leaves
+    from ivit_tpu_torch.train.checkpoint import (load_checkpoint, load_meta,
+                                                 save_checkpoint, state_dict)
+    from ivit_tpu_torch.train.steps import init_train_state
+    cfg = train_config(name)
+    t0 = time.perf_counter()
+    save_checkpoint(directory, state, epoch=0, best_acc1=0.0,
+                    model_config=cfg.model_config(), args=dataclasses.asdict(cfg),
+                    ema_params=ema)
+    save_s = time.perf_counter() - t0
+    fresh = train_sim(torch, name, images.device, seed=QAT_SEED + 5)
+    t0 = time.perf_counter()
+    loaded, meta = load_checkpoint(directory, init_train_state(fresh, tx))
+    load_s = time.perf_counter() - t0
+    with torch.no_grad():
+        want, got = sim(images), fresh(images)
+    if not torch.equal(got, want):
+        raise AssertionError(f"train {name}: the checkpoint's sim != the trained sim: "
+                             f"max abs diff {(got - want).abs().max().item()}")
+    bad = differing_leaves(state_dict(state, ema), state_dict(loaded))
+    if bad or load_meta(directory)["keys"] != meta["keys"]:
+        raise AssertionError(f"train {name}: the checkpoint's state differs at {bad[:5]}")
+    return {"bytes": os.path.getsize(os.path.join(directory, "state.msgpack")),
+            "save_s": save_s, "load_s": load_s, "logits_equal": True,
+            "state_equal": True}, want
+
+
+def train_engines(torch, name, sim, want, images, counters, rows):
+    """Fit and freeze the trained sim; its logits ``want`` bitwise equal to
+    Engine(spec) on the block kernels (one launch of each a block), on the
+    standalone kernels for an ivit ViT, and to the plain engine."""
+    from ivit_tpu_torch.engine import Engine
+    from ivit_tpu_torch.engine.freeze import freeze_model
+    from ivit_tpu_torch.engine.swin_int import freeze_swin_model
+    from ivit_tpu_torch.models.model_utils import freeze_model as fit_tables
+    swin = name.startswith("swin")
+    t0 = time.perf_counter()
+    fit_tables(sim)
+    spec = (freeze_swin_model if swin else freeze_model)(sim)
+    freeze_s = time.perf_counter() - t0
+    depth = sum(sim.depths) if swin else sim.depth
+    paths = {True: ("swin_attn_block" if swin else "attn_block", "mlp_block"), False: ()}
+    if not swin and sim.softmax_type == "ivit":
+        paths["ops"] = ("shiftmax", "shift_gelu_requant")
+    results = {}
+    for path, kernels in paths.items():
+        eng = Engine(spec, device=images.device, kernels=path)
+        logits, launches = run_counted(torch, counters, lambda: eng(images))
+        expect = {k: depth if k in kernels else 0 for k in counters}
+        if launches != expect:
+            raise AssertionError(f"train {name} kernels={path!r} launched {launches}, "
+                                 f"want {expect}")
+        if not torch.equal(logits, want):
+            raise AssertionError(f"train {name}: Engine(kernels={path!r}) != the trained "
+                                 f"sim: max abs diff {(logits - want).abs().max().item()}")
+        results[str(path)] = {"launches_per_forward": launches, "max_abs_diff_sim": 0.0}
+        for k in kernels:
+            rows[k][f"launches_train_{name}"] = launches[k]
+        if path is True:
+            results["True"]["img_per_s"] = img_per_s(torch, eng, [images], 4)
+        del eng
+    return {"freeze_s": freeze_s, "paths": results}
+
+
+def train_phase(torch, counters, dev, rows, smi, profile=False):
+    """Phase 22: QAT training on the card, for each of TRAIN_CONFIGS at full
+    width and depth: the seeded sim calibrated on the card and its CPU twin
+    (ranges equal leaf for leaf); train_gate; train_run (a Mixup step,
+    MultiSteps, the EMA, DeiT-S distilled from its float teacher), the loss
+    finite and falling; train_checkpoint; train_engines.  Timings: the
+    step's ms and img/s, the calibration, the save and load, the freeze."""
+    import copy
+    import os
+    import numpy as np
+    from ivit_tpu_torch.models.convert import differing_leaves, variables_to_numpy
+    from ivit_tpu_torch.models.vit_float import float_model
+    from ivit_tpu_torch.train.data import Mixup
+    from ivit_tpu_torch.train.distill import make_teacher_fn
+    from ivit_tpu_torch.train.trainer import calibrate
+
+    rng = np.random.default_rng(QAT_SEED + 22)
+    calib = [rng.normal(size=(TRAIN_CALIB_BATCH, 224, 224, 3)).astype(np.float32)
+             for _ in range(TRAIN_CALIB)]
+    images = rng.normal(size=(TRAIN_BATCH, 224, 224, 3)).astype(np.float32)
+    labels = rng.integers(0, TRAIN_CLASSES, TRAIN_BATCH)
+    mixed, soft = Mixup(num_classes=TRAIN_CLASSES)(images, labels, rng)
+    batch = {"image": torch.from_numpy(images).to(dev),
+             "label": torch.from_numpy(labels).to(dev)}
+    batches = [batch] * TRAIN_STEPS
+    batches[TRAIN_MIXUP_STEP] = {"image": torch.from_numpy(mixed).to(dev),
+                                 "label": torch.from_numpy(soft).to(dev)}
+    evals = torch.from_numpy(rng.normal(size=(TRAIN_EVAL_BATCH, 224, 224, 3))
+                             .astype(np.float32)).to(dev)
+    out = {}
+    for name, model, _, _, _, distill in TRAIN_CONFIGS:
+        sim, cpu_sim = train_sim(torch, name, dev), train_sim(torch, name, "cpu")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        calibrate(sim, calib)
+        torch.cuda.synchronize()
+        calib_s = time.perf_counter() - t0
+        calibrate(cpu_sim, calib)
+        bad = differing_leaves(variables_to_numpy(sim)["quant_stats"],
+                               variables_to_numpy(cpu_sim)["quant_stats"])
+        if bad:
+            raise AssertionError(f"train {name}: card calibration != CPU's at {bad[:5]}")
+        teacher_fn = teacher_logits = None
+        if distill:
+            teacher_fn = make_teacher_fn(float_model(model, device=dev,
+                                                     seed=QAT_SEED + 3))
+            teacher_logits = teacher_fn(batch["image"][:TRAIN_GATE_BATCH])
+            if not torch.isfinite(teacher_logits).all():
+                raise AssertionError(f"train {name}: non-finite teacher logits")
+        gate = train_gate(torch, name, copy.deepcopy(sim), cpu_sim,
+                          {k: v[:TRAIN_GATE_BATCH] for k, v in batch.items()},
+                          teacher_logits)
+        del cpu_sim
+        state, ema, tx, run = train_run(torch, name, sim, batches, teacher_fn,
+                                        profile=profile)
+        ckpt, want = train_checkpoint(torch, name, sim, state, ema, tx, evals,
+                                      os.path.join("build", "train_smoke", name))
+        if not torch.isfinite(want).all() or not (want.std(dim=0) > 0).any():
+            raise AssertionError(f"train {name}: trained logits non-finite or "
+                                 "image-independent")
+        engines = train_engines(torch, name, sim, want, evals, counters, rows)
+        ms = sorted(run["step_ms"][1:])[len(run["step_ms"][1:]) // 2]
+        out[name] = {"model": model, "distill": "soft" if distill else "none",
+                     "calibration_s": calib_s, "gate": gate, **run,
+                     "step_ms_median": ms, "img_per_s": TRAIN_BATCH / ms * 1e3,
+                     "checkpoint": ckpt, **engines}
+        emit({"phase": f"train_{name}", "nvidia_smi": smi, **out[name]})
+        del sim, state, ema
+        torch.cuda.empty_cache()
+    emit({"phase": "train", "nvidia_smi": smi,
+          "config": f"full width and depth, seed {QAT_SEED}; calibration {TRAIN_CALIB} x "
+                    f"{TRAIN_CALIB_BATCH}, gate {TRAIN_GATE_BATCH}, {TRAIN_STEPS} steps "
+                    f"of {TRAIN_BATCH} (step {TRAIN_MIXUP_STEP} Mixup, the last two "
+                    f"MultiSteps 2), lr {TRAIN_LR}, EMA {TRAIN_EMA}, eval "
+                    f"{TRAIN_EVAL_BATCH}",
+          **{k: {"step_ms_median": v["step_ms_median"], "img_per_s": v["img_per_s"],
+                 "loss_first": v["losses"][0], "loss_last": v["losses"][-1]}
+             for k, v in out.items()}})
+
+
 def profile_serving(torch, srv, images):
     """The card's idle share while ``srv`` serves ``images`` (torch.profiler,
     CUDA activity): 1 - device busy time / wall time."""
@@ -1949,6 +2260,24 @@ def profile_serving(torch, srv, images):
     busy_ms = sum(a.self_device_time_total for a in prof.key_averages()
                   if a.device_type == DeviceType.CUDA) / 1e3
     return max(0.0, 1.0 - busy_ms / (wall * 1e3))
+
+
+def profile_call(torch, fn):
+    """``fn()`` once under torch.profiler (CUDA activity): its result and
+    the device's busy ms, the wall ms, the idle share and the launches."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    device = [a for a in prof.key_averages()
+              if a.device_type == DeviceType.CUDA and a.self_device_time_total > 0]
+    busy = sum(a.self_device_time_total for a in device) / 1e3
+    return out, {"wall_ms": wall_ms, "device_ms": busy,
+                 "idle_share": max(0.0, 1.0 - busy / wall_ms),
+                 "device_launches": sum(a.count for a in device)}
 
 
 def profile_forward(torch, name, eng, images, n=3):
@@ -2033,6 +2362,8 @@ def main(argv=None) -> int:
     emit({"phase": "qat_freeze_swin_done", "seconds": time.perf_counter() - t0})
     serving_phase(torch, counters, dev, rows, smi, swin_spec, profile=args.profile)
     emit({"phase": "serving_done", "seconds": time.perf_counter() - t0})
+    train_phase(torch, counters, dev, rows, smi, profile=args.profile)
+    emit({"phase": "train_done", "seconds": time.perf_counter() - t0})
     emit({"kernels": list(rows.values())})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

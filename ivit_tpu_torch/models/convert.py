@@ -86,6 +86,28 @@ def variables_to_numpy(model) -> dict:
     return out
 
 
+def _sorted(tree):
+    return {k: _sorted(tree[k]) if isinstance(tree[k], dict) else tree[k]
+            for k in sorted(tree)}
+
+
+def variables_tree(model) -> dict:
+    """The module's parameters and buffers themselves (not copies) as a flax
+    ``{"params", "quant_stats"}`` tree, every dict's keys sorted as
+    ``jax.device_get`` leaves them: the train step's state
+    (``train/steps.py``) updates the module through it."""
+    out = {"params": {}, "quant_stats": {}}
+    for coll, named in (("params", model.named_parameters()),
+                        ("quant_stats", model.named_buffers())):
+        for name, t in named:
+            node = out[coll]
+            *path, leaf = _flax_path(name)
+            for k in path:
+                node = node.setdefault(k, {})
+            node[leaf] = t
+    return _sorted(out)
+
+
 def differing_leaves(a, b, path=""):
     """The leaf paths where two trees (dicts, lists, arrays or tensors) differ
     in structure, dtype, shape or value; ``[]`` when they are equal leaf for

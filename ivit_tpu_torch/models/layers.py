@@ -385,7 +385,7 @@ class FloatLayerNorm(nn.Module):
         mean = x.mean(dim=-1, keepdim=True)
         var = ((x - mean) ** 2).mean(dim=-1, keepdim=True)
         y = (x - mean) * torch.rsqrt(var + self.eps) * self.weight + self.bias
-        dim_sqrt = torch.sqrt(q.f32(x.shape[-1], x.device))
+        dim_sqrt = q.sqrt_rn(q.f32(x.shape[-1], x.device))
         out_scale = dim_sqrt / 2.0**30 * self.weight
         n = 2 ** (self.bitwidth - 1)
         y_int = q.clip(q.floor_ste(y / out_scale), -n, n - 1)

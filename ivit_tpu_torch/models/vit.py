@@ -25,6 +25,7 @@ import torch
 import torch.nn as nn
 
 from .. import resolve_device
+from ..ops.quant import true_divide
 from . import registry
 from .layers import (QuantAct, QuantConv2d, QuantLinear, exact_f32, quant_matmul,
                      trunc_normal_init)
@@ -62,14 +63,21 @@ class BitWidths:
                 self.norm2_in, self.att_block_out]
 
 
+def _uniform(shape, generator, device):
+    """Uniform draws from ``generator`` on its own device, then moved to
+    ``device``: a CPU generator gives the same masks to a sim on the card
+    as to its twin on the CPU."""
+    return torch.rand(shape, generator=generator, device=generator.device).to(device)
+
+
 def _dropout(x, rate: float, train: bool, generator):
     """flax ``nn.Dropout``: keep with probability ``1 - rate``, scaled."""
     if rate == 0.0 or not train:
         return x
     if generator is None:
         raise ValueError("dropout in training needs a torch.Generator")
-    keep = torch.rand(x.shape, generator=generator, device=x.device) < 1.0 - rate
-    return torch.where(keep, x / (1.0 - rate), torch.zeros_like(x))
+    keep = _uniform(x.shape, generator, x.device) < 1.0 - rate
+    return torch.where(keep, true_divide(x, 1.0 - rate), torch.zeros_like(x))
 
 
 class DropPath(nn.Module):
@@ -86,9 +94,8 @@ class DropPath(nn.Module):
             raise ValueError("drop-path in training needs a torch.Generator")
         keep_prob = 1.0 - self.drop_prob
         shape = (x.shape[0],) + (1,) * (x.ndim - 1)
-        mask = torch.floor(keep_prob + torch.rand(shape, generator=generator,
-                                                  device=x.device))
-        return x / keep_prob * mask
+        mask = torch.floor(keep_prob + _uniform(shape, generator, x.device))
+        return true_divide(x, keep_prob) * mask
 
 
 class Mlp(nn.Module):

@@ -16,7 +16,7 @@ from __future__ import annotations
 import torch
 
 from .quant import (clip, exact_fma, exact_int_sum, exact_sq_sum, f32,
-                    floor_div_int, floor_ste, pow2, rdiv, round_ste)
+                    floor_div_int, floor_ste, pow2, rdiv, round_ste, sqrt_rn)
 
 # --- GELU (int_erf) constants, ibert_modules.py:192-195 ---
 GELU_K = 1.4142
@@ -137,7 +137,7 @@ def _ibert_ln(x_int, shift, use_int_sqrt, overflow_handling):
     if overflow_handling:
         with torch.no_grad():
             raw_var = exact_sq_sum(y_int)
-            needed = torch.amax(torch.ceil(torch.log2(torch.sqrt(raw_var / 2.0**32))))
+            needed = torch.amax(torch.ceil(torch.log2(sqrt_rn(raw_var / 2.0**32))))
             overflow = torch.amax(var(shift)) >= 2.0**32
             shift = torch.where(overflow, torch.maximum(shift, needed), shift)
     var_int = var(shift)
@@ -145,7 +145,7 @@ def _ibert_ln(x_int, shift, use_int_sqrt, overflow_handling):
     if use_int_sqrt:
         std = floor_ste(int_bitlength_sqrt(var_int)) * pw
     else:
-        std = floor_ste(torch.sqrt(var_int)) * pw
+        std = floor_ste(sqrt_rn(var_int)) * pw
     factor = floor_ste(rdiv(2.0**31, std))
     return floor_ste(y_int * factor / 2), shift
 
@@ -166,7 +166,7 @@ def ibert_layernorm_affine_int(x_int, weight, bias, shift,
     Returns ``(y_int, out_scale, new_shift)``."""
     dev = x_int.device
     y_int, new_shift = _ibert_ln(x_int, shift, use_int_sqrt, overflow_handling)
-    out_scale = torch.sqrt(f32(x_int.shape[-1], dev)) / 2.0**30
+    out_scale = sqrt_rn(f32(x_int.shape[-1], dev)) / 2.0**30
     w, b = f32(weight, dev), f32(bias, dev)
     bias_int = torch.floor(rdiv(rdiv(b.detach(), w.detach()), out_scale))
     return y_int + bias_int, out_scale * w, new_shift

@@ -14,7 +14,7 @@ from __future__ import annotations
 import torch
 
 from .quant import (clip, exact_int_sum, exact_sq_sum, f32, floor_div_int,
-                    floor_ste, pow2, rdiv, round_ste)
+                    floor_ste, pow2, rdiv, round_ste, sqrt_rn)
 
 INT32_MAX = 2.0**31 - 1     # 2**31 once rounded to f32, as in the reference
 
@@ -99,7 +99,7 @@ def i_layernorm_int(x_int, weight, bias):
     with the bias folded through the per-channel weight and the scale
     ``sqrt(C) / 2**30 * weight``."""
     dev = x_int.device
-    out_scale = torch.sqrt(f32(x_int.shape[-1], dev)) / 2.0**30
+    out_scale = sqrt_rn(f32(x_int.shape[-1], dev)) / 2.0**30
     w, b = f32(weight, dev), f32(bias, dev)
     bias_int = torch.floor(rdiv(rdiv(b.detach(), w.detach()), out_scale))
     return i_layernorm_core(x_int) + bias_int, out_scale * w

@@ -69,6 +69,49 @@ def rdiv(a, b):
     return q + r / b
 
 
+def true_divide(x, scalar: float):
+    """``x / scalar``, a correctly rounded f32 division on every device: the
+    divisor a tensor on ``x``'s device, since CUDA divides by a host scalar
+    as a product with its reciprocal, which rounds otherwise."""
+    return x / torch.tensor(scalar, dtype=x.dtype, device=x.device)
+
+
+def _sqrt_rn_value(x):
+    # an f64 root rounded to f32 is within an ulp of the correctly rounded
+    # one; the midpoints between it and its neighbours, squared, are exact
+    # in f64 (25-bit factors) and never an f32, so comparing x with them
+    # picks the correctly rounded root
+    r = torch.sqrt(x.double()).float()
+    up = torch.nextafter(r, torch.full_like(r, math.inf))
+    down = torch.nextafter(r, torch.zeros_like(r))
+    rd, xd = r.double(), x.double()
+    hi, lo = (rd + up.double()) * 0.5, (rd + down.double()) * 0.5
+    return torch.where(xd > hi * hi, up, torch.where(xd < lo * lo, down, r))
+
+
+class _SqrtRN(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x):
+        y = _sqrt_rn_value(x)
+        ctx.save_for_backward(y)
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        (y,) = ctx.saved_tensors
+        return g / (2 * y)
+
+
+def sqrt_rn(x):
+    """Correctly rounded f32 ``sqrt``, as XLA's and the kernels'
+    ``__fsqrt_rn``; gradient ``torch.sqrt``'s.  torch's f32 ``sqrt`` is not
+    correctly rounded on the card (on an NVIDIA H100, an ulp off for 217
+    of the 25,088 LayerNorm variances of a Swin-T ibert block, which moved
+    a ``floor(sqrt)``), nor on an x86 CPU for large tensors (its vector
+    math library: 6,606 of 2**20 integers below 2**32)."""
+    return _SqrtRN.apply(x) if _grad_on(x) else _sqrt_rn_value(x)
+
+
 def floor_div_int(x, b):
     """Exact ``floor(x / b)`` for f32-held integers (``quant.floor_div_int``);
     equals ``floor(rdiv(x, b))`` whenever :func:`exp_fastdiv_ok` holds."""

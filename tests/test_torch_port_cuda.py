@@ -891,3 +891,163 @@ def test_cuda_serving_matches_engine(cuda):
             m = srv.metrics.summary()
         np.testing.assert_array_equal(got, want)
         assert m["images"] == 11 and m["batches"] >= 3
+
+
+def _train_sims(dev, kind):
+    from ivit_tpu_torch.models import SwinTransformer, VisionTransformer
+    if kind == "vit":
+        return _qat_sim(dev, "ivit", "ivit", "ivit", "8"), 64
+    # drop-path on: its masks come from a CPU generator on either device
+    return SwinTransformer(gelu_type="ibert", softmax_type="ibert",
+                           layernorm_type="ibert", device=dev, seed=0,
+                           **dict(SWIN_QAT_GEOM, drop_path_rate=0.1)), 56
+
+
+def _train_cfg(**kw):
+    from ivit_tpu_torch.train.trainer import TrainConfig
+    return TrainConfig(**{**dict(lr=1e-3, weight_decay=0.05, clip_grad=1.0, epochs=1,
+                                 num_classes=10, batch_size=4), **kw})
+
+
+@pytest.mark.parametrize("kind", ["vit", "swin"])
+def test_cuda_train_step_matches_cpu(cuda, kind):
+    """One train step (calibrated sim, clip, masked AdamW) on the card and on
+    the CPU from the same state and batch: quant_stats equal leaf for leaf,
+    gradients within 1e-4 of each tensor's largest (the backward's f32 sums
+    run in other orders, TF32 off), params within 2 * lr (Adam normalises a
+    near-zero gradient whose sign differs)."""
+    from ivit_tpu_torch.models.convert import differing_leaves, variables_to_numpy
+    from ivit_tpu_torch.train.steps import (init_train_state, make_calibration_step,
+                                            make_train_step)
+    from ivit_tpu_torch.train.trainer import build_optimizer
+    gen = torch.Generator().manual_seed(0)
+    (card, size), (cpu, _) = _train_sims(cuda, kind), _train_sims("cpu", kind)
+    xs = torch.randn((4, size, size, 3), generator=gen)
+    batch = {"image": torch.randn((4, size, size, 3), generator=gen),
+             "label": torch.tensor([1, 2, 3, 4])}
+    out = []
+    for model in (card, cpu):
+        make_calibration_step(model)(xs)
+        tx = build_optimizer(_train_cfg(), 4)[0]
+        state, met = make_train_step(model, tx, 10)(
+            init_train_state(model, tx), batch, torch.Generator().manual_seed(1))
+        out.append((variables_to_numpy(model), float(met["loss"]),
+                    {n: p.grad.cpu() for n, p in model.named_parameters()
+                     if p.grad is not None}))
+    (cv, closs, cg), (pv, ploss, pg) = out
+    assert differing_leaves(cv["quant_stats"], pv["quant_stats"]) == []
+    assert abs(closs - ploss) <= 1e-5 * abs(ploss)
+    assert cg.keys() == pg.keys()
+    for n, g in pg.items():
+        assert (cg[n] - g).abs().max() <= 1e-4 * g.abs().max(), n
+    for path in differing_leaves(cv["params"], pv["params"]):
+        a, b = cv["params"], pv["params"]
+        for k in path.strip("/").split("/"):
+            a, b = a[k], b[k]
+        assert np.abs(a - b).max() <= 2 * 1e-3 * (1 + 1e-6), path
+
+
+@pytest.mark.parametrize("accum", [1, 2])
+def test_cuda_optimizer_matches_cpu(cuda, accum):
+    """The optimizer on the same gradients on the card and on the CPU, three
+    updates: without clipping (AdamW with the mask; MultiSteps 2) the
+    states and params bitwise equal (every step its own rounded f32
+    operation, the roots ``sqrt_rn``, the scalars from the host); with
+    clipping the global norm's sums run in other orders: states within 8
+    ulps of each leaf's largest, params within two ulps plus 8 ulps of lr
+    times a unit step (``tests/test_torch_port_train.py``'s bounds)."""
+    from ivit_tpu_torch.train import optim
+    from ivit_tpu_torch.train.trainer import build_optimizer
+    rng = np.random.default_rng(0)
+    params = {"blocks_0": {"fc1": {"kernel": rng.normal(size=(64, 32)),
+                                   "bias": rng.normal(size=32)},
+                           "fc2": {"kernel": rng.normal(size=(256, 512))}},
+              "cls_token": rng.normal(size=(1, 1, 32)),
+              "head": {"kernel": rng.normal(size=(32, 10))}}
+    params = optim.tree_map(lambda a: a.astype(np.float32), params)
+    grads = [optim.tree_map(lambda p: (rng.normal(size=p.shape) * s).astype(np.float32),
+                            params) for s in (3.0, 0.01, 2.0, 1e-6, 1.0, 0.5)]
+    for clip in (None, 1.0):
+        out = []
+        for dev in (cuda, torch.device("cpu")):
+            tx = build_optimizer(_train_cfg(clip_grad=clip, eff_batch_size=4 * accum,
+                                            epochs=2, warmup_epochs=1, warmup_lr=1e-5),
+                                 3)[0]
+            p = optim.tree_map(lambda a: torch.tensor(a, device=dev), params)
+            st = tx.init(p)
+            for g in grads[:3 * accum]:
+                u, st = tx.update(optim.tree_map(lambda a: torch.tensor(a, device=dev), g),
+                                  st, p)
+                with torch.no_grad():
+                    optim.apply_updates(p, u)
+            out.append(optim.tree_map(lambda t: t.cpu().numpy(), {"s": st, "p": p}))
+        (card, cpu) = out
+        for path, want in optim.tree_paths(cpu):
+            got = card
+            for k in path:
+                got = got[k]
+            if clip is None or want.dtype != np.float32:
+                np.testing.assert_array_equal(got, want, err_msg="/".join(path))
+            elif path[0] == "p":
+                bound = 2 * np.spacing(np.abs(want)) + 8 * np.float32(1e-3) * 2.0**-23
+                assert (np.abs(got - want) <= bound).all(), path
+            else:
+                bound = 8 * np.spacing(np.float32(np.abs(want).max()))
+                assert np.abs(got - want).max() <= bound, path
+
+
+def test_cuda_checkpoint_round_trip(cuda, tmp_path):
+    """A trained state saved from the card: the same bytes as its CPU copy
+    saves, read back into a card sim and a CPU sim with equal logits."""
+    from ivit_tpu_torch.models.convert import differing_leaves
+    from ivit_tpu_torch.train.checkpoint import load_checkpoint, save_checkpoint, state_dict
+    from ivit_tpu_torch.train.steps import (init_train_state, make_calibration_step,
+                                            make_train_step)
+    from ivit_tpu_torch.train.trainer import build_optimizer, init_ema, update_ema
+    gen = torch.Generator().manual_seed(2)
+    sim, _ = _train_sims(cuda, "vit")
+    make_calibration_step(sim)(torch.randn((4, 64, 64, 3), generator=gen))
+    tx = build_optimizer(_train_cfg(eff_batch_size=8), 4)[0]
+    state = init_train_state(sim, tx)
+    ema = init_ema(state["params"])
+    step = make_train_step(sim, tx, 10)
+    for _ in range(3):
+        state, _ = step(state, {"image": torch.randn((4, 64, 64, 3), generator=gen),
+                                "label": torch.tensor([0, 1, 2, 3])})
+        update_ema(ema, state["params"], 0.9)
+    save_checkpoint(str(tmp_path / "card"), state, epoch=0, best_acc1=0.0,
+                    model_config={}, ema_params=ema)
+    cpu_state = {k: v for k, v in state_dict(state).items()}
+    from ivit_tpu_torch.train.optim import tree_map
+    host = tree_map(lambda a: torch.from_numpy(a.copy()), cpu_state)
+    save_checkpoint(str(tmp_path / "cpu"), host, epoch=0, best_acc1=0.0,
+                    model_config={}, ema_params=tree_map(lambda t: t.cpu(), ema))
+    for name in ("state.msgpack", "meta.json"):
+        assert (tmp_path / "card" / name).read_bytes() == (tmp_path / "cpu" / name).read_bytes()
+    x = torch.randn((4, 64, 64, 3), generator=gen)
+    with torch.no_grad():
+        want = sim(x.to(cuda))
+    for dev in (cuda, torch.device("cpu")):
+        fresh, _ = _train_sims(dev, "vit")
+        fresh.cls_token.data.zero_()
+        loaded, _ = load_checkpoint(str(tmp_path / "card"),
+                                    init_train_state(fresh, build_optimizer(
+                                        _train_cfg(eff_batch_size=8), 4)[0]))
+        assert differing_leaves(state_dict(loaded), state_dict(state, ema)) == []
+        with torch.no_grad():
+            assert torch.equal(fresh(x.to(dev)).cpu(), want.cpu())
+
+
+def test_cuda_sqrt_rn_matches_cpu(cuda):
+    """The LayerNorm's ``sqrt_rn`` on the card is the correctly rounded f32
+    root (numpy's, the CPU's; ``tests/test_torch_port_ops.py``), where
+    torch's CUDA f32 ``sqrt`` is an ulp off for some variances
+    (1,200,810,240: a Swin-T ibert block's)."""
+    from ivit_tpu_torch.ops.quant import sqrt_rn
+    gen = torch.Generator().manual_seed(0)
+    v = torch.cat([torch.randint(0, 2**32, (1 << 20,), generator=gen,
+                                 dtype=torch.int64).float(),
+                   torch.tensor([0.0, 1200810240.0])])
+    got = sqrt_rn(v.to(cuda)).cpu()
+    np.testing.assert_array_equal(got.numpy(), np.sqrt(v.numpy()))
+    assert torch.equal(got, sqrt_rn(v))

@@ -1,5 +1,7 @@
-"""The PyTorch port stands alone: no JAX, nothing of ``ivit_tpu``, and its
-entry points run on CUDA unless asked for the CPU."""
+"""The PyTorch port stands alone: no JAX, nothing of ``ivit_tpu``, no
+``msgpack`` (the card's environment is not known to have it: the port's
+checkpoints use its own codec), and its entry points run on CUDA unless
+asked for the CPU."""
 
 import os
 import re
@@ -22,8 +24,7 @@ for name in mods:
     importlib.import_module(name)
 import chip_smoke
 bad = [m for m in sys.modules
-       if m == "jax" or m.startswith("jax.") or m == "ivit_tpu"
-       or m.startswith("ivit_tpu.")]
+       if m.split(".")[0] in ("jax", "flax", "ivit_tpu", "msgpack")]
 assert not bad, bad
 print(len(mods))
 """
@@ -46,7 +47,7 @@ def _sources():
 
 
 def test_port_sources_import_no_jax_nor_reference():
-    pat = re.compile(r"^\s*(import|from)\s+(jax|flax|ivit_tpu)(\.|\s|$)", re.M)
+    pat = re.compile(r"^\s*(import|from)\s+(jax|flax|ivit_tpu|msgpack)(\.|\s|$)", re.M)
     for path in _sources():
         with open(path) as f:
             hits = pat.findall(f.read())

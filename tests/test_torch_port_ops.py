@@ -140,3 +140,26 @@ def test_pow2_and_gate():
     for x0 in (-1.0, -138.0, -2.0**19, -2.0**19 - 1, 0.0, float("-inf")):
         for n in (15, 23, 30):
             assert tq.exp_fastdiv_ok(x0, n) == jq.exp_fastdiv_ok(x0, n)
+
+
+def test_sqrt_rn_is_correctly_rounded():
+    """``sqrt_rn`` (the LayerNorm's ``floor(sqrt(var))`` and ``sqrt(C)``) is
+    the correctly rounded f32 root, XLA's: numpy's f32 ``sqrt`` (IEEE) and
+    ``jnp.sqrt`` on 2**20 integer variances below 2**32 (torch's own f32
+    ``sqrt`` misses 6,606 of them on the CPU, its vector math library's),
+    on perfect squares and their neighbours, and on the variance whose
+    root torch's CUDA ``sqrt`` rounded up (1,200,810,240); on the card,
+    ``tests/test_torch_port_cuda.py::test_cuda_sqrt_rn_matches_cpu``."""
+    rng = np.random.default_rng(0)
+    k = rng.integers(1, 2**16, 4096).astype(np.float64)
+    v = np.concatenate([rng.integers(0, 2**32, 1 << 20).astype(np.float64),
+                        k * k, k * k - 1, k * k + 1,
+                        [0.0, 1200810240.0, 96.0, 1536.0]]).astype(np.float32)
+    want = np.sqrt(v)
+    got = tq.sqrt_rn(torch.from_numpy(v)).numpy()
+    assert got.dtype == np.float32
+    np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(np.asarray(jnp.sqrt(jnp.asarray(v))), want)
+    x = torch.tensor([2.0, 1200810240.0], requires_grad=True)
+    tq.sqrt_rn(x).sum().backward()
+    torch.testing.assert_close(x.grad, 0.5 / torch.sqrt(x.detach()), rtol=1e-6, atol=0)
