@@ -125,7 +125,25 @@ Phases, each printing one JSON line:
    for leaf); the trained sim frozen, its logits bitwise equal to
    ``Engine(spec)`` on 12 + 12 block-kernel launches (DeiT-S also on 12 +
    12 standalone ones) and to the plain engine; step ms and img/s, the
-   calibration, save, load and freeze seconds.
+   calibration, save, load and freeze seconds;
+23. trainer: training from image files through the CLI
+   (``ivit_tpu_torch.scripts.quant_train``, in-process): a seeded
+   ImageFolder written under ``build/trainer_smoke/`` (10 classes, 80
+   train and 40 val images of 160-400 px, PNG and 24-bit BMP, no
+   Pillow); the first train batch bitwise equal from 1 and 8 loader
+   threads and at the sha256 the CPU test pins through the JAX package's
+   Pillow pipeline; DeiT-S ivit at full width and depth (qkv scaled as in
+   phase 19), batch 16, RandAugment ``rand-m9-mstd0.5-inc1``, Mixup /
+   CutMix, label smoothing, the EMA, one epoch, its calibration equal to
+   a CPU Trainer's leaf for leaf; a second epoch resumed from the
+   checkpoint (epoch, step, optimizer state and EMA as saved); every
+   logged loss finite, JAX's log fields; the trained sim frozen, its
+   logits on the first val batch equal to ``Engine(spec)`` on 12 + 12
+   block-kernel and 12 + 12 standalone-kernel launches and to the plain
+   engine; the loader's img/s with and without RandAugment, each step's
+   loader wait share, step ms and img/s, the epoch, calibration,
+   validate, save and resume seconds (``--profile``: the card's idle
+   share over an epoch).
 
 The build phase reports ptxas's registers and spill bytes per kernel and
 fails if any kernel spills.
@@ -2249,6 +2267,337 @@ def train_phase(torch, counters, dev, rows, smi, profile=False):
              for k, v in out.items()}})
 
 
+# The trainer phase: the training CLI (ivit_tpu_torch.scripts.quant_train)
+# run in-process on a seeded ImageFolder written under build/trainer_smoke/:
+# TRAINER_CLASSES classes of TRAINER_TRAIN train and TRAINER_VAL val images,
+# each side drawn in TRAINER_SIDES (so that the random-resized crop both up-
+# and downsamples), PNG but every seventh a 24-bit BMP, the pixels integer
+# arithmetic on seeded draws (no transcendental: the same bytes on every
+# machine).  DeiT-S ivit at full width and depth, 224 px, batch
+# TRAINER_BATCH, the reference's augmentation and Mixup defaults, the EMA;
+# one epoch, then a second resumed from the first one's checkpoint.
+TRAINER_ROOT = "build/trainer_smoke"
+TRAINER_CLASSES, TRAINER_TRAIN, TRAINER_VAL, TRAINER_SIDES = 10, 8, 4, (160, 400)
+TRAINER_BATCH, TRAINER_AA, TRAINER_THREADS = 16, "rand-m9-mstd0.5-inc1", 8
+# sha256 of the first train batch of epoch 0 (image bytes, then label bytes),
+# computed through the JAX package's Pillow pipeline on the same folder by
+# tests/test_torch_port_data.py::test_trainer_smoke_first_batch_digest
+TRAINER_FIRST_BATCH_SHA256 = "df9f7365e6a323ffbe10a70a86be850df7130b5a97334f4159802c5c9e83de3a"
+# the JSONL record fields of the JAX trainer (ivit_tpu/train/trainer.py)
+TRAINER_LOG_KEYS = {"train": {"ts", "run_id", "phase", "epoch", "loss", "acc", "step"},
+                    "epoch": {"ts", "run_id", "phase", "epoch", "train_loss", "loss",
+                              "top1", "top5", "best_acc1", "eta_s"}}
+
+
+def write_png(path, img):
+    """An 8-bit RGB PNG of ``img`` (HWC uint8), every row filter 0."""
+    import struct
+    import zlib
+
+    def chunk(kind, body):
+        return (struct.pack(">I", len(body)) + kind + body
+                + struct.pack(">I", zlib.crc32(kind + body) & 0xFFFFFFFF))
+    h, w = img.shape[:2]
+    raw = b"".join(b"\x00" + img[y].tobytes() for y in range(h))
+    with open(path, "wb") as f:
+        f.write(b"\x89PNG\r\n\x1a\n" + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2,
+                                                                   0, 0, 0))
+                + chunk(b"IDAT", zlib.compress(raw, 6)) + chunk(b"IEND", b""))
+
+
+def write_bmp(path, img):
+    """A 24-bit bottom-up BMP of ``img`` (HWC uint8)."""
+    import struct
+    import numpy as np
+    h, w = img.shape[:2]
+    stride = (w * 3 + 3) // 4 * 4
+    pix = np.zeros((h, stride), np.uint8)
+    pix[:, :w * 3] = img[::-1, :, ::-1].reshape(h, w * 3)
+    header = struct.pack("<IiiHHIIiiII", 40, w, h, 1, 24, 0, pix.size, 2835, 2835, 0, 0)
+    with open(path, "wb") as f:
+        f.write(b"BM" + struct.pack("<IHHI", 54 + pix.size, 0, 0, 54) + header
+                + pix.tobytes())
+
+
+def write_trainer_folder(root):
+    """The phase's seeded ImageFolder under ``root`` (``train/``, ``val/``):
+    a coarse random colour grid blown up in blocks, a gradient and noise."""
+    import os
+    import numpy as np
+    rng = np.random.default_rng(QAT_SEED + 23)
+    for split, per_class in (("train", TRAINER_TRAIN), ("val", TRAINER_VAL)):
+        for c in range(TRAINER_CLASSES):
+            cdir = os.path.join(root, split, f"class_{c:02d}")
+            os.makedirs(cdir, exist_ok=True)
+            for k in range(per_class):
+                h, w = (int(v) for v in rng.integers(TRAINER_SIDES[0],
+                                                     TRAINER_SIDES[1] + 1, 2))
+                cell = int(rng.integers(8, 40))
+                grid = rng.integers(0, 256, (h // cell + 1, w // cell + 1, 3))
+                img = np.repeat(np.repeat(grid, cell, 0), cell, 1)[:h, :w]
+                yy, xx = np.mgrid[0:h, 0:w]
+                img = img + ((xx * (c + 1) + yy * 3) % 64)[..., None] - 32
+                img = img + rng.integers(-12, 13, (h, w, 3))
+                img = np.clip(img, 0, 255).astype(np.uint8)
+                if (c * per_class + k) % 7 == 3:
+                    write_bmp(os.path.join(cdir, f"img_{k}.bmp"), img)
+                else:
+                    write_png(os.path.join(cdir, f"img_{k}.png"), img)
+
+
+def batch_digest(batch):
+    import hashlib
+    return hashlib.sha256(batch["image"].tobytes() + batch["label"].tobytes()).hexdigest()
+
+
+def trainer_argv(out_dir, device, epochs=1, resume=None):
+    argv = ["--model", "deit_small_patch16_224", "--data-path", TRAINER_ROOT,
+            "--batch-size", str(TRAINER_BATCH), "--epochs", str(epochs),
+            "--calibration-batches", "2", "--aa", TRAINER_AA, "--mixup", "0.8",
+            "--cutmix", "1.0", "--smoothing", "0.1", "--model-ema", "--lr", "5e-4",
+            "--clip-grad", "1.0", "--weight-decay", "0.05", "--seed", str(QAT_SEED),
+            "--output-dir", out_dir, "--run-id", "smoke", "--log-interval", "1",
+            "--device", device]
+    return argv + (["--resume", resume] if resume else [])
+
+
+def trainer_loader_rates():
+    """Gate 1 and the loader's rate: the first train batch of epoch 0 from
+    1 and TRAINER_THREADS threads, bitwise equal and at the pinned digest;
+    img/s of a whole train pass at TRAINER_THREADS threads, with and
+    without RandAugment (host only)."""
+    import numpy as np
+    from ivit_tpu_torch.train.data import ImageFolderDataset, data_loader
+    from ivit_tpu_torch.train.randaug import parse_rand_augment
+    ds = ImageFolderDataset(f"{TRAINER_ROOT}/train")
+    ra = parse_rand_augment(TRAINER_AA)
+    kw = dict(train=True, img_size=224, seed=QAT_SEED)
+    first = [next(data_loader(ds, TRAINER_BATCH, rand_augment=ra, num_threads=t, **kw))
+             for t in (1, TRAINER_THREADS)]
+    for k in ("image", "label"):
+        if not np.array_equal(first[0][k], first[1][k]):
+            raise AssertionError(f"trainer: the first batch's {k} differs between 1 and "
+                                 f"{TRAINER_THREADS} loader threads")
+    digest = batch_digest(first[0])
+    if digest != TRAINER_FIRST_BATCH_SHA256:
+        raise AssertionError(f"trainer: first batch sha256 {digest} != the CPU test's "
+                             f"{TRAINER_FIRST_BATCH_SHA256}")
+    rates = {}
+    for name, aug in (("randaugment", ra), ("no_randaugment", None)):
+        t0 = time.perf_counter()
+        n = sum(b["image"].shape[0] for b in data_loader(
+            ds, TRAINER_BATCH, rand_augment=aug, num_threads=TRAINER_THREADS, **kw))
+        rates[name] = n / (time.perf_counter() - t0)
+    return {"first_batch_sha256": digest, "threads_equal": [1, TRAINER_THREADS],
+            "loader_img_per_s": rates, "loader_threads": TRAINER_THREADS}
+
+
+class _Timed:
+    """Wraps ``trainer``'s loader and its lifecycle methods for the phase's
+    clock: the seconds each step of ``train_epoch`` waited on the loader and
+    worked (Mixup, the step, the EMA, the logging, up to the next batch),
+    and the seconds of each call of ``calibrate``, ``train_epoch``,
+    ``validate`` and the checkpoint save.  ``snapshot`` runs after
+    ``calibrate``; with ``profile_epoch`` each epoch runs under
+    torch.profiler (the card's idle share)."""
+
+    def __init__(self, torch, trainer, snapshot=None, profile_epoch=False):
+        import ivit_tpu_torch.train.trainer as mod
+        self.torch = torch
+        self.wait, self.work, self.calls = [], [], {}
+        self.profile, self.in_epoch = None, False
+        loader, save = mod.data_loader, mod.ckpt_io.save_checkpoint
+        timed = self
+
+        def data_loader(*args, **kw):
+            it = loader(*args, **kw)
+            t0 = time.perf_counter()
+            while True:
+                try:
+                    batch = next(it)
+                except StopIteration:
+                    return
+                t1 = time.perf_counter()
+                yield batch
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                if timed.in_epoch:
+                    timed.wait.append(t1 - t0)
+                    timed.work.append(t - t1)
+                t0 = t
+
+        self._patches = [(mod, "data_loader", loader, data_loader),
+                         (mod.ckpt_io, "save_checkpoint", save, self._clock("save", save))]
+        for name in ("calibrate", "train_epoch", "validate"):
+            fn = getattr(trainer, name)
+            if name == "train_epoch" and profile_epoch:
+                fn = self._profiled(fn)
+            wrapped = self._clock(name, fn)
+            if name == "calibrate" and snapshot is not None:
+                wrapped = self._after(wrapped, snapshot)
+            self._patches.append((trainer, name, None, wrapped))
+
+    def _clock(self, name, fn):
+        def run(*args, **kw):
+            self.torch.cuda.synchronize()
+            self.in_epoch = name == "train_epoch"
+            t0 = time.perf_counter()
+            out = fn(*args, **kw)
+            self.torch.cuda.synchronize()
+            self.calls.setdefault(name, []).append(time.perf_counter() - t0)
+            self.in_epoch = False
+            return out
+        return run
+
+    def _after(self, fn, then):
+        def run(*args, **kw):
+            out = fn(*args, **kw)
+            then()
+            return out
+        return run
+
+    def _profiled(self, fn):
+        def run(*args, **kw):
+            out, self.profile = profile_call(self.torch, lambda: fn(*args, **kw))
+            return out
+        return run
+
+    def __enter__(self):
+        for obj, name, _, new in self._patches:
+            setattr(obj, name, new)
+        return self
+
+    def __exit__(self, *exc):
+        for obj, name, old, _ in self._patches:
+            if old is None:
+                delattr(obj, name)
+            else:
+                setattr(obj, name, old)
+
+    def numbers(self):
+        wait, work = sum(self.wait), sum(self.work)
+        steps = len(self.work)
+        out = {"steps": steps, "loader_wait_share": wait / max(wait + work, 1e-9),
+               "step_ms_mean": work / max(steps, 1) * 1e3,
+               "img_per_s": steps * TRAINER_BATCH / max(work, 1e-9),
+               **{f"{k}_s": v for k, v in self.calls.items()}}
+        if self.profile is not None:
+            out["epoch_profile"] = self.profile
+        return out
+
+
+def trainer_log_check(path):
+    """Gate 3's log half: every record has the JAX trainer's fields and
+    every loss is finite; returns the records."""
+    import math
+    with open(path) as f:
+        recs = [json.loads(line) for line in f]
+    for r in recs:
+        if set(r) != TRAINER_LOG_KEYS[r["phase"]]:
+            raise AssertionError(f"trainer: log record fields {sorted(r)} != JAX's "
+                                 f"{sorted(TRAINER_LOG_KEYS[r['phase']])}")
+        for k in ("loss", "train_loss"):
+            if k in r and not math.isfinite(r[k]):
+                raise AssertionError(f"trainer: non-finite {k} in {r}")
+    return recs
+
+
+def trainer_phase(torch, counters, dev, rows, smi, profile=False):
+    """Phase 23: train from image files through the CLI, in-process.  The
+    seeded folder; gate 1 (the first batch, bitwise across thread counts,
+    at the pinned digest) and the loader's rates; the card Trainer built by
+    ``quant_train.build_trainer`` from the CLI's flags, qkv scaled by
+    QAT_QKV_GAIN, fitted for one epoch; gate 2 (its calibration equal to a
+    CPU Trainer's leaf for leaf); gate 3 (every logged loss finite, JAX's
+    log fields; a second epoch resumed from the checkpoint at epoch 1 with
+    the saved step, optimizer state and EMA); gate 4 (the trained sim
+    frozen, its logits on the first val batch equal to Engine(spec)'s on
+    both kernel paths and the plain engine)."""
+    import os
+    import shutil
+    from ivit_tpu_torch.models.convert import differing_leaves, variables_to_numpy
+    from ivit_tpu_torch.scripts import quant_train
+    from ivit_tpu_torch.train.checkpoint import state_dict
+    from ivit_tpu_torch.train.data import data_loader
+
+    shutil.rmtree(TRAINER_ROOT, ignore_errors=True)
+    t0 = time.perf_counter()
+    write_trainer_folder(TRAINER_ROOT)
+    out = {"folder_s": time.perf_counter() - t0}
+    out.update(trainer_loader_rates())
+
+    def gained(trainer):
+        with torch.no_grad():
+            for blk in trainer.model.blocks:
+                blk.attn.qkv.kernel.mul_(QAT_QKV_GAIN)
+        return trainer
+
+    runs = os.path.join(TRAINER_ROOT, "runs")
+    card = gained(quant_train.build_trainer(quant_train.parse_args(
+        trainer_argv(runs, "cuda"))))
+    calibrated = {}
+
+    def snapshot():
+        calibrated["quant_stats"] = variables_to_numpy(card.model)["quant_stats"]
+    with _Timed(torch, card, snapshot) as timed:
+        card.fit()
+    out["epoch_0"] = timed.numbers()
+
+    t0 = time.perf_counter()
+    cpu = gained(quant_train.build_trainer(quant_train.parse_args(
+        trainer_argv(os.path.join(runs, "cpu"), "cpu"))))
+    cpu.calibrate()
+    out["cpu_calibration_s"] = time.perf_counter() - t0
+    bad = differing_leaves(calibrated["quant_stats"],
+                           variables_to_numpy(cpu.model)["quant_stats"])
+    if bad:
+        raise AssertionError(f"trainer: card calibration != the CPU Trainer's at {bad[:5]}")
+    del cpu
+
+    ckpt = os.path.join(runs, "checkpoint_smoke")
+    saved = state_dict(card.state, card.ema_params)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    resumed = quant_train.build_trainer(quant_train.parse_args(
+        trainer_argv(runs, "cuda", epochs=2, resume=ckpt)))
+    torch.cuda.synchronize()
+    out["resume_s"] = time.perf_counter() - t0
+    if resumed.start_epoch != 1 or int(resumed.state["step"]) != int(card.state["step"]):
+        raise AssertionError(f"trainer: resumed at epoch {resumed.start_epoch}, step "
+                             f"{int(resumed.state['step'])}; saved epoch 0, step "
+                             f"{int(card.state['step'])}")
+    bad = differing_leaves(saved, state_dict(resumed.state, resumed.ema_params))
+    if bad:
+        raise AssertionError(f"trainer: the resumed state differs from the saved at {bad[:5]}")
+    del card
+    with _Timed(torch, resumed, profile_epoch=profile) as timed:
+        resumed.fit()
+    out["epoch_1"] = timed.numbers()
+    recs = trainer_log_check(os.path.join(runs, "log_smoke.jsonl"))
+    if [r["epoch"] for r in recs if r["phase"] == "epoch"] != [0, 1]:
+        raise AssertionError(f"trainer: epoch records {recs}")
+    out["losses"] = [r["loss"] for r in recs if r["phase"] == "train"]
+    out["val"] = {k: recs[-1][k] for k in ("loss", "top1", "top5")}
+
+    val = next(data_loader(resumed.ds_val, TRAINER_BATCH, train=False, img_size=224,
+                           drop_last=True))
+    images = torch.from_numpy(val["image"]).to(dev)
+    sim = resumed.model
+    with torch.no_grad():
+        want = sim(images)
+    if not torch.isfinite(want).all() or not (want.std(dim=0) > 0).any():
+        raise AssertionError("trainer: trained logits non-finite or image-independent")
+    out.update(train_engines(torch, "trainer_deit_s", sim, want, images, counters, rows))
+    emit({"phase": "trainer", "nvidia_smi": smi,
+          "config": f"quant_train CLI in-process: deit_small_patch16_224 ivit 224px depth "
+                    f"12, {TRAINER_CLASSES} classes x {TRAINER_TRAIN} train / "
+                    f"{TRAINER_VAL} val images ({TRAINER_SIDES[0]}-{TRAINER_SIDES[1]} "
+                    f"px, PNG + BMP), batch {TRAINER_BATCH}, aa {TRAINER_AA}, mixup 0.8 "
+                    f"cutmix 1.0 smoothing 0.1, EMA, lr 5e-4, clip 1.0, wd 0.05, "
+                    f"calibration 2 batches, epoch 0 then epoch 1 resumed, qkv x "
+                    f"{QAT_QKV_GAIN}", **out})
+
+
 def profile_serving(torch, srv, images):
     """The card's idle share while ``srv`` serves ``images`` (torch.profiler,
     CUDA activity): 1 - device busy time / wall time."""
@@ -2364,6 +2713,8 @@ def main(argv=None) -> int:
     emit({"phase": "serving_done", "seconds": time.perf_counter() - t0})
     train_phase(torch, counters, dev, rows, smi, profile=args.profile)
     emit({"phase": "train_done", "seconds": time.perf_counter() - t0})
+    trainer_phase(torch, counters, dev, rows, smi, profile=args.profile)
+    emit({"phase": "trainer_done", "seconds": time.perf_counter() - t0})
     emit({"kernels": list(rows.values())})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

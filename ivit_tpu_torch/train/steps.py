@@ -34,9 +34,13 @@ def cross_entropy(logits, targets, num_classes: int):
 
 
 def _batch(model, batch):
+    """The batch on the model's device; soft targets in f32, as
+    ``jnp.asarray`` makes them (numpy's CutMix targets are f64)."""
     dev = model.device
     image = torch.as_tensor(batch["image"], dtype=torch.float32, device=dev)
     label = torch.as_tensor(batch["label"], device=dev)
+    if label.is_floating_point():
+        label = label.float()
     return image, label
 
 

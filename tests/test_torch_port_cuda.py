@@ -35,7 +35,10 @@ runs no kernel, as JAX routes it.  The DeiT-S and Swin-T shapes are held
 by ``chip_smoke.py``.  The QAT sims, ViT and Swin (56 px at Swin-T's
 widths), calibrate and freeze on the card as on the CPU and their logits
 equal the kernel engine's; the server's answers equal ``Engine(spec)``'s
-on the card.  Exact equality, but for
+on the card; ``Trainer`` over a PNG ImageFolder calibrates on the card as
+on the CPU, trains an epoch and resumes from its checkpoint; the native
+eval preprocess library builds from ``native/preproc.cpp``.  Exact
+equality, but for
 the float family's logits against the CPU's (``tests/test_torch_port_float.py``'s bound).
 """
 
@@ -1051,3 +1054,72 @@ def test_cuda_sqrt_rn_matches_cpu(cuda):
     got = sqrt_rn(v.to(cuda)).cpu()
     np.testing.assert_array_equal(got.numpy(), np.sqrt(v.numpy()))
     assert torch.equal(got, sqrt_rn(v))
+
+
+def _trainer_folder(root, rng, n, side=(48, 96)):
+    """An ImageFolder of ``n`` PNG images a class in 2 classes (the writer
+    of ``chip_smoke.py``'s trainer phase)."""
+    import os
+    import sys
+    sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+    import chip_smoke
+    for c in range(2):
+        os.makedirs(root / f"c{c}")
+        for k in range(n):
+            h, w = (int(v) for v in rng.integers(side[0], side[1], 2))
+            chip_smoke.write_png(str(root / f"c{c}" / f"{k}.png"),
+                                 rng.integers(0, 256, (h, w, 3), dtype=np.uint8))
+
+
+def test_cuda_trainer_matches_cpu_calibration(cuda, tmp_path, monkeypatch):
+    """``Trainer`` on the card over an ImageFolder (a depth-2 64 px ViT, the
+    reference's augmentation, Mixup, the EMA): its calibration equal to a
+    CPU Trainer's leaf for leaf, then one epoch with finite losses, its
+    checkpoint resumed at epoch 1 with the same state."""
+    from ivit_tpu_torch.models import VisionTransformer
+    from ivit_tpu_torch.models.convert import differing_leaves, variables_to_numpy
+    from ivit_tpu_torch.train import trainer as ttrainer
+    from ivit_tpu_torch.train.checkpoint import state_dict
+    from ivit_tpu_torch.train.data import ImageFolderDataset
+    monkeypatch.setattr(ttrainer, "str2model", lambda name: lambda **kw: VisionTransformer(
+        patch_size=16, embed_dim=64, depth=2, num_heads=2, **kw))
+    rng = np.random.default_rng(0)
+    _trainer_folder(tmp_path / "train", rng, 8)
+    _trainer_folder(tmp_path / "val", rng, 2)
+    ds, val = (ImageFolderDataset(str(tmp_path / s)) for s in ("train", "val"))
+    cfg = _train_cfg(img_size=64, num_classes=2, calibration_batches=2, model_ema=True,
+                     output_dir=str(tmp_path / "runs"), run_id="t", log_interval=1)
+    card, cpu = (ttrainer.Trainer(cfg, ds, val, device=d) for d in (cuda, "cpu"))
+    card.calibrate()
+    cpu.calibrate()
+    assert differing_leaves(variables_to_numpy(card.model)["quant_stats"],
+                            variables_to_numpy(cpu.model)["quant_stats"]) == []
+    card.fit()
+    assert card.start_epoch == 0 and int(card.state["step"]) == 4
+    resumed = ttrainer.Trainer(dataclasses.replace(
+        cfg, epochs=2, resume=str(tmp_path / "runs" / "checkpoint_t")), ds, val, device=cuda)
+    assert resumed.start_epoch == 1
+    assert differing_leaves(state_dict(card.state, card.ema_params),
+                            state_dict(resumed.state, resumed.ema_params)) == []
+    resumed.fit()
+    assert int(resumed.state["step"]) == 8
+
+
+def test_cuda_native_preprocess_builds_from_source(cuda):
+    """The card machine compiles ``native/preproc.cpp`` itself: the eval
+    batch of the native path has the shape asked for, is finite and does
+    not depend on the thread count.  (It is not Pillow's resize: it keeps
+    f32 between its passes and does not clamp the bicubic overshoot, so it
+    is held against JAX's binding of the same library on the CPU,
+    ``tests/test_torch_port_data.py::test_native_binding_matches_jax``.)"""
+    import os
+    from ivit_tpu_torch.utils import native
+    path = native.build()
+    assert os.path.exists(path) and native.available()
+    rng = np.random.default_rng(1)
+    imgs = [rng.integers(0, 256, (int(h), int(w), 3), dtype=np.uint8)
+            for h, w in rng.integers(40, 300, (5, 2))]
+    got = native.preprocess_batch(imgs, out_size=64, num_threads=1)
+    assert got.shape == (5, 64, 64, 3) and np.isfinite(got).all()
+    np.testing.assert_array_equal(native.preprocess_batch(imgs, out_size=64,
+                                                          num_threads=4), got)

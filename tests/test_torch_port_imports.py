@@ -100,3 +100,33 @@ def test_entry_points_run_on_cpu_when_asked(tmp_path):
     y = Engine(loaded, device="cpu")(x)
     assert y.shape == (2, 10) and y.device.type == "cpu"
     assert torch.equal(y, engine_forward(spec, x, kernels=False, device="cpu"))
+
+
+_IMPORT_TRAINING = """
+import sys
+import ivit_tpu_torch.train.image_ops, ivit_tpu_torch.train.data
+import ivit_tpu_torch.train.randaug, ivit_tpu_torch.train.trainer
+import ivit_tpu_torch.utils.native, ivit_tpu_torch.utils.metrics
+import ivit_tpu_torch.scripts.quant_train
+bad = [m for m in sys.modules if m.split(".")[0] in ("jax", "flax", "ivit_tpu", "PIL")]
+assert not bad, bad
+"""
+
+
+def test_training_modules_import_neither_jax_nor_pillow():
+    """The image pipeline, the loop and the CLI import no JAX and no Pillow
+    (the card's listed installation has no Pillow): PNG and BMP are
+    decoded by the port itself."""
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    out = subprocess.run([sys.executable, "-c", _IMPORT_TRAINING], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+
+
+def test_training_cli_defaults_to_cuda():
+    if torch.cuda.is_available():
+        pytest.skip("this machine has a CUDA device: the default runs")
+    from ivit_tpu_torch.scripts import quant_train
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        quant_train.main(["--dataset", "synthetic", "--synthetic-samples", "4",
+                          "--batch-size", "4", "--img-size", "32", "--epochs", "1"])
