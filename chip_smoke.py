@@ -104,7 +104,20 @@ Phases, each printing one JSON line:
    engine; live attention, image-dependent logits, one backward of the full
    ivit sim; sim img/s, a calibration step, the host fit and freeze, engine
    img/s on the frozen beside the synthetic spec;
-21. serving: ``ServingEngine`` (batch 64, max_wait_ms 5, inflight 2) over
+21. lut: the freeze-time table forms (``IVIT_LUT``) and the integer-sqrt
+   ibert LN of the three block kernels: each table form bitwise equal to
+   its plain version and to its towers at DeiT-S shapes (ivit, ibert,
+   ppoly; 8-bit and INT16; the ivit row sum in one int32 reduction and in
+   two limbs) and at the four Swin-T stage shapes (shifted blocks with
+   ``sm_sat``), the tables a freeze writes; the integer-sqrt LN in all
+   three kernels against their plain versions; times with the tables on
+   and off; the frozen specs of phases 19-20 through ``Engine`` with the
+   tables on (depth launches of each table form, logits equal to the sims'
+   and the towers', the plain engine's table path too) and their img/s on
+   and off; synthetic DeiT-S and Swin-T specs with the integer-sqrt LN
+   through ``Engine`` (depth launches of its form, logits equal to the
+   plain engine's);
+22. serving: ``ServingEngine`` (batch 64, max_wait_ms 5, inflight 2) over
    the synthetic DeiT-S ibert spec, 2,048 seeded requests from 4 client
    threads (each with at most 64 outstanding): every answer bitwise equal
    to ``Engine(spec)``'s, 12 + 12 launches a served batch, served img/s
@@ -113,7 +126,7 @@ Phases, each printing one JSON line:
    1,024 past ``max_queue`` 128 (rejections counted, every admitted answer
    bitwise) and one past ``deadline_ms`` 20 (sheds counted); under
    ``--profile`` the card's idle share while it serves;
-22. train: QAT training (``ivit_tpu_torch.train``) of seeded DeiT-S ivit
+23. train: QAT training (``ivit_tpu_torch.train``) of seeded DeiT-S ivit
    (the qkv gain of phase 19, soft distillation from a seeded bf16 float
    DeiT-S teacher) and Swin-T ibert (drop-path 0.1) at full width and
    depth: calibrated on 2 x 8 images on the card and the CPU (ranges
@@ -126,7 +139,7 @@ Phases, each printing one JSON line:
    ``Engine(spec)`` on 12 + 12 block-kernel launches (DeiT-S also on 12 +
    12 standalone ones) and to the plain engine; step ms and img/s, the
    calibration, save, load and freeze seconds;
-23. trainer: training from image files through the CLI
+24. trainer: training from image files through the CLI
    (``ivit_tpu_torch.scripts.quant_train``, in-process): a seeded
    ImageFolder written under ``build/trainer_smoke/`` (10 classes, 80
    train and 40 val images of 160-400 px, PNG and 24-bit BMP, no
@@ -159,6 +172,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
+import os
 import subprocess
 import sys
 import time
@@ -1499,7 +1513,8 @@ def qat_freeze_phase(torch, counters, dev, rows, smi, profile=False):
     image-dependent; one backward pass of the full ivit sim.  Timings:
     the sim's img/s, one calibration step, the host freeze, the engine's
     img/s on the frozen and on the synthetic spec; with ``profile``, the
-    sim's frozen forward under torch.profiler."""
+    sim's frozen forward under torch.profiler.  Returns ({name: (spec, sim
+    logits)}, the images) for the lut phase."""
     import torch.nn.functional as F
     from ivit_tpu_torch.engine import Engine
     from ivit_tpu_torch.engine.freeze import freeze_model
@@ -1511,7 +1526,7 @@ def qat_freeze_phase(torch, counters, dev, rows, smi, profile=False):
     calib = [torch.randn((QAT_CALIB_BATCH, 224, 224, 3), generator=gen)
              for _ in range(QAT_CALIB)]
     images = torch.randn((QAT_BATCH, 224, 224, 3), generator=gen).to(dev)
-    out = {}
+    out, frozen = {}, {}
     for name, gelu, softmax, ln, bits, depth in QAT_CONFIGS:
         sim, cpu_sim = qat_sim(torch, name, dev), qat_sim(torch, name, "cpu")
         calib_ms = []
@@ -1614,12 +1629,14 @@ def qat_freeze_phase(torch, counters, dev, rows, smi, profile=False):
             entry["backward"] = {"images": QAT_CALIB_BATCH, "loss": loss.item(),
                                  "grads_finite": True, "tensors_with_grad": len(grads)}
         out[name] = entry
+        frozen[name] = (spec, want)
         del sim
         torch.cuda.empty_cache()
     emit({"phase": "qat_freeze", "nvidia_smi": smi,
           "config": "deit_small_patch16_224 QAT sim, 224px, seed 0, qkv kernels x "
                     f"{QAT_QKV_GAIN}; calibration {QAT_CALIB} x {QAT_CALIB_BATCH} "
                     f"images, eval batch {QAT_BATCH}", **out})
+    return frozen, images
 
 
 # The qat_freeze_swin phase's configurations: (name, gelu, softmax, ln,
@@ -1650,7 +1667,8 @@ def qat_freeze_swin_phase(torch, counters, dev, rows, smi, profile=False):
     image-dependent logits, one backward pass of the full ivit sim.
     Timings: the sim's img/s, a calibration step, the host fit and freeze,
     the engine's img/s on the frozen and on the synthetic spec.  Returns
-    the frozen ivit spec (phase 21 serves it)."""
+    ({name: (spec, sim logits)}, the images): phase 22 serves the ivit
+    spec, the lut phase runs them all."""
     import torch.nn.functional as F
     from ivit_tpu_torch.engine import Engine
     from ivit_tpu_torch.engine.swin_int import freeze_swin_model
@@ -1784,7 +1802,7 @@ def qat_freeze_swin_phase(torch, counters, dev, rows, smi, profile=False):
             entry["backward"] = {"images": SWIN_QAT_CALIB_BATCH, "loss": loss.item(),
                                  "grads_finite": True, "tensors_with_grad": len(grads)}
         out[name] = entry
-        frozen[name] = spec
+        frozen[name] = (spec, want)
         del sim
         torch.cuda.empty_cache()
     emit({"phase": "qat_freeze_swin", "nvidia_smi": smi,
@@ -1792,7 +1810,396 @@ def qat_freeze_swin_phase(torch, counters, dev, rows, smi, profile=False):
                     f"(ppoly (2, 2, 2, 2)), seed {QAT_SEED}, no qkv gain; calibration "
                     f"{SWIN_QAT_CALIB} x "
                     f"{SWIN_QAT_CALIB_BATCH} images, eval batch {SWIN_QAT_BATCH}", **out})
-    return frozen["ivit"]
+    return frozen, images
+
+
+class FormCount:
+    """One form's launch count of a kernel wrapper (``fn.<attr>``: its table
+    form's, ``lut_launches``, or its integer-sqrt LN's,
+    ``int_sqrt_launches``), read and reset as ``run_counted`` does a
+    wrapper's own count."""
+
+    def __init__(self, fn, attr):
+        self.fn, self.attr = fn, attr
+
+    @property
+    def launches(self):
+        return getattr(self.fn, self.attr)
+
+    @launches.setter
+    def launches(self, value):
+        setattr(self.fn, self.attr, value)
+
+
+class lut_switch:
+    """``IVIT_LUT`` (and with ``unfused`` ``IVIT_XLA_LUT``) set inside the
+    block, restored after it: the port reads them at each call."""
+
+    def __init__(self, on=True, unfused=False):
+        self.want = {"IVIT_LUT": "1" if on else None,
+                     "IVIT_XLA_LUT": "1" if on and unfused else None}
+
+    def __enter__(self):
+        self.saved = {k: os.environ.get(k) for k in self.want}
+        self._set(self.want)
+
+    def __exit__(self, *exc):
+        self._set(self.saved)
+
+    @staticmethod
+    def _set(values):
+        for k, v in values.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+# The lut phase's families: (name, spec mix (gelu, softmax, ln), kernel mix)
+LUT_DEIT = [("ivit", IVIT, IVIT), ("ibert", ("ibert",) * 3, ("ibert",) * 3),
+            ("ppoly", (PPOLY, PPOLY, "ibert"), ("ppoly", "ppoly", "ibert"))]
+LUT_SWIN = [("ivit", IVIT, IVIT), ("ibert", ("ibert",) * 3, ("ibert",) * 3),
+            ("ppoly", (PPOLY, PPOLY, "ivit"), ("ppoly", "ppoly", "ivit"))]
+INT_SQRT_LN = "ibert_use-int-sqrt_true"
+
+
+def lut_phase(torch, kb, counters, dev, rows, smi, vit_frozen, swin_frozen):
+    """Phase 21: the freeze-time table forms (``IVIT_LUT``) and the integer-
+    sqrt ibert LN of the three block kernels.
+
+    Kernels: each block kernel's table form bitwise equal to its plain
+    version with the tables and to its towers (the tables are the towers'
+    values), at DeiT-S shapes (ivit, ibert, ppoly; 8-bit and INT16, the
+    ivit row sum in one int32 reduction and in two limbs), and at the four
+    Swin-T stage shapes of batch 64 (shifted blocks with ``sm_sat``; a
+    shifted ppoly block keeps its towers, as JAX's gate says), the tables a
+    freeze writes (``synthetic.with_tables``); the three kernels with the
+    integer-sqrt LN at DeiT-S and Swin-T stage 0 against their plain
+    versions.  Times with the tables on and off.
+
+    Engines: the frozen specs of phases 19-20 (DeiT-S ivit, ibert, ppoly,
+    INT16; Swin-T ivit, ibert, ppoly) through ``Engine`` with ``IVIT_LUT``
+    set: depth launches of each table form, the logits equal to the sim's
+    (INT16 within JAX's bound) and to the towers', and the plain engine's
+    table path (``IVIT_XLA_LUT``) equal too; img/s with the tables on and
+    off (DeiT-S at batch 256, Swin-T at 64).  Synthetic DeiT-S and Swin-T
+    specs with the integer-sqrt LN through ``Engine``: depth launches of
+    its form, the logits equal to the plain engine's.  Adds the table-form
+    and integer-sqrt rows of the kernel table."""
+    import numpy as np
+
+    from ivit_tpu_torch.engine import Engine
+    from ivit_tpu_torch.engine.synthetic import (deit_small_config, swin_tiny_config,
+                                                  synthetic_spec, synthetic_swin_spec,
+                                                  with_tables)
+
+    rng = np.random.default_rng(13)
+
+    def stream(shape, bits):
+        lim = 2 ** (bits - 1)
+        x = np.clip(np.round(rng.normal(0, lim / 4, shape)), -lim, lim - 1)
+        return torch.as_tensor(x.astype(np.int16 if bits > 8 else np.int8)).to(dev)
+
+    def on_off(name, fn, ref, kw, tables, gated=None):
+        """The table form against its plain version (with the tables the
+        gate lets through) and the towers; (max abs err, ms on, ms off)."""
+        with lut_switch():
+            got = fn(**kw, **tables)
+            torch.cuda.synchronize()
+            err = check_equal(torch, f"{name} table form", got,
+                              ref(**kw, **(tables if gated is None else gated)))
+            on = time_ms(torch, lambda: fn(**kw, **tables), iters=20)
+        check_equal(torch, f"{name} table form vs towers", got, fn(**kw, **tables))
+        return err, on, time_ms(torch, lambda: fn(**kw, **tables), iters=20)
+
+    t_start = time.perf_counter()
+    errs = {"attn": [], "mlp": [], "swin": []}
+    deit = {}
+    xa, xr8, xr16 = (stream((BATCH, TOKENS, 384), 8), stream((BATCH * TOKENS, 384), 8),
+                     stream((BATCH * TOKENS, 384), 16))
+    for bits in ("8", INT16):
+        for fam, mix, kmix in LUT_DEIT:
+            gelu, softmax, ln = mix
+            spec = with_tables(synthetic_spec(deit_small_config(
+                depth=1, ln=ln, gelu=gelu, softmax=softmax, bitwidths=bits), 0))
+            if not spec.config.use_lut:
+                raise AssertionError(f"lut: the DeiT-S {fam} spec has no tables")
+            b = block_args(torch, spec.params["blocks"][0], dev)
+            key = fam if bits == "8" else f"{fam}[int16]"
+            kw_a = attn_kwargs(b, True, 6, TOKENS, kmix) | family_kwargs(b, fam, "attn")
+            kw_m = mlp_kwargs(b, True, kmix) | family_kwargs(b, fam, "mlp")
+            if bits == INT16:
+                kw_a |= dict(sm_bit=16, out_bits=16)
+                kw_m |= dict(mlp_bits=8, out_bits=8)
+            xm = xr16 if bits == INT16 else xr8
+            entry = {}
+            for sum_i32 in ((True, False) if fam == "ivit" else (spec.config.sm_sum_i32,)):
+                err, on, off = on_off(f"attn_block {key} sum_i32={sum_i32}", kb.attn_block,
+                                      kb.attn_block_ref, kw_a | dict(x=xa),
+                                      dict(sm_lut=b["sm_lut"], sm_sum_i32=sum_i32))
+                errs["attn"].append(err)
+                entry.setdefault("attn_ms_on", on)
+                entry["attn_ms_off"] = off
+                if fam == "ivit":
+                    entry[f"attn_ms_on_sum_i32_{sum_i32}"] = on
+            err, entry["mlp_ms_on"], entry["mlp_ms_off"] = on_off(
+                f"mlp_block {key}", kb.mlp_block, kb.mlp_block_ref, kw_m | dict(x=xm),
+                dict(gelu_lut=b["gelu_lut"]))
+            errs["mlp"].append(err)
+            if key == "ivit":
+                with lut_switch():
+                    tables_a = dict(sm_lut=b["sm_lut"], sm_sum_i32=True)
+                    entry["attn_plain_ms_on"] = time_ms(
+                        torch, lambda: kb.attn_block_ref(xa, **kw_a, **tables_a),
+                        iters=2, warmup=1)
+                    entry["mlp_plain_ms_on"] = time_ms(
+                        torch, lambda: kb.mlp_block_ref(xm, **kw_m, gelu_lut=b["gelu_lut"]),
+                        iters=2, warmup=1)
+                lib = dict(
+                    attn=time_ms(torch, lambda: (torch._int_mm(xa.reshape(-1, 384), b["qkv_w"]),
+                                                 torch._int_mm(xa.reshape(-1, 384), b["proj_w"])),
+                                 iters=20),
+                    mlp=time_ms(torch, lambda: (torch._int_mm(xr8, b["fc1_w"]), torch._int_mm(
+                        torch.empty((xr8.shape[0], 1536), dtype=torch.int8, device=dev),
+                        b["fc2_w"])), iters=20))
+                r = BATCH * TOKENS
+                bounds = dict(
+                    attn=bound(2 * r * (4 * 384 * 384) + 2 * 2 * BATCH * TOKENS * TOKENS * 384,
+                               nbytes(xa, xa, b["qkv_w"], b["proj_w"], b["qkv_b"], b["proj_b"],
+                                      b["m_qkv"], b["m_proj"], b["m_ln1"], b["ln1_bias_int"],
+                                      b["sm_lut"])),
+                    mlp=bound(2 * r * 384 * 1536 * 2,
+                              nbytes(xr8, xr8, b["fc1_w"], b["fc2_w"], b["fc1_b"], b["fc2_b"],
+                                     b["m_fc1"], b["m_fc2"], b["m_ln2"], b["ln2_bias_int"],
+                                     b["gelu_lut"])))
+            deit[key] = entry
+
+    swin = {}
+    for fam, mix, kmix in LUT_SWIN:
+        gelu, softmax, ln = mix
+        sspec = with_tables(synthetic_swin_spec(swin_tiny_config(ln=ln, gelu=gelu,
+                                                                 softmax=softmax), seed=0))
+        if not sspec.config.use_lut:
+            raise AssertionError(f"lut: the Swin-T {fam} spec has no tables")
+        stages = []
+        for st, (c, heads, nw, blks) in enumerate(swin_stage_blocks(torch, sspec, dev)):
+            x16 = stream((SWIN_BATCH * nw, WIN, c), 16)
+            entry = {"stage": st}
+            for shift, sb in blks:
+                if ("sm_sat" in sb) != (shift > 0 and fam != "ppoly"):
+                    raise AssertionError(f"lut: Swin-T {fam} stage {st} shift {shift}: "
+                                         "sm_sat where the freeze's gate says otherwise")
+                kw = swin_attn_kwargs(sb, True, heads, nw, shift, kmix) | (
+                    ppoly_sm_kwargs(sb) if fam == "ppoly" else {}) | dict(xw=x16)
+                tables = dict(sm_lut=sb["sm_lut"], sm_sum_i32=sspec.config.sm_sum_i32,
+                              sm_sat=sb.get("sm_sat"))
+                gated = tables if "sm_sat" in sb or not shift else {}   # block.py:1486
+                err, on, off = on_off(f"swin_attn_block {fam} stage {st} shift {shift}",
+                                      kb.swin_attn_block, kb.swin_attn_block_ref, kw,
+                                      tables, gated)
+                errs["swin"].append(err)
+                entry[f"attn_ms_on_shift{shift}"], entry[f"attn_ms_off_shift{shift}"] = on, off
+            sb = blks[0][1]
+            kw = mlp_kwargs(sb, True, kmix) | dict(mlp_bits=8, out_bits=16) | (
+                ppoly_gelu_kwargs(sb, True) if fam == "ppoly" else {}) | dict(
+                x=x16.reshape(-1, c))
+            err, entry["mlp_ms_on"], entry["mlp_ms_off"] = on_off(
+                f"mlp_block swin {fam} stage {st}", kb.mlp_block, kb.mlp_block_ref, kw,
+                dict(gelu_lut=sb["gelu_lut"]))
+            errs["mlp"].append(err)
+            if fam == "ivit":
+                shift, lb = blks[-1]
+                kw = swin_attn_kwargs(lb, True, heads, nw, shift, kmix) | dict(xw=x16)
+                tables = dict(sm_lut=lb["sm_lut"], sm_sum_i32=sspec.config.sm_sum_i32,
+                              sm_sat=lb.get("sm_sat"))
+                with lut_switch():
+                    entry["attn_plain_ms_on"] = time_ms(
+                        torch, lambda: kb.swin_attn_block_ref(**kw, **tables), iters=2,
+                        warmup=1)
+                x2 = torch.clamp(x16, -128, 127).to(torch.int8).reshape(-1, c)
+                entry["attn_library_ms"] = time_ms(
+                    torch, lambda: (torch._int_mm(x2, lb["qkv_w"]),
+                                    torch._int_mm(x2, lb["proj_w"])), iters=20)
+                rs = x2.shape[0]
+                entry["attn_bound"] = bound(
+                    2 * rs * 4 * c * c + 2 * 2 * rs * WIN * c,
+                    nbytes(x16, x16, lb["qkv_w"], lb["proj_w"], lb["qkv_b"], lb["proj_b"],
+                           lb["m_qkv"], lb["m_proj"], lb["m_ln1"], lb["ln1_bias_int"],
+                           lb["rel_bias_addend"], lb["sm_lut"],
+                           *([lb["mask_int"]] if shift else [])))
+            stages.append(entry)
+        swin[fam] = stages
+    kernels_s = time.perf_counter() - t_start
+
+    # --- the integer-sqrt ibert LN in the three kernels ---
+    isqrt = {}
+    spec = synthetic_spec(deit_small_config(depth=1, ln=INT_SQRT_LN), 0)
+    b = block_args(torch, spec.params["blocks"][0], dev)
+    mix = ("ibert",) * 3
+    for name, fn, ref, kw in (
+            ("attn_block", kb.attn_block, kb.attn_block_ref,
+             attn_kwargs(b, True, 6, TOKENS, mix) | dict(x=xa)),
+            ("mlp_block", kb.mlp_block, kb.mlp_block_ref, mlp_kwargs(b, True, mix) | dict(x=xr8))):
+        got = fn(use_int_sqrt=True, **kw)
+        torch.cuda.synchronize()
+        isqrt[name] = dict(
+            max_abs_err=check_equal(torch, f"{name} integer sqrt", got,
+                                    ref(use_int_sqrt=True, **kw)),
+            ms=time_ms(torch, lambda: fn(use_int_sqrt=True, **kw), iters=20),
+            ms_floor_sqrt=time_ms(torch, lambda: fn(**kw), iters=20),
+            plain_ms=time_ms(torch, lambda: ref(use_int_sqrt=True, **kw), iters=2, warmup=1))
+    sspec = synthetic_swin_spec(swin_tiny_config(ln=INT_SQRT_LN, gelu="ibert",
+                                                 softmax="ibert"), seed=0)
+    c, heads, nw, blks = swin_stage_blocks(torch, sspec, dev)[0]
+    x16 = stream((SWIN_BATCH * nw, WIN, c), 16)
+    errs_sq = []
+    for shift, sb in blks:
+        kw = swin_attn_kwargs(sb, True, heads, nw, shift, mix) | dict(xw=x16)
+        errs_sq.append(check_equal(
+            torch, f"swin_attn_block integer sqrt shift {shift}",
+            kb.swin_attn_block(use_int_sqrt=True, **kw),
+            kb.swin_attn_block_ref(use_int_sqrt=True, **kw)))
+    sb = blks[0][1]
+    kw = swin_attn_kwargs(sb, True, heads, nw, 0, mix) | dict(xw=x16)
+    x2 = torch.clamp(x16, -128, 127).to(torch.int8).reshape(-1, c)
+    rs = x2.shape[0]
+    isqrt["swin_attn_block"] = dict(
+        max_abs_err=max(errs_sq),
+        ms=time_ms(torch, lambda: kb.swin_attn_block(use_int_sqrt=True, **kw), iters=20),
+        ms_floor_sqrt=time_ms(torch, lambda: kb.swin_attn_block(**kw), iters=20),
+        plain_ms=time_ms(torch, lambda: kb.swin_attn_block_ref(use_int_sqrt=True, **kw),
+                         iters=2, warmup=1),
+        library_ms=time_ms(torch, lambda: (torch._int_mm(x2, sb["qkv_w"]),
+                                           torch._int_mm(x2, sb["proj_w"])), iters=20),
+        bound=bound(2 * rs * 4 * c * c + 2 * 2 * rs * WIN * c,
+                    nbytes(x16, x16, sb["qkv_w"], sb["proj_w"], sb["qkv_b"], sb["proj_b"],
+                           sb["m_qkv"], sb["m_proj"], sb["m_ln1"], sb["ln1_bias_int"],
+                           sb["rel_bias_addend"])))
+    kw = mlp_kwargs(blks[0][1], True, mix) | dict(mlp_bits=8, out_bits=16, x=x16.reshape(-1, c))
+    isqrt["mlp_block_swin"] = dict(max_abs_err=check_equal(
+        torch, "mlp_block swin integer sqrt", kb.mlp_block(use_int_sqrt=True, **kw),
+        kb.mlp_block_ref(use_int_sqrt=True, **kw)))
+
+    # --- the main path: the frozen specs through Engine, tables on ---
+    engines = {}
+    launches_by = {}
+    big = torch.randn((BATCH, 224, 224, 3), generator=torch.Generator().manual_seed(21)).to(dev)
+    for kind, (frozen, images), attn in (("deit", vit_frozen, "attn_block"),
+                                         ("swin", swin_frozen, "swin_attn_block")):
+        for name, (spec, want) in frozen.items():
+            label = f"{kind}_{name}"
+            if not spec.config.use_lut:
+                raise AssertionError(f"lut: the frozen {label} spec has no tables")
+            layout = getattr(spec.config, "layout", None) or [("block", 0, 0)] * len(
+                spec.params["blocks"])
+            blocks = [(sh, b) for (kind, _, sh), b in zip(layout, spec.params["blocks"])
+                      if kind == "block"]
+            # a shifted block without sm_sat keeps its towers (block.py:1486)
+            tables = sum(sh == 0 or "sm_sat" in b for sh, b in blocks)
+            eng = Engine(spec)
+            towers = eng(images)
+            with lut_switch():
+                logits, launches = run_counted(torch, counters, lambda: eng(images))
+            expect = {k: 0 for k in counters} | {
+                attn: len(blocks), "mlp_block": len(blocks), "mlp_block[lut]": len(blocks),
+                f"{attn}[lut]": tables}
+            if launches != expect:
+                raise AssertionError(f"lut {label} launched {launches}, want {expect}")
+            launches_by[label] = launches
+            check_equal(torch, f"lut {label} Engine tables vs towers", logits, towers)
+            diff = (logits - want).abs().max().item()
+            if name == "int16":
+                ok = diff < 1e-5 * want.abs().max().item() + 1e-6
+            else:
+                ok = torch.equal(logits, want)
+            if not ok:
+                raise AssertionError(f"lut {label}: Engine with tables != sim: {diff}")
+            with lut_switch(unfused=True):
+                plain = Engine(spec, kernels=False)(images)
+            check_equal(torch, f"lut {label} plain engine with tables", plain, towers)
+            entry = {"launches": launches, "max_abs_diff_sim": diff}
+            if name in ("ivit", "ibert"):
+                batch = big if kind == "deit" else images
+                entry["img_per_s_off"] = img_per_s(torch, eng, [batch], 4)
+                with lut_switch():
+                    entry["img_per_s_on"] = img_per_s(torch, eng, [batch], 4)
+                entry["batch"] = batch.shape[0]
+            engines[label] = entry
+            del eng
+    for kind, cfg in (("deit", deit_small_config(ln=INT_SQRT_LN)),
+                      ("swin", swin_tiny_config(ln=INT_SQRT_LN, gelu="ibert",
+                                                softmax="ibert"))):
+        spec = (synthetic_spec(cfg, 0) if kind == "deit" else synthetic_swin_spec(cfg, 0))
+        images = big if kind == "deit" else big[:SWIN_BATCH]
+        attn = "attn_block" if kind == "deit" else "swin_attn_block"
+        depth = cfg.depth if kind == "deit" else sum(cfg.depths)
+        eng = Engine(spec)
+        logits, launches = run_counted(torch, counters, lambda: eng(images))
+        expect = {k: depth if k in (attn, "mlp_block", f"{attn}[int_sqrt]",
+                                    "mlp_block[int_sqrt]") else 0 for k in counters}
+        if launches != expect:
+            raise AssertionError(f"int_sqrt {kind} launched {launches}, want {expect}")
+        launches_by[f"{kind}_int_sqrt"] = launches
+        check_logits(torch, f"int_sqrt {kind} engine", logits,
+                     Engine(spec, kernels=False)(images), cfg.num_classes, images.shape[0])
+        engines[f"{kind}_int_sqrt"] = {"launches": launches,
+                                       "img_per_s": img_per_s(torch, eng, [images], 4)}
+        del eng
+
+    def row(name, source, replaces, err, ms, plain_ms, bnd, lib, launches, **extra):
+        return dict(name=name, route="cuda", source=source, replaces=replaces,
+                    launches=launches, max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                    bound_ms=bnd[0], bound_by=bnd[1], library_ms=lib, **extra)
+
+    swin_iv = swin["ivit"]
+    rows["attn_block[lut]"] = row(
+        "attn_block[lut]", "ivit_tpu_torch/csrc/attn_block.cu",
+        "ivit_tpu/ops/pallas/block.py:1112", max(errs["attn"]), deit["ivit"]["attn_ms_on"],
+        deit["ivit"]["attn_plain_ms_on"], bounds["attn"], lib["attn"],
+        launches_by["deit_ivit"]["attn_block[lut]"],
+        ms_by_family={k: [d["attn_ms_on"], d["attn_ms_off"]] for k, d in deit.items()},
+        times_are="DeiT-S [256, 197, 384], 6 heads, table form on (ms) and the towers "
+                  "(ms_by_family: [on, off]); ivit row sum in one int32 reduction")
+    rows["mlp_block[lut]"] = row(
+        "mlp_block[lut]", "ivit_tpu_torch/csrc/mlp_block.cu",
+        "ivit_tpu/ops/pallas/block.py:783", max(errs["mlp"]), deit["ivit"]["mlp_ms_on"],
+        deit["ivit"]["mlp_plain_ms_on"], bounds["mlp"], lib["mlp"],
+        launches_by["deit_ivit"]["mlp_block[lut]"],
+        ms_by_family={k: [d["mlp_ms_on"], d["mlp_ms_off"]] for k, d in deit.items()},
+        swin_ms_by_family={f: [[s["mlp_ms_on"], s["mlp_ms_off"]] for s in st]
+                           for f, st in swin.items()},
+        times_are="DeiT-S [50,432, 384], hidden 1536, table form on (ms) and the towers")
+    rows["swin_attn_block[lut]"] = row(
+        "swin_attn_block[lut]", "ivit_tpu_torch/csrc/swin_attn_block.cu",
+        "ivit_tpu/ops/pallas/block.py:1373", max(errs["swin"]),
+        sum(s[f"attn_ms_on_shift{3 if i < 3 else 0}"] for i, s in enumerate(swin_iv)),
+        sum(s["attn_plain_ms_on"] for s in swin_iv),
+        (sum(s["attn_bound"][0] for s in swin_iv),
+         max(swin_iv, key=lambda s: s["attn_bound"][0])["attn_bound"][1]),
+        sum(s["attn_library_ms"] for s in swin_iv),
+        launches_by["swin_ivit"]["swin_attn_block[lut]"],
+        ms_by_family={f: [{k: v for k, v in s.items() if k.startswith("attn_ms")}
+                          for s in st] for f, st in swin.items()},
+        times_are="one call at each Swin-T stage shape of batch 64 (the shifted block "
+                  "where the stage has one, with sm_sat), summed, ivit")
+    for name, src, rep_, key, lkey in (
+            ("attn_block[int_sqrt]", "attn_block.cu", "1112", "attn_block", "deit_int_sqrt"),
+            ("mlp_block[int_sqrt]", "mlp_block.cu", "783", "mlp_block", "deit_int_sqrt"),
+            ("swin_attn_block[int_sqrt]", "swin_attn_block.cu", "1373", "swin_attn_block",
+             "swin_int_sqrt")):
+        d, base = isqrt[key], rows[key]
+        bnd = d.get("bound", (base["bound_ms"], base["bound_by"]))
+        rows[name] = row(name, f"ivit_tpu_torch/csrc/{src}", f"ivit_tpu/ops/pallas/block.py:{rep_}",
+                         d["max_abs_err"], d["ms"], d["plain_ms"], bnd,
+                         d.get("library_ms", base["library_ms"]),
+                         launches_by[lkey][f"{key}[int_sqrt]"], ms_floor_sqrt=d["ms_floor_sqrt"],
+                         times_are=("DeiT-S, ibert family, the LN in the kernel"
+                                    if key != "swin_attn_block" else
+                                    "Swin-T stage 0 [4096, 49, 96], batch 64, ibert"))
+    emit({"phase": "lut", "nvidia_smi": smi, "equal": True,
+          "kernel_checks_s": kernels_s, "deit_small": deit, "swin_tiny": swin,
+          "int_sqrt": isqrt, "engines": engines, "max_abs_err": max(
+              errs["attn"] + errs["mlp"] + errs["swin"])})
 
 
 def leaf_rel_diff(a, b, paths):
@@ -1862,7 +2269,7 @@ def check_served(np, name, futs, want):
 
 
 def serving_phase(torch, counters, dev, rows, smi, swin_spec, profile=False):
-    """Phase 21: ServingEngine on the card.  The DeiT-S ibert synthetic spec
+    """Phase 22: ServingEngine on the card.  The DeiT-S ibert synthetic spec
     under SERVE_CLIENTS client threads: every answer bitwise equal to
     Engine(spec) on the same images, 12 + 12 launches a served batch;
     served img/s beside Engine alone at the same batch in this process, and
@@ -2188,7 +2595,7 @@ def train_engines(torch, name, sim, want, images, counters, rows):
 
 
 def train_phase(torch, counters, dev, rows, smi, profile=False):
-    """Phase 22: QAT training on the card, for each of TRAIN_CONFIGS at full
+    """Phase 23: QAT training on the card, for each of TRAIN_CONFIGS at full
     width and depth: the seeded sim calibrated on the card and its CPU twin
     (ranges equal leaf for leaf); train_gate; train_run (a Mixup step,
     MultiSteps, the EMA, DeiT-S distilled from its float teacher), the loss
@@ -2503,7 +2910,7 @@ def trainer_log_check(path):
 
 
 def trainer_phase(torch, counters, dev, rows, smi, profile=False):
-    """Phase 23: train from image files through the CLI, in-process.  The
+    """Phase 24: train from image files through the CLI, in-process.  The
     seeded folder; gate 1 (the first batch, bitwise across thread counts,
     at the pinned digest) and the loader's rates; the card Trainer built by
     ``quant_train.build_trainer`` from the CLI's flags, qkv scaled by
@@ -2699,17 +3106,25 @@ def main(argv=None) -> int:
     counters = {"attn_block": kb.attn_block, "mlp_block": kb.mlp_block,
                 "swin_attn_block": kb.swin_attn_block, "shiftmax": knl.shiftmax,
                 "shift_gelu_requant": knl.shift_gelu_requant}
+    # the table forms' and the integer-sqrt LN's own counts: 0 in every
+    # phase but the lut phase, which takes them
+    for k in ("attn_block", "mlp_block", "swin_attn_block"):
+        counters[f"{k}[lut]"] = FormCount(counters[k], "lut_launches")
+        counters[f"{k}[int_sqrt]"] = FormCount(counters[k], "int_sqrt_launches")
     engine_phases(torch, counters, dev, rows, profile=args.profile)
     swin_engine_phase(torch, counters, dev, rows, profile=args.profile)
     ppoly_engine_phase(torch, counters, dev, rows, profile=args.profile)
     int16_engine_phase(torch, counters, dev, rows, profile=args.profile)
     emit({"phase": "engines_done", "seconds": time.perf_counter() - t0})
-    qat_freeze_phase(torch, counters, dev, rows, smi, profile=args.profile)
+    vit_frozen = qat_freeze_phase(torch, counters, dev, rows, smi, profile=args.profile)
     emit({"phase": "qat_freeze_done", "seconds": time.perf_counter() - t0})
-    swin_spec = qat_freeze_swin_phase(torch, counters, dev, rows, smi,
-                                      profile=args.profile)
+    swin_frozen = qat_freeze_swin_phase(torch, counters, dev, rows, smi,
+                                        profile=args.profile)
     emit({"phase": "qat_freeze_swin_done", "seconds": time.perf_counter() - t0})
-    serving_phase(torch, counters, dev, rows, smi, swin_spec, profile=args.profile)
+    lut_phase(torch, kb, counters, dev, rows, smi, vit_frozen, swin_frozen)
+    emit({"phase": "lut_done", "seconds": time.perf_counter() - t0})
+    serving_phase(torch, counters, dev, rows, smi, swin_frozen[0]["ivit"][0],
+                  profile=args.profile)
     emit({"phase": "serving_done", "seconds": time.perf_counter() - t0})
     train_phase(torch, counters, dev, rows, smi, profile=args.profile)
     emit({"phase": "train_done", "seconds": time.perf_counter() - t0})

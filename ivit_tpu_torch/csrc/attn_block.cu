@@ -48,6 +48,11 @@
 //   3. proj_wgmma_kernel: 64 rows of ctx per block, proj GEMM on wgmma,
 //      requant, residual, the passes split over blocks where the row blocks
 //      would leave SMs idle.
+// The table forms (a spec's freeze-time sm_lut, block.py _softmax_lut):
+// the ivit and ibert cores of their own (kSmShiftLut, kSmIbertLut) copy the
+// 1 KB table into shared memory with k and v, and each exp is one lookup
+// there (attn_chain.cuh lut_softmax_quad); the ppoly core reads the spec's
+// table in place of the call's, whose launch is then skipped.
 // The LN shift and the exp constants are derived in every thread from the
 // spec's scalar leaves, with the plain version's rdiv, so a call costs the
 // host no arithmetic launches of its own.
@@ -62,23 +67,34 @@ constexpr int kCoreThreads = 256;  // 8 warps
 constexpr int kSplit = 4;          // warps a query tile: keys split 4 ways
 constexpr int kCoreGroups = kCoreThreads / (32 * kSplit);
 
+// Shared memory of one core block: k and v, the split exchanges, and for a
+// table-form core its 1 KB exp table.
+__host__ __device__ constexpr size_t core_smem(int Np, int Dh, bool lut) {
+  return kv_bytes(Np, Dh) + kCoreGroups * split_xchg_bytes(kSplit, Dh) +
+         (lut ? 256 * sizeof(float) : 0);
+}
+
 // 2. Softmax attention for one (head, image); SM: the softmax family
-// (kSmShift the ivit one, kSmIbert, kSmPpoly); SB: the probabilities'
-// bits, 8 or 16.  Each group of kSplit warps takes 16 query rows at a
+// (kSmShift the ivit one, kSmIbert, kSmPpoly; kSmShiftLut and kSmIbertLut
+// their table forms); SB: the probabilities' bits, 8 or 16.  Each group of kSplit warps takes 16 query rows at a
 // time, warp p of it keys 64 p .. 64 p + 63 (Np <= 256), so that a thread
 // holds at most 32 scores; MAXD: chunks of 32 channels (2: Dh <= 64, 4:
 // Dh <= 128).  Three blocks an SM (80 registers a thread) hold the 8-bit
 // Shiftmax core at Dh <= 64; the ibert core, whose exp keeps more
 // constants live, the ppoly core, Dh 128 and the 16-bit cores, whose
 // probabilities stay live through P v, take two (128 registers), spilling
-// nothing.
+// nothing.  The 8-bit table-form cores at Dh <= 64 take three blocks, as
+// Shiftmax's.
 template <int SM, int MAXD, int SB>
 __global__ void __launch_bounds__(kCoreThreads,
-                                  SM == kSmShift && MAXD <= 2 && SB == 8 ? 3 : 2)
+                                  (SM == kSmShift || is_lut_core(SM)) && MAXD <= 2 &&
+                                          SB == 8
+                                      ? 3
+                                      : 2)
 attn_core_mma_kernel(const int8_t* __restrict__ qkv, AttnScalars sp,
                      int8_t* __restrict__ ctx, int Np, int C, int Dh,
                      int n_valid, int attn_bits, int fast_q, int fast_poly,
-                     PpolySoftmax ps) {
+                     SoftmaxTable ps) {
   extern __shared__ __align__(16) int8_t smem[];
   const int h = blockIdx.x, b = blockIdx.y, warp = threadIdx.x >> 5;
   const int group = warp / kSplit;
@@ -88,6 +104,9 @@ attn_core_mma_kernel(const int8_t* __restrict__ qkv, AttnScalars sp,
                                     group * split_xchg_bytes(kSplit, Dh));
   const int8_t* base = qkv + (size_t)b * Np * 3 * C + h * Dh;
   stage_kv(base, Np, C, Dh, Ks, Vt, threadIdx.x, kCoreThreads);
+  if (is_lut_core(SM))
+    stage_lut(ps, reinterpret_cast<float*>(smem + core_smem(Np, Dh, false)),
+              threadIdx.x, kCoreThreads);
   __syncthreads();
 
   const float m_attn = __ldg(sp.m_attn), m_av = __ldg(sp.m_av);
@@ -96,12 +115,13 @@ attn_core_mma_kernel(const int8_t* __restrict__ qkv, AttnScalars sp,
   auto score = [&](int, int, int dot) {
     return requant(__int2float_rn(dot), m_attn, lim_a);
   };
+  auto unmasked = [](int, int) { return false; };
   int8_t* cbase = ctx + (size_t)b * Np * C + h * Dh;
   SplitReduce<kSplit> red{xch, warp % kSplit, 1 + group, 0, 0};
   for (int i0 = 16 * group; i0 < Np; i0 += 16 * kCoreGroups)
     attn_tile<SM, 8 / kSplit, MAXD, SB>(base, 3 * C, i0, Np, Dh, n_valid, Ks,
-                                        Vt, score, k, ps, fast_q, fast_poly,
-                                        m_av, cbase, C, red);
+                                        Vt, score, unmasked, k, ps, fast_q,
+                                        fast_poly, m_av, cbase, C, red);
 }
 
 template <int BN, int SM, int SB>
@@ -109,14 +129,13 @@ int launch_attn(const void* x, int x16, const int8_t* ln_in,
                 const float* ln_bias, const float* m_ln, const int8_t* wqkv_t,
                 const int32_t* bqkv, const float* mqkv, const int8_t* wp_t,
                 const int32_t* bp, const float* mp, AttnScalars sp,
-                PpolySoftmax ps, int8_t* qkv, int8_t* ctx, void* out, int B,
+                SoftmaxTable ps, int8_t* qkv, int8_t* ctx, void* out, int B,
                 int Np, int C, int H, int n_valid, int attn_bits,
-                int proj_bits, int out_bits, int ln_ivit, int fast_q,
+                int proj_bits, int out_bits, int ln_kind, int fast_q,
                 int fast_poly, cudaStream_t stream) {
   const int R = B * Np, Dh = C / H;
   const size_t smem_gemm = wg_smem(C, BN);
-  const size_t smem_core =
-      kv_bytes(Np, Dh) + kCoreGroups * split_xchg_bytes(kSplit, Dh);
+  const size_t smem_core = core_smem(Np, Dh, is_lut_core(SM));
   CUtensorMap mq, mpj;
   cudaError_t err;
   if ((err = prepare_gemms<BN>(wqkv_t, wp_t, C, &mq, &mpj)) != cudaSuccess ||
@@ -129,7 +148,7 @@ int launch_attn(const void* x, int x16, const int8_t* ln_in,
     return (int)err;
   const int row_blocks = (R + kGemmRows - 1) / kGemmRows;
   ln_qkv_wgmma_kernel<BN><<<row_blocks, kGemmThreads, smem_gemm, stream>>>(
-      mq, x, ln_in, ln_bias, m_ln, bqkv, mqkv, sp, qkv, R, C, x16, ln_ivit);
+      mq, x, ln_in, ln_bias, m_ln, bqkv, mqkv, sp, qkv, R, C, x16, ln_kind);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
   const dim3 core_grid(H, B);
   if (Dh <= 64)
@@ -150,12 +169,16 @@ int launch_attn(const void* x, int x16, const int8_t* ln_in,
 // Pointers in the wrapper's argument order; ln_in may be null (LN in the
 // kernel); the scalar operands point at one f32 each (s_exp_act: the ibert
 // softmax only).  x: int8, or int16 with x16; out: int8, or int16 where
-// out_bits > 8.  sm picks the softmax (0 ibert, 1 Shiftmax, 2 ppoly) and
-// sm_bit its probabilities' bits (8 or 16); for ppoly, pp describes the
-// fitted table (host memory; null otherwise) and exp_table is 256 f32 of
-// scratch for its exp table, whose launch runs first.  qkv [B * Np, 3C] and
-// ctx [B * Np, C] are int8 scratch.  Shapes, bits or a ppoly table the
-// kernels do not take: cudaErrorInvalidValue.
+// out_bits > 8.  ln_kind: the LayerNorm (0 ibert, 1 ivit, 2 ibert with
+// I-BERT's integer sqrt).  sm picks the softmax (0 ibert, 1 Shiftmax, 2
+// ppoly) and sm_bit its probabilities' bits (8 or 16); for ppoly, pp
+// describes the fitted table (host memory; null otherwise) and exp_table is
+// 256 f32 of scratch for its exp table, whose launch runs first.  lut: 0
+// the towers; 1 or 2 the table form, exp_table then the spec's sm_lut (256
+// f32 on the card, no table launch), the ivit row sum in two limbs (1) or
+// one int32 reduction (2).  qkv [B * Np, 3C] and ctx [B * Np, C] are int8
+// scratch.  Shapes, bits or a ppoly table the kernels do not take:
+// cudaErrorInvalidValue.
 extern "C" int ivit_attn_block(const void* x, const int8_t* ln_in,
                                const float* ln_bias,
                                const float* m_ln, const float* ln_shift,
@@ -168,14 +191,14 @@ extern "C" int ivit_attn_block(const void* x, const int8_t* ln_in,
                                int8_t* qkv, int8_t* ctx, void* out, int B,
                                int Np, int C, int H, int n_valid, int sm_bit,
                                int attn_bits, int proj_bits, int out_bits,
-                               int x16, int ln_ivit, int sm, int fast_q,
+                               int x16, int ln_kind, int sm, int fast_q,
                                int fast_poly,
                                const ivit::PpolyArgs* pp, float* exp_table,
-                               cudaStream_t stream) {
+                               int lut, cudaStream_t stream) {
   using namespace ivit;
   const AttnScalars sp{ln_shift, m_attn, nullptr, s_attn, s_exp_act,
                        m_av,     m_res_x, m_res_id};
-  PpolySoftmax ps{exp_table, {}};
+  SoftmaxTable ps{exp_table, {}, lut == 2, nullptr, nullptr};
   // 128-column passes where C allows (DeiT-S: 3C = 1152, C = 384), else 96
   // or 64
   const int bn = pass_width(3 * C, C), dh = H > 0 ? C / H : 0;
@@ -183,12 +206,16 @@ extern "C" int ivit_attn_block(const void* x, const int8_t* ln_in,
       dh > 128 || Np < 1 || Np > 256 || n_valid < 1 || n_valid > Np ||
       (sm_bit != 8 && sm_bit != 16) || attn_bits < 2 || attn_bits > 8 ||
       proj_bits < 2 || proj_bits > 16 || out_bits < 2 || out_bits > 16 ||
-      sm < 0 || sm > 2 || (sm == kSmPpoly && !ppoly_args_ok(pp, false)))
+      sm < 0 || sm > 2 || (sm == kSmPpoly && !ppoly_args_ok(pp, false)) ||
+      ln_kind < 0 || ln_kind > 2 || lut < 0 || lut > 2 ||
+      (lut != 0 && exp_table == nullptr))
     return (int)cudaErrorInvalidValue;
   if (sm == kSmPpoly) {
     ps.pp = *pp;
-    const cudaError_t err = launch_ppoly_table(ps.pp, false, nullptr, exp_table, stream);
-    if (err != cudaSuccess) return (int)err;
+    if (lut == 0) {
+      const cudaError_t err = launch_ppoly_table(ps.pp, false, nullptr, exp_table, stream);
+      if (err != cudaSuccess) return (int)err;
+    }
   }
   auto pick_bn = [&](auto sm_tag, auto sb_tag) {
     constexpr int S = decltype(sm_tag)::value, P = decltype(sb_tag)::value;
@@ -199,10 +226,14 @@ extern "C" int ivit_attn_block(const void* x, const int8_t* ln_in,
     return sm_bit == 16 ? pick_bn(sm_tag, std::integral_constant<int, 16>{})
                         : pick_bn(sm_tag, std::integral_constant<int, 8>{});
   };
-  auto launch = sm == kSmShift   ? pick(std::integral_constant<int, kSmShift>{})
-              : sm == kSmPpoly ? pick(std::integral_constant<int, kSmPpoly>{})
-                               : pick(std::integral_constant<int, kSmIbert>{});
+  auto launch =
+      sm == kSmPpoly ? pick(std::integral_constant<int, kSmPpoly>{})
+      : sm == kSmShift
+          ? (lut ? pick(std::integral_constant<int, kSmShiftLut>{})
+                 : pick(std::integral_constant<int, kSmShift>{}))
+          : (lut ? pick(std::integral_constant<int, kSmIbertLut>{})
+                 : pick(std::integral_constant<int, kSmIbert>{}));
   return launch(x, x16, ln_in, ln_bias, m_ln, wqkv_t, bqkv, mqkv, wp_t, bp, mp,
                 sp, ps, qkv, ctx, out, B, Np, C, H, n_valid, attn_bits,
-                proj_bits, out_bits, ln_ivit, fast_q, fast_poly, stream);
+                proj_bits, out_bits, ln_kind, fast_q, fast_poly, stream);
 }

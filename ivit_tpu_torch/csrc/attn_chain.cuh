@@ -18,8 +18,14 @@
 
 namespace ivit {
 
-// The softmax families of the cores (the wrappers' codes).
+// The softmax families of the cores (the wrappers' codes), and the cores
+// of the ivit and ibert table forms (a spec's freeze-time sm_lut).
 constexpr int kSmIbert = 0, kSmShift = 1, kSmPpoly = 2;
+constexpr int kSmShiftLut = 3, kSmIbertLut = 4;
+
+__host__ __device__ constexpr bool is_lut_core(int sm) {
+  return sm == kSmShiftLut || sm == kSmIbertLut;
+}
 
 // ibert integer exp of x = score - row max (block.py _ibert_int_exp).
 __device__ __forceinline__ float ibert_exp(float x, float x0, float b_int,
@@ -40,13 +46,31 @@ struct AttnScalars {
       *m_res_x, *m_res_id;
 };
 
-// The ppoly softmax's operands, a parameter of the cores only: the fitted
-// table and the call's exp table (256 f32 that ppoly_table_kernel writes
-// before the core runs).
-struct PpolySoftmax {
+// The exp table a core looks up, a parameter of the cores only:
+//   exp_tab: the ppoly softmax's 256 f32, the call's (ppoly_table_kernel
+//     writes it before the core runs) or a spec's sm_lut, or the ivit or
+//     ibert sm_lut of a table-form core, which copies it into shared
+//     memory (tab);
+//   pp: the fitted ppoly table, for the scores past exp_tab;
+//   sum_i32: the ivit table form's row sum as one int32 reduction (the
+//     freeze's sm_sum_i32 gate), else in two limbs clamped to INT32_MAX;
+//   sat: a shifted Swin block's exp of a masked score (a spec's sm_sat on
+//     the card), taken wherever the shift mask is negative, or null.
+struct SoftmaxTable {
   const float* exp_tab;
   PpolyArgs pp;
+  int sum_i32;
+  const float* sat;
+  const float* tab;
 };
+
+// Stage a table-form core's exp table in shared memory (256 f32, tid of
+// nthr threads); the caller synchronizes before the lookups.
+__device__ __forceinline__ void stage_lut(SoftmaxTable& st, float* smem_tab,
+                                          int tid, int nthr) {
+  for (int i = tid; i < 256; i += nthr) smem_tab[i] = __ldg(st.exp_tab + i);
+  st.tab = smem_tab;
+}
 
 // ibert exp constants at score scale s_attn, as ibert.int_exp and
 // int_polynomial derive them: x0 = floor(-ln2 / s), b_int and c_int.
@@ -167,7 +191,7 @@ __device__ __forceinline__ void ibert_softmax_quad(float (&v)[NV], int nv_live,
 template <int NV, class Red>
 __device__ __forceinline__ void ppoly_softmax_quad(float (&v)[NV], int nv_live,
                                                    int t, int col0, int n_valid,
-                                                   const PpolySoftmax& ps,
+                                                   const SoftmaxTable& ps,
                                                    float out_scale, Red& red) {
   float smax = -8388608.f;  // -2**23, the reference's pad-column fill
 #pragma unroll
@@ -191,6 +215,58 @@ __device__ __forceinline__ void ppoly_softmax_quad(float (&v)[NV], int nv_live,
 #pragma unroll
   for (int i = 0; i < NV; ++i)
     v[i] = floorf(fminf(__fmul_rn(v[i], factor), kProbProductMax) * out_scale);
+}
+
+// The table softmax (block.py _softmax_lut) of one row on the accumulator
+// layout, as shiftmax_quad runs Shiftmax: the row max over the real
+// columns, each exp tab[clamp(max - x, 0, 255)] from the shared copy of
+// the spec's table, or sat where bit i of satb is set (a masked Swin
+// score); columns >= n_valid padding with exp 0.  IVIT: the row sum as one
+// int32 reduction (sum_i32) or two int32 limbs recombined and clamped to
+// INT32_MAX, factor = floor(2**31 / sum), the product saturating at
+// kShiftProductMax; else (ibert) an int32 sum, factor = floor(2**32 / sum),
+// saturating at kProbProductMax; the probability floor(exp * factor *
+// out_scale).  The exps are the table's integers, so every sum is exact
+// (the freeze's gate keeps the int32 one below 2**31) in any order.
+template <bool IVIT, int NV, class Red>
+__device__ __forceinline__ void lut_softmax_quad(float (&v)[NV], int nv_live,
+                                                 int t, int col0, int n_valid,
+                                                 const SoftmaxTable& st,
+                                                 uint32_t satb, float out_scale,
+                                                 Red& red) {
+  float vmax = -8388608.f;  // -2**23, the reference's pad-column fill
+#pragma unroll
+  for (int i = 0; i < NV; ++i)
+    if (i < nv_live && col0 + quad_col(i, t) < n_valid) vmax = fmaxf(vmax, v[i]);
+  vmax = red.max(vmax);
+  const float sat = st.sat != nullptr ? __ldg(st.sat) : 0.f;
+  const bool limbs = IVIT && !st.sum_i32;
+  int s32 = 0, sl = 0;
+#pragma unroll
+  for (int i = 0; i < NV; ++i) {
+    float e = 0.f;
+    if (i < nv_live && col0 + quad_col(i, t) < n_valid) {
+      e = (satb >> i) & 1u ? sat : st.tab[(int)clampf(vmax - v[i], 0.f, 255.f)];
+      const int ei = (int)e;
+      s32 += limbs ? ei >> 8 : ei;
+      sl += ei & 255;
+    }
+    v[i] = e;
+  }
+  float total;
+  if (limbs) {
+    const int sh = red.sum(s32);
+    sl = red.sum(sl);
+    total = fminf(__fadd_rn(__fmul_rn(__int2float_rn(sh), 256.f), __int2float_rn(sl)),
+                  kInt32Max);
+  } else {
+    total = __int2float_rn(red.sum(s32));
+  }
+  const float factor = floorf(rdiv(IVIT ? kInt32Max : 4294967296.f, total));
+  const float top = IVIT ? kShiftProductMax : kProbProductMax;
+#pragma unroll
+  for (int i = 0; i < NV; ++i)
+    v[i] = floorf(fminf(__fmul_rn(v[i], factor), top) * out_scale);
 }
 
 // Row reductions of an attention tile whose keys one warp holds: over the
@@ -321,9 +397,11 @@ __device__ __forceinline__ int pack4_hi(const float* p) {
 //   tiles of 8 keys each; the warp's chunks part * MAXC .. that hold keys
 //   computed);
 //   score(row, key, dot) -> the f32 score of a real row and key < n_valid;
+//   masked(row, key) -> whether a table-form core takes st.sat there (a
+//   negative Swin shift mask; never read by the other cores);
 //   the softmax on the accumulator layout (shiftmax_quad,
-//   ibert_softmax_quad or ppoly_softmax_quad, by SM), each row in the 4
-//   lanes of a quad;
+//   ibert_softmax_quad, ppoly_softmax_quad or lut_softmax_quad, by SM),
+//   each row in the 4 lanes of a quad;
 //   the SB-bit probabilities packed from those registers into P's A
 //   fragments (keys in chunk_slot order, as Vt holds them), P v over up to
 //   MAXD chunks of 32 channels (the other parts' int32 partials added into
@@ -339,14 +417,16 @@ __device__ __forceinline__ int pack4_hi(const float* p) {
 // qbase / cbase: row 0, channel 0 of this head in qkv [n, N3] / ctx [n, ldc].
 // red: the row reductions, QuadReduce, or SplitReduce<K>, whose part says
 // which K-th of the keys this warp holds (MAXC chunks from part * MAXC).
-template <int SM, int MAXC, int MAXD, int SB = 8, class Red, class Score>
+template <int SM, int MAXC, int MAXD, int SB = 8, class Red, class Score,
+          class Masked>
 __device__ __forceinline__ void attn_tile(
     const int8_t* __restrict__ qbase, int N3, int i0, int n, int Dh,
     int n_valid, const int8_t* Ks, const int8_t* Vt, Score score,
-    const SoftmaxConsts& k, const PpolySoftmax& ps, int fast_q, int fast_poly,
-    float m_av, int8_t* __restrict__ cbase, int ldc, Red& red) {
+    Masked masked, const SoftmaxConsts& k, const SoftmaxTable& ps, int fast_q,
+    int fast_poly, float m_av, int8_t* __restrict__ cbase, int ldc, Red& red) {
   const int part = red.part;
   constexpr int NT = 4 * MAXC, DT = 4 * MAXD;  // 8-key and 8-channel tiles
+  static_assert(2 * NT <= 32, "a row's values of a lane fit satb's bits");
   const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
   const int c0 = part * MAXC;                            // first chunk
   const int nc = min(MAXC, max(0, ((n + 31) >> 5) - c0));  // chunks with keys
@@ -378,13 +458,18 @@ __device__ __forceinline__ void attn_tile(
   // f32 scores of rows g (s[0]) and g + 8 (s[1]); index 2j + (e & 1) is
   // column key0 + quad_col(2j + (e & 1), t); a padding row's scores are 0
   float s[2][2 * NT];
+  uint32_t satb[2] = {0u, 0u};  // table forms: the values that take st.sat
 #pragma unroll
   for (int j = 0; j < NT; ++j)
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
       const int row = i0 + g + 8 * (e >> 1), key = key0 + 8 * j + 2 * t + (e & 1);
       float v = -8388608.f;
-      if (j < 4 * nc && key < n_valid) v = row < n ? score(row, key, acc[j][e]) : 0.f;
+      if (j < 4 * nc && key < n_valid) {
+        v = row < n ? score(row, key, acc[j][e]) : 0.f;
+        if (is_lut_core(SM) && row < n && masked(row, key))
+          satb[e >> 1] |= 1u << (2 * j + (e & 1));
+      }
       s[e >> 1][2 * j + (e & 1)] = v;
     }
 #pragma unroll
@@ -396,6 +481,12 @@ __device__ __forceinline__ void attn_tile(
     else if constexpr (SM == kSmPpoly)
       ppoly_softmax_quad(s[h], 8 * nc, t, key0, n_valid, ps, prob_scale(SB),
                          red);
+    else if constexpr (SM == kSmShiftLut)
+      lut_softmax_quad<true>(s[h], 8 * nc, t, key0, n_valid, ps, satb[h],
+                             shift_out_scale(SB), red);
+    else if constexpr (SM == kSmIbertLut)
+      lut_softmax_quad<false>(s[h], 8 * nc, t, key0, n_valid, ps, satb[h],
+                              prob_scale(SB), red);
     else
       ibert_softmax_quad(s[h], 8 * nc, t, key0, n_valid, k, fast_q, fast_poly,
                          prob_scale(SB), red);
@@ -518,10 +609,10 @@ ln_qkv_wgmma_kernel(const __grid_constant__ CUtensorMap wqkv,
                     const int32_t* __restrict__ bqkv,
                     const float* __restrict__ mqkv, AttnScalars sp,
                     int8_t* __restrict__ qkv, int R, int C, int x16,
-                    int ln_ivit) {
+                    int ln_kind) {
   const int r0 = blockIdx.x * kGemmRows, N3 = 3 * C;
   auto fill = [&](int8_t* A) {
-    fill_ln_tile(A, x, ln_in, R, C, r0, x16, ln_ivit, ln_bias, m_ln,
+    fill_ln_tile(A, x, ln_in, R, C, r0, x16, ln_kind, ln_bias, m_ln,
                  sp.ln_shift);
   };
   auto epi = [&](int (&acc)[BN / 4], int c0) {

@@ -157,6 +157,48 @@ __device__ __forceinline__ float limb_total(int sh, int sl) {
   return __fadd_rn(__fmul_rn(__int2float_rn(sh), 256.f), __int2float_rn(sl));
 }
 
+// The LayerNorms of the kernels (the wrappers' codes): the ibert LN with
+// floor(sqrt), I-LayerNorm, the ibert LN with I-BERT's integer sqrt.
+constexpr int kLnIbert = 0, kLnIvit = 1, kLnIbertIntSqrt = 2;
+
+// floor(log2(n)) of an f32 n >= 1 with log2 correctly rounded to f32
+// (ops/ibert.py floor_log2_rn): n's exponent e, plus one where its 24-bit
+// mantissa lies within the slack of 2**24 for k = e + 1, i.e. log2(n)
+// within half the f32 spacing below k, which rounds up to k.
+__device__ __forceinline__ int floor_log2_rn(float n) {
+  const int b = __float_as_int(n);
+  const int e = ((b >> 23) & 255) - 127, k = e + 1;
+  const int m = (b & 0x7fffff) | 0x800000;
+  const int slack = k <= 2    ? 0
+                    : k <= 4  ? 1
+                    : k <= 8  ? 2
+                    : k <= 16 ? 5
+                    : k <= 32 ? 11
+                    : k <= 64 ? 22
+                              : 44;
+  return e + (m >= 0x1000000 - slack ? 1 : 0);
+}
+
+// I-BERT's integer sqrt of the f32-held integer n >= 0 (ibert.py
+// int_bitlength_sqrt): the seed 2**ceil(bits / 2), bits = floor_log2_rn(n)
+// + 1, then 4 steps x = floor((x + floor(n / x)) / 2), each the f32
+// operation of the plain version, so the same root for every n; 0 for
+// n = 0.
+__device__ __noinline__ float int_bitlength_sqrt(float n) {
+  if (!(n > 0.f)) return 0.f;
+  const float bits = (float)(floor_log2_rn(fmaxf(n, 1.f)) + 1);
+  float x = pow2(ceilf(bits * 0.5f));
+  for (int i = 0; i < 4; ++i)
+    x = floorf(__fmul_rn(__fadd_rn(x, floorf(rdiv(n, fmaxf(x, 1.f)))), 0.5f));
+  return x;
+}
+
+// The ibert LN's root: floor(sqrt(var)), or with isqrt I-BERT's integer
+// sqrt.
+__device__ __forceinline__ float ibert_root(float var, bool isqrt) {
+  return floorf(isqrt ? int_bitlength_sqrt(var) : __fsqrt_rn(var));
+}
+
 // ivit integer Newton sqrt: 10 steps k = floor((k + floor(v / k)) / 2) from
 // k = 2**16 (block.py _newton_sqrt; ivit.int_newton_sqrt).
 __device__ __forceinline__ float newton_sqrt(float v) {
@@ -170,7 +212,8 @@ __device__ __forceinline__ float newton_sqrt(float v) {
 // Swin's stream; C % 32 == 0, C <= 1024), plus its bias and int8 requant,
 // into out_row.  IVIT: I-LayerNorm (block.py _i_layernorm, Newton sqrt, no
 // shift); else the ibert LN with the frozen shift 2**shift = pw (block.py
-// _ibert_layernorm, floor(sqrt)).  Both end in _ln_requant.  On the 16-bit
+// _ibert_layernorm, floor(sqrt), or with isqrt the integer sqrt of the
+// unfused engine).  Both end in _ln_requant.  On the 16-bit
 // stream |y| < 2**16: the limbs a = floor(y / 256) (|a| <= 256) and b keep
 // every square sum an exact int32 up to C = 1024.
 template <bool IVIT, typename XT>
@@ -178,7 +221,7 @@ __device__ __forceinline__ void ln_row(const XT* __restrict__ xrow, int C,
                                        const float* __restrict__ bias,
                                        const float* __restrict__ m_ln,
                                        float pw, float inv_pw, int8_t* out_row,
-                                       int lane) {
+                                       int lane, bool isqrt = false) {
   float v[kMaxLnVals];
   const int nv = C >> 5;
   int sh = 0, sl = 0;
@@ -208,7 +251,7 @@ __device__ __forceinline__ void ln_row(const XT* __restrict__ xrow, int C,
   float var = __fadd_rn(__fmul_rn(__int2float_rn(saa), 65536.f),
                         __fadd_rn(__fmul_rn(__int2float_rn(sab), 512.f),
                                   __int2float_rn(sbb)));
-  float stdv = IVIT ? newton_sqrt(var) : floorf(__fsqrt_rn(var)) * pw;
+  float stdv = IVIT ? newton_sqrt(var) : ibert_root(var, isqrt) * pw;
   float factor = floorf(rdiv(2147483648.f, stdv));
 #pragma unroll
   for (int i = 0; i < kMaxLnVals; ++i) {
@@ -236,7 +279,7 @@ __device__ __forceinline__ void ln_row_i32(const XT* __restrict__ xrow, int C,
                                            const float* __restrict__ bias,
                                            const float* __restrict__ m_ln,
                                            float pw, int shift, Out out_row,
-                                           int lane) {
+                                           int lane, bool isqrt = false) {
   int sh = 0, sl = 0;
 #pragma unroll 4
   for (int c = lane; c < C; c += L) {
@@ -262,7 +305,7 @@ __device__ __forceinline__ void ln_row_i32(const XT* __restrict__ xrow, int C,
   float var = __fadd_rn(__fmul_rn(__int2float_rn(saa), 65536.f),
                         __fadd_rn(__fmul_rn(__int2float_rn(sab), 512.f),
                                   __int2float_rn(sbb)));
-  float stdv = IVIT ? newton_sqrt(var) : floorf(__fsqrt_rn(var)) * pw;
+  float stdv = IVIT ? newton_sqrt(var) : ibert_root(var, isqrt) * pw;
   float factor = floorf(rdiv(2147483648.f, stdv));
 #pragma unroll 4
   for (int c = lane; c < C; c += L) {
@@ -289,14 +332,14 @@ __device__ __forceinline__ void copy_tile(const int8_t* __restrict__ src,
 }
 
 // The block's LN input tile: LN of the TM rows r0.. of x (XT: int8 or
-// int16) into As (row stride lda), the ivit or ibert form; or, where the
+// int16) into As (row stride lda), of the ln_kind form; or, where the
 // caller hoisted the LN (ln_in != nullptr, block.py hoisted_ln), ln_in's
 // rows as they are.  Rows past R are zero.  Warp w takes rows
 // w * TM/8 .. (w + 1) * TM/8 - 1.
 template <int TM, typename XT>
 __device__ __forceinline__ void ln_tile(const XT* __restrict__ x,
                                         const int8_t* __restrict__ ln_in,
-                                        int R, int C, int r0, bool ivit,
+                                        int R, int C, int r0, int ln_kind,
                                         const float* __restrict__ bias,
                                         const float* __restrict__ m_ln,
                                         float pw, float inv_pw, int8_t* As,
@@ -311,12 +354,12 @@ __device__ __forceinline__ void ln_tile(const XT* __restrict__ x,
     int gr = r0 + row;
     if (gr >= R) {
       for (int c = lane; c < C; c += 32) As[row * lda + c] = 0;
-    } else if (ivit) {
+    } else if (ln_kind == kLnIvit) {
       ln_row<true>(x + (size_t)gr * C, C, bias, m_ln, 1.f, 1.f,
                    As + row * lda, lane);
     } else {
       ln_row<false>(x + (size_t)gr * C, C, bias, m_ln, pw, inv_pw,
-                    As + row * lda, lane);
+                    As + row * lda, lane, ln_kind == kLnIbertIntSqrt);
     }
   }
 }

@@ -178,16 +178,21 @@ __device__ __forceinline__ void shiftmax_quad(float (&v)[NV], int nv_live,
 // int_exp_shift(-d), d = 0 .. 255, then the entries x = -128 .. xmax of
 // table[xmax + 128], x * floor(exp * factor * sig_scale) with factor =
 // floor(2**31 / (exp + exp_max)), requantized by m_out to [-lim, lim - 1].
-// Entries past xmax are never looked up and stay unwritten.
+// Entries past xmax are never looked up and stay unwritten.  exp_lut: a
+// spec's freeze-time exp table (luts.shift_gelu_exp_lut, 256 f32, T[d] =
+// int_exp_shift(-d)), whose entries replace the exps (block.py
+// _shift_gelu_lut: the same per-row sigmoid from the table), or null.
 __global__ void __launch_bounds__(256)
 shift_gelu_table_kernel(const float* __restrict__ s_gelu,
                         const float* __restrict__ m_out, int output_bit,
                         int n, int out_bits, int fast_q,
-                        int8_t* __restrict__ table) {
+                        int8_t* __restrict__ table,
+                        const float* __restrict__ exp_lut) {
   __shared__ float exps[256];
   const float x0 = shift_gelu_x0(__ldg(s_gelu)), nf = (float)n;
   const int d = threadIdx.x, xmax = (int)blockIdx.x - 128;
-  exps[d] = int_exp_shift(__int2float_rn(-d), x0, nf, fast_q);
+  exps[d] = exp_lut != nullptr ? __ldg(exp_lut + d)
+                               : int_exp_shift(__int2float_rn(-d), x0, nf, fast_q);
   __syncthreads();
   const int x = d - 128;
   if (x > xmax) return;
@@ -205,9 +210,11 @@ shift_gelu_table_kernel(const float* __restrict__ s_gelu,
 inline cudaError_t launch_shift_gelu_table(const float* s_gelu,
                                            const float* m_out, int output_bit,
                                            int n, int out_bits, int fast_q,
-                                           int8_t* table, cudaStream_t stream) {
+                                           int8_t* table, cudaStream_t stream,
+                                           const float* exp_lut = nullptr) {
   shift_gelu_table_kernel<<<256, 256, 0, stream>>>(s_gelu, m_out, output_bit, n,
-                                                   out_bits, fast_q, table);
+                                                   out_bits, fast_q, table,
+                                                   exp_lut);
   return cudaGetLastError();
 }
 

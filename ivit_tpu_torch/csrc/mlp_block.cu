@@ -35,6 +35,11 @@
 //     ppoly_table_kernel, launched first, fast-div or rdiv form), which
 //     fc1's epilogue looks up an element: the same bits as the reference's
 //     per-element Horner and divide, computed 256 times a call;
+//   * the table forms (a spec's freeze-time gelu_lut, block.py :728-757):
+//     the ibert GELU x * U[x + 128] and the ppoly GELU U[x + 128] take the
+//     same 256-entry table of final outputs, built from U by one launch
+//     (gelu_lut_table_kernel); ShiftGELU's table launch takes its exps from
+//     the spec's T instead of the exp tower;
 //   * ShiftGELU: fc1's epilogue also keeps each row's max (the lane, the
 //     quad, then a shared atomicMax a row); after the last pass each row
 //     copies its max's 256-byte table of final outputs from the call's
@@ -69,8 +74,26 @@ namespace ivit {
 
 // The GELU families of the kernels (the wrapper's codes): the ibert GELU
 // per element in fc1's epilogue, ShiftGELU through the per-row tables, the
-// ppoly GELU through its 256-entry table.
+// ppoly GELU through its 256-entry table of final outputs (kGeluTable, the
+// epilogue the table forms of the ibert and ppoly GELUs take too).
 constexpr int kGeluIbert = 0, kGeluShift = 1, kGeluPpoly = 2;
+constexpr int kGeluTable = kGeluPpoly;
+
+// The table forms of the ibert and ppoly GELUs + requant (block.py
+// _ibert_gelu_lut, _ppoly_gelu_lut, then _requant): their input is the int8
+// fc1 requant, so all 256 outputs are one table, as the ppoly GELU's:
+// table[x + 128] = requant(x * U[x + 128]) (times_x, ibert) or
+// requant(U[x + 128]) (ppoly), U the spec's gelu_lut, one f32 multiply and
+// the requant as the reference rounds them.
+__global__ void __launch_bounds__(256)
+gelu_lut_table_kernel(const float* __restrict__ lut, int times_x,
+                      const float* __restrict__ m_gelu,
+                      int8_t* __restrict__ table) {
+  const int i = threadIdx.x;
+  const float u = __ldg(lut + i);
+  const float g = times_x ? __fmul_rn(__int2float_rn(i - 128), u) : u;
+  table[i] = (int8_t)(int)requant(g, __ldg(m_gelu), 128.f);
+}
 
 // ibert GELU on one int8-valued input (block.py _ibert_gelu).
 __device__ __forceinline__ float ibert_gelu(float h, float b_int, float c_int,
@@ -114,9 +137,9 @@ __host__ __device__ constexpr size_t mlp_wg_smem(int C, int Hd, int BN,
 // w1 / w2: the tensor maps of fc1's weight transposed [Hd, C] and fc2's
 // [C, Hd]; x and out: [R, C], int8 or (x16 / o16) int16; ln_in: the hoisted LN
 // output [R, C], or null to run the LN here.  GELU: kGeluShift, ShiftGELU
-// through gelu_table (shift_gelu_table_kernel's); kGeluPpoly, the ppoly
-// GELU + requant through gelu_table (ppoly_table_kernel's, 256 entries);
-// kGeluIbert, the ibert GELU.
+// through gelu_table (shift_gelu_table_kernel's); kGeluTable, the GELU +
+// requant through gelu_table (ppoly_table_kernel's or
+// gelu_lut_table_kernel's, 256 entries); kGeluIbert, the ibert GELU.
 template <int BN, int GELU>
 __global__ void __launch_bounds__(kGemmThreads, 2)
 mlp_wgmma_kernel(const __grid_constant__ CUtensorMap w1,
@@ -128,7 +151,7 @@ mlp_wgmma_kernel(const __grid_constant__ CUtensorMap w1,
                  const float* __restrict__ m2, MlpScalars sp,
                  const int8_t* __restrict__ gelu_table,
                  void* __restrict__ out, int R, int C, int Hd, int mlp_bits,
-                 int out_bits, int x16, int o16, int ln_ivit, int fast_poly) {
+                 int out_bits, int x16, int o16, int ln_kind, int fast_poly) {
   constexpr int WN = BN / 2;
   extern __shared__ uint8_t mlp_raw[];
   int8_t* bufs = smem_aligned(mlp_raw);
@@ -150,7 +173,7 @@ mlp_wgmma_kernel(const __grid_constant__ CUtensorMap w1,
     }
     return;
   }
-  fill_ln_tile(A, x, ln_in, R, C, r0, x16, ln_ivit, ln_bias, m_ln, sp.ln_shift);
+  fill_ln_tile(A, x, ln_in, R, C, r0, x16, ln_kind, ln_bias, m_ln, sp.ln_shift);
   pad_tile_k(A, C);
   pad_tile_k(G, Hd);
   if (SHIFT_GELU && threadIdx.x < kGemmRows) rmax[threadIdx.x] = -128;
@@ -183,7 +206,7 @@ mlp_wgmma_kernel(const __grid_constant__ CUtensorMap w1,
           float hi = requant(__int2float_rn(a[1] + b.y), m.y, 128.f);
           if (SHIFT_GELU) {
             vmax[h] = max(vmax[h], max((int)lo, (int)hi));
-          } else if (GELU == kGeluPpoly) {
+          } else if (GELU == kGeluTable) {
             lo = (float)__ldg(gelu_table + (int)lo + 128);
             hi = (float)__ldg(gelu_table + (int)hi + 128);
           } else {
@@ -254,7 +277,7 @@ mlp_block_kernel(const XT* __restrict__ x, const int8_t* __restrict__ ln_in,
                  const float* __restrict__ m2, MlpScalars sp,
                  const int8_t* __restrict__ gelu_table, void* __restrict__ out,
                  int R, int C, int Hd, int mlp_bits, int out_bits, int o16,
-                 int ln_ivit, int fast_poly) {
+                 int ln_kind, int fast_poly) {
   constexpr int NT = GemmShape<BN, TM>::NT;
   extern __shared__ __align__(16) int8_t smem[];
   const int lda = tile_ld(C), ldg = tile_ld(Hd);
@@ -273,7 +296,7 @@ mlp_block_kernel(const XT* __restrict__ x, const int8_t* __restrict__ ln_in,
     asm volatile("" : "+f"(gc.b), "+f"(gc.c), "+f"(gc.shift));
   }
 
-  ln_tile<TM>(x, ln_in, R, C, r0, ln_ivit, ln_bias, m_ln, ln.pw, ln.inv_pw,
+  ln_tile<TM>(x, ln_in, R, C, r0, ln_kind, ln_bias, m_ln, ln.pw, ln.inv_pw,
               As, lda);
 
   int acc[NT][4];
@@ -289,7 +312,7 @@ mlp_block_kernel(const XT* __restrict__ x, const int8_t* __restrict__ ln_in,
         if (GELU == kGeluIbert)
           h = requant(ibert_gelu(h, gc.b, gc.c, gc.shift, fast_poly), m_gelu,
                       128.f);
-        else if (GELU == kGeluPpoly)
+        else if (GELU == kGeluTable)
           h = (float)__ldg(gelu_table + (int)h + 128);
         Gs[row * ldg + col] = (int8_t)(int)h;
       }
@@ -344,7 +367,7 @@ int launch_mlp(const void* x, const int8_t* ln_in, const float* ln_bias,
                const float* m1, const int8_t* w2t, const int32_t* b2,
                const float* m2, MlpScalars sp, const int8_t* gelu_table,
                void* out, int R, int C, int Hd, int mlp_bits, int out_bits,
-               int o16, int ln_ivit, int fast_poly, cudaStream_t stream) {
+               int o16, int ln_kind, int fast_poly, cudaStream_t stream) {
   constexpr int TM = kFallbackRows;
   const size_t smem = mlp_smem(TM, BN, C, Hd);
   cudaError_t err = cudaFuncSetAttribute(
@@ -354,7 +377,7 @@ int launch_mlp(const void* x, const int8_t* ln_in, const float* ln_bias,
   dim3 grid((R + TM - 1) / TM);
   mlp_block_kernel<BN, TM, GELU, XT><<<grid, kThreads, smem, stream>>>(
       static_cast<const XT*>(x), ln_in, ln_bias, m_ln, w1t, b1, m1, w2t, b2,
-      m2, sp, gelu_table, out, R, C, Hd, mlp_bits, out_bits, o16, ln_ivit,
+      m2, sp, gelu_table, out, R, C, Hd, mlp_bits, out_bits, o16, ln_kind,
       fast_poly);
   return (int)cudaGetLastError();
 }
@@ -365,7 +388,7 @@ int launch_mlp_wgmma(const void* x, const int8_t* ln_in, const float* ln_bias,
                      const float* m1, const int8_t* w2t, const int32_t* b2,
                      const float* m2, MlpScalars sp, const int8_t* gelu_table,
                      void* out, int R, int C, int Hd, int mlp_bits,
-                     int out_bits, int x16, int o16, int ln_ivit,
+                     int out_bits, int x16, int o16, int ln_kind,
                      int fast_poly, cudaStream_t stream) {
   const size_t smem = mlp_wg_smem(C, Hd, BN, GELU == kGeluShift);
   CUtensorMap map1, map2;
@@ -379,7 +402,7 @@ int launch_mlp_wgmma(const void* x, const int8_t* ln_in, const float* ln_bias,
   const dim3 grid((R + kGemmRows - 1) / kGemmRows);
   mlp_wgmma_kernel<BN, GELU><<<grid, kGemmThreads, smem, stream>>>(
       map1, map2, x, ln_in, ln_bias, m_ln, b1, m1, b2, m2, sp, gelu_table, out,
-      R, C, Hd, mlp_bits, out_bits, x16, o16, ln_ivit, fast_poly);
+      R, C, Hd, mlp_bits, out_bits, x16, o16, ln_kind, fast_poly);
   return (int)cudaGetLastError();
 }
 
@@ -393,16 +416,16 @@ int launch_mlp_rows(bool rows64, bool x16, bool o16, const void* x,
                     const float* m1, const int8_t* w2t, const int32_t* b2,
                     const float* m2, MlpScalars sp, const int8_t* gelu_table,
                     void* out, int R, int C, int Hd, int mlp_bits,
-                    int out_bits, int ln_ivit, int fast_poly,
+                    int out_bits, int ln_kind, int fast_poly,
                     cudaStream_t stream) {
   if (rows64)
     return launch_mlp_wgmma<BN, GELU>(x, ln_in, ln_bias, m_ln, w1t, b1, m1,
                                       w2t, b2, m2, sp, gelu_table, out, R, C,
                                       Hd, mlp_bits, out_bits, x16, o16,
-                                      ln_ivit, fast_poly, stream);
+                                      ln_kind, fast_poly, stream);
   return (x16 ? launch_mlp<BN, GELU, int16_t> : launch_mlp<BN, GELU, int8_t>)(
       x, ln_in, ln_bias, m_ln, w1t, b1, m1, w2t, b2, m2, sp, gelu_table, out,
-      R, C, Hd, mlp_bits, out_bits, o16, ln_ivit, fast_poly, stream);
+      R, C, Hd, mlp_bits, out_bits, o16, ln_kind, fast_poly, stream);
 }
 
 template <int BN>
@@ -412,14 +435,14 @@ int launch_mlp_any(bool rows64, int gelu, bool x16, bool o16, const void* x,
                    const float* m1, const int8_t* w2t, const int32_t* b2,
                    const float* m2, MlpScalars sp, const int8_t* gelu_table,
                    void* out, int R, int C, int Hd, int mlp_bits,
-                   int out_bits, int ln_ivit, int fast_poly,
+                   int out_bits, int ln_kind, int fast_poly,
                    cudaStream_t stream) {
   auto launch = gelu == kGeluShift   ? launch_mlp_rows<BN, kGeluShift>
-               : gelu == kGeluPpoly ? launch_mlp_rows<BN, kGeluPpoly>
+               : gelu == kGeluTable ? launch_mlp_rows<BN, kGeluTable>
                                     : launch_mlp_rows<BN, kGeluIbert>;
   return launch(rows64, x16, o16, x, ln_in, ln_bias, m_ln, w1t, b1, m1, w2t,
                 b2, m2, sp, gelu_table, out, R, C, Hd, mlp_bits, out_bits,
-                ln_ivit, fast_poly, stream);
+                ln_kind, fast_poly, stream);
 }
 
 constexpr size_t kMaxSmem = 232448;  // a block's dynamic shared memory, sm_90
@@ -429,14 +452,17 @@ constexpr size_t kMaxSmem = 232448;  // a block's dynamic shared memory, sm_90
 // Pointers in the wrapper's argument order; ln_in may be null (LN in the
 // kernel); ln_shift, s_gelu, m_gelu, m_res_x and m_res_id point at one f32
 // each.  x16: x is int16 (else int8); out is int16 where out_bits > 8 (else
-// int8).  ln_ivit picks the ivit LN
-// over the ibert one; gelu the GELU (0 ibert, 1 ShiftGELU, 2 ppoly).
+// int8).  ln_kind: the LayerNorm (0 ibert, 1 ivit, 2 ibert with I-BERT's
+// integer sqrt); gelu the GELU (0 ibert, 1 ShiftGELU, 2 ppoly).
 // gelu_table: scratch for the GELU's table, whose launch runs first:
 // 65,536 bytes for ShiftGELU, 256 for the ppoly GELU, whose fitted table
-// pp describes (host memory; null for the other GELUs); unused by the
-// ibert GELU.  C % 32 == 0, C <= 1024, C and Hd share a pass width of 128,
-// 96 or 64 columns (ivit::pass_width), the 32-row block's tiles fit, and a
-// ppoly table within ppoly.cuh's limits; else cudaErrorInvalidValue.
+// pp describes (host memory; null for the other GELUs), and for the ibert
+// GELU's table form; unused by the ibert GELU's tower.  gelu_lut: the
+// spec's freeze-time GELU table (256 f32 on the card), or null for the
+// towers; with it pp is not read.  C % 32 == 0, C <= 1024, C and Hd share a
+// pass width of 128, 96 or 64 columns (ivit::pass_width), the 32-row
+// block's tiles fit, and a ppoly table within ppoly.cuh's limits; else
+// cudaErrorInvalidValue.
 extern "C" int ivit_mlp_block(const void* x, const int8_t* ln_in,
                               const float* ln_bias, const float* m_ln,
                               const float* ln_shift, const int8_t* w1t,
@@ -446,24 +472,33 @@ extern "C" int ivit_mlp_block(const void* x, const int8_t* ln_in,
                               const float* m2, const float* m_res_x,
                               const float* m_res_id, void* out, int R, int C,
                               int Hd, int mlp_bits, int out_bits, int x16,
-                              int ln_ivit, int gelu, int fast_exp,
+                              int ln_kind, int gelu, int fast_exp,
                               int fast_poly, int8_t* gelu_table,
-                              const ivit::PpolyArgs* pp, cudaStream_t stream) {
+                              const ivit::PpolyArgs* pp, const float* gelu_lut,
+                              cudaStream_t stream) {
   using namespace ivit;
   const MlpScalars sp{ln_shift, s_gelu, m_gelu, m_res_x, m_res_id};
   const int bn = pass_width(C, Hd);
   if (C % 32 || C > 32 * kMaxLnVals || bn == 0 ||
       mlp_smem(kFallbackRows, bn, C, Hd) > kMaxSmem || gelu < 0 || gelu > 2 ||
       mlp_bits < 2 || mlp_bits > 16 || out_bits < 2 || out_bits > 16 ||
-      (gelu == kGeluPpoly && !ppoly_args_ok(pp, true)))
+      ln_kind < 0 || ln_kind > 2 ||
+      (gelu == kGeluPpoly && gelu_lut == nullptr && !ppoly_args_ok(pp, true)) ||
+      ((gelu != kGeluIbert || gelu_lut != nullptr) && gelu_table == nullptr))
     return (int)cudaErrorInvalidValue;
   if (R == 0) return 0;
   cudaError_t err = cudaSuccess;
-  if (gelu == kGeluShift)
+  if (gelu == kGeluShift) {
     err = launch_shift_gelu_table(s_gelu, m_gelu, 8, (int)kShiftGeluN, 8,
-                                  fast_exp, gelu_table, stream);
-  else if (gelu == kGeluPpoly)
+                                  fast_exp, gelu_table, stream, gelu_lut);
+  } else if (gelu_lut != nullptr) {
+    gelu_lut_table_kernel<<<1, 256, 0, stream>>>(gelu_lut, gelu == kGeluIbert,
+                                                 m_gelu, gelu_table);
+    err = cudaGetLastError();
+    gelu = kGeluTable;
+  } else if (gelu == kGeluPpoly) {
     err = launch_ppoly_table(*pp, true, m_gelu, gelu_table, stream);
+  }
   if (err != cudaSuccess) return (int)err;
   // the 64-row wgmma block where its tiles fit (DeiT-S, Swin-T stages 0-2),
   // the 32-row block otherwise (hidden 3072 at C 768, 4096 at C 1024)
@@ -473,5 +508,5 @@ extern "C" int ivit_mlp_block(const void* x, const int8_t* ln_in,
                           : launch_mlp_any<64>;
   return launch(rows64, gelu, x16, out_bits > 8, x, ln_in, ln_bias, m_ln, w1t,
                 b1, m1, w2t, b2, m2, sp, gelu_table, out, R, C, Hd, mlp_bits,
-                out_bits, ln_ivit, fast_poly, stream);
+                out_bits, ln_kind, fast_poly, stream);
 }

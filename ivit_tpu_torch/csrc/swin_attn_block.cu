@@ -42,6 +42,14 @@
 //      requant to 16 bits, residual against the int16 (or int8) input,
 //      int16 out; the passes split over blocks at the last stages, whose
 //      row blocks (49 at stage 3) would leave SMs idle.
+// The table forms (a spec's freeze-time sm_lut, block.py _softmax_lut with
+// the gate of :1486): the ivit and ibert cores of their own copy the 1 KB
+// table into shared memory before the pairs start, and each exp is one
+// lookup there; on a shifted block every position whose mask is negative
+// takes the spec's sm_sat instead (the freeze verified that the tower is
+// that one constant over the whole masked range); the ppoly core reads
+// the spec's table in place of the call's (shifted ppoly blocks keep the
+// tower: the freeze gives them no sm_sat).
 // A warp per pair: a window has 49 rows, 4 query tiles, and its k and v of
 // one head are 3 KB, so nothing is shared between pairs; a block per pair
 // would leave most of its warps idle past the 49 rows (12,288 blocks at
@@ -63,7 +71,8 @@ namespace ivit {
 constexpr int kSwinPairsPerBlock = 8;  // one (window, head) pair a warp
 
 // 2. Window attention, one (window, head) pair a warp; SM: the softmax
-// family (kSmShift the ivit one, kSmIbert, kSmPpoly); MAXD: chunks of 32 channels (1: Dh <= 32,
+// family (kSmShift the ivit one, kSmIbert, kSmPpoly; kSmShiftLut and
+// kSmIbertLut their table forms); MAXD: chunks of 32 channels (1: Dh <= 32,
 // Swin-T; 4: Dh <= 128).  rel: [H, n, n] f32 rel-pos addends; mask: [nW, n,
 // n] f32 shift-mask addends, or null for an unshifted block.
 template <int SM, int MAXD>
@@ -72,10 +81,15 @@ swin_core_mma_kernel(const int8_t* __restrict__ qkv, const float* __restrict__ r
                      const float* __restrict__ mask, AttnScalars sp,
                      int8_t* __restrict__ ctx, int n, int C, int Dh, int H,
                      int pairs, int n_windows, int fast_q, int fast_poly,
-                     PpolySoftmax ps) {
+                     SoftmaxTable ps) {
   extern __shared__ __align__(16) int8_t smem[];
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int p = blockIdx.x * kSwinPairsPerBlock + warp;
+  if (is_lut_core(SM)) {  // every warp of the block, before any leaves
+    stage_lut(ps, reinterpret_cast<float*>(smem + kSwinPairsPerBlock * kv_bytes(n, Dh)),
+              threadIdx.x, 32 * kSwinPairsPerBlock);
+    __syncthreads();
+  }
   if (p >= pairs) return;
   const int w = p / H, h = p - w * H;
   int8_t* Ks = smem + warp * kv_bytes(n, Dh);
@@ -96,11 +110,13 @@ swin_core_mma_kernel(const int8_t* __restrict__ qkv, const float* __restrict__ r
     if (mask_w != nullptr) a += __ldg(mask_w + i * n + j);
     return a;
   };
+  const bool sat = mask_w != nullptr && ps.sat != nullptr;
+  auto masked = [&](int i, int j) { return sat && __ldg(mask_w + i * n + j) < 0.f; };
   int8_t* cbase = ctx + (size_t)w * n * C + h * Dh;
   QuadReduce red{0, 0};
   for (int i0 = 0; i0 < n; i0 += 16)
-    attn_tile<SM, 2, MAXD>(base, 3 * C, i0, n, Dh, n, Ks, Vt, score, k, ps,
-                           fast_q, fast_poly, m_av, cbase, C, red);
+    attn_tile<SM, 2, MAXD>(base, 3 * C, i0, n, Dh, n, Ks, Vt, score, masked, k,
+                           ps, fast_q, fast_poly, m_av, cbase, C, red);
 }
 
 template <int BN, int SM>
@@ -108,13 +124,14 @@ int launch_swin(const void* x, int x16, const int8_t* ln_in,
                 const float* ln_bias, const float* m_ln, const int8_t* wqkv_t,
                 const int32_t* bqkv, const float* mqkv, const float* rel,
                 const float* mask, const int8_t* wp_t, const int32_t* bp,
-                const float* mp, AttnScalars sp, PpolySoftmax ps, int8_t* qkv,
+                const float* mp, AttnScalars sp, SoftmaxTable ps, int8_t* qkv,
                 int8_t* ctx,
                 int16_t* out, int BW, int n, int C, int H, int n_windows,
-                int ln_ivit, int fast_q, int fast_poly, cudaStream_t stream) {
+                int ln_kind, int fast_q, int fast_poly, cudaStream_t stream) {
   const int R = BW * n, Dh = C / H, pairs = BW * H;
   const size_t smem_gemm = wg_smem(C, BN);
-  const size_t smem_core = kSwinPairsPerBlock * kv_bytes(n, Dh);
+  const size_t smem_core = kSwinPairsPerBlock * kv_bytes(n, Dh) +
+                           (is_lut_core(SM) ? 256 * sizeof(float) : 0);
   CUtensorMap mq, mpj;
   cudaError_t err;
   if ((err = prepare_gemms<BN>(wqkv_t, wp_t, C, &mq, &mpj)) != cudaSuccess ||
@@ -127,7 +144,7 @@ int launch_swin(const void* x, int x16, const int8_t* ln_in,
     return (int)err;
   const int row_blocks = (R + kGemmRows - 1) / kGemmRows;
   ln_qkv_wgmma_kernel<BN><<<row_blocks, kGemmThreads, smem_gemm, stream>>>(
-      mq, x, ln_in, ln_bias, m_ln, bqkv, mqkv, sp, qkv, R, C, x16, ln_ivit);
+      mq, x, ln_in, ln_bias, m_ln, bqkv, mqkv, sp, qkv, R, C, x16, ln_kind);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
   const int blocks = (pairs + kSwinPairsPerBlock - 1) / kSwinPairsPerBlock;
   const int threads = 32 * kSwinPairsPerBlock;
@@ -153,12 +170,15 @@ int launch_swin(const void* x, int x16, const int8_t* ln_in,
 // shifted block, mask [n_windows, n, n] f32 (else null); ln_shift, m_attn,
 // m_attn2, s_attn, s_exp_act (ibert softmax only), m_av, m_res_x and
 // m_res_id point at one f32 each.  qkv [BW * n, 3C] and ctx [BW * n, C] are
-// int8 scratch; out [BW, n, C] int16.  ln_ivit picks the ivit LN over the
-// ibert one; sm the softmax (0 ibert, 1 Shiftmax, 2 ppoly); for ppoly, pp
-// describes the fitted table (host memory; null otherwise) and exp_table
-// is 256 f32 of scratch for its exp table, whose launch runs first.  C % 32
-// == 0 and C <= 1024 with a pass width (ivit::pass_width of 3C and C), C /
-// H a multiple of 4 up to 128, n <= 64, a ppoly table within ppoly.cuh's
+// int8 scratch; out [BW, n, C] int16.  ln_kind: the LayerNorm (0 ibert, 1
+// ivit, 2 ibert with I-BERT's integer sqrt); sm the softmax (0 ibert, 1
+// Shiftmax, 2 ppoly); for ppoly, pp describes the fitted table (host
+// memory; null otherwise) and exp_table is 256 f32 of scratch for its exp
+// table, whose launch runs first.  lut: as ivit_attn_block's (exp_table
+// then the spec's sm_lut); sat: with lut on a shifted ivit or ibert block,
+// the spec's sm_sat (one f32 on the card), else null.  C % 32 == 0 and C
+// <= 1024 with a pass width (ivit::pass_width of 3C and C), C / H a
+// multiple of 4 up to 128, n <= 64, a ppoly table within ppoly.cuh's
 // limits; else cudaErrorInvalidValue.
 extern "C" int ivit_swin_attn_block(
     const void* x, const int8_t* ln_in, const float* ln_bias, const float* m_ln,
@@ -168,32 +188,40 @@ extern "C" int ivit_swin_attn_block(
     const float* s_exp_act, const float* m_av, const int8_t* wp_t,
     const int32_t* bp, const float* mp, const float* m_res_x,
     const float* m_res_id, int8_t* qkv, int8_t* ctx, int16_t* out, int BW,
-    int n, int C, int H, int n_windows, int x16, int ln_ivit, int sm,
+    int n, int C, int H, int n_windows, int x16, int ln_kind, int sm,
     int fast_q, int fast_poly, const ivit::PpolyArgs* pp, float* exp_table,
-    cudaStream_t stream) {
+    int lut, const float* sat, cudaStream_t stream) {
   using namespace ivit;
   const AttnScalars sp{ln_shift, m_attn, m_attn2, s_attn, s_exp_act,
                        m_av,     m_res_x, m_res_id};
-  PpolySoftmax ps{exp_table, {}};
+  SoftmaxTable ps{exp_table, {}, lut == 2, sat, nullptr};
   const int bn = pass_width(3 * C, C), dh = H > 0 ? C / H : 0;
   if (bn == 0 || C % 32 || C > 1024 || dh * H != C || dh % 4 ||
       dh > 128 || n < 1 || n > 64 || n_windows < 1 || sm < 0 || sm > 2 ||
-      (sm == kSmPpoly && !ppoly_args_ok(pp, false)))
+      (sm == kSmPpoly && !ppoly_args_ok(pp, false)) || ln_kind < 0 ||
+      ln_kind > 2 || lut < 0 || lut > 2 || (lut != 0 && exp_table == nullptr) ||
+      (sat != nullptr && (lut == 0 || sm == kSmPpoly || mask == nullptr)))
     return (int)cudaErrorInvalidValue;
   if (sm == kSmPpoly) {
     ps.pp = *pp;
-    const cudaError_t err = launch_ppoly_table(ps.pp, false, nullptr, exp_table, stream);
-    if (err != cudaSuccess) return (int)err;
+    if (lut == 0) {
+      const cudaError_t err = launch_ppoly_table(ps.pp, false, nullptr, exp_table, stream);
+      if (err != cudaSuccess) return (int)err;
+    }
   }
   auto pick = [&](auto sm_tag) {
     constexpr int S = decltype(sm_tag)::value;
     return bn == 128 ? launch_swin<128, S> : bn == 96 ? launch_swin<96, S>
                                                       : launch_swin<64, S>;
   };
-  auto launch = sm == kSmShift   ? pick(std::integral_constant<int, kSmShift>{})
-              : sm == kSmPpoly ? pick(std::integral_constant<int, kSmPpoly>{})
-                               : pick(std::integral_constant<int, kSmIbert>{});
+  auto launch =
+      sm == kSmPpoly ? pick(std::integral_constant<int, kSmPpoly>{})
+      : sm == kSmShift
+          ? (lut ? pick(std::integral_constant<int, kSmShiftLut>{})
+                 : pick(std::integral_constant<int, kSmShift>{}))
+          : (lut ? pick(std::integral_constant<int, kSmIbertLut>{})
+                 : pick(std::integral_constant<int, kSmIbert>{}));
   return launch(x, x16, ln_in, ln_bias, m_ln, wqkv_t, bqkv, mqkv, rel, mask,
                 wp_t, bp, mp, sp, ps, qkv, ctx, out, BW, n, C, H, n_windows,
-                ln_ivit, fast_q, fast_poly, stream);
+                ln_kind, fast_q, fast_poly, stream);
 }

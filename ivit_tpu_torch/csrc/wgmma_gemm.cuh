@@ -346,7 +346,7 @@ __device__ __forceinline__ void wgmma_rows(const CUtensorMap* wmap, int K,
   }
 }
 
-// The LN prologue of a row GEMM: the LN (ivit or ibert form, exact.cuh
+// The LN prologue of a row GEMM: the LN (of the ln_kind form, exact.cuh
 // ln_row_i32) of the 64 rows r0.. of x (XT: int8 or int16) into the
 // swizzled A tile.  A row takes L lanes (8 below C 256, else 16), so a
 // warp runs 32 / L rows at once: the Newton chain and the group reductions
@@ -354,7 +354,7 @@ __device__ __forceinline__ void wgmma_rows(const CUtensorMap* wmap, int K,
 // takes part in the group sums); the GEMM never stores them.
 template <int L, typename XT>
 __device__ __forceinline__ void ln_rows_swizzled(
-    const XT* __restrict__ x, int R, int C, int r0, bool ivit,
+    const XT* __restrict__ x, int R, int C, int r0, int ln_kind,
     const float* __restrict__ bias, const float* __restrict__ m_ln, float pw,
     int shift, int8_t* A) {
   constexpr int kGroups = 32 / L, kWarps = kGemmConsumers / 32;
@@ -363,22 +363,23 @@ __device__ __forceinline__ void ln_rows_swizzled(
   for (int row = first; row < kGemmRows; row += kWarps * kGroups) {
     const XT* xrow = x + (size_t)min(r0 + row, R - 1) * C;
     const SwizzledRow out{A, row};
-    if (ivit)
+    if (ln_kind == kLnIvit)
       ln_row_i32<true, L>(xrow, C, bias, m_ln, 1.f, 0, out, lane);
     else
-      ln_row_i32<false, L>(xrow, C, bias, m_ln, pw, shift, out, lane);
+      ln_row_i32<false, L>(xrow, C, bias, m_ln, pw, shift, out, lane,
+                           ln_kind == kLnIbertIntSqrt);
   }
 }
 
 template <typename XT>
 __device__ __forceinline__ void ln_rows_any_width(
-    const XT* __restrict__ x, int R, int C, int r0, bool ivit,
+    const XT* __restrict__ x, int R, int C, int r0, int ln_kind,
     const float* __restrict__ bias, const float* __restrict__ m_ln, float pw,
     int shift, int8_t* A) {
   if (C < 256)
-    ln_rows_swizzled<8>(x, R, C, r0, ivit, bias, m_ln, pw, shift, A);
+    ln_rows_swizzled<8>(x, R, C, r0, ln_kind, bias, m_ln, pw, shift, A);
   else
-    ln_rows_swizzled<16>(x, R, C, r0, ivit, bias, m_ln, pw, shift, A);
+    ln_rows_swizzled<16>(x, R, C, r0, ln_kind, bias, m_ln, pw, shift, A);
 }
 
 // The A tile of an LN + GEMM block: the LN of the rows r0.. of x (int8,
@@ -386,7 +387,7 @@ __device__ __forceinline__ void ln_rows_any_width(
 // output ln_in (null: run the LN) as it is.
 __device__ __forceinline__ void fill_ln_tile(
     int8_t* A, const void* __restrict__ x, const int8_t* __restrict__ ln_in,
-    int R, int C, int r0, bool x16, bool ln_ivit,
+    int R, int C, int r0, bool x16, int ln_kind,
     const float* __restrict__ ln_bias, const float* __restrict__ m_ln,
     const float* __restrict__ ln_shift) {
   if (ln_in != nullptr) {
@@ -397,10 +398,10 @@ __device__ __forceinline__ void fill_ln_tile(
   const LnShift ln = ln_shift_of(ln_shift);
   const int shift = ((__float_as_int(ln.pw) >> 23) & 255) - 127;
   if (x16)
-    ln_rows_any_width(static_cast<const int16_t*>(x), R, C, r0, ln_ivit,
+    ln_rows_any_width(static_cast<const int16_t*>(x), R, C, r0, ln_kind,
                       ln_bias, m_ln, ln.pw, shift, A);
   else
-    ln_rows_any_width(static_cast<const int8_t*>(x), R, C, r0, ln_ivit,
+    ln_rows_any_width(static_cast<const int8_t*>(x), R, C, r0, ln_kind,
                       ln_bias, m_ln, ln.pw, shift, A);
 }
 

@@ -50,7 +50,7 @@ from .freeze import (GELU_IN_BITS, EngineConfig, _act_scale, _block_luts,
                      requant_multiplier, spec_tree)
 from .luts import swin_shift_sat
 from .vit_int import (_base, _check_families, _gelu_requant_int, _gemm_bias,
-                      _layernorm_int, _ln_requant, _ppoly_gelu_kw,
+                      _layernorm_int, _ln_requant, _lut_kw, _ppoly_gelu_kw,
                       _ppoly_softmax_kw, _requant, _residual_requant,
                       _softmax_int, _use_int_sqrt, fused_halves)
 
@@ -279,7 +279,9 @@ def _attn_unfused(cfg, blk, x, B, res, dim, heads, ws, shift):
         nw = (res // ws) ** 2
         attn = (attn.reshape(B, nw, heads, n, n)
                 + blk["mask_int"][None, :, None]).reshape(-1, heads, n, n)
-    probs = _softmax_int(cfg, blk, attn)
+    # the tables only where the scores stay int8: the shift mask leaves the
+    # domain (``swin_int.py:447-451``)
+    probs = _softmax_int(cfg, blk, attn, allow_lut=shift == 0)
     ctx = _requant(int8_matmul(probs, v), blk["m_av"], 8)    # [B*nW, H, n, Dh]
     ctx = ctx.permute(0, 2, 1, 3).reshape(-1, n, dim)
     yo = _requant(_gemm_bias(ctx, blk["proj_w"], blk["proj_b"]),
@@ -305,7 +307,8 @@ def _attn_fused(cfg, blk, x, B, res, dim, heads, ws, shift):
         sm_bit=cfg.bitwidths.softmax, fast_exp=cfg.fast_exp,
         fast_poly=cfg.fast_poly, ln_base=_base(cfg, "ln"),
         sm_base=_base(cfg, "softmax"), use_int_sqrt=_use_int_sqrt(cfg),
-        **_ppoly_softmax_kw(cfg, blk))
+        sm_sat=blk.get("sm_sat") if cfg.use_lut and shift > 0 else None,
+        **_ppoly_softmax_kw(cfg, blk), **_lut_kw(cfg, blk, "sm"))
     return _from_windows(yo, B, res, dim, ws, shift)
 
 
@@ -333,7 +336,8 @@ def _mlp_fused(cfg, blk, x):
         out_bits=16, fast_exp=cfg.fast_exp, fast_poly=cfg.fast_poly,
         ln_base=_base(cfg, "ln"), gelu_base=_base(cfg, "gelu"),
         use_int_sqrt=_use_int_sqrt(cfg), fc1_wt=blk.get("fc1_wt"),
-        fc2_wt=blk.get("fc2_wt"), **_ppoly_gelu_kw(cfg, blk))
+        fc2_wt=blk.get("fc2_wt"), **_ppoly_gelu_kw(cfg, blk),
+        **_lut_kw(cfg, blk, "gelu"))
     return y.reshape(B, L, C)
 
 

@@ -19,7 +19,8 @@ from the fan-in so that every int8 requant output spreads over about 32
 LSB (4 sigma at the int8 limit) and saturates rarely: a spec that is
 neither dead nor saturated, so that bit-identity at full width means
 something.  The LUT leaves (``sm_lut``, ``gelu_lut``) are left out, and
-``use_lut`` is off: the LUT path is off by default in the JAX kernels.
+``use_lut`` is off: the LUT path is off by default in the JAX kernels;
+:func:`with_tables` adds them as a freeze writes them.
 """
 
 from __future__ import annotations
@@ -34,7 +35,7 @@ from ..models.vit import BitWidths
 from ..ops import ibert as _ib
 from ..ops.ppoly import fit_site
 from . import luts
-from .freeze import (GELU_IN_BITS, EngineConfig, EngineSpec, _exp_fast_gate,
+from .freeze import (GELU_IN_BITS, EngineConfig, EngineSpec, _block_luts, _exp_fast_gate,
                      _gelu_out_scale, _poly_fast_gate, _ppoly_fastdiv_gate,
                      _quant_w, _sym_scale, requant_const, requant_multiplier,
                      spec_tree)
@@ -545,3 +546,34 @@ def synthetic_swin_spec(config: SwinEngineConfig, seed: int = 0) -> SwinEngineSp
                               fast_poly=fast_poly, use_lut=False,
                               sm_sum_i32=sm_sum_i32, ppoly_fastdiv=ppoly_fastdiv)
     return SwinEngineSpec(config=cfg, params=spec_tree(p))
+
+
+def with_tables(spec):
+    """``spec`` (ViT or Swin) with the freeze-time tables a freeze writes
+    (``freeze._block_luts``: ``sm_lut`` and ``gelu_lut`` a block, the
+    ``sm_sum_i32`` gate; ``sm_sat`` on a shifted Swin block where
+    ``luts.swin_shift_sat`` passes) and ``use_lut`` where every block has
+    both tables, as ``freeze_model`` sets it; the leaves already there are
+    shared, not copied."""
+    cfg = spec.config
+    sm_base, gelu_base = cfg.base_type("softmax"), cfg.base_type("gelu")
+    swin = isinstance(spec, SwinEngineSpec)
+    layout = cfg.layout if swin else [("block", 0, 0)] * len(spec.params["blocks"])
+    use_lut, sum_i32, blocks = True, cfg.sm_sum_i32, []
+    grid = cfg.img_size // cfg.patch_size
+    for (kind, stage, shift), blk in zip(layout, spec.params["blocks"]):
+        blk = dict(blk)
+        if kind == "block":
+            n = min(cfg.window_size, grid >> stage) ** 2 if swin else grid * grid + 1
+            ok, s_ok = _block_luts(cfg, blk, sm_base, gelu_base, blk["s_attn"],
+                                   blk["s_gelu"], n)
+            use_lut, sum_i32 = use_lut and ok, sum_i32 and s_ok
+            if shift > 0 and "sm_lut" in blk:
+                sat_ok, sat = luts.swin_shift_sat(sm_base, blk["s_attn"],
+                                                  float(blk["mask_int"].min()),
+                                                  blk.get("s_exp_act"))
+                if sat_ok:
+                    blk["sm_sat"] = sat
+        blocks.append(blk)
+    cfg = dataclasses.replace(cfg, use_lut=use_lut, sm_sum_i32=sum_i32)
+    return type(spec)(cfg, {**spec.params, "blocks": blocks})

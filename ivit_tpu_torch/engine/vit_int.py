@@ -34,12 +34,19 @@ them.  The float family is JAX's golden ``jax.nn.softmax`` /
 XLA's f32 ``exp`` / ``erf`` may differ in the last ulp, which moves a
 quantized probability or GELU output by at most 1 on a few elements
 (``tests/test_torch_port_float.py`` states the bound).
+
+A spec frozen with ``use_lut`` carries its tables (``engine/luts.py``); the
+fused paths read them where ``IVIT_LUT`` is set, the unfused engine where
+``IVIT_XLA_LUT`` is set as well (``_xla_lut_on``, ``vit_int.py:256``), both
+read at each call and off by default, as in JAX: one table lookup in place
+of each exp / erf / polynomial tower, the same bits.
 """
 
 from __future__ import annotations
 
 import functools
 import itertools
+import os
 
 import torch
 import torch.nn.functional as F
@@ -119,21 +126,36 @@ def _ln_requant(y_int, m, bits):
     return _requant(y_int, m, bits)
 
 
-def _softmax_int(cfg, blk, scores_int, kernels=False):
-    """int8 scores -> probs in the softmax container."""
+def _xla_lut_on(cfg) -> bool:
+    """The unfused engine's table forms (``vit_int.py:256``): a spec frozen
+    with ``use_lut``, ``IVIT_LUT`` and ``IVIT_XLA_LUT`` both set."""
+    return (cfg.use_lut and kblock._lut_on()
+            and os.environ.get("IVIT_XLA_LUT", "0") not in ("", "0"))
+
+
+def _softmax_int(cfg, blk, scores_int, kernels=False, allow_lut=True):
+    """int8 scores -> probs in the softmax container.  ``allow_lut=False``:
+    the scores leave the int8 domain (Swin's shift mask), the towers run
+    (``vit_int.py:300``)."""
     bit = cfg.bitwidths.softmax
-    if _base(cfg, "softmax") == "ivit":
+    base = _base(cfg, "softmax")
+    if (allow_lut and kernels is False and base != "float" and "sm_lut" in blk
+            and _xla_lut_on(cfg)):
+        probs = kblock.softmax_lut(scores_int.float(), blk["sm_lut"], base, bit,
+                                   sum_i32=cfg.sm_sum_i32)
+        return to_container(probs, bit)
+    if base == "ivit":
         if kernels == "ops":
             return knl.shiftmax(scores_int.to(torch.int8), blk["s_attn"], bit,
                                 fast_q=cfg.fast_exp)
         probs, _ = iv.shiftmax_int(scores_int.float(), blk["s_attn"], bit,
                                    fast_q=cfg.fast_exp)
         return to_container(probs, bit)
-    if _base(cfg, "softmax") == "ppoly":
+    if base == "ppoly":
         probs = pp.ppoly_softmax_int(scores_int.float(), blk["sm_bounds"],
                                      blk["sm_coeffs"], _exp_bits(cfg), bit)
         return to_container(probs, bit)
-    if _base(cfg, "softmax") == "float":
+    if base == "float":
         probs = torch.softmax(scores_int.float() * blk["s_attn"], dim=-1)
         qmax = 2 ** (bit - 1) - 1
         return torch.clamp(torch.floor(probs / (2.0 / 2**bit)), 0,
@@ -149,18 +171,26 @@ def _softmax_int(cfg, blk, scores_int, kernels=False):
 
 
 def _gelu_requant_int(cfg, blk, x_int, out_bits, kernels=False):
-    """GELU followed by the dyadic requant to the next activation scale."""
-    if _base(cfg, "gelu") == "ivit":
+    """GELU followed by the dyadic requant to the next activation scale
+    (the table form where :func:`_xla_lut_on`, but for ShiftGELU under a
+    kernel path, which JAX gives its own kernel, ``vit_int.py:356``)."""
+    base = _base(cfg, "gelu")
+    if (base != "float" and "gelu_lut" in blk and _xla_lut_on(cfg)
+            and not (base == "ivit" and kernels is not False)):
+        y = kblock.gelu_lut_int(x_int.float(), blk["gelu_lut"], base,
+                                blk["s_gelu"], cfg.fast_exp)
+        return _requant(y, blk["m_gelu"], out_bits)
+    if base == "ivit":
         if kernels == "ops":
             return knl.shift_gelu_requant(x_int.to(torch.int8), blk["s_gelu"],
                                           blk["m_gelu"], 8, out_bits=out_bits,
                                           fast_q=cfg.fast_exp)
         y, _ = iv.shift_gelu_int(x_int.float(), blk["s_gelu"], 8,
                                  fast_q=cfg.fast_exp)
-    elif _base(cfg, "gelu") == "float":
+    elif base == "float":
         y = F.gelu(x_int.float() * blk["s_gelu"], approximate="none")
         y = torch.clamp(torch.floor(y / blk["s_gelu"]), -128, 127)
-    elif _base(cfg, "gelu") == "ppoly":
+    elif base == "ppoly":
         y = pp.ppoly_gelu_int(x_int.float(), blk["gelu_bounds"],
                               blk["gelu_coeffs"], _scale_bits(cfg),
                               blk["gelu_s_out"], cfg.ppoly_fastdiv,
@@ -205,6 +235,17 @@ def _ppoly_softmax_kw(cfg, blk):
 
 def _use_int_sqrt(cfg):
     return bool(cfg.type_params("ln").get("use_int_sqrt", False))
+
+
+def _lut_kw(cfg, blk, which):
+    """A fused call's table (``sm_lut`` with ``sm_sum_i32``, or
+    ``gelu_lut``) where the spec was frozen with ``use_lut``, as JAX's
+    engines pass them (``vit_int.py:563, 590``); the wrapper reads it only
+    where ``IVIT_LUT`` is set."""
+    lut = blk.get(f"{which}_lut") if cfg.use_lut else None
+    if which == "sm":
+        return dict(sm_lut=lut, sm_sum_i32=cfg.sm_sum_i32)
+    return dict(gelu_lut=lut)
 
 
 def _layernorm_int(cfg, x_int, bias_int, shift):
@@ -267,7 +308,8 @@ def _attn_fused(cfg, blk, x, kernels):
         attn_bits=8, proj_bits=bw.attention_out, out_bits=bw.norm2_in,
         fast_exp=cfg.fast_exp, fast_poly=cfg.fast_poly,
         ln_base=_base(cfg, "ln"), sm_base=_base(cfg, "softmax"),
-        use_int_sqrt=_use_int_sqrt(cfg), **_ppoly_softmax_kw(cfg, blk))
+        use_int_sqrt=_use_int_sqrt(cfg), **_ppoly_softmax_kw(cfg, blk),
+        **_lut_kw(cfg, blk, "sm"))
 
 
 def _mlp_fused(cfg, blk, x, kernels):
@@ -283,7 +325,8 @@ def _mlp_fused(cfg, blk, x, kernels):
         fast_exp=cfg.fast_exp, fast_poly=cfg.fast_poly,
         ln_base=_base(cfg, "ln"), gelu_base=_base(cfg, "gelu"),
         use_int_sqrt=_use_int_sqrt(cfg), fc1_wt=blk.get("fc1_wt"),
-        fc2_wt=blk.get("fc2_wt"), **_ppoly_gelu_kw(cfg, blk))
+        fc2_wt=blk.get("fc2_wt"), **_ppoly_gelu_kw(cfg, blk),
+        **_lut_kw(cfg, blk, "gelu"))
     return y.reshape(B, N, C)
 
 

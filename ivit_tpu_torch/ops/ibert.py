@@ -13,6 +13,8 @@ gradients, as ``ops/ivit.py`` does.
 
 from __future__ import annotations
 
+import math
+
 import torch
 
 from .quant import (clip, exact_fma, exact_int_sum, exact_sq_sum, f32,
@@ -106,11 +108,43 @@ def ibert_softmax_exp_int(x_int, scaling_factor, n_valid=None,
     return exp_int, exp_scale
 
 
+def _log2_rn_slack(k: int) -> int:
+    """How far below 2**24 the 24-bit mantissa of an f32 ``n`` in [2**(k-1),
+    2**k) may start for ``log2(n)``, correctly rounded to f32, to reach
+    ``k``: ``log2(n)`` then lies within half the f32 spacing below ``k``
+    (2**(ceil(log2 k) - 25)) of it, ``floor(2**24 * (1 - 2**-half))``."""
+    half = 2.0 ** (math.ceil(math.log2(k)) - 25) if k > 1 else 2.0 ** -25
+    return math.floor(2**24 * -math.expm1(-half * math.log(2)))
+
+
+_LOG2_SLACK = [_log2_rn_slack(k) for k in range(129)]   # 11 for k in 17-32
+
+
+def floor_log2_rn(n):
+    """``floor(log2(n))`` of f32 ``n`` >= 1, log2 correctly rounded to f32 as
+    torch's CPU ``log2`` gives it for integers, computed exactly on any
+    device: the exponent ``e`` of ``n``, plus one where the mantissa lies
+    within the slack of 2**24 (``csrc/exact.cuh`` ``floor_log2_rn`` takes
+    the same integer steps).  JAX's CPU ``log2`` (``log(n) / log(2)``) is
+    not correctly rounded; the seeds it gives differ from these only where
+    the Newton steps of :func:`int_bitlength_sqrt` end at the same value
+    (``tests/test_torch_port_lut.py``)."""
+    n = n.detach()
+    m, e = torch.frexp(n)                      # n = m * 2**e, m in [0.5, 1)
+    e = e.to(torch.int64) - 1
+    mant = (m * 2.0**24).to(torch.int64)
+    slack = torch.tensor(_LOG2_SLACK, dtype=torch.int64, device=n.device)
+    up = mant >= 2**24 - slack[(e + 1).clamp(0, 128)]
+    return (e + up.to(torch.int64)).to(torch.float32)
+
+
 def int_bitlength_sqrt(n, iters: int = 4):
-    """Vectorized integer sqrt, bit-length seed + Newton (ibert:85-109)."""
+    """Vectorized integer sqrt, bit-length seed + Newton (ibert:85-109); the
+    bit length from :func:`floor_log2_rn`, so that every device seeds
+    alike."""
     mask = n > 0
     n = clip(n, 0)
-    bits = torch.floor(torch.log2(clip(n, 1))) + 1
+    bits = floor_log2_rn(clip(n, 1)) + 1
     x = pow2(torch.ceil(bits / 2))
     for _ in range(iters):
         inv = floor_ste(rdiv(n, clip(x, 1)))

@@ -33,9 +33,10 @@ FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
-    "mlp_block": {"ivit_mlp_block": [_P] * 16 + [_I] * 10 + [_P] * 3},
-    "attn_block": {"ivit_attn_block": [_P] * 20 + [_I] * 14 + [_P] * 3},
-    "swin_attn_block": {"ivit_swin_attn_block": [_P] * 23 + [_I] * 10 + [_P] * 3},
+    "mlp_block": {"ivit_mlp_block": [_P] * 16 + [_I] * 10 + [_P] * 4},
+    "attn_block": {"ivit_attn_block": [_P] * 20 + [_I] * 14 + [_P] * 2 + [_I, _P]},
+    "swin_attn_block": {"ivit_swin_attn_block": [_P] * 23 + [_I] * 10 + [_P] * 2
+                        + [_I, _P, _P]},
     "nonlinear": {"ivit_shiftmax": [_P] * 3 + [_I] * 5 + [_P],
                   "ivit_shift_gelu_requant": [_P] * 4 + [_I] * 6 + [_P, _P]},
 }

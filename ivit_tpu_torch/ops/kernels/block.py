@@ -23,7 +23,8 @@ ShiftGELU table with the ivit GELU).
 Each wrapper counts its kernel launches in a plain integer attribute
 (``mlp_block.launches``, ``attn_block.launches``,
 ``swin_attn_block.launches``), incremented only where the kernel is
-launched.
+launched, and those of its table form and of its integer-sqrt LN apart as
+well (``lut_launches``, ``int_sqrt_launches``).
 
 Each kernel takes its LayerNorm from the ivit or ibert family and its
 softmax and GELU from the ivit, ibert or ppoly family, in any mix
@@ -55,11 +56,27 @@ The kernels take any channel count C that is a multiple of 32 (at most
 384 and Swin-T's 96 to 768 run as they are.  The TPU kernels' lane padding
 of C to 128 (``c_valid``) is a Mosaic layout workaround, not semantics,
 and the port has none.
+
+The ibert LayerNorm takes I-BERT's integer sqrt where ``use_int_sqrt`` asks
+for it (the JAX kernels take floor(sqrt) whatever the flag; the port's
+follow the unfused engine, which honours it).
+
+The freeze-time tables (``engine/luts.py``) replace the towers where a
+spec's ``gelu_lut`` / ``sm_lut`` is passed and ``IVIT_LUT`` is set (read at
+each call, off by default, as ``block.py:347`` reads it): the softmax exp
+as ``sm_lut[clip(max - x, 0, 255)]`` (Swin's shifted blocks take
+``sm_sat`` where the shift mask is negative), the ivit row sum one int32
+reduction under ``sm_sum_i32``; the GELU as ShiftGELU's per-row sigmoid of
+``gelu_lut``'s exps, ibert's ``x * U[x + 128]`` or ppoly's ``U[x + 128]``.
+The tables hold the towers' own values, so the bits are the same unless a
+table is changed.  Where the gate says tower (no table, ``IVIT_LUT`` unset,
+a shifted Swin block without ``sm_sat``), the towers run, as in JAX.
 """
 
 from __future__ import annotations
 
 import ctypes
+import os
 
 import torch
 
@@ -116,16 +133,18 @@ def _residual(y2, m_res_x, x, m_res_id, bits):
     return out.to(container(bits))
 
 
-def _ln8(x, ln_base, ln_bias, ln_shift, m_ln, ln_in):
+def _ln8(x, ln_base, ln_bias, ln_shift, m_ln, ln_in, use_int_sqrt=False):
     """LayerNorm + bias + int8 requant of ``x`` (I-LayerNorm or the ibert LN
-    with its frozen shift; a NaN ibert row, zero variance, -> 0), or the
-    hoisted ``ln_in`` as it is."""
+    with its frozen shift, floor(sqrt) or, with ``use_int_sqrt``, I-BERT's
+    integer sqrt; a NaN ibert row, zero variance, -> 0), or the hoisted
+    ``ln_in`` as it is."""
     if ln_in is not None:
         return ln_in
     if ln_base == "ivit":
         y = iv.i_layernorm_core(x.float()) + ln_bias
     else:
-        y = ib.ibert_layernorm_int(x.float(), ln_shift) + ln_bias
+        y = ib.ibert_layernorm_int(x.float(), ln_shift,
+                                   use_int_sqrt=use_int_sqrt) + ln_bias
         y = torch.where(torch.isnan(y), torch.zeros_like(y), y)
     return _requant(y, m_ln, 8).to(torch.int8)
 
@@ -134,7 +153,7 @@ _FAMILIES = ("ivit", "ibert", "ppoly")   # softmax and GELU
 PPOLY_MAX_SEG, PPOLY_MAX_DEG = 64, 8    # ppoly.cuh's kPpolyMaxSeg / MaxDeg
 
 
-def _check_family(ln_base, other_base, use_int_sqrt):
+def _check_family(ln_base, other_base):
     if ln_base not in ("ivit", "ibert"):
         raise NotImplementedError(
             f"fused block kernels take the ivit or ibert LayerNorm, not "
@@ -144,10 +163,6 @@ def _check_family(ln_base, other_base, use_int_sqrt):
             f"no fused block kernel runs the {other_base!r} family (the JAX "
             "package's engines run it unfused, as the port's do); the kernels "
             "take the ivit, ibert and ppoly families")
-    if use_int_sqrt:
-        raise NotImplementedError(
-            "the fused block kernels take the floor(sqrt) ibert LayerNorm; "
-            "run use_int_sqrt configs through the unfused engine")
 
 
 def _check_ppoly(bounds, coeffs, name):
@@ -168,6 +183,80 @@ def _check_ppoly(bounds, coeffs, name):
 
 
 # ---------------------------------------------------------------------------
+# The freeze-time table forms (block.py _softmax_lut, _shift_gelu_lut,
+# _ibert_gelu_lut, _ppoly_gelu_lut)
+# ---------------------------------------------------------------------------
+
+INT32_MAX = 2.0**31 - 1     # 2**31 once in f32, as the reference rounds it
+LUT_SIZE = 256
+
+
+def _lut_on() -> bool:
+    """The kernels' table forms: on where ``IVIT_LUT`` is set to anything
+    but 0 (``block.py:347``), read at each call; off by default."""
+    return os.environ.get("IVIT_LUT", "0") not in ("", "0")
+
+
+def _take(lut, idx):
+    """``lut[idx]`` for f32-held indices in the table."""
+    return lut.reshape(-1)[idx.long()]
+
+
+def softmax_lut(s, lut, sm_base, sm_bit, n_valid=None, sum_i32=False,
+                sat=None, sat_mask=None):
+    """The table softmax of f32 integer scores over the last axis (the
+    first ``n_valid`` columns real; None: all): exp = ``lut[clip(max - x,
+    0, 255)]``, ``sat`` where ``sat_mask`` holds (Swin's negative shift
+    mask), 0 past ``n_valid``; then ivit: the row sum as one int32
+    reduction (``sum_i32``) or two limbs clamped to INT32_MAX, the 2**31
+    reciprocal; ibert: an int32 sum, the 2**32 reciprocal; ppoly: an f32
+    sum clamped at 1, the 2**32 reciprocal.  ``sm_bit`` probabilities,
+    f32-held (``block.py:403``, ``vit_int.py:270``)."""
+    x = s
+    mask = None
+    if n_valid is not None and n_valid != s.shape[-1]:
+        mask = torch.arange(s.shape[-1], device=s.device) < n_valid
+        x = torch.where(mask, s, torch.full_like(s, -(2.0**23)))
+    x_max = torch.amax(x, dim=-1, keepdim=True)
+    exp = _take(lut, torch.clamp(x_max - x, 0.0, lut.numel() - 1.0))
+    if sat is not None:
+        exp = torch.where(sat_mask, sat.reshape(()).to(exp.dtype), exp)
+    if mask is not None:
+        exp = torch.where(mask, exp, torch.zeros_like(exp))
+    if sm_base == "ppoly":
+        exp_sum = torch.clamp(exp.sum(-1, keepdim=True), min=1.0)
+        factor = torch.floor(rdiv(2.0**32, exp_sum))
+        return torch.floor(exp * factor * 2.0 ** -(32 - sm_bit + 1))
+    if sm_base == "ibert" or sum_i32:
+        exp_sum = exp.to(torch.int32).sum(-1, keepdim=True,
+                                          dtype=torch.int32).float()
+    else:
+        exp_sum = torch.clamp(exact_int_sum(exp), max=INT32_MAX)
+    if sm_base == "ibert":
+        factor = torch.floor(rdiv(2.0**32, exp_sum))
+        return torch.floor(exp * factor * 2.0 ** -(32 - sm_bit + 1))
+    factor = torch.floor(rdiv(INT32_MAX, exp_sum))
+    return torch.floor(exp * factor * 2.0 ** -(31 - sm_bit + 1))
+
+
+def gelu_lut_int(h, lut, gelu_base, s_gelu=None, fast_q=False):
+    """The table GELU of the f32 int8 fc1 requant ``h`` [..., hidden], before
+    its requant: ivit, ShiftGELU with its exps ``lut[max - x]`` and the
+    row's ``exp(-max)`` tower, the reference's sigmoid chain after them;
+    ibert, ``x * lut[x + 128]``; ppoly, ``lut[x + 128]`` (``block.py:449-484``,
+    ``vit_int.py:365``)."""
+    if gelu_base == "ivit":
+        x_max = torch.amax(h, dim=-1, keepdim=True)
+        exp = _take(lut, torch.clamp(x_max - h, 0.0, lut.numel() - 1.0))
+        exp_max, _ = iv.int_exp_shift(-x_max, s_gelu * 1.702, 23, fast_q=fast_q)
+        factor = torch.floor(rdiv(INT32_MAX, torch.clamp(exp + exp_max,
+                                                         max=INT32_MAX)))
+        return h * torch.floor(exp * factor * 2.0 ** -(31 - 8 + 1))
+    u = _take(lut, torch.clamp(h + 128.0, 0.0, lut.numel() - 1.0))
+    return h * u if gelu_base == "ibert" else u
+
+
+# ---------------------------------------------------------------------------
 # MLP half-block
 # ---------------------------------------------------------------------------
 
@@ -177,7 +266,7 @@ def mlp_block_ref(x, *, ln_bias, m_ln, ln_shift, fc1_w, fc1_b, m_fc1, s_gelu,
                   gelu_base="ibert", ln_in=None, gelu_bounds=None,
                   gelu_coeffs=None, gelu_s_out=None, gelu_scale_bits=22,
                   gelu_fastdiv=False, gelu_s_out_c=None, gelu_patch_h=None,
-                  gelu_patch_d=None):
+                  gelu_patch_d=None, gelu_lut=None, use_int_sqrt=False):
     """Plain version of the MLP kernel: x int8 or int16 [R, C] -> [R, C] in
     the ``out_bits`` container (ViT: int8 -> int8; Swin: int16 -> int16 with
     ``mlp_bits`` 8 and ``out_bits`` 16).
@@ -186,11 +275,13 @@ def mlp_block_ref(x, *, ln_bias, m_ln, ln_shift, fc1_w, fc1_b, m_fc1, s_gelu,
     over the whole hidden row, the ibert GELU, or the ppoly GELU of the
     fitted ``gelu_bounds`` / ``gelu_coeffs`` onto its ``gelu_s_out`` grid,
     by ``rdiv`` or, with ``gelu_fastdiv``, by the freeze gate's multiply
-    and patches) -> requant -> fc2 + bias -> requant to ``mlp_bits`` ->
-    integer residual."""
-    y = _ln8(x, ln_base, ln_bias, ln_shift, m_ln, ln_in)
+    and patches; with ``gelu_lut``, :func:`gelu_lut_int`) -> requant ->
+    fc2 + bias -> requant to ``mlp_bits`` -> integer residual."""
+    y = _ln8(x, ln_base, ln_bias, ln_shift, m_ln, ln_in, use_int_sqrt)
     h = _requant(int8_matmul(y, fc1_w) + fc1_b, m_fc1, 8)
-    if gelu_base == "ivit":
+    if gelu_lut is not None:
+        g = gelu_lut_int(h, gelu_lut, gelu_base, s_gelu, fast_exp)
+    elif gelu_base == "ivit":
         g, _ = iv.shift_gelu_int(h, s_gelu, 8, fast_q=fast_exp)
     elif gelu_base == "ppoly":
         g = pp.ppoly_gelu_int(h, gelu_bounds, gelu_coeffs, gelu_scale_bits,
@@ -204,6 +295,14 @@ def mlp_block_ref(x, *, ln_bias, m_ln, ln_shift, fc1_w, fc1_b, m_fc1, s_gelu,
 
 
 _KIND = {"ibert": 0, "ivit": 1, "ppoly": 2}   # the kernels' family codes
+
+
+def _ln_kind(ln_base, use_int_sqrt):
+    """The kernels' LayerNorm code: 0 the ibert LN (floor(sqrt)), 1
+    I-LayerNorm, 2 the ibert LN with I-BERT's integer sqrt."""
+    if ln_base == "ivit":
+        return 1
+    return 2 if use_int_sqrt else 0
 PPOLY_MAX_PATCHES = 8                   # the fast-div gate's patch slots
 
 
@@ -218,17 +317,30 @@ class _PpolyArgs(ctypes.Structure):
                 ("npatch", ctypes.c_int), ("exp_bits", ctypes.c_int)]
 
 
-def _softmax_ppoly(sm_base, bounds, coeffs, exp_bits, device):
-    """The ppoly softmax's C arguments and its exp table's scratch (256
-    f32, built by a launch before the core), or (None, None)."""
+def _softmax_tables(sm_base, bounds, coeffs, exp_bits, sm_lut, device):
+    """The attention core's exp table: the spec's ``sm_lut`` (checked, 256
+    f32 on the card; the ppoly core then reads it in place of its own), or
+    the ppoly softmax's C arguments and its table's scratch (256 f32,
+    built by a launch before the core); (None, None) for the ivit and
+    ibert towers."""
+    if sm_lut is not None:
+        _check(sm_lut, "sm_lut", torch.float32, (LUT_SIZE,))
     if sm_base != "ppoly":
-        return None, None
+        return None, sm_lut
     seg, deg = _check_ppoly(bounds, coeffs, "sm")
     if not 1 <= exp_bits <= 30:
         raise ValueError(f"exp_bits={exp_bits}: the kernels take 1-30")
     args = _PpolyArgs(_ptr(bounds if seg > 1 else None), _ptr(coeffs), None,
                       None, None, None, seg, deg, 0, 0, 0, int(exp_bits))
+    if sm_lut is not None:
+        return args, sm_lut
     return args, torch.empty(256, dtype=torch.float32, device=device)
+
+
+def _lut_mode(sm_lut, sm_sum_i32):
+    """The cores' table code: 0 the towers, 1 the spec's table with the
+    two-limb ivit row sum, 2 with the one int32 reduction."""
+    return 0 if sm_lut is None else (2 if sm_sum_i32 else 1)
 
 
 def _pp_ref(args):
@@ -279,13 +391,22 @@ def _raise_on(err, name):
                            f"({_build.error_string(err)})")
 
 
+def _count(fn, lut, int_sqrt):
+    """One launch of ``fn``'s kernel, and of its table form or integer-sqrt
+    LN where it ran them."""
+    fn.launches += 1
+    fn.lut_launches += lut is not None
+    fn.int_sqrt_launches += bool(int_sqrt)
+
+
 def mlp_block(x, *, ln_bias, m_ln, ln_shift, fc1_w, fc1_b, m_fc1, s_gelu,
               m_gelu, fc2_w, fc2_b, m_fc2, m_res_x, m_res_id, mlp_bits=8,
               out_bits=8, fast_exp=False, fast_poly=False, ln_base="ibert",
               gelu_base="ibert", use_int_sqrt=False, ln_in=None, fc1_wt=None,
               fc2_wt=None, gelu_bounds=None, gelu_coeffs=None,
               gelu_s_out=None, gelu_scale_bits=22, gelu_fastdiv=False,
-              gelu_s_out_c=None, gelu_patch_h=None, gelu_patch_d=None):
+              gelu_s_out_c=None, gelu_patch_h=None, gelu_patch_d=None,
+              gelu_lut=None):
     """Fused MLP half-block; ``x`` int8 or int16 [R, C] token rows, out in
     the ``out_bits`` container, int8 or int16 (int8 -> int8 for ViT, int16
     -> int16 for Swin, int16 -> int8 for the INT16 configuration's ViT:
@@ -296,8 +417,13 @@ def mlp_block(x, *, ln_bias, m_ln, ln_shift, fc1_w, fc1_b, m_fc1, s_gelu,
     the plain version does not read them.  ``gelu_*``: the ppoly GELU's
     spec leaves (``gelu_base="ppoly"``), as JAX's ``mlp_block_p`` takes
     them; on the card its 256 outputs (GELU + requant of every int8 input)
-    are one table launch, looked up in fc1's epilogue."""
-    _check_family(ln_base, gelu_base, use_int_sqrt)
+    are one table launch, looked up in fc1's epilogue.  ``gelu_lut``: the
+    spec's GELU table, used where ``IVIT_LUT`` is set (the tower otherwise);
+    on the card the ivit table launch takes its exps from it, and the ibert
+    and ppoly GELUs + requant of all 256 inputs are one table launch from
+    it, looked up in fc1's epilogue."""
+    _check_family(ln_base, gelu_base)
+    gelu_lut = gelu_lut if gelu_lut is not None and _lut_on() else None
     kw = dict(ln_bias=ln_bias, m_ln=m_ln, ln_shift=ln_shift, fc1_w=fc1_w,
               fc1_b=fc1_b, m_fc1=m_fc1, s_gelu=s_gelu, m_gelu=m_gelu,
               fc2_w=fc2_w, fc2_b=fc2_b, m_fc2=m_fc2, m_res_x=m_res_x,
@@ -307,7 +433,8 @@ def mlp_block(x, *, ln_bias, m_ln, ln_shift, fc1_w, fc1_b, m_fc1, s_gelu,
               gelu_coeffs=gelu_coeffs, gelu_s_out=gelu_s_out,
               gelu_scale_bits=gelu_scale_bits, gelu_fastdiv=gelu_fastdiv,
               gelu_s_out_c=gelu_s_out_c, gelu_patch_h=gelu_patch_h,
-              gelu_patch_d=gelu_patch_d)
+              gelu_patch_d=gelu_patch_d, gelu_lut=gelu_lut,
+              use_int_sqrt=use_int_sqrt)
     if x.device.type == "cpu":
         return mlp_block_ref(x, **kw)
     r, c = x.shape
@@ -345,8 +472,10 @@ def mlp_block(x, *, ln_bias, m_ln, ln_shift, fc1_w, fc1_b, m_fc1, s_gelu,
                     ("m_gelu", m_gelu), ("m_res_x", m_res_x),
                     ("m_res_id", m_res_id)):
         _check_scalar(t, name)
+    if gelu_lut is not None:
+        _check(gelu_lut, "gelu_lut", torch.float32, (LUT_SIZE,))
     pp_args = None
-    if gelu_base == "ppoly":
+    if gelu_base == "ppoly" and gelu_lut is None:
         seg, deg = _check_ppoly(gelu_bounds, gelu_coeffs, "gelu")
         _check_scalar(gelu_s_out, "gelu_s_out")
         npatch = 0
@@ -368,21 +497,22 @@ def mlp_block(x, *, ln_bias, m_ln, ln_shift, fc1_w, fc1_b, m_fc1, s_gelu,
     out = torch.empty((r, c), dtype=out_dtype, device=x.device)
     table = (torch.empty(GELU_TABLE_BYTES if gelu_base == "ivit" else 256,
                          dtype=torch.int8, device=x.device)
-             if gelu_base != "ibert" else None)
+             if gelu_base != "ibert" or gelu_lut is not None else None)
     lib = _build.library("mlp_block")
     err = lib.ivit_mlp_block(
         _ptr(x), _ptr(ln_in), _ptr(ln_bias), _ptr(m_ln), _ptr(ln_shift),
         _ptr(fc1_wt), _ptr(fc1_b), _ptr(m_fc1), _ptr(s_gelu), _ptr(m_gelu),
         _ptr(fc2_wt), _ptr(fc2_b), _ptr(m_fc2), _ptr(m_res_x), _ptr(m_res_id),
         _ptr(out), r, c, hd, mlp_bits, out_bits, int(x.dtype == torch.int16),
-        int(ln_base == "ivit"), _KIND[gelu_base], int(bool(fast_exp)),
-        int(bool(fast_poly)), _ptr(table), _pp_ref(pp_args), _stream())
+        _ln_kind(ln_base, use_int_sqrt), _KIND[gelu_base], int(bool(fast_exp)),
+        int(bool(fast_poly)), _ptr(table), _pp_ref(pp_args), _ptr(gelu_lut),
+        _stream())
     _raise_on(err, "mlp_block")
-    mlp_block.launches += 1
+    _count(mlp_block, gelu_lut, use_int_sqrt and ln_base == "ibert")
     return out
 
 
-mlp_block.launches = 0
+mlp_block.launches = mlp_block.lut_launches = mlp_block.int_sqrt_launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -394,7 +524,8 @@ def attn_block_ref(x, *, ln_bias, m_ln, ln_shift, qkv_w, qkv_b, m_qkv, m_attn,
                    num_heads, n_valid, s_exp_act=None, sm_bit=8, attn_bits=8,
                    proj_bits=8, out_bits=8, fast_exp=False, fast_poly=False,
                    ln_base="ibert", sm_base="ibert", ln_in=None,
-                   sm_bounds=None, sm_coeffs=None, exp_bits=16):
+                   sm_bounds=None, sm_coeffs=None, exp_bits=16, sm_lut=None,
+                   sm_sum_i32=False, use_int_sqrt=False):
     """Plain version of the attention kernel: x int8 or int16 [B, Np, C] ->
     the ``out_bits`` container (int8, or int16 for the INT16
     configuration's ``norm2_in`` 16).
@@ -403,18 +534,23 @@ def attn_block_ref(x, *, ln_bias, m_ln, ln_shift, qkv_w, qkv_b, m_qkv, m_attn,
     q k^T -> requant by ``m_attn`` -> softmax over the ``n_valid`` columns
     to ``sm_bit`` probabilities (Shiftmax, the ibert softmax with its 16-bit
     exp requant by ``s_exp_act``, or the ppoly softmax of ``sm_bounds`` /
-    ``sm_coeffs`` on the ``exp_bits`` grid) -> probs @ v -> requant by
-    ``m_av`` -> proj GEMM -> requant -> residual."""
+    ``sm_coeffs`` on the ``exp_bits`` grid; with ``sm_lut``,
+    :func:`softmax_lut`) -> probs @ v -> requant by ``m_av`` -> proj GEMM
+    -> requant -> residual."""
     b, np_, c = x.shape
     dh = c // num_heads
-    y = _ln8(x, ln_base, ln_bias, ln_shift, m_ln, ln_in)
+    y = _ln8(x, ln_base, ln_bias, ln_shift, m_ln, ln_in, use_int_sqrt)
     qkv = _requant(int8_matmul(y, qkv_w) + qkv_b, m_qkv, 8).to(torch.int8)
     qkv = qkv.reshape(b, np_, 3, num_heads, dh).permute(2, 0, 3, 1, 4)
     q, k, v = qkv[0], qkv[1], qkv[2]                         # [B, H, Np, Dh]
     scores = int8_matmul(q, k.transpose(-1, -2))             # [B, H, Np, Np]
     s = _requant(scores, m_attn, attn_bits)
-    probs = _softmax_probs(s, sm_base, s_attn, s_exp_act, sm_bit, n_valid,
-                           fast_exp, fast_poly, sm_bounds, sm_coeffs, exp_bits)
+    if sm_lut is not None:
+        probs = softmax_lut(s, sm_lut, sm_base, sm_bit, n_valid, sm_sum_i32)
+    else:
+        probs = _softmax_probs(s, sm_base, s_attn, s_exp_act, sm_bit, n_valid,
+                               fast_exp, fast_poly, sm_bounds, sm_coeffs,
+                               exp_bits)
     ctx = _requant(int8_matmul(to_container(probs, sm_bit), v), m_av, 8)
     ctx = ctx.to(torch.int8).permute(0, 2, 1, 3).reshape(b, np_, c)
     y2 = _requant(int8_matmul(ctx, proj_w) + proj_b, m_proj, proj_bits)
@@ -447,7 +583,8 @@ def attn_block(x, *, ln_bias, m_ln, ln_shift, qkv_w, qkv_b, m_qkv, m_attn,
                num_heads, n_valid, s_exp_act=None, sm_bit=8, attn_bits=8,
                proj_bits=8, out_bits=8, fast_exp=False, fast_poly=False,
                ln_base="ibert", sm_base="ibert", use_int_sqrt=False,
-               ln_in=None, sm_bounds=None, sm_coeffs=None, exp_bits=16):
+               ln_in=None, sm_bounds=None, sm_coeffs=None, exp_bits=16,
+               sm_lut=None, sm_sum_i32=False):
     """Fused attention half-block; ``x`` int8 or int16 [B, Np, C],
     ``n_valid`` real tokens per image, out in the ``out_bits`` container
     (int8 or int16); ``sm_bit`` 8 or 16: the probabilities' bits (16: the
@@ -455,10 +592,13 @@ def attn_block(x, *, ln_bias, m_ln, ln_shift, qkv_w, qkv_b, m_qkv, m_attn,
     ``ln_in``: the hoisted int8 LN output of ``x``, or None to run the LN
     in the kernel; ``s_exp_act``: the ibert softmax's exp scale (unused by
     the others); ``sm_bounds``, ``sm_coeffs``, ``exp_bits``: the ppoly
-    softmax's leaves.  On the card: three launches (LN + qkv, per-(image,
-    head) softmax attention, proj + residual), after the ppoly exp table's,
-    counted as one."""
-    _check_family(ln_base, sm_base, use_int_sqrt)
+    softmax's leaves; ``sm_lut``: the spec's exp table, used where
+    ``IVIT_LUT`` is set (the tower otherwise), with ``sm_sum_i32`` the ivit
+    row sum as one int32 reduction.  On the card: three launches (LN + qkv,
+    per-(image, head) softmax attention, proj + residual), after the ppoly
+    exp table's (none with ``sm_lut``), counted as one."""
+    _check_family(ln_base, sm_base)
+    sm_lut = sm_lut if sm_lut is not None and _lut_on() else None
     kw = dict(ln_bias=ln_bias, m_ln=m_ln, ln_shift=ln_shift, qkv_w=qkv_w,
               qkv_b=qkv_b, m_qkv=m_qkv, m_attn=m_attn, s_attn=s_attn,
               s_exp_act=s_exp_act, m_av=m_av, proj_w=proj_w, proj_b=proj_b,
@@ -467,7 +607,8 @@ def attn_block(x, *, ln_bias, m_ln, ln_shift, qkv_w, qkv_b, m_qkv, m_attn,
               attn_bits=attn_bits, proj_bits=proj_bits, out_bits=out_bits,
               fast_exp=fast_exp, fast_poly=fast_poly, ln_base=ln_base,
               sm_base=sm_base, ln_in=ln_in, sm_bounds=sm_bounds,
-              sm_coeffs=sm_coeffs, exp_bits=exp_bits)
+              sm_coeffs=sm_coeffs, exp_bits=exp_bits, sm_lut=sm_lut,
+              sm_sum_i32=sm_sum_i32, use_int_sqrt=use_int_sqrt)
     if x.device.type == "cpu":
         return attn_block_ref(x, **kw)
     b, np_, c = x.shape
@@ -503,8 +644,8 @@ def attn_block(x, *, ln_bias, m_ln, ln_shift, qkv_w, qkv_b, m_qkv, m_attn,
         scalars.append(("s_exp_act", s_exp_act))
     for name, t in scalars:
         _check_scalar(t, name)
-    pp_args, exp_table = _softmax_ppoly(sm_base, sm_bounds, sm_coeffs, exp_bits,
-                                        x.device)
+    pp_args, exp_table = _softmax_tables(sm_base, sm_bounds, sm_coeffs,
+                                         exp_bits, sm_lut, x.device)
     qkv = torch.empty((b * np_, 3 * c), dtype=torch.int8, device=x.device)
     ctx = torch.empty((b * np_, c), dtype=torch.int8, device=x.device)
     out = torch.empty((b, np_, c), dtype=container(out_bits), device=x.device)
@@ -516,15 +657,16 @@ def attn_block(x, *, ln_bias, m_ln, ln_shift, qkv_w, qkv_b, m_qkv, m_attn,
         _ptr(s_exp_act), _ptr(m_av), _ptr(wp_t), _ptr(proj_b), _ptr(m_proj),
         _ptr(m_res_x), _ptr(m_res_id), _ptr(qkv), _ptr(ctx), _ptr(out), b,
         np_, c, num_heads, n_valid, sm_bit, attn_bits, proj_bits, out_bits,
-        int(x.dtype == torch.int16), int(ln_base == "ivit"), _KIND[sm_base],
-        int(bool(fast_exp)),
-        int(bool(fast_poly)), _pp_ref(pp_args), _ptr(exp_table), _stream())
+        int(x.dtype == torch.int16), _ln_kind(ln_base, use_int_sqrt),
+        _KIND[sm_base], int(bool(fast_exp)), int(bool(fast_poly)),
+        _pp_ref(pp_args), _ptr(exp_table), _lut_mode(sm_lut, sm_sum_i32),
+        _stream())
     _raise_on(err, "attn_block")
-    attn_block.launches += 1
+    _count(attn_block, sm_lut, use_int_sqrt and ln_base == "ibert")
     return out
 
 
-attn_block.launches = 0
+attn_block.launches = attn_block.lut_launches = attn_block.int_sqrt_launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -537,7 +679,8 @@ def swin_attn_block_ref(xw, *, ln_bias, m_ln, ln_shift, qkv_w, qkv_b, m_qkv,
                         n_windows, s_exp_act=None, sm_bit=8, fast_exp=False,
                         fast_poly=False, ln_base="ivit", sm_base="ivit",
                         ln_in=None, sm_bounds=None, sm_coeffs=None,
-                        exp_bits=16):
+                        exp_bits=16, sm_lut=None, sm_sum_i32=False,
+                        sm_sat=None, use_int_sqrt=False):
     """Plain version of the Swin window-attention kernel: xw int8 or int16
     [B*nW, n, C] (rolled and window-partitioned) -> int16 [B*nW, n, C].
 
@@ -545,22 +688,31 @@ def swin_attn_block_ref(xw, *, ln_bias, m_ln, ln_shift, qkv_w, qkv_b, m_qkv,
     head) int32 q k^T -> ``clip(round(clip(round(s * m_attn)) * m_attn2) +
     rel_addend)`` to int8 -> + the window's ``mask_addend`` [nW, n, n] on
     shifted blocks (after the clip, so masked scores leave the int8 range)
-    -> softmax over the n keys -> probs @ v -> requant by ``m_av`` -> proj
-    GEMM -> requant to 16 bits -> integer residual to int16
-    (``block.py::_swin_attn_kernel``)."""
+    -> softmax over the n keys (with ``sm_lut``, :func:`softmax_lut`, which
+    takes ``sm_sat`` where the mask is negative) -> probs @ v -> requant by
+    ``m_av`` -> proj GEMM -> requant to 16 bits -> integer residual to
+    int16 (``block.py::_swin_attn_kernel``)."""
     bw, n, c = xw.shape
     dh = c // num_heads
-    y = _ln8(xw, ln_base, ln_bias, ln_shift, m_ln, ln_in)
+    y = _ln8(xw, ln_base, ln_bias, ln_shift, m_ln, ln_in, use_int_sqrt)
     qkv = _requant(int8_matmul(y, qkv_w) + qkv_b, m_qkv, 8).to(torch.int8)
     qkv = qkv.reshape(bw, n, 3, num_heads, dh).permute(2, 0, 3, 1, 4)
     q, k, v = qkv[0], qkv[1], qkv[2]                         # [BW, H, n, Dh]
     s = _requant(int8_matmul(q, k.transpose(-1, -2)), m_attn, 8)
     a = torch.clamp(torch.round(s * m_attn2) + rel_addend, -128, 127)
+    sat_mask = None
     if mask_addend is not None:
         a = a.reshape(-1, n_windows, num_heads, n, n) + mask_addend[None, :, None]
         a = a.reshape(bw, num_heads, n, n)
-    probs = _softmax_probs(a, sm_base, s_attn, s_exp_act, sm_bit, None,
-                           fast_exp, fast_poly, sm_bounds, sm_coeffs, exp_bits)
+        sat_mask = (mask_addend < 0)[None, :, None].expand(
+            bw // n_windows, -1, num_heads, -1, -1).reshape(bw, num_heads, n, n)
+    if sm_lut is not None:
+        probs = softmax_lut(a, sm_lut, sm_base, sm_bit, None, sm_sum_i32,
+                            sm_sat, sat_mask if sm_sat is not None else None)
+    else:
+        probs = _softmax_probs(a, sm_base, s_attn, s_exp_act, sm_bit, None,
+                               fast_exp, fast_poly, sm_bounds, sm_coeffs,
+                               exp_bits)
     ctx = _requant(int8_matmul(to_container(probs, sm_bit), v), m_av, 8)
     ctx = ctx.to(torch.int8).permute(0, 2, 1, 3).reshape(bw, n, c)
     y2 = _requant(int8_matmul(ctx, proj_w) + proj_b, m_proj, 16)
@@ -573,17 +725,29 @@ def swin_attn_block(xw, *, ln_bias, m_ln, ln_shift, qkv_w, qkv_b, m_qkv,
                     n_windows, s_exp_act=None, sm_bit=8, fast_exp=False,
                     fast_poly=False, ln_base="ivit", sm_base="ivit",
                     use_int_sqrt=False, ln_in=None, sm_bounds=None,
-                    sm_coeffs=None, exp_bits=16):
+                    sm_coeffs=None, exp_bits=16, sm_lut=None, sm_sum_i32=False,
+                    sm_sat=None):
     """Fused Swin window-attention half-block; ``xw`` int8 or int16
     [B*nW, n, C], windows of ``n`` tokens, ``n_windows`` windows an image;
     ``rel_addend`` f32 [H, n, n]; ``mask_addend`` f32 [nW, n, n] for a
     shifted block, else None; ``ln_in``: the hoisted int8 LN output of
     ``xw``, or None to run the LN in the kernel; ``sm_bounds``,
-    ``sm_coeffs``, ``exp_bits``: the ppoly softmax's leaves.  Returns int16
-    [B*nW, n, C].  On the card: three launches (LN + qkv, per-(window,
-    head) softmax attention, proj + residual), after the ppoly exp table's,
-    counted as one."""
-    _check_family(ln_base, sm_base, use_int_sqrt)
+    ``sm_coeffs``, ``exp_bits``: the ppoly softmax's leaves; ``sm_lut``,
+    ``sm_sum_i32``: as ``attn_block``'s, used where ``IVIT_LUT`` is set and,
+    on a shifted block, ``sm_sat`` (the exp of a masked score) is given
+    (``block.py:1486``).  Returns int16 [B*nW, n, C].  On the card: three
+    launches (LN + qkv, per-(window, head) softmax attention, proj +
+    residual), after the ppoly exp table's (none with ``sm_lut``), counted
+    as one."""
+    _check_family(ln_base, sm_base)
+    use = (sm_lut is not None and _lut_on()
+           and (mask_addend is None or sm_sat is not None))
+    sm_lut = sm_lut if use else None
+    sm_sat = sm_sat if use and mask_addend is not None else None
+    if sm_sat is not None and sm_base == "ppoly":
+        raise ValueError("sm_sat: the ppoly softmax never saturates "
+                         "(luts.swin_shift_sat), so no shifted ppoly block "
+                         "takes a table")
     kw = dict(ln_bias=ln_bias, m_ln=m_ln, ln_shift=ln_shift, qkv_w=qkv_w,
               qkv_b=qkv_b, m_qkv=m_qkv, m_attn=m_attn, m_attn2=m_attn2,
               s_attn=s_attn, rel_addend=rel_addend, mask_addend=mask_addend,
@@ -592,7 +756,8 @@ def swin_attn_block(xw, *, ln_bias, m_ln, ln_shift, qkv_w, qkv_b, m_qkv,
               n_windows=n_windows, s_exp_act=s_exp_act, sm_bit=sm_bit,
               fast_exp=fast_exp, fast_poly=fast_poly, ln_base=ln_base,
               sm_base=sm_base, ln_in=ln_in, sm_bounds=sm_bounds,
-              sm_coeffs=sm_coeffs, exp_bits=exp_bits)
+              sm_coeffs=sm_coeffs, exp_bits=exp_bits, sm_lut=sm_lut,
+              sm_sum_i32=sm_sum_i32, sm_sat=sm_sat, use_int_sqrt=use_int_sqrt)
     if xw.device.type == "cpu":
         return swin_attn_block_ref(xw, **kw)
     bw, n, c = xw.shape
@@ -629,10 +794,12 @@ def swin_attn_block(xw, *, ln_bias, m_ln, ln_shift, qkv_w, qkv_b, m_qkv,
                ("m_res_id", m_res_id)]
     if sm_base == "ibert":
         scalars.append(("s_exp_act", s_exp_act))
+    if sm_sat is not None:
+        scalars.append(("sm_sat", sm_sat))
     for name, t in scalars:
         _check_scalar(t, name)
-    pp_args, exp_table = _softmax_ppoly(sm_base, sm_bounds, sm_coeffs, exp_bits,
-                                        xw.device)
+    pp_args, exp_table = _softmax_tables(sm_base, sm_bounds, sm_coeffs,
+                                         exp_bits, sm_lut, xw.device)
     qkv = torch.empty((bw * n, 3 * c), dtype=torch.int8, device=xw.device)
     ctx = torch.empty((bw * n, c), dtype=torch.int8, device=xw.device)
     out = torch.empty((bw, n, c), dtype=torch.int16, device=xw.device)
@@ -644,12 +811,14 @@ def swin_attn_block(xw, *, ln_bias, m_ln, ln_shift, qkv_w, qkv_b, m_qkv,
         _ptr(rel_addend), _ptr(mask_addend), _ptr(s_attn), _ptr(s_exp_act),
         _ptr(m_av), _ptr(wp_t), _ptr(proj_b), _ptr(m_proj), _ptr(m_res_x),
         _ptr(m_res_id), _ptr(qkv), _ptr(ctx), _ptr(out), bw, n, c, num_heads,
-        n_windows, int(xw.dtype == torch.int16), int(ln_base == "ivit"),
+        n_windows, int(xw.dtype == torch.int16), _ln_kind(ln_base, use_int_sqrt),
         _KIND[sm_base], int(bool(fast_exp)), int(bool(fast_poly)),
-        _pp_ref(pp_args), _ptr(exp_table), _stream())
+        _pp_ref(pp_args), _ptr(exp_table), _lut_mode(sm_lut, sm_sum_i32),
+        _ptr(sm_sat), _stream())
     _raise_on(err, "swin_attn_block")
-    swin_attn_block.launches += 1
+    _count(swin_attn_block, sm_lut, use_int_sqrt and ln_base == "ibert")
     return out
 
 
 swin_attn_block.launches = 0
+swin_attn_block.lut_launches = swin_attn_block.int_sqrt_launches = 0

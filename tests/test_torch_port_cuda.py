@@ -37,7 +37,13 @@ widths), calibrate and freeze on the card as on the CPU and their logits
 equal the kernel engine's; the server's answers equal ``Engine(spec)``'s
 on the card; ``Trainer`` over a PNG ImageFolder calibrates on the card as
 on the CPU, trains an epoch and resumes from its checkpoint; the native
-eval preprocess library builds from ``native/preproc.cpp``.  Exact
+eval preprocess library builds from ``native/preproc.cpp``.  The freeze-time
+table forms (``IVIT_LUT``) of the three block kernels run against their
+plain versions and their towers (a freeze's tables from
+``synthetic.with_tables``; 8- and 16-bit probabilities, both ivit row sums,
+shifted Swin blocks with ``sm_sat``, changed tables, the attention tiles'
+edges, the engines), and the integer-sqrt ibert LN in all three kernels
+on rows where it differs from floor(sqrt).  Exact
 equality, but for
 the float family's logits against the CPU's (``tests/test_torch_port_float.py``'s bound).
 """
@@ -770,16 +776,18 @@ def test_cuda_int16_and_float_engines(cuda):
 
 
 def test_cuda_wrappers_refuse_what_no_kernel_runs(cuda):
-    """Bits the kernels do not take, the floor(sqrt)-free ibert LN and the
-    float family raise; nothing falls back."""
+    """Bits the kernels do not take and the float family raise; nothing
+    falls back.  The integer-sqrt ibert LN, refused before the kernels took
+    it, runs, equal to the plain versions."""
     mix = INT16_FAMILIES["ibert"][1]
     b, x = _int16_block(cuda, "ibert"), _x(cuda)
     kw = _attn_kw(b, mix, HEADS, NV)
     for bad in (dict(sm_bit=4), dict(sm_bit=12), dict(attn_bits=16), dict(out_bits=32)):
         with pytest.raises(ValueError, match="attn_block kernel"):
             kb.attn_block(x, **(kw | bad))
-    with pytest.raises(NotImplementedError, match="use_int_sqrt"):
-        kb.attn_block(x, use_int_sqrt=True, **kw)
+    got = kb.attn_block(x, use_int_sqrt=True, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(got[:, :NV], kb.attn_block_ref(x, use_int_sqrt=True, **kw)[:, :NV])
     with pytest.raises(NotImplementedError, match="no fused block kernel"):
         kb.attn_block(x, **(kw | dict(sm_base="float")))
     x2 = _stream(cuda, (B * NP, C), 16, seed=2)
@@ -787,10 +795,226 @@ def test_cuda_wrappers_refuse_what_no_kernel_runs(cuda):
     for bad in (dict(out_bits=32), dict(mlp_bits=24)):
         with pytest.raises(ValueError, match="mlp_block kernel"):
             kb.mlp_block(x2, **(kw | bad))
-    with pytest.raises(NotImplementedError, match="use_int_sqrt"):
-        kb.mlp_block(x2, use_int_sqrt=True, **kw)
+    got = kb.mlp_block(x2, use_int_sqrt=True, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(got, kb.mlp_block_ref(x2, use_int_sqrt=True, **kw))
     with pytest.raises(NotImplementedError, match="no fused block kernel"):
         kb.mlp_block(x2, **(kw | dict(gelu_base="float")))
+
+
+# --- the table forms and the integer-sqrt LN ----------------------------------
+
+# (spec families, kernel families) of the table forms
+LUT_FAMILIES = {"ivit": (("ivit",) * 3, ("ivit",) * 3),
+                "ibert": (("ibert",) * 3, ("ibert",) * 3),
+                "ppoly": ((PPOLY_FAMILIES[0],) * 2 + ("ibert",), ("ppoly", "ppoly", "ibert"))}
+
+
+@pytest.fixture
+def lut_on(monkeypatch):
+    monkeypatch.setenv("IVIT_LUT", "1")
+    monkeypatch.setenv("IVIT_XLA_LUT", "1")
+
+
+def _bump0(t):
+    """A copy of a table with its first entry (the row max's exp for the
+    softmax and ShiftGELU) halved, or raised by one where that is 0."""
+    t = t.clone()
+    t[0] = torch.floor(t[0] / 2) if t[0] > 1 else t[0] + 1
+    return t
+
+
+def _lut_pair(fn, ref, x, kw, tables, monkeypatch, ref_tables=None):
+    """The kernel with the tables equal to its plain version (given
+    ``ref_tables``, the tables the wrapper's gate lets through), with the
+    switch on; the same call with the switch off, the towers."""
+    got = fn(x, **kw, **tables)
+    torch.cuda.synchronize()
+    assert torch.equal(got, ref(x, **kw, **(tables if ref_tables is None else ref_tables)))
+    monkeypatch.delenv("IVIT_LUT")
+    towers = fn(x, **kw, **tables)
+    monkeypatch.setenv("IVIT_LUT", "1")
+    return got, towers
+
+
+@pytest.mark.parametrize("fam", list(LUT_FAMILIES))
+def test_cuda_lut_block_kernels_match_plain_versions(cuda, fam, lut_on, monkeypatch):
+    """Both ViT kernels with a freeze's tables (``with_tables``), ``IVIT_LUT``
+    set: equal to their plain versions, and to the towers; 8- and 16-bit
+    probabilities (int16 out), both ivit row sums, the LN in the kernel and
+    hoisted, and a changed table, which moves the ivit kernels off the
+    towers."""
+    from ivit_tpu_torch.engine.synthetic import with_tables
+    spec_mix, mix = LUT_FAMILIES[fam]
+    for bits in ("8", INT16):
+        cfg = dataclasses.replace(_small_config(1, spec_mix), bitwidths=BitWidths.from_spec(bits))
+        b = {k: torch.as_tensor(v).to(cuda)
+             for k, v in with_tables(synthetic_spec(cfg, seed=3)).params["blocks"][0].items()}
+        x = _x(cuda)
+        sm_bit = cfg.bitwidths.softmax
+        kw = _attn_kw(b, mix, HEADS, NV) | dict(sm_bit=sm_bit, out_bits=sm_bit)
+        for sum_i32 in ((False, True) if fam == "ivit" else (False,)):
+            for ln_in in (None, kb._ln8(x, mix[2], kw["ln_bias"], kw["ln_shift"], kw["m_ln"], None)):
+                for lut in (b["sm_lut"], _bump0(b["sm_lut"])):
+                    tables = dict(sm_lut=lut, sm_sum_i32=sum_i32)
+                    got, towers = _lut_pair(kb.attn_block, kb.attn_block_ref, x,
+                                            kw | dict(ln_in=ln_in), tables, monkeypatch)
+                    same = torch.equal(got[:, :NV], towers[:, :NV])
+                    assert same == (lut is b["sm_lut"]) or fam != "ivit", (bits, sum_i32)
+        x2 = _stream(cuda, (B * NP, C), 16 if bits == INT16 else 8, seed=2)
+        kw = _swin_mlp_kw(b, mix, True) | dict(out_bits=8)
+        if fam == "ppoly":
+            kw |= _ppoly_gelu_kw(b, True)
+        for lut in (b["gelu_lut"], _bump0(b["gelu_lut"])):
+            got, towers = _lut_pair(kb.mlp_block, kb.mlp_block_ref, x2, kw,
+                                    dict(gelu_lut=lut), monkeypatch)
+            assert torch.equal(got, towers) == (lut is b["gelu_lut"]) or fam != "ivit"
+
+
+@pytest.mark.parametrize("fam", list(LUT_FAMILIES))
+def test_cuda_lut_swin_kernels_match_plain_versions(cuda, fam, lut_on, monkeypatch):
+    """Both Swin kernels with a freeze's tables, C 96 and 192: the shifted
+    block takes ``sm_sat`` where its mask is negative (ivit, ibert; a ppoly
+    shifted block keeps the towers, as JAX's gate says); equal to the plain
+    versions and to the towers, and with ``sm_sat`` changed, off them."""
+    from ivit_tpu_torch.engine.synthetic import with_tables
+    spec_mix, mix = LUT_FAMILIES[fam]
+    spec = with_tables(_swin_spec(spec_mix))
+    assert spec.config.use_lut
+    for i, (b, heads, nw, shift) in enumerate(_swin_blocks(spec, cuda)):
+        c = b["ln1_bias_int"].shape[0]
+        x = _stream(cuda, (2 * nw, 49, c), 16, seed=i)
+        kw = _swin_attn_kw(b, mix, True, heads, nw, shift)
+        if fam == "ppoly":
+            kw |= _ppoly_sm_kw(b)
+        assert ("sm_sat" in b) == (shift > 0 and fam != "ppoly")
+        sats = [b.get("sm_sat")] + ([b["sm_lut"][:1].reshape(())] if "sm_sat" in b else [])
+        for sat in sats:
+            tables = dict(sm_lut=b["sm_lut"], sm_sum_i32=spec.config.sm_sum_i32, sm_sat=sat)
+            gated = tables if sat is not None or not shift else {}   # block.py:1486
+            got, towers = _lut_pair(kb.swin_attn_block, kb.swin_attn_block_ref, x,
+                                    kw, tables, monkeypatch, gated)
+            assert torch.equal(got, towers) == (sat is b.get("sm_sat")), (i, fam)
+        x2 = _stream(cuda, (2 * nw * 49, c), 16, seed=10 + i)
+        kw = _swin_mlp_kw(b, mix, True) | (_ppoly_gelu_kw(b, True) if fam == "ppoly" else {})
+        got, towers = _lut_pair(kb.mlp_block, kb.mlp_block_ref, x2, kw,
+                                dict(gelu_lut=b["gelu_lut"]), monkeypatch)
+        assert torch.equal(got, towers)
+
+
+@pytest.mark.parametrize("heads", EDGE_HEADS, ids=[f"dh{128 // h}" for h in EDGE_HEADS])
+def test_cuda_lut_attention_edge_shapes(cuda, heads, lut_on, monkeypatch):
+    """The ivit and ibert table-form cores at the attention tiles' edges, C
+    128 with head dims 32, 64 and 128: ViT token counts 1 to 256 with
+    padding tokens, both ivit row sums; Swin windows of 49 and 64 tokens,
+    the shifted block with ``sm_sat``; equal to the plain versions and to
+    the towers."""
+    from ivit_tpu_torch.engine.synthetic import with_tables
+    for family in ("ivit", "ibert"):
+        cfg = dataclasses.replace(
+            deit_small_config(depth=1, img_size=64, ln=family, gelu=family,
+                              softmax=family),
+            embed_dim=128, num_heads=heads, num_classes=10)
+        b = {k: torch.as_tensor(v).to(cuda) for k, v in
+             with_tables(synthetic_spec(cfg, seed=5)).params["blocks"][0].items()}
+        for i, (np_, nv) in enumerate(EDGE_TOKENS):
+            x = _stream(cuda, (2, np_, 128), 8, seed=30 + i)
+            kw = _attn_kw(b, (family,) * 3, heads, nv) | dict(x=x)
+            for sum_i32 in (False, True):
+                tables = dict(sm_lut=b["sm_lut"], sm_sum_i32=sum_i32)
+                got = kb.attn_block(**kw, **tables)
+                torch.cuda.synchronize()
+                want = kb.attn_block_ref(**kw, **tables)
+                assert torch.equal(got[:, :nv], want[:, :nv]), (family, np_, sum_i32)
+                monkeypatch.delenv("IVIT_LUT")
+                assert torch.equal(got[:, :nv], kb.attn_block(**kw, **tables)[:, :nv])
+                monkeypatch.setenv("IVIT_LUT", "1")
+        for window in (7, 8):
+            spec = with_tables(synthetic_swin_spec(swin_tiny_config(
+                depths=(2,), img_size=8 * window, embed_dim=128, stage_heads=(heads,),
+                window_size=window, num_classes=10, gelu=family, softmax=family,
+                ln=family), seed=5))
+            grid = 16 if window == 8 else 14
+            for i, (blk, h, nw, shift) in enumerate(_swin_blocks(spec, cuda, grid)):
+                x = _stream(cuda, (2 * nw, window * window, 128), 16, seed=40 + i)
+                kw = _swin_attn_kw(blk, (family,) * 3, True, h, nw, shift)
+                tables = dict(sm_lut=blk["sm_lut"], sm_sum_i32=spec.config.sm_sum_i32,
+                              sm_sat=blk.get("sm_sat"))
+                gated = tables if "sm_sat" in blk or not shift else {}
+                got, towers = _lut_pair(kb.swin_attn_block, kb.swin_attn_block_ref, x,
+                                        kw, tables, monkeypatch, gated)
+                assert torch.equal(got, towers), (family, window, shift)
+
+
+def test_cuda_lut_engines_match_plain_engines(cuda, lut_on, monkeypatch):
+    """ViT (ivit, ibert) and Swin (ivit) specs with their tables: ``Engine``
+    on the kernels with ``IVIT_LUT`` set equals the plain engine with the
+    tables (``IVIT_XLA_LUT``) on the card and the CPU, and the engines with
+    the switches off."""
+    from ivit_tpu_torch.engine.synthetic import with_tables
+    vit_img = np.random.default_rng(1).normal(size=(3, 64, 64, 3)).astype(np.float32)
+    swin_img = np.random.default_rng(2).normal(size=(2, 56, 56, 3)).astype(np.float32)
+    for spec, images in ((with_tables(synthetic_spec(_small_config(2, ("ivit",) * 3), seed=0)), vit_img),
+                         (with_tables(synthetic_spec(_small_config(2), seed=0)), vit_img),
+                         (with_tables(_swin_spec(("ivit",) * 3)), swin_img)):
+        got = Engine(spec)(images)
+        assert torch.equal(got, Engine(spec, kernels=False)(images))
+        assert torch.equal(got.cpu(), Engine(spec, device="cpu", kernels=False)(images))
+        assert torch.equal(got.cpu(), Engine(spec, device="cpu")(images))
+        monkeypatch.delenv("IVIT_LUT")
+        assert torch.equal(got, Engine(spec)(images))
+        monkeypatch.setenv("IVIT_LUT", "1")
+
+
+def _var_rows(dev, c, dtype=torch.int8):
+    """Rows of ``c`` channels whose ibert LN at shift 0 has the variances
+    3, 15, 63, 80 and 99, where I-BERT's integer sqrt and floor(sqrt)
+    differ (``tests/test_torch_port_lut.py``), then seeded random rows."""
+    rows = np.zeros((8, c), np.int64)
+    rows[0, :3] = 1
+    rows[1, :15] = 1
+    rows[2, :63] = np.resize([1, -1], 63)
+    rows[3, :20] = np.resize([2, -2], 20)
+    rows[4, :9] = np.resize([3, -3], 9)
+    rows[4, 9:27] = np.resize([1, -1], 18)
+    lim = 127 if dtype == torch.int8 else 2**14
+    rows[5:] = np.random.default_rng(0).integers(-lim, lim, (3, c))
+    return torch.from_numpy(rows).to(dtype).to(dev)
+
+
+def test_cuda_int_sqrt_ln_matches_plain_versions(cuda):
+    """The three kernels with the integer-sqrt ibert LN (shift 0, the LN
+    multipliers an eighth of the spec's so these rows' outputs stay in int8)
+    equal their plain versions, on rows where the two roots differ, and the
+    plain versions run the same root on the card as on the CPU."""
+    from ivit_tpu_torch.ops import ibert as tib
+    n = torch.cat([2.0 ** torch.arange(1, 34).repeat_interleave(80)
+                   - torch.arange(-16, 64).repeat(33), torch.arange(1, 5000)]).float()
+    assert torch.equal(tib.int_bitlength_sqrt(n.to(cuda)).cpu(), tib.int_bitlength_sqrt(n))
+    b = _block(cuda)
+    b |= dict(ln1_shift=torch.zeros((), device=cuda), ln2_shift=torch.zeros((), device=cuda),
+              m_ln1=b["m_ln1"] / 8, m_ln2=b["m_ln2"] / 8)
+    x = _var_rows(cuda, C)
+    ln = (b["ln2_bias_int"], b["ln2_shift"], b["m_ln2"], None)
+    assert (kb._ln8(x, "ibert", *ln, use_int_sqrt=True)
+            != kb._ln8(x, "ibert", *ln))[:5].any(-1).all()
+    mlp = _swin_mlp_kw(b, ("ibert",) * 3, True) | dict(out_bits=8)
+    got = kb.mlp_block(x, use_int_sqrt=True, **mlp)
+    torch.cuda.synchronize()
+    assert torch.equal(got, kb.mlp_block_ref(x, use_int_sqrt=True, **mlp))
+    xa = torch.cat([x, x.flip(0), x[:1]])[None].repeat(2, 1, 1)   # 17 tokens
+    attn = _attn_kw(b, ("ibert",) * 3, HEADS, 17)
+    got = kb.attn_block(xa, use_int_sqrt=True, **attn)
+    torch.cuda.synchronize()
+    assert torch.equal(got, kb.attn_block_ref(xa, use_int_sqrt=True, **attn))
+    # Swin: int16 windows of 49 tokens at C 96
+    sb, heads, nw, _ = _swin_blocks(_swin_spec(("ibert",) * 3), cuda)[0]
+    sb |= dict(ln1_shift=torch.zeros((), device=cuda), m_ln1=sb["m_ln1"] / 8)
+    xw = _var_rows(cuda, 96, torch.int16).repeat(7, 1)[:49][None].repeat(2 * nw, 1, 1)
+    kw = _swin_attn_kw(sb, ("ibert",) * 3, True, heads, nw, 0)
+    got = kb.swin_attn_block(xw, use_int_sqrt=True, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(got, kb.swin_attn_block_ref(xw, use_int_sqrt=True, **kw))
 
 
 # --- the QAT sim and its freeze on the card ------------------------------------

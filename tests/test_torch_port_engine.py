@@ -78,17 +78,17 @@ def test_fused_engine_matches_jax_pallas(calibrated, ln):
     """JAX's fused engine (Pallas, interpret mode) against the port's.
 
     With ``use_int_sqrt`` the Pallas kernel takes floor(sqrt) all the same
-    (``block.py:628-643``) and the port's fused wrapper refuses the flag, so
-    that case holds JAX's fused output against the port's unfused engine:
-    on this input no LN variance lands where the two sqrt forms differ."""
+    (``block.py:628-643``) while the port's fused kernels take the integer
+    sqrt, as the unfused engines do: that case holds the port's fused
+    engine against JAX's unfused one."""
     jspec = _jax_freeze(calibrated, ln)
     x = _images(3, 64, seed=2)
     ppkg.FORCE_INTERPRET = True
     try:
-        want = np.asarray(jax_forward(jspec, jnp.asarray(x), pallas=True))
+        want = np.asarray(jax_forward(jspec, jnp.asarray(x), pallas=ln == "ibert"))
     finally:
         ppkg.FORCE_INTERPRET = False
-    got = engine_forward(_to_port(jspec), x, kernels=ln == "ibert", device="cpu")
+    got = engine_forward(_to_port(jspec), x, kernels=True, device="cpu")
     np.testing.assert_array_equal(got.numpy(), want)
 
 

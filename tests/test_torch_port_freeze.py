@@ -14,7 +14,7 @@ the port's sim is calibrated on two seeded batches and its variables
   its own (the clock frozen: the ``.npz``'s zip headers carry the time);
 * inside the port, sim -> freeze -> ``Engine(device="cpu")``: the logits of
   ``kernels=False``, ``True`` (the kernels' plain versions; not with the
-  integer-sqrt LN, which the kernels refuse) and ``"ops"`` bitwise equal
+  integer-sqrt LN too) and ``"ops"`` bitwise equal
   to the sim's (JAX's ``test_engine_matches_sim``); the INT16
   configuration within JAX's own bound (``test_engine.py:144``: the sim
   keeps a one-hot 2**15 probability that the engine saturates);
@@ -126,11 +126,7 @@ def test_engine_matches_sim(frozen):
     x = _images(rng)
     with torch.no_grad():
         sim = model(x)
-    int_sqrt = "use-int-sqrt_true" in spec.config.layernorm_type
-    if int_sqrt:      # the fused kernels take floor(sqrt) only (ROADMAP Queue 2)
-        with pytest.raises(NotImplementedError, match="use_int_sqrt"):
-            Engine(spec, device="cpu")(x)
-    for kernels in (False, "ops") if int_sqrt else (False, True, "ops"):
+    for kernels in (False, True, "ops"):
         got = Engine(spec, device="cpu", kernels=kernels)(x)
         assert got.shape == sim.shape and torch.isfinite(got).all()
         if spec.config.bitwidths.softmax == 16:

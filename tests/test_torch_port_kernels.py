@@ -16,6 +16,7 @@ import pytest
 import torch
 
 from ivit_tpu.ops.pallas import block as jblk
+from ivit_tpu_torch.engine import vit_int as tvit
 from ivit_tpu_torch.engine.synthetic import deit_small_config, synthetic_spec
 from ivit_tpu_torch.ops.kernels import block as kb
 
@@ -89,6 +90,8 @@ def test_attn_block_matches_pallas(blk, fast_exp, fast_poly):
 
 
 def test_wrappers_refuse_what_the_kernels_do_not_run(blk):
+    """The float family and the float and ppoly LNs raise; the integer-sqrt
+    ibert LN, which the wrappers refused before the kernels took it, runs."""
     x = torch.from_numpy(_x(0).reshape(B * NP, C))
     kw = _mlp_kw(blk, True, torch.as_tensor)
     with pytest.raises(NotImplementedError, match="no fused block kernel"):
@@ -97,5 +100,12 @@ def test_wrappers_refuse_what_the_kernels_do_not_run(blk):
         with pytest.raises(NotImplementedError, match="ivit or ibert LayerNorm"):
             kb.attn_block(torch.from_numpy(_x(1)), ln_base=ln_base,
                           **_attn_kw(blk, True, True, torch.as_tensor))
-    with pytest.raises(NotImplementedError, match="use_int_sqrt"):
-        kb.mlp_block(x, use_int_sqrt=True, **kw)
+    # the integer-sqrt ibert LN runs, as the unfused engine runs it
+    cfg = dataclasses.replace(deit_small_config(depth=1, img_size=64,
+                                                ln="ibert_use-int-sqrt_true"),
+                              embed_dim=C, num_heads=HEADS, num_classes=10)
+    tb = {k: torch.as_tensor(v) for k, v in blk.items()}
+    want = tvit._mlp_unfused(cfg, tb, x.reshape(B, NP, C), False).reshape(B * NP, C)
+    got = kb.mlp_block(x, use_int_sqrt=True, **kw)
+    valid = (np.arange(B * NP) % NP) < NV
+    np.testing.assert_array_equal(got.numpy()[valid], want.numpy()[valid])
