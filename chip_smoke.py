@@ -156,7 +156,28 @@ Phases, each printing one JSON line:
    engine; the loader's img/s with and without RandAugment, each step's
    loader wait share, step ms and img/s, the epoch, calibration,
    validate, save and resume seconds (``--profile``: the card's idle
-   share over an epoch).
+   share over an epoch);
+25. compat_cli: checkpoint interop and the CLIs, in-process, in a
+   temporary directory: seeded DeiT-S ibert (qkv scaled as in phase 19)
+   and Swin-T ivit sims calibrated on 2 x 8 images, written as reference
+   ``.pth.tar`` checkpoints (``compat/export_torch.py``) and loaded into
+   fresh sims of another seed (``compat/torch_ckpt.py``): every leaf equal,
+   none missing, ``Engine(freeze(...))`` of each 12 + 12 launches with the
+   original sim's logits bitwise; the inference CLI
+   (``ivit_tpu_torch.scripts.inference``) on the DeiT-S file at batch 256 x
+   4, one calibration batch, the artifact and the IO stats written: 12
+   launches of each block kernel a forward, the artifact's ``Engine`` equal
+   to the sim recalibrated on the same batch, the IO-stats rows the CPU's,
+   its img/s; ``engine_inference`` on the artifact (the inference CLI's
+   top-1 / top-5 counts) and ``--serve`` at batch 64 x 8 (the counts of
+   ``Engine(spec)``'s logits; the server's answers bitwise); ``serving_bench``
+   at 256 requests a point (the script's default is 2,048): JAX's keys,
+   each overload point adding up; ``analyze_io_stats``' engine audit of
+   DeiT-S ibert at batch 4 on the card and the CPU (no hard violation, the
+   same records) and the fused DeiT-S ibert engine's img/s with the audit
+   taps present and no capture beside phase 7's; ``quant_train
+   --pretrained`` with a seeded timm-style float DeiT-S file (the sim's
+   parameters the file's; two steps of 16, finite losses); under 90 s.
 
 The build phase reports ptxas's registers and spill bytes per kernel and
 fails if any kernel spills.
@@ -1343,7 +1364,8 @@ def img_per_s(torch, fn, batches, n):
 
 
 def engine_phases(torch, counters, dev, rows, profile=False):
-    """Phases 7-8: the DeiT-S ibert and ivit engines through the entry points."""
+    """Phases 7-8: the DeiT-S ibert and ivit engines through the entry
+    points; returns the ibert engine's img/s."""
     from ivit_tpu_torch.engine import Engine
     from ivit_tpu_torch.engine.synthetic import deit_small_config, synthetic_spec
 
@@ -1368,10 +1390,11 @@ def engine_phases(torch, counters, dev, rows, profile=False):
         raise AssertionError(
             f"ibert kernel engine != plain engine on the CPU (4 images): max "
             f"abs diff {(logits[:4].cpu() - cpu).abs().max().item()}")
+    ibert_img_s = img_per_s(torch, eng, batches, 6)
     emit({"phase": "engine", "config": "deit_small ibert 224px depth 12 (synthetic, seed 0)",
           "batch": BATCH, "launches_per_forward": launches,
           "equal_plain_cuda": True, "equal_plain_cpu_4img": True,
-          "img_per_s": img_per_s(torch, eng, batches, 6),
+          "img_per_s": ibert_img_s,
           "plain_img_per_s": img_per_s(torch, plain, batches, 2),
           "logits_std": logits.std().item()})
     if profile:
@@ -1413,6 +1436,7 @@ def engine_phases(torch, counters, dev, rows, profile=False):
         for path in (True, "ops"):
             emit(profile_forward(torch, f"ivit kernels={path!r}", engines[path],
                                  batches[0]))
+    return ibert_img_s
 
 
 def ppoly_engine_phase(torch, counters, dev, rows, profile=False):
@@ -3005,6 +3029,334 @@ def trainer_phase(torch, counters, dev, rows, smi, profile=False):
                     f"{QAT_QKV_GAIN}", **out})
 
 
+# The compat_cli phase: the user's path from a checkpoint through the CLIs,
+# at DeiT-S full width and depth (Swin-T for the Swin round trip).
+COMPAT_CALIB, COMPAT_CLI_BATCH, COMPAT_CLI_BATCHES = 2, 256, 4
+COMPAT_SERVE_BATCH, COMPAT_SERVE_BATCHES = 64, 8
+# serving_bench: the requests a point (the script's default is 2,048) and the
+# batch sizes, cut to fit the phase's budget
+COMPAT_REQUESTS, COMPAT_BENCH_BATCHES = 256, "1,8,32,64"
+COMPAT_TRAIN_SAMPLES, COMPAT_TRAIN_BATCH = 32, 16      # two steps
+
+
+def compat_model_config(name, fam):
+    """The model_config the training CLI persists, all bitwidths 8."""
+    cfg = {"model": name, "gelu_type": fam, "softmax_type": fam, "layernorm_type": fam}
+    for site in ("patch_embed", "pos_encoding", "block_input", "attention_out",
+                 "softmax", "mlp_out", "norm2_in", "att_block_out"):
+        cfg[f"{site}_bitwidth"] = 8
+    return cfg
+
+
+def compat_round_trip(torch, counters, dev, name, sim, fresh, images, directory,
+                      fam, kernels):
+    """Write ``sim`` (calibrated) as a reference checkpoint, load it into
+    ``fresh``: every leaf equal, nothing missing; ``Engine(freeze(fresh))``
+    on the block kernels (``kernels``, depth launches each) gives the
+    original sim's logits bitwise.  Returns (path, numbers)."""
+    import os
+    from ivit_tpu_torch.compat.export_torch import save_reference_checkpoint
+    from ivit_tpu_torch.compat.torch_ckpt import load_into_model
+    from ivit_tpu_torch.engine import Engine
+    from ivit_tpu_torch.engine.freeze import freeze_model
+    from ivit_tpu_torch.engine.swin_int import freeze_swin_model
+    from ivit_tpu_torch.models import SwinTransformer
+    from ivit_tpu_torch.models.convert import differing_leaves, variables_to_numpy
+
+    path = os.path.join(directory, f"{name}.pth.tar")
+    cfg = compat_model_config(name, fam)
+    variables = variables_to_numpy(sim)
+    t0 = time.perf_counter()
+    save_reference_checkpoint(variables, cfg, path)
+    save_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    _, report = load_into_model(fresh, path)
+    load_s = time.perf_counter() - t0
+    bad = differing_leaves(variables_to_numpy(fresh), variables)
+    if bad or report["missing"] or report["model_config"] != cfg:
+        raise AssertionError(f"compat {name}: reloaded leaves differ at {bad[:5]}, "
+                             f"missing {report['missing'][:5]}")
+    with torch.no_grad():
+        want = sim(images)
+    freeze = freeze_swin_model if isinstance(fresh, SwinTransformer) else freeze_model
+    eng = Engine(freeze(fresh))
+    logits, launches = run_counted(torch, counters, lambda: eng(images))
+    expect = {k: 12 if k in kernels else 0 for k in counters}
+    if launches != expect:
+        raise AssertionError(f"compat {name}: Engine launched {launches}, want {expect}")
+    if not torch.isfinite(want).all() or not torch.equal(logits, want):
+        raise AssertionError(f"compat {name}: the reloaded engine != the original sim: max "
+                             f"abs diff {(logits - want).abs().max().item()}")
+    return path, {"leaves": len(report["matched"]), "missing": 0, "save_s": save_s,
+                  "load_s": load_s, "launches_per_forward": launches,
+                  "file_mb": os.path.getsize(path) / 2**20, "equal_sim": True}
+
+
+def topk_counts(np, logits, labels):
+    order = np.argsort(-logits, axis=-1)
+    return [int((order[:, :k] == labels[:, None]).any(-1).sum()) for k in (1, 5)]
+
+
+def compat_cli_phase(torch, counters, dev, rows, smi, engine_img_s):
+    """Phase 25: checkpoint interop and the CLIs, in-process, in a temporary
+    directory.  (a) Seeded DeiT-S ibert and Swin-T ivit sims on the card,
+    calibrated on COMPAT_CALIB x QAT_CALIB_BATCH images (DeiT-S qkv x
+    QAT_QKV_GAIN), written as reference checkpoints and loaded into fresh
+    sims of another seed: every leaf equal, none missing, the reloaded
+    engines' logits (12 + 12 launches) the originals' bitwise.  (b) The
+    inference CLI on the DeiT-S checkpoint (batch 256, 4 batches, one
+    calibration batch, the artifact and the IO stats written): 12 launches
+    of each block kernel a forward; the artifact's Engine == the sim
+    recalibrated on the same batch; the CSV's layers those of the CPU's
+    attach_io_stats; its img/s.  (c) engine_inference on the artifact:
+    the inference CLI's top-1 / top-5 counts; --serve at batch 64: the
+    counts of Engine(spec)'s logits on the same images, and the server's
+    answers bitwise Engine(spec)'s.  (d) serving_bench (DeiT-S ibert,
+    COMPAT_REQUESTS a point): JAX's keys, every overload point adding up.
+    (e) analyze_io_stats' engine audit (DeiT-S ibert, batch 4): no hard
+    violation, the card's records the CPU's; the fused DeiT-S ibert
+    engine's img/s with the taps present and no capture, beside the
+    engine phase's.  (f) quant_train --pretrained with a seeded timm-style
+    float DeiT-S file: the sim's parameters the file's, two steps of 16,
+    finite losses."""
+    import contextlib
+    import copy
+    import io
+    import json
+    import os
+    import tempfile
+
+    import numpy as np
+
+    from ivit_tpu_torch.compat.torch_ckpt import (convert_state_dict, load_into_model,
+                                                  load_torch_checkpoint)
+    from ivit_tpu_torch.engine import Engine
+    from ivit_tpu_torch.engine.export import load_engine
+    from ivit_tpu_torch.engine.serving import ServingEngine
+    from ivit_tpu_torch.engine.synthetic import deit_small_config, synthetic_spec
+    from ivit_tpu_torch.models import deit_small_patch16_224, swin_tiny_patch4_window7_224
+    from ivit_tpu_torch.models.convert import differing_leaves, variables_to_numpy
+    from ivit_tpu_torch.models.vit_float import float_model, timm_state_dict
+    from ivit_tpu_torch.scripts import (analyze_io_stats, engine_inference, inference,
+                                        quant_train, serving_bench)
+    from ivit_tpu_torch.train.data import SyntheticDataset, data_loader
+    from ivit_tpu_torch.utils.iostats import attach_io_stats, clear_io_stats, get_io_stats
+
+    t_phase = time.perf_counter()
+    out, step_s = {}, {}
+
+    def lap(name, since):
+        step_s[name] = time.perf_counter() - since
+        return time.perf_counter()
+    gen = torch.Generator().manual_seed(QAT_SEED + 21)
+    calib = [torch.randn((QAT_CALIB_BATCH, 224, 224, 3), generator=gen)
+             for _ in range(COMPAT_CALIB)]
+    images = torch.randn((QAT_BATCH, 224, 224, 3), generator=gen).to(dev)
+    with tempfile.TemporaryDirectory() as tmp:
+        # (a) reference-schema round trips
+        sims = {"deit_small_patch16_224": (qat_sim(torch, "ibert", dev),
+                                           deit_small_patch16_224, "ibert",
+                                           ("attn_block", "mlp_block")),
+                "swin_tiny_patch4_window7_224": (
+                    swin_tiny_patch4_window7_224(gelu_type="ivit", softmax_type="ivit",
+                                                 layernorm_type="ivit", device=dev,
+                                                 seed=QAT_SEED, drop_path_rate=0.0),
+                    swin_tiny_patch4_window7_224, "ivit",
+                    ("swin_attn_block", "mlp_block"))}
+        ckpts = {}
+        t0 = lap("build_sims", t_phase)
+        for name, (sim, factory, fam, kernels) in sims.items():
+            with torch.no_grad():
+                for xb in calib:
+                    sim(xb.to(dev), running_stat=True)
+            kw = {"drop_path_rate": 0.0} if name.startswith("swin") else {}
+            fresh = factory(gelu_type=fam, softmax_type=fam, layernorm_type=fam,
+                            device=dev, seed=QAT_SEED + 1, **kw)
+            ckpts[name], out[f"round_trip_{name}"] = compat_round_trip(
+                torch, counters, dev, name, sim, fresh, images, tmp, fam, kernels)
+            for k in kernels:
+                rows[k][f"launches_compat_{name.split('_')[0]}"] = 12
+            del sim, fresh
+            t0 = lap(f"round_trip_{name}", t0)
+        torch.cuda.empty_cache()
+
+        # (b) the inference CLI on the DeiT-S checkpoint
+        deit = ckpts["deit_small_patch16_224"]
+        eng_path, io_path = os.path.join(tmp, "eng.npz"), os.path.join(tmp, "io.csv")
+        argv = ["--weights", deit, "--dataset", "synthetic", "--batch-size",
+                str(COMPAT_CLI_BATCH), "--max-batches", str(COMPAT_CLI_BATCHES),
+                "--calibration-batches", "1", "--export-engine", eng_path,
+                "--io-stats", io_path, "--device", "cuda"]
+        result, launches = run_counted(torch, counters, lambda: inference.main(argv))
+        t0 = lap("inference_cli", t0)
+        expect = {k: 12 * COMPAT_CLI_BATCHES if k in ("attn_block", "mlp_block") else 0
+                  for k in counters}
+        if launches != expect or result["images"] != COMPAT_CLI_BATCH * COMPAT_CLI_BATCHES:
+            raise AssertionError(f"inference CLI launched {launches}, want {expect} "
+                                 f"({result['images']} images)")
+        for k in ("attn_block", "mlp_block"):
+            rows[k]["launches_inference_cli"] = launches[k]
+        # the artifact == the sim recalibrated on the CLI's calibration batch
+        sim = deit_small_patch16_224(gelu_type="ibert", softmax_type="ibert",
+                                     layernorm_type="ibert", device=dev, seed=QAT_SEED + 2)
+        load_into_model(sim, deit)
+        cal = SyntheticDataset(n=8 * COMPAT_CLI_BATCH, seed=2)
+        xb = next(data_loader(cal, COMPAT_CLI_BATCH, train=True, img_size=224))["image"]
+        ds = SyntheticDataset(n=8 * COMPAT_CLI_BATCH, seed=1)
+        x0 = next(data_loader(ds, COMPAT_CLI_BATCH, train=False, img_size=224,
+                              drop_last=True))["image"]
+        x0 = torch.from_numpy(x0).to(dev)
+        with torch.no_grad():
+            sim(torch.from_numpy(xb).to(dev), running_stat=True)
+            want = sim(x0)
+        spec = load_engine(eng_path)
+        eng = Engine(spec)
+        got = eng(x0)
+        if not torch.equal(got, want):
+            raise AssertionError("inference CLI: the exported artifact's Engine != the "
+                                 "recalibrated sim: max abs diff "
+                                 f"{(got - want).abs().max().item()}")
+        # the IO-stats CSV: one row per (tensor, scale) site, the CPU's set
+        with open(io_path) as f:
+            csv_layers = [line.split(",", 1)[0] for line in f.read().splitlines()[1:]]
+        t0 = lap("recalibrated_sim", t0)
+        cpu_sim = copy.deepcopy(sim).cpu()
+        clear_io_stats()
+        attach_io_stats(cpu_sim)(x0[:1].cpu())
+        cpu_layers = [r["layer"] for r in get_io_stats()]
+        clear_io_stats()
+        if csv_layers != cpu_layers:
+            raise AssertionError(f"inference CLI: IO-stats rows {len(csv_layers)} != the "
+                                 f"CPU's {len(cpu_layers)}")
+        del sim, cpu_sim
+        out["inference_cli"] = {**result, "io_stats_rows": len(csv_layers),
+                                "artifact_equal_sim": True, "nvidia_smi": smi}
+        t0 = lap("io_stats_cpu", t0)
+        n_cli = result["images"]
+        cli_counts = [round(result[k] * n_cli) for k in ("top1", "top5")]
+
+        # (c) engine_inference on the artifact, plain and served
+        argv = ["--engine", eng_path, "--dataset", "synthetic", "--device", "cuda"]
+        plain = engine_inference.main(argv + ["--batch-size", str(COMPAT_CLI_BATCH),
+                                              "--max-batches", str(COMPAT_CLI_BATCHES)])
+        if [round(plain[k] * plain["images"]) for k in ("top1", "top5")] != cli_counts \
+                or plain["images"] != n_cli:
+            raise AssertionError(f"engine_inference counts {plain} != the inference "
+                                 f"CLI's {result}")
+        served = engine_inference.main(argv + [
+            "--batch-size", str(COMPAT_SERVE_BATCH), "--max-batches",
+            str(COMPAT_SERVE_BATCHES), "--serve"])
+        n_served = COMPAT_SERVE_BATCH * COMPAT_SERVE_BATCHES
+        ds = SyntheticDataset(n=8 * COMPAT_SERVE_BATCH, seed=1)
+        batches = [b for _, b in zip(range(COMPAT_SERVE_BATCHES),
+                                     data_loader(ds, COMPAT_SERVE_BATCH, train=False,
+                                                 img_size=224, drop_last=True))]
+        x = np.concatenate([b["image"] for b in batches])
+        labels = np.concatenate([b["label"] for b in batches])
+        want = eng(torch.from_numpy(x)).cpu().numpy()
+        if served["images"] != n_served or \
+                [round(served[k] * n_served) for k in ("top1", "top5")] != \
+                topk_counts(np, want, labels):
+            raise AssertionError(f"engine_inference --serve: {served} != Engine(spec)'s "
+                                 "counts")
+        with ServingEngine(spec, batch_size=COMPAT_SERVE_BATCH) as srv:
+            answers = srv.infer(x[:2 * COMPAT_SERVE_BATCH])
+        if not np.array_equal(answers, want[:2 * COMPAT_SERVE_BATCH]):
+            raise AssertionError("served answers != Engine(spec)'s")
+        out["engine_inference"] = {"plain": plain, "served": served,
+                                   "counts_equal_cli": True, "served_bitwise": True}
+        del eng, spec
+        t0 = lap("engine_inference", t0)
+
+        # (d) serving_bench
+        bench_out = os.path.join(tmp, "serving.json")
+        bench = serving_bench.main(["--out", bench_out, "--requests", str(COMPAT_REQUESTS),
+                                    "--batches", COMPAT_BENCH_BATCHES, "--device", "cuda"])
+        t0 = lap("serving_bench", t0)
+        with open(bench_out) as f:
+            written = json.load(f)
+        keys = {"model", "families", "card", "device", "requests_per_point", "points",
+                "raw_engine_b64_img_s", "path_choice", "overload_ab"}
+        if set(written) != keys or any(p["served"] + p["rejected"] + p["shed"]
+                                       != p["offered"] for p in written["overload_ab"]):
+            raise AssertionError(f"serving_bench: keys {sorted(written)}, overload "
+                                 f"{written['overload_ab']}")
+        out["serving_bench"] = {"requests_per_point": COMPAT_REQUESTS,
+                                "raw_engine_b64_img_s": bench["raw_engine_b64_img_s"],
+                                "points": [{k: p[k] for k in (
+                                    "batch_size", "throughput_img_s", "latency_ms_p50",
+                                    "latency_ms_p95", "latency_ms_p99")}
+                                    for p in bench["points"]],
+                                "overload_ab": [{k: p[k] for k in (
+                                    "mode", "offered", "served", "rejected", "shed",
+                                    "latency_ms_p95")} for p in bench["overload_ab"]]}
+
+        # (e) the envelope audit, card and CPU, and the taps' cost
+        table = io.StringIO()        # the CLI's per-site tables, kept off the log
+        with contextlib.redirect_stdout(table):
+            recs, bad = analyze_io_stats.engine_audit("deit_small_patch16_224",
+                                                      "ibert,ibert,ibert", 4, "cuda")
+            t0 = lap("audit_card", t0)
+            cpu_recs, _ = analyze_io_stats.engine_audit("deit_small_patch16_224",
+                                                        "ibert,ibert,ibert", 4, "cpu")
+            t0 = lap("audit_cpu", t0)
+        if bad or recs != cpu_recs or len(recs) < 100:
+            raise AssertionError(f"audit: {len(bad)} hard violations, card records == "
+                                 f"CPU's: {recs == cpu_recs} ({len(recs)} sites)")
+        gen_x = torch.Generator(device=dev).manual_seed(0)
+        batches = [torch.randn((BATCH, 224, 224, 3), generator=gen_x, device=dev)
+                   for _ in range(3)]
+        fused = Engine(synthetic_spec(deit_small_config(), seed=0))
+        out["audit"] = {"sites": len(recs), "hard_violations": 0, "equal_cpu": True,
+                        "max_sat_frac": max(r.get("sat_frac", 0.0) for r in recs),
+                        "fused_img_per_s_no_capture": img_per_s(torch, fused, batches, 6),
+                        "engine_phase_img_per_s": engine_img_s}
+        del fused, batches
+        t0 = lap("taps_idle_img_s", t0)
+
+        # (f) the training CLI from a timm-style float file
+        fm = float_model("deit_small_patch16_224", device="cpu", seed=QAT_SEED + 3)
+        timm = os.path.join(tmp, "deit_small_timm.pth")
+        torch.save({"model": timm_state_dict(fm)}, timm)
+        del fm
+        runs = os.path.join(tmp, "runs")
+        trainer = quant_train.build_trainer(quant_train.parse_args([
+            "--model", "deit_small_patch16_224", "--dataset", "synthetic",
+            "--synthetic-samples", str(COMPAT_TRAIN_SAMPLES), "--batch-size",
+            str(COMPAT_TRAIN_BATCH), "--epochs", "1", "--calibration-batches", "1",
+            "--num-classes", "1000", "--seed", str(QAT_SEED), "--output-dir", runs,
+            "--run-id", "compat",
+            "--log-interval", "1", "--pretrained", timm, "--device", "cuda"]))
+        params_in, _ = convert_state_dict(load_torch_checkpoint(timm)[0])
+        bad = differing_leaves(variables_to_numpy(trainer.model)["params"], params_in)
+        if bad:
+            raise AssertionError(f"quant_train --pretrained: parameters differ from the "
+                                 f"file's at {bad[:5]}")
+        t0 = lap("pretrained_build", t0)
+        trainer.fit()
+        fit_s = time.perf_counter() - t0
+        with open(os.path.join(runs, "log_compat.jsonl")) as f:
+            losses = [r["loss"] for r in map(json.loads, f) if r["phase"] == "train"]
+        if len(losses) != COMPAT_TRAIN_SAMPLES // COMPAT_TRAIN_BATCH \
+                or not np.isfinite(losses).all():
+            raise AssertionError(f"quant_train --pretrained: losses {losses}")
+        out["pretrained_train"] = {"tensors_in_file": len(load_torch_checkpoint(timm)[0]),
+                                   "params_equal_file": True, "losses": losses,
+                                   "fit_s": fit_s}
+        del trainer
+        torch.cuda.empty_cache()
+        lap("pretrained_fit", t0)
+    out["seconds"] = time.perf_counter() - t_phase
+    out["step_seconds"] = step_s
+    emit({"phase": "compat_cli", "nvidia_smi": smi,
+          "config": "deit_small_patch16_224 ibert / swin_tiny_patch4_window7_224 ivit "
+                    "224px full depth, seed 0; calibration 2 x 8 images; CLIs at batch "
+                    f"256 x 4, served at 64 x 8, serving_bench {COMPAT_REQUESTS} requests "
+                    "a point (its default 2,048)", **out})
+    if out["seconds"] > 90:
+        raise AssertionError(f"compat_cli took {out['seconds']:.1f} s (budget 90 s)")
+
+
 def profile_serving(torch, srv, images):
     """The card's idle share while ``srv`` serves ``images`` (torch.profiler,
     CUDA activity): 1 - device busy time / wall time."""
@@ -3111,7 +3463,7 @@ def main(argv=None) -> int:
     for k in ("attn_block", "mlp_block", "swin_attn_block"):
         counters[f"{k}[lut]"] = FormCount(counters[k], "lut_launches")
         counters[f"{k}[int_sqrt]"] = FormCount(counters[k], "int_sqrt_launches")
-    engine_phases(torch, counters, dev, rows, profile=args.profile)
+    engine_img_s = engine_phases(torch, counters, dev, rows, profile=args.profile)
     swin_engine_phase(torch, counters, dev, rows, profile=args.profile)
     ppoly_engine_phase(torch, counters, dev, rows, profile=args.profile)
     int16_engine_phase(torch, counters, dev, rows, profile=args.profile)
@@ -3130,6 +3482,8 @@ def main(argv=None) -> int:
     emit({"phase": "train_done", "seconds": time.perf_counter() - t0})
     trainer_phase(torch, counters, dev, rows, smi, profile=args.profile)
     emit({"phase": "trainer_done", "seconds": time.perf_counter() - t0})
+    compat_cli_phase(torch, counters, dev, rows, smi, engine_img_s)
+    emit({"phase": "compat_cli_done", "seconds": time.perf_counter() - t0})
     emit({"kernels": list(rows.values())})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

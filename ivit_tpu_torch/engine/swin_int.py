@@ -25,6 +25,12 @@ LayerNorm.  As in JAX (``swin_int.py:496-502``), each half-block of a
 fused stage is fused only where its nonlinearity has a kernel: a float
 softmax runs its attention half, a float GELU its MLP half, unfused
 (``vit_int.fused_halves``; no float kernel exists in either package).
+
+The envelope audit's taps (``vit_int.audit_capture``) reach the unfused
+path through the shared helpers at JAX's Swin sites: the patch, qkv, fc1,
+fc2 and head GEMMs, every requant, the ibert exp sum and the ivit LN's
+centred values; the score, context, proj and merge products and the two
+residual adds are untapped, as in JAX.
 """
 
 from __future__ import annotations
@@ -284,10 +290,12 @@ def _attn_unfused(cfg, blk, x, B, res, dim, heads, ws, shift):
     probs = _softmax_int(cfg, blk, attn, allow_lut=shift == 0)
     ctx = _requant(int8_matmul(probs, v), blk["m_av"], 8)    # [B*nW, H, n, Dh]
     ctx = ctx.permute(0, 2, 1, 3).reshape(-1, n, dim)
-    yo = _requant(_gemm_bias(ctx, blk["proj_w"], blk["proj_b"]),
+    # proj untapped: JAX's contracts (H, Dh) with dot_general (swin_int.py:457)
+    yo = _requant(int8_matmul(ctx, blk["proj_w"]) + blk["proj_b"],
                   blk["m_proj"], 16)
     yo = _from_windows(yo, B, res, dim, ws, shift)
-    return _residual_requant(yo, blk["m_res1_x"], x, blk["m_res1_id"], 16)
+    return _residual_requant(yo, blk["m_res1_x"], x, blk["m_res1_id"], 16,
+                             tap=False)
 
 
 def _attn_fused(cfg, blk, x, B, res, dim, heads, ws, shift):
@@ -319,7 +327,8 @@ def _mlp_unfused(cfg, blk, x):
                  GELU_IN_BITS)
     y = _gelu_requant_int(cfg, blk, y, 8)
     y = _requant(_gemm_bias(y, blk["fc2_w"], blk["fc2_b"]), blk["m_fc2"], 8)
-    return _residual_requant(y, blk["m_res2_x"], x, blk["m_res2_id"], 16)
+    return _residual_requant(y, blk["m_res2_x"], x, blk["m_res2_id"], 16,
+                             tap=False)
 
 
 def _mlp_fused(cfg, blk, x):
@@ -351,6 +360,43 @@ def _merge(cfg, mg, x, B, res, dim):
     y = _layernorm_int(cfg, xm, mg["norm_bias_int"], mg["norm_shift"])
     y = _ln_requant(y, mg["m_norm"], 8)
     return _requant(int8_matmul(y, mg["red_w"]), mg["m_red"], 8)
+
+
+def swin_fusion_report(cfg, kernels=True, stage_paths=None) -> dict:
+    """Which path :func:`swin_engine_forward` takes, under JAX's keys
+    (``swin_int.py:371``), the reasons naming the port's own gates: a stage
+    runs fused where ``kernels`` is True and ``stage_paths`` (None: every
+    stage) says so; there its attention half takes ``swin_attn_block``
+    unless the softmax is float, its MLP half ``mlp_block`` unless the GELU
+    is float.  The port runs every stage at its own width, so the stage
+    keys carry no lane padding."""
+    sm, ge, ln = (cfg.base_type(w) for w in ("softmax", "gelu", "ln"))
+    dims = [cfg.embed_dim * 2**i for i in range(len(cfg.depths))]
+    on = [kernels is True and (stage_paths is None or bool(stage_paths[i]))
+          for i in range(len(dims))]
+    reasons = []
+    if kernels is not True:
+        reasons.append(f"kernels={kernels!r}: the plain per-op engine")
+    if ge not in ("ivit", "ibert", "ppoly"):
+        reasons.append(f"gelu family {ge!r} has no fused kernel")
+    if ln not in ("ivit", "ibert"):
+        reasons.append(f"ln family {ln!r}: the integer engine does not run it")
+    attn_reasons = []
+    if sm not in ("ivit", "ibert", "ppoly"):
+        attn_reasons.append(f"softmax family {sm!r} has no fused kernel")
+    fuse_mlp = kernels is True and not reasons
+    fuse_attn = (kernels is True and ln in ("ivit", "ibert")
+                 and not attn_reasons)
+    attn_stages = [bool(fuse_attn and o) for o in on]
+    mlp_stages = {f"stage{i}(dim={d})": bool(fuse_mlp and o)
+                  for i, (d, o) in enumerate(zip(dims, on))}
+    return {"fused_mlp_stages": mlp_stages,
+            "fused_window_attention": any(attn_stages),
+            "fused_attn_stages": attn_stages,
+            "lut_nonlinearities": bool((any(attn_stages)
+                                        or any(mlp_stages.values()))
+                                       and cfg.use_lut and kblock._lut_on()),
+            "unfused_reasons": reasons + attn_reasons}
 
 
 def check_stage_paths(cfg, stage_paths):

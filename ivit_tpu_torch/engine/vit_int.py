@@ -40,14 +40,23 @@ fused paths read them where ``IVIT_LUT`` is set, the unfused engine where
 ``IVIT_XLA_LUT`` is set as well (``_xla_lut_on``, ``vit_int.py:256``), both
 read at each call and off by default, as in JAX: one table lookup in place
 of each exp / erf / polynomial tower, the same bits.
+
+The envelope audit (``vit_int.py:67-116``): under :func:`audit_capture`
+every integer site of the unfused path records its extrema beside the
+bound its container, or the f32-exactness envelope, sets -- the nine sites
+of JAX's engine, in its order.  :func:`fusion_report` says which path a
+config takes with the port's own gates; ``Engine.fusion`` holds it.
 """
 
 from __future__ import annotations
 
+import contextlib
 import functools
 import itertools
+import logging
 import os
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -73,6 +82,97 @@ _NO_LN = {
     "float": "the integer engine runs no float LayerNorm (JAX's raises too, "
              "vit_int.py:458-461: the QAT sim evaluates the float family)",
 }
+
+
+# ---------------------------------------------------------------------------
+# Envelope audit (the datapath-sizing check; JAX's vit_int.py:60-116).  While
+# a capture is active, every integer site of the unfused path records its
+# extrema together with the bound its container -- or the f32-exactness
+# envelope the QAT sim relies on -- imposes.
+# ---------------------------------------------------------------------------
+
+_AUDIT = None  # type: list | None
+
+# f32 holds every integer in (-2**24, 2**24) exactly.  The GEMM accumulators
+# run as int32 in the engine but as f32 in the QAT sim; their bit-equality
+# holds while the values stay inside this envelope.
+F32_EXACT = 2.0**24
+
+
+@contextlib.contextmanager
+def audit_capture():
+    """Collect per-site integer extrema while the engine runs.
+
+    Yields a list of records ``{site, kind, min, max, lo_bound, hi_bound}``
+    (and ``sat_frac`` at the requant and residual sites, which clamp by
+    design).  ``min``, ``max`` and ``sat_frac`` are 0-d f32 tensors on the
+    engine's device, read (``float(...)``) when the caller wants them: a
+    capture adds no host sync per site.  The taps live on the unfused path
+    (``kernels=False``; the kernels are bitwise equal to it, so its
+    envelopes are theirs) and at the sites outside the blocks on every path.
+    """
+    global _AUDIT
+    _AUDIT = records = []
+    try:
+        yield records
+    finally:
+        _AUDIT = None
+
+
+def _tap(kind, val, lo, hi, sat=False):
+    if _AUDIT is None:
+        return
+    rec = {"site": f"{kind}#{len(_AUDIT)}", "kind": kind,
+           "min": torch.amin(val).float(), "max": torch.amax(val).float(),
+           "lo_bound": float(lo), "hi_bound": float(hi)}
+    if sat:
+        # requant sites clamp by design (calibration maps the observed range
+        # onto the container; outliers saturate): record the share that
+        # clips, as jnp.mean forms it (the f32 count times the f32
+        # reciprocal of the element count)
+        recip = float(np.float32(1.0) / np.float32(val.numel()))
+        rec["sat_frac"] = ((val < lo) | (val > hi)).sum().float() * recip
+    _AUDIT.append(rec)
+
+
+def audit_violations(records):
+    """Records whose extrema escape their declared bounds (empty == sized)."""
+    bad = []
+    for r in records:
+        lo, hi = float(r["min"]), float(r["max"])
+        if lo < r["lo_bound"] or hi > r["hi_bound"]:
+            bad.append({**r, "min": lo, "max": hi})
+    return bad
+
+
+def fusion_report(cfg, kernels=True) -> dict:
+    """Which path :func:`engine_forward` takes for ``cfg`` and ``kernels``,
+    under JAX's keys (``vit_int.py:119``), the reasons naming the port's own
+    gates: the fused block kernels unless ``kernels`` is not True or a
+    softmax / GELU is float (no kernel for it in either package); with
+    ``"ops"`` the standalone ivit Shiftmax / ShiftGELU kernels; the table
+    forms where the spec carries them and ``IVIT_LUT`` is set."""
+    sm, ge, ln = (cfg.base_type(w) for w in ("softmax", "gelu", "ln"))
+    reasons = []
+    if kernels is False:
+        reasons.append("kernels=False: the plain per-op engine")
+    elif kernels == "ops":
+        reasons.append("kernels='ops': the standalone nonlinearity kernels "
+                       "in the unfused engine")
+    for which, base in (("softmax", sm), ("gelu", ge)):
+        if base not in ("ivit", "ibert", "ppoly"):
+            reasons.append(f"{which} family {base!r} has no fused block kernel")
+    if ln not in ("ivit", "ibert"):
+        reasons.append(f"ln family {ln!r}: the integer engine does not run it")
+    fused_blocks = kernels is True and not reasons
+    return {
+        "fused_blocks": fused_blocks,
+        "fused_softmax": fused_blocks or (kernels == "ops" and sm == "ivit"),
+        "fused_gelu": fused_blocks or (kernels == "ops" and ge == "ivit"),
+        "lut_nonlinearities": bool(fused_blocks and cfg.use_lut
+                                   and kblock._lut_on()),
+        "unfused_reasons": reasons,
+    }
 
 
 def _base(cfg: EngineConfig, which: str) -> str:
@@ -107,14 +207,18 @@ def _check_kernels(kernels):
 
 
 def _gemm_bias(a_int, w_int8, b_int32):
-    """int8 GEMM (the operand wrapped to int8, as JAX's ``_dot_i8``) + bias."""
-    return int8_matmul(a_int.to(torch.int8), w_int8) + b_int32
+    """int8 GEMM (the operand wrapped to int8, as JAX's ``_dot_i8``) + bias,
+    tapped: the sim computes the same value in f32."""
+    acc = int8_matmul(a_int.to(torch.int8), w_int8) + b_int32
+    _tap("gemm_acc", acc, -F32_EXACT, F32_EXACT)
+    return acc
 
 
 def _requant(acc, m, bits):
     """round(acc * m) clamped and stored in the ``bits`` container."""
     n = 2 ** (bits - 1) - 1
     y = torch.round(acc.float() * m)
+    _tap(f"requant{bits}", y, -n - 1, n, sat=True)
     return torch.clamp(y, -n - 1, n).to(_container(bits))
 
 
@@ -166,7 +270,9 @@ def _softmax_int(cfg, blk, scores_int, kernels=False, allow_lut=True):
     # internal 16-bit QuantAct on the raw exp ints, multiply form
     exp16 = torch.clamp(torch.round(exp_int * rdiv(1.0, blk["s_exp_act"])),
                         -(2.0**15), 2.0**15 - 1)
-    factor = torch.floor(rdiv(2.0**32, exact_int_sum(exp16)))
+    exp_sum = exact_int_sum(exp16)
+    _tap("exp_sum", exp_sum, 1.0, 2.0**31 - 1)
+    factor = torch.floor(rdiv(2.0**32, exp_sum))
     return to_container(torch.floor(exp16 * factor / 2 ** (32 - bit + 1)), bit)
 
 
@@ -250,14 +356,23 @@ def _lut_kw(cfg, blk, which):
 
 def _layernorm_int(cfg, x_int, bias_int, shift):
     if _base(cfg, "ln") == "ivit":
+        if _AUDIT is not None:
+            # the two-limb variance is exact iff C * (|y| / 2**8)**2 < 2**31
+            bound = 2.0**8 * (2.0**31 / x_int.shape[-1]) ** 0.5
+            _tap("ln_centered", iv.i_layernorm_centered(x_int.float()),
+                 -bound, bound)
         return iv.i_layernorm_core(x_int.float()) + bias_int
     return ib.ibert_layernorm_int(x_int.float(), shift,
                                   use_int_sqrt=_use_int_sqrt(cfg)) + bias_int
 
 
-def _residual_requant(y, my, xr, mx, bits):
+def _residual_requant(y, my, xr, mx, bits, tap=True):
+    """The integer residual add (dual requant); ``tap=False`` where JAX's
+    engine does not tap it (Swin's, ``swin_int.py:466``)."""
     lim = 2.0 ** (bits - 1)
     raw = torch.round(y.float() * my) + torch.round(xr.float() * mx)
+    if tap:
+        _tap(f"residual{bits}", raw, -lim, lim - 1, sat=True)
     return torch.clamp(raw, -lim, lim - 1).to(_container(bits))
 
 
@@ -272,9 +387,13 @@ def _attn_unfused(cfg, blk, x, kernels):
     q = qkv[:, :, 0].permute(0, 2, 1, 3)                     # [B, H, N, Dh]
     k = qkv[:, :, 1].permute(0, 2, 3, 1)                     # [B, H, Dh, N]
     v = qkv[:, :, 2].permute(0, 2, 1, 3)
-    scores = _requant(int8_matmul(q, k), blk["m_attn"], 8)
+    scores = int8_matmul(q, k)
+    _tap("gemm_acc", scores, -F32_EXACT, F32_EXACT)
+    scores = _requant(scores, blk["m_attn"], 8)
     probs = _softmax_int(cfg, blk, scores, kernels)
-    y = _requant(int8_matmul(probs, v), blk["m_av"], 8)      # [B, H, N, Dh]
+    ctx = int8_matmul(probs, v)
+    _tap("gemm_acc", ctx, -F32_EXACT, F32_EXACT)
+    y = _requant(ctx, blk["m_av"], 8)                        # [B, H, N, Dh]
     y = y.permute(0, 2, 1, 3).reshape(B, N, C)
     y = _requant(_gemm_bias(y, blk["proj_w"], blk["proj_b"]), blk["m_proj"],
                  bw.attention_out)
@@ -398,6 +517,12 @@ class Engine:
     """Callable integer inference engine for one frozen ViT or Swin spec
     (dispatching on the spec's type, as the JAX ``Engine`` does).
 
+    ``fusion`` is :func:`fusion_report` (ViT) or
+    :func:`~ivit_tpu_torch.engine.swin_int.swin_fusion_report` (Swin) of the
+    spec and the caller's choice, with ``path_choice`` recording that
+    choice (the port has no dispatch table yet: the caller's ``kernels``
+    and ``stage_paths`` decide).
+
     Keeps the caller's spec as ``spec`` and moves its parameters to
     ``device`` once (default ``cuda``; raises without a card unless
     ``device="cpu"``); with ``kernels=True``, where the MLP half-blocks run
@@ -414,7 +539,8 @@ class Engine:
     def __init__(self, spec, device=None, kernels=True, stage_paths=None):
         # imported here: swin_int builds on this module
         from .swin_int import (SwinEngineSpec, check_stage_paths,
-                               check_swin_kernels, swin_engine_forward)
+                               check_swin_kernels, swin_engine_forward,
+                               swin_fusion_report)
         _check_families(spec.config)
         attn_fused, mlp_fused = fused_halves(spec.config)
         if isinstance(spec, SwinEngineSpec):
@@ -422,6 +548,8 @@ class Engine:
             check_stage_paths(spec.config, stage_paths)
             self._forward = functools.partial(swin_engine_forward,
                                               stage_paths=stage_paths)
+            self.fusion = swin_fusion_report(spec.config, kernels, stage_paths)
+            fused = self.fusion["fused_window_attention"]
         else:
             mlp_fused = attn_fused and mlp_fused
             _check_kernels(kernels)
@@ -429,6 +557,16 @@ class Engine:
                 raise ValueError("stage_paths picks a path per Swin stage; "
                                  "a ViT spec has none")
             self._forward = engine_forward
+            self.fusion = fusion_report(spec.config, kernels)
+            fused = self.fusion["fused_blocks"]
+        self.fusion["path_choice"] = {"source": "caller", "kernels": repr(kernels),
+                                      "stage_paths": stage_paths}
+        log = logging.getLogger("ivit_tpu_torch.engine")
+        if fused:
+            log.info("engine path: fused block kernels")
+        else:
+            log.info("engine path: unfused (%s)",
+                     "; ".join(self.fusion["unfused_reasons"]) or "by stage")
         self.device = resolve_device(device)
         self.spec = spec
         params = params_to_torch(spec.params, self.device)

@@ -146,6 +146,30 @@ class FloatVisionTransformer(nn.Module):
         return self.head(self.norm(x)[:, 0].float())
 
 
+def timm_state_dict(model: FloatVisionTransformer) -> dict:
+    """The float ViT's parameters under timm's DeiT names and layouts (the
+    files the reference's factories download): ``blocks.N.attn.qkv``,
+    ``blocks.N.mlp.fc1``, LayerNorm ``weight``, linear weights ``[out,
+    in]``, the patch conv OIHW; f32 CPU tensors."""
+    out = {}
+    for name, p in model.named_parameters():
+        parts = name.split(".")
+        if parts[0] == "blocks" and parts[2] in ("qkv", "proj"):
+            parts.insert(2, "attn")
+        elif parts[0] == "blocks" and parts[2] in ("fc1", "fc2"):
+            parts.insert(2, "mlp")
+        elif parts[0] == "patch_embed":
+            parts.insert(1, "proj")
+        t = p.detach().float().cpu()
+        if parts[-1] == "scale":
+            parts[-1] = "weight"
+        elif parts[-1] == "kernel":
+            parts[-1] = "weight"
+            t = t.permute(3, 2, 0, 1) if t.dim() == 4 else t.t()
+        out[".".join(parts)] = t.contiguous()
+    return out
+
+
 FLOAT_ARCHS = {
     "deit_tiny_patch16_224": dict(embed_dim=192, depth=12, num_heads=3),
     "deit_small_patch16_224": dict(embed_dim=384, depth=12, num_heads=6),

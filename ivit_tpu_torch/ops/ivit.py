@@ -83,13 +83,19 @@ def int_newton_sqrt(var_int, iters: int = 10, k0: float = 2.0**16):
     return k
 
 
+def i_layernorm_centered(x_int):
+    """I-LayerNorm's centred integers ``y = x - round(mean)`` (the engine's
+    envelope audit reads them, ``vit_int.py:452``)."""
+    x_int = round_ste(x_int)
+    dim = f32(x_int.shape[-1], x_int.device)
+    return x_int - round_ste(rdiv(exact_int_sum(x_int), dim))
+
+
 def i_layernorm_core(x_int):
     """The integer part of I-LayerNorm, without its bias: ``floor(y *
     floor(INT32_MAX / newton_sqrt(var)) / 2)`` with ``y = x - mean``; the
     engine adds the frozen integer bias (``vit_int.py:441-457``)."""
-    x_int = round_ste(x_int)
-    dim = f32(x_int.shape[-1], x_int.device)
-    y_int = x_int - round_ste(rdiv(exact_int_sum(x_int), dim))
+    y_int = i_layernorm_centered(x_int)
     factor = floor_ste(rdiv(INT32_MAX, int_newton_sqrt(exact_sq_sum(y_int))))
     return floor_ste(y_int * factor / 2)
 

@@ -12,6 +12,9 @@ Examples:
 (``root/<class>/<image>``); PNG and BMP files are decoded by the port
 itself, JPEG and WebP need Pillow.  ``main(argv)`` takes the argument list
 and returns the fitted :class:`~ivit_tpu_torch.train.trainer.Trainer`.
+``--pretrained`` loads a reference ``.pth.tar`` or a timm-style float
+``.pth`` into the sim before training (``compat/torch_ckpt.py``, not strict:
+the leaves the file lacks keep their seeded values).
 """
 
 from __future__ import annotations
@@ -22,7 +25,6 @@ import sys
 
 # The flags the port does not have yet, with the ROADMAP item that brings each.
 _NOT_YET = {
-    "pretrained": "--pretrained needs compat/torch_ckpt.py (ROADMAP Queue 1 item 5)",
     "mesh_dp": "--mesh-dp / --mesh-tp need the port's mesh (ROADMAP Queue 1 item 4)",
     "distributed": "--distributed needs the port's multi-process path "
                    "(ROADMAP Queue 1 item 4)",
@@ -109,7 +111,8 @@ def build_datasets(args):
 
 
 def build_trainer(args):
-    """The parsed arguments' datasets, config and Trainer (not yet fitted).
+    """The parsed arguments' datasets, config and Trainer (not yet fitted),
+    the ``--pretrained`` weights loaded into its sim (unless resuming).
     Raises ``NotImplementedError`` for a flag the port does not have yet."""
     from ivit_tpu_torch.train.trainer import TrainConfig, Trainer
 
@@ -136,7 +139,14 @@ def build_trainer(args):
         seed=args.seed, output_dir=args.output_dir, run_id=args.run_id,
         resume=args.resume, log_interval=args.log_interval,
         log_grad_norm=args.log_grad_norm)
-    return Trainer(cfg, ds_train, ds_val, device=args.device)
+    trainer = Trainer(cfg, ds_train, ds_val, device=args.device)
+    if args.pretrained and not args.resume:
+        from ivit_tpu_torch.compat.torch_ckpt import load_into_model
+        # in place: the train state holds the sim's own tensors
+        _, report = load_into_model(trainer.model, args.pretrained, strict=False)
+        logging.info("loaded pretrained weights (%d leaves, %d missing)",
+                     len(report["matched"]), len(report["missing"]))
+    return trainer
 
 
 def main(argv=None):

@@ -1347,3 +1347,125 @@ def test_cuda_native_preprocess_builds_from_source(cuda):
     assert got.shape == (5, 64, 64, 3) and np.isfinite(got).all()
     np.testing.assert_array_equal(native.preprocess_batch(imgs, out_size=64,
                                                           num_threads=4), got)
+
+
+# --- checkpoint interop, the envelope audit and the inference CLI -----------
+
+def _cal_vit(dev, fam="ibert", seed=0):
+    from ivit_tpu_torch.models import VisionTransformer
+    sim = VisionTransformer(img_size=64, patch_size=16, embed_dim=64, depth=2,
+                            num_heads=2, num_classes=10, gelu_type=fam, softmax_type=fam,
+                            layernorm_type=fam, device=dev, seed=seed)
+    gen = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for _ in range(2):
+            sim(torch.randn((4, 64, 64, 3), generator=gen).to(dev), running_stat=True)
+    return sim
+
+
+def test_cuda_reference_checkpoint_round_trip(cuda, tmp_path):
+    """A calibrated ViT and Swin sim on the card written as reference
+    checkpoints and loaded into fresh sims there: every leaf equal, none
+    missing, the reloaded engine's logits on the block kernels the
+    original sim's."""
+    from ivit_tpu_torch.compat.export_torch import save_reference_checkpoint
+    from ivit_tpu_torch.compat.torch_ckpt import load_into_model
+    from ivit_tpu_torch.engine.freeze import freeze_model
+    from ivit_tpu_torch.engine.swin_int import freeze_swin_model
+    from ivit_tpu_torch.models import SwinTransformer
+    from ivit_tpu_torch.models.convert import differing_leaves, variables_to_numpy
+    gen = torch.Generator().manual_seed(3)
+    swin_kw = dict(gelu_type="ivit", softmax_type="ivit", layernorm_type="ivit",
+                   **SWIN_QAT_GEOM)
+    cases = [(_cal_vit(cuda), _cal_vit(cuda, seed=1), freeze_model, 64),
+             (_swin_qat_sim(cuda, "ivit"), SwinTransformer(device=cuda, seed=1, **swin_kw),
+              freeze_swin_model, 56)]
+    with torch.no_grad():
+        for _ in range(2):
+            cases[1][0](torch.randn((4, 56, 56, 3), generator=gen).to(cuda),
+                        running_stat=True)
+    for sim, fresh, freeze, img in cases:
+        path = str(tmp_path / "ckpt.pth.tar")
+        save_reference_checkpoint(variables_to_numpy(sim), {}, path)
+        _, report = load_into_model(fresh, path)
+        assert report["missing"] == []
+        assert differing_leaves(variables_to_numpy(fresh), variables_to_numpy(sim)) == []
+        x = torch.randn((4, img, img, 3), generator=gen).to(cuda)
+        with torch.no_grad():
+            assert torch.equal(Engine(freeze(fresh))(x), sim(x))
+
+
+def test_cuda_audit_matches_cpu(cuda):
+    """The plain engine's envelope-audit records on the card equal the
+    CPU's (the extrema and saturation shares read from device tensors);
+    no hard violation; the kernel path taps only the sites outside the
+    blocks."""
+    from ivit_tpu_torch.engine.freeze import freeze_model
+    from ivit_tpu_torch.engine.vit_int import (audit_capture, audit_violations,
+                                               engine_forward)
+    spec = freeze_model(_cal_vit(cuda))
+    x = torch.randn((4, 64, 64, 3), generator=torch.Generator().manual_seed(4))
+
+    def records(dev, kernels=False):
+        with audit_capture() as recs:
+            engine_forward(spec, x, kernels=kernels, device=dev)
+        return [{k: float(v) if isinstance(v, torch.Tensor) else v for k, v in r.items()}
+                for r in recs]
+    card = records(cuda)
+    assert card == records("cpu")
+    assert len(card) == 2 + 2 * 18 + 2       # patch, 18 sites a block (ibert), LN + head
+    assert audit_violations([r for r in card if "sat_frac" not in r]) == []
+    fused = records(cuda, kernels=True)
+    assert 0 < len(fused) < 10
+
+
+def test_cuda_inference_cli_matches_cpu(cuda, tmp_path, monkeypatch):
+    """The inference CLI on a reference checkpoint at 64 px (depth 2): on
+    the card and on the CPU, the same counts and the same artifact (bytes,
+    the clock frozen); the card run on the block kernels."""
+    import time
+    import ivit_tpu_torch.models as tmodels
+    from ivit_tpu_torch.compat.export_torch import save_reference_checkpoint
+    from ivit_tpu_torch.models import VisionTransformer
+    from ivit_tpu_torch.models.convert import variables_to_numpy
+    from ivit_tpu_torch.scripts import inference
+    monkeypatch.setattr(tmodels, "str2model", lambda name: lambda **kw: VisionTransformer(
+        **{"patch_size": 16, "embed_dim": 64, "depth": 2, "num_heads": 2, **kw}))
+    monkeypatch.setattr(time, "time", lambda: 1.7e9)
+    path = str(tmp_path / "ckpt.pth.tar")
+    save_reference_checkpoint(variables_to_numpy(_cal_vit("cpu")),
+                              {"model": "deit_small_patch16_224", "gelu_type": "ibert",
+                               "softmax_type": "ibert", "layernorm_type": "ibert"}, path)
+    out = {}
+    for dev in ("cuda", "cpu"):
+        kb.attn_block.launches = kb.mlp_block.launches = 0
+        out[dev] = inference.main([
+            "--weights", path, "--dataset", "synthetic", "--batch-size", "8",
+            "--max-batches", "2", "--img-size", "64", "--num-classes", "10",
+            "--calibration-batches", "1", "--export-engine", str(tmp_path / dev),
+            "--device", dev])
+        if dev == "cuda":
+            torch.cuda.synchronize()
+            assert (kb.attn_block.launches, kb.mlp_block.launches) == (4, 4)
+    for k in ("top1", "top3", "top5", "images"):
+        assert out["cuda"][k] == out["cpu"][k]
+    for ext in (".npz", ".json"):
+        assert ((tmp_path / f"cuda{ext}").read_bytes()
+                == (tmp_path / f"cpu{ext}").read_bytes()), ext
+
+
+def test_cuda_benchmarking_utils(cuda):
+    """The H100's peaks by the card's name; the timers and the profiler on
+    the card (device time by kernel name, or none where CUPTI is absent)."""
+    from ivit_tpu_torch.utils import benchmarking as bench
+    name = torch.cuda.get_device_name(0)
+    if "H100" in name:
+        assert bench.chip_peaks()["int8_tops"] == 1979e12
+    else:
+        with pytest.raises(ValueError, match="no peak rates"):
+            bench.chip_peaks()
+    x = torch.ones((256, 256), device=cuda)
+    assert bench.time_inloop(lambda c: c * 1.0001, x, n_iters=10) > 0
+    assert bench.time_dispatch(lambda a: a @ a, x, iters=5) > 0
+    ops = bench.profile_device_ops(lambda a: a @ a, x, iters=3)
+    assert all(v["us_per_iter"] > 0 for v in ops.values())
