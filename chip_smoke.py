@@ -177,7 +177,28 @@ Phases, each printing one JSON line:
    same records) and the fused DeiT-S ibert engine's img/s with the audit
    taps present and no capture beside phase 7's; ``quant_train
    --pretrained`` with a seeded timm-style float DeiT-S file (the sim's
-   parameters the file's; two steps of 16, finite losses); under 90 s.
+   parameters the file's; two steps of 16, finite losses); under 90 s;
+26. parallel: the dp x tp mesh (``ivit_tpu_torch.parallel``) on the one
+   card: a world of one on NCCL in this process (the mesh engine, DeiT-S
+   ibert at batch 64 on 12 + 12 fused launches, bitwise ``Engine(spec)``;
+   an NCCL int32 all-reduce past 2**24); two gloo ranks on ``cuda:0``
+   (spawned: NCCL refuses two ranks on one device): the dp-2 fused engine
+   (32 rows and 12 + 12 launches a rank), the tp-2 DeiT-S ivit engine on
+   the standalone kernels (3 heads and 768 hidden columns, plus 16 that
+   carry the row max, a rank; 12 + 12 launches), each bitwise the
+   single-device ``Engine``'s, the tp-2 DeiT-S ivit sim (qkv x 3) bitwise
+   the single-device sim, one dp-2 train step on 16 images (ranges
+   bitwise; loss and params within ``tests/test_parallel.py``'s bounds);
+   three gloo ranks: the Swin-T ivit sim at tp 3 (heads 1/2/4/8 a rank),
+   bitwise; the synthetic Swin-T ivit engine at dp 3 on the fused kernels
+   (12 + 12 launches a rank) and at tp 3 on the plain path, bitwise the
+   single-device ``Engine``'s; ``ServingEngine(devices=["cuda:0", "cuda:0"])``, 512
+   requests, every answer bitwise, 24 + 24 launches a served batch, its
+   img/s beside a one-replica server's; ``quant_train --mesh-dp 1
+   --mesh-tp 1`` (one spawned NCCL rank, one step over a seeded folder)
+   and the ``--mesh-dp 2`` refusal on one card; each collective's count
+   and ms per forward (host clock, the card synchronized around each:
+   gloo's host staging included); under 90 s.
 
 The build phase reports ptxas's registers and spill bytes per kernel and
 fails if any kernel spills.
@@ -3357,6 +3378,405 @@ def compat_cli_phase(torch, counters, dev, rows, smi, engine_img_s):
         raise AssertionError(f"compat_cli took {out['seconds']:.1f} s (budget 90 s)")
 
 
+# ---------------------------------------------------------------------------
+# Phase 26: parallelism on the card
+# ---------------------------------------------------------------------------
+
+PAR_BATCH = 64            # the engines' global batch (32 a rank under dp 2)
+PAR_SIM_BATCH = 16        # the tp sim forwards and the dp train step
+PAR_SERVED = 512          # requests through each server
+PAR_TIMEOUT = 300         # seconds a spawned world may take
+
+
+def _par_counters():
+    from ivit_tpu_torch.ops.kernels import block as kb
+    from ivit_tpu_torch.ops.kernels import nonlinear as knl
+    return {"attn_block": kb.attn_block, "mlp_block": kb.mlp_block,
+            "swin_attn_block": kb.swin_attn_block, "shiftmax": knl.shiftmax,
+            "shift_gelu_requant": knl.shift_gelu_requant}
+
+
+def _par_images(np, n, img=224, seed=QAT_SEED + 31):
+    return np.random.default_rng(seed).normal(size=(n, img, img, 3)).astype(np.float32)
+
+
+def _par_collectives(coll, forwards=1):
+    """Each collective's count and ms per forward (host clock, the card
+    synchronized around each: gloo's host staging included)."""
+    return {k: {"count": v["count"] / forwards, "ms": v["ms"] / forwards}
+            for k, v in sorted(coll.STATS.items())}
+
+
+def _par_counted_forward(torch, coll, fn):
+    """A warm-up call, then ``fn`` with every launch count and collective
+    statistic set to 0 just before it (collectives timed); returns its
+    result, the counts and the collectives."""
+    fn()
+    counters = _par_counters()
+    for c in counters.values():
+        c.launches = 0
+    coll.reset_stats()
+    torch.cuda.synchronize()
+    with coll.timed():
+        out = fn()
+    torch.cuda.synchronize()
+    return out, {k: c.launches for k, c in counters.items()}, _par_collectives(coll)
+
+
+def _par_pair_rank(rank):
+    """One of two gloo ranks on cuda:0: the dp-2 fused engine, the tp-2
+    standalone-kernel engine, the tp-2 DeiT-S ivit sim, a dp-2 train step;
+    each against the single-device run in this process."""
+    import copy
+
+    import numpy as np
+    import torch
+
+    from ivit_tpu_torch.engine import Engine
+    from ivit_tpu_torch.engine.convert import params_to_torch
+    from ivit_tpu_torch.engine.synthetic import deit_small_config, synthetic_spec
+    from ivit_tpu_torch.engine.vit_int import engine_forward
+    from ivit_tpu_torch.models.convert import differing_leaves, variables_to_numpy
+    from ivit_tpu_torch.ops.kernels import nonlinear as knl
+    from ivit_tpu_torch.parallel import (collectives as coll, local_rows, make_mesh,
+                                         shard_engine_params, shard_module)
+    from ivit_tpu_torch.parallel.launch import rank_device
+    from ivit_tpu_torch.train import optim
+    from ivit_tpu_torch.train.steps import init_train_state, make_train_step
+
+    dev = rank_device()
+    out = {}
+    x = _par_images(np, PAR_BATCH)
+    xd = torch.from_numpy(x).to(dev)
+
+    # dp 2: the fused block kernels on this rank's 32 rows
+    spec = synthetic_spec(deit_small_config(), seed=0)
+    want = Engine(spec)(xd)
+    mesh = make_mesh(2, 1)
+    local = type(spec)(spec.config, params_to_torch(spec.params, dev))
+    got, launches, colls = _par_counted_forward(torch, coll, lambda: engine_forward(
+        local, local_rows(xd, mesh), kernels=True, mesh=mesh))
+    if not torch.equal(got, want):
+        raise AssertionError(f"rank {rank}: dp-2 engine != Engine(spec): max abs "
+                             f"{(got - want).abs().max().item()}")
+    out["engine_dp"] = {"launches": launches, "collectives": colls,
+                        "rows": PAR_BATCH // 2}
+
+    # tp 2: the standalone kernels on this rank's 3 heads and 768 columns
+    spec = synthetic_spec(deit_small_config(ln="ivit", gelu="ivit", softmax="ivit"),
+                          seed=0)
+    want = Engine(spec, kernels="ops")(xd)
+    mesh = make_mesh(1, 2)
+    shards, _ = shard_engine_params(spec.params, mesh)
+    local = type(spec)(spec.config, params_to_torch(shards, dev))
+    shapes = {"shiftmax": set(), "shift_gelu_requant": set()}
+    originals = {k: getattr(knl, k) for k in shapes}
+
+    def recorder(name):
+        # the wrapper counts in the name it is bound to: this one's, while
+        # it stands in for it
+        def call(x, *a, **k):
+            shapes[name].add(tuple(x.shape))
+            return originals[name](x, *a, **k)
+        call.launches = 0
+        return call
+    try:
+        for k in shapes:
+            setattr(knl, k, recorder(k))
+        got, launches, colls = _par_counted_forward(torch, coll, lambda: engine_forward(
+            local, xd, kernels="ops", mesh=mesh))
+    finally:
+        for k, f in originals.items():
+            setattr(knl, k, f)
+    if not torch.equal(got, want):
+        raise AssertionError(f"rank {rank}: tp-2 engine != Engine(spec, 'ops'): max "
+                             f"abs {(got - want).abs().max().item()}")
+    out["engine_tp"] = {"launches": launches, "collectives": colls,
+                        "shapes": {k: sorted(v) for k, v in shapes.items()}}
+
+    # tp 2: the DeiT-S ivit sim (qkv x QAT_QKV_GAIN), calibrated on the card
+    sim = qat_sim(torch, "ivit", dev)
+    rng = np.random.default_rng(QAT_SEED + 32)
+    with torch.no_grad():
+        for _ in range(QAT_CALIB):
+            sim(torch.from_numpy(rng.normal(size=(QAT_CALIB_BATCH, 224, 224, 3))
+                                 .astype(np.float32)).to(dev), running_stat=True)
+        xs = xd[:PAR_SIM_BATCH]
+        want = sim(xs)
+        t0 = time.perf_counter()
+        got = shard_module(copy.deepcopy(sim), mesh)(xs)
+        torch.cuda.synchronize()
+    if not torch.equal(got, want):
+        raise AssertionError(f"rank {rank}: tp-2 sim != single-device sim: max abs "
+                             f"{(got - want).abs().max().item()}")
+    out["sim_tp"] = {"first_forward_s": time.perf_counter() - t0}
+
+    # dp 2: one train step on a global batch of 16 (drop-path 0.1)
+    from ivit_tpu_torch.models import deit_small_patch16_224
+    sim = deit_small_patch16_224(drop_path_rate=0.1, device="cpu", seed=QAT_SEED).to(dev)
+    with torch.no_grad():
+        sim(xd[PAR_SIM_BATCH:2 * PAR_SIM_BATCH], running_stat=True)
+    tx = optim.chain(optim.clip_by_global_norm(1.0),
+                     optim.scale_by_learning_rate(lambda c: np.float32(1e-3)))
+    batch = {"image": xd[:PAR_SIM_BATCH],
+             "label": torch.arange(PAR_SIM_BATCH, device=dev) * 37 % 1000}
+    ref = copy.deepcopy(sim)
+    ref_state, ref_m = make_train_step(ref, tx, 1000, log_grad_norm=True)(
+        init_train_state(ref, tx), batch, torch.Generator().manual_seed(5))
+    shard_module(sim, make_mesh(2, 1))
+    t0 = time.perf_counter()
+    state, m = make_train_step(sim, tx, 1000, log_grad_norm=True)(
+        init_train_state(sim, tx), batch, torch.Generator().manual_seed(5))
+    torch.cuda.synchronize()
+    step_s = time.perf_counter() - t0
+    a, b = variables_to_numpy(sim), variables_to_numpy(ref)
+    if differing_leaves(a["quant_stats"], b["quant_stats"]):
+        raise AssertionError(f"rank {rank}: dp-2 step quant_stats differ")
+    np.testing.assert_allclose(float(m["loss"]), float(ref_m["loss"]), rtol=1e-5)
+    worst = 0.0
+    for (pa, ga), (_, gb) in zip(optim.tree_paths(a["params"]),
+                                 optim.tree_paths(b["params"])):
+        np.testing.assert_allclose(ga, gb, rtol=2e-4, atol=2e-6, err_msg=str(pa))
+        worst = max(worst, float(np.abs(ga - gb).max()))
+    out["train_dp"] = {"loss": float(m["loss"]), "loss_single": float(ref_m["loss"]),
+                       "grad_norm": float(m["grad_norm"]),
+                       "grad_norm_single": float(ref_m["grad_norm"]),
+                       "max_param_abs_diff": worst, "step_s": step_s}
+    return out
+
+
+def _par_swin_rank(rank):
+    """One of three gloo ranks on cuda:0: the Swin-T ivit sim at tp 3
+    (heads 1/2/4/8 a rank) against the single-device sim; the synthetic
+    Swin-T ivit engine at dp 3 on the fused kernels (2 rows a rank) and at
+    tp 3 on the plain path, against the single-device ``Engine``."""
+    import copy
+
+    import numpy as np
+    import torch
+
+    from ivit_tpu_torch.engine import Engine
+    from ivit_tpu_torch.engine.convert import params_to_torch
+    from ivit_tpu_torch.engine.swin_int import swin_engine_forward
+    from ivit_tpu_torch.engine.synthetic import swin_tiny_config, synthetic_swin_spec
+    from ivit_tpu_torch.models import swin_tiny_patch4_window7_224
+    from ivit_tpu_torch.parallel import (local_rows, make_mesh, shard_engine_params,
+                                         shard_module)
+    from ivit_tpu_torch.parallel.launch import rank_device
+
+    dev = rank_device()
+    out = {}
+    spec = synthetic_swin_spec(swin_tiny_config(), seed=0)
+    xe = torch.from_numpy(_par_images(np, 6, seed=QAT_SEED + 36)).to(dev)
+    for name, (dp, tp), kernels in (("engine_dp3", (3, 1), True),
+                                    ("engine_tp3", (1, 3), False)):
+        mesh = make_mesh(dp, tp)
+        want = Engine(spec, kernels=kernels)(xe)
+        local, _ = shard_engine_params(spec.params, mesh)
+        lspec = type(spec)(spec.config, params_to_torch(local, dev))
+        counters = _par_counters()
+        for c in counters.values():
+            c.launches = 0
+        got = swin_engine_forward(lspec, local_rows(xe, mesh), kernels=kernels,
+                                  mesh=mesh)
+        torch.cuda.synchronize()
+        if not torch.equal(got, want):
+            raise AssertionError(f"rank {rank}: Swin-T {name} != Engine(spec)")
+        out[name] = {k: c.launches for k, c in counters.items()}
+    sim = swin_tiny_patch4_window7_224(device="cpu", seed=QAT_SEED).to(dev)
+    x = torch.from_numpy(_par_images(np, 8, seed=QAT_SEED + 33)).to(dev)
+    with torch.no_grad():
+        sim(x[4:], running_stat=True)
+        want = sim(x[:4])
+        tp = shard_module(copy.deepcopy(sim), make_mesh(1, 3))
+        got = tp(x[:4])
+    if not torch.equal(got, want):
+        raise AssertionError(f"rank {rank}: tp-3 Swin-T sim != single-device sim")
+    out["heads"] = [tp.stages[i][0][0].attn.relative_position_bias_table.shape[1]
+                    for i in range(4)]
+    return out
+
+
+def _par_cli_folder(root):
+    """A seeded 2-class ImageFolder of 16 train and 16 val PNGs."""
+    import numpy as np
+    rng = np.random.default_rng(QAT_SEED + 34)
+    for split in ("train", "val"):
+        for c in range(2):
+            cdir = os.path.join(root, split, f"class_{c}")
+            os.makedirs(cdir, exist_ok=True)
+            for k in range(8):
+                write_png(os.path.join(cdir, f"img_{k}.png"),
+                          rng.integers(0, 256, (96, 96, 3)).astype(np.uint8))
+
+
+def parallel_phase(torch, counters, dev, rows, smi):
+    """Phase 26: parallelism on the card (one card).  (a) A world of one on
+    NCCL, in this process: the dp 1 x tp 1 mesh's DeiT-S ibert engine
+    (batch 64, the fused kernels) bitwise Engine(spec)'s, 12 + 12
+    launches; an NCCL int32 all_reduce of values past 2**24, exact.  (b)
+    Two gloo ranks on cuda:0 (spawned; NCCL refuses two ranks on one
+    device): the dp-2 fused engine (32 rows a rank, 12 + 12 launches), the
+    tp-2 ivit engine on the standalone kernels (3 heads and 768 + 16
+    columns a rank, 12 + 12 launches), each bitwise the single-device
+    Engine's; the tp-2 DeiT-S ivit sim (qkv x QAT_QKV_GAIN) bitwise the
+    single-device sim; one dp-2 train step on a global batch of 16:
+    quant_stats bitwise, the loss within rtol 1e-5 and the params within
+    rtol 2e-4 / atol 2e-6 (tests/test_parallel.py's bounds).  (c) Three
+    gloo ranks: the Swin-T ivit sim at tp 3, bitwise; the synthetic Swin-T
+    engine at dp 3 (fused, 12 + 12 launches a rank) and tp 3 (plain),
+    bitwise.  (d) ServingEngine
+    over devices ["cuda:0", "cuda:0"]: every answer bitwise Engine(spec)'s,
+    24 + 24 launches a served batch, its img/s beside a one-replica
+    server's.  (e) quant_train --mesh-dp 1 --mesh-tp 1 on a seeded folder
+    (one spawned rank on NCCL, one step), and the --mesh-dp 2 refusal."""
+    import json
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    from ivit_tpu_torch.engine import Engine
+    from ivit_tpu_torch.engine.serving import ServingEngine
+    from ivit_tpu_torch.engine.synthetic import deit_small_config, synthetic_spec
+    from ivit_tpu_torch.engine.vit_int import engine_forward
+    from ivit_tpu_torch.parallel import collectives as coll
+    from ivit_tpu_torch.parallel import launch, make_mesh
+    from ivit_tpu_torch.scripts import quant_train
+
+    t_phase = time.perf_counter()
+    out, step_s = {}, {}
+    tmp = tempfile.mkdtemp(prefix="ivit_parallel_")
+    try:
+        # (a) a world of one on NCCL
+        t0 = time.perf_counter()
+        launch.init_process_group(0, 1, "nccl", dev, f"file://{tmp}/rendezvous")
+        try:
+            spec = synthetic_spec(deit_small_config(), seed=0)
+            eng = Engine(spec)
+            x = torch.from_numpy(_par_images(np, PAR_BATCH)).to(dev)
+            want = eng(x)
+            mesh = make_mesh(1, 1)
+            got, launches = run_counted(torch, counters, lambda: engine_forward(
+                eng._spec, x, kernels=True, mesh=mesh))
+            check_logits(torch, "parallel world-of-one engine", got, want, 1000,
+                         PAR_BATCH)
+            if (launches["attn_block"], launches["mlp_block"]) != (12, 12):
+                raise AssertionError(f"world of one: launches {launches}")
+            big = torch.tensor([2**24 + 1, -(2**30) - 3, 2**31 - 1], dtype=torch.int32,
+                               device=dev)
+            red = big.clone()
+            torch.distributed.all_reduce(red)
+            if not torch.equal(red, big):
+                raise AssertionError(f"NCCL int32 all_reduce: {red.tolist()}")
+            out["world_of_one"] = {"launches": launches, "backend":
+                                   torch.distributed.get_backend()}
+        finally:
+            torch.distributed.destroy_process_group()
+        t0 = lap(step_s, "world_of_one", t0)
+
+        # (b) two gloo ranks on cuda:0
+        pair = launch.spawn(_par_pair_rank, 2, backend="gloo",
+                            devices=["cuda:0", "cuda:0"], timeout=PAR_TIMEOUT)
+        for r, res in enumerate(pair):
+            dp_l, tp_l = res["engine_dp"]["launches"], res["engine_tp"]["launches"]
+            if (dp_l["attn_block"], dp_l["mlp_block"]) != (12, 12):
+                raise AssertionError(f"rank {r}: dp-2 launches {dp_l}")
+            if (tp_l["shiftmax"], tp_l["shift_gelu_requant"]) != (12, 12):
+                raise AssertionError(f"rank {r}: tp-2 launches {tp_l}")
+            shapes = res["engine_tp"]["shapes"]
+            if shapes["shiftmax"] != [(PAR_BATCH, 3, 197, 197)] or \
+                    shapes["shift_gelu_requant"] != [(PAR_BATCH, 197, 768 + 16)]:
+                raise AssertionError(f"rank {r}: tp-2 kernel shapes {shapes}")
+        out["pair"] = pair
+        t0 = lap(step_s, "two_ranks", t0)
+
+        # (c) three gloo ranks: Swin-T at tp 3
+        trio = launch.spawn(_par_swin_rank, 3, backend="gloo",
+                            devices=["cuda:0"] * 3, timeout=PAR_TIMEOUT)
+        for r, t in enumerate(trio):
+            d3, t3 = t["engine_dp3"], t["engine_tp3"]
+            if t["heads"] != [1, 2, 4, 8] or \
+                    (d3["swin_attn_block"], d3["mlp_block"]) != (12, 12) or \
+                    t3["swin_attn_block"] + t3["mlp_block"] != 0:
+                raise AssertionError(f"rank {r}: tp-3 Swin-T heads / launches {t}")
+        out["swin_trio"] = trio[0]
+        t0 = lap(step_s, "three_ranks", t0)
+
+        # (d) the server over two replicas on cuda:0
+        images = _par_images(np, PAR_SERVED, seed=QAT_SEED + 35)
+        want = np.concatenate([eng(torch.from_numpy(images[i:i + PAR_BATCH]).to(dev))
+                               .cpu().numpy() for i in range(0, PAR_SERVED, PAR_BATCH)])
+        served = {}
+        for name, kw in (("one_replica", {}), ("two_replicas",
+                                                {"devices": ["cuda:0", "cuda:0"]})):
+            with ServingEngine(spec, batch_size=PAR_BATCH, max_wait_ms=5, **kw) as srv:
+                srv.infer(images[:PAR_BATCH])            # warm-up batch
+                srv.metrics = type(srv.metrics)()
+                t1 = time.perf_counter()
+                got, launches = run_counted(torch, counters,
+                                            lambda: srv.infer(images))
+                wall = time.perf_counter() - t1
+                batches = srv.metrics.summary()["batches"]
+            if not np.array_equal(got, want):
+                raise AssertionError(f"{name} server != Engine(spec)")
+            served[name] = {"img_s": PAR_SERVED / wall, "batches": batches,
+                            "launches_per_batch": {k: launches[k] / batches
+                                                   for k in ("attn_block", "mlp_block")}}
+        if served["two_replicas"]["launches_per_batch"] != {"attn_block": 24,
+                                                            "mlp_block": 24}:
+            raise AssertionError(f"two-replica server launches {served}")
+        out["serving"] = served
+        t0 = lap(step_s, "serving", t0)
+
+        # (e) the CLI's mesh path: one spawned rank on NCCL, one step
+        root = os.path.join(tmp, "folder")
+        _par_cli_folder(root)
+        argv = ["--model", "deit_small_patch16_224", "--data-path", root,
+                "--batch-size", "16", "--epochs", "1", "--calibration-batches", "1",
+                "--aa", "none", "--seed", str(QAT_SEED), "--output-dir",
+                os.path.join(tmp, "runs"), "--run-id", "mesh", "--log-interval", "1"]
+        best = quant_train.main(argv + ["--mesh-dp", "1", "--mesh-tp", "1"])
+        with open(os.path.join(tmp, "runs", "log_mesh.jsonl")) as f:
+            losses = [r["loss"] for r in map(json.loads, f) if r["phase"] == "train"]
+        if len(losses) != 1 or not np.isfinite(losses).all():
+            raise AssertionError(f"quant_train --mesh-dp 1: losses {losses}")
+        if not os.path.exists(os.path.join(tmp, "runs", "checkpoint_mesh",
+                                           "state.msgpack")):
+            raise AssertionError("quant_train --mesh-dp 1 wrote no checkpoint")
+        try:
+            quant_train.main(argv + ["--mesh-dp", "2"])
+        except RuntimeError as e:
+            if "spawns 2 processes" not in str(e):
+                raise
+            refusal = str(e)
+        else:
+            raise AssertionError("quant_train --mesh-dp 2 ran on one card")
+        out["cli"] = {"best_acc1": best, "loss": losses[0], "refusal": refusal}
+        lap(step_s, "cli", t0)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    for k in ("attn_block", "mlp_block"):
+        rows[k]["launches_parallel_dp_rank"] = pair[0]["engine_dp"]["launches"][k]
+        rows[k]["launches_served_batch_2_replicas"] = \
+            out["serving"]["two_replicas"]["launches_per_batch"][k]
+    for k in ("shiftmax", "shift_gelu_requant"):
+        rows[k]["launches_parallel_tp_rank"] = pair[0]["engine_tp"]["launches"][k]
+    rows["swin_attn_block"]["launches_parallel_dp3_rank"] = \
+        trio[0]["engine_dp3"]["swin_attn_block"]
+    rows["mlp_block"]["launches_parallel_swin_dp3_rank"] = trio[0]["engine_dp3"]["mlp_block"]
+    seconds = time.perf_counter() - t_phase
+    emit({"phase": "parallel", "seconds": seconds, "step_s": step_s,
+          "nvidia_smi": smi, **out})
+    if seconds > 90:
+        raise AssertionError(f"parallel phase took {seconds:.1f} s (budget 90 s)")
+
+
+def lap(step_s, name, since):
+    step_s[name] = time.perf_counter() - since
+    return time.perf_counter()
+
+
 def profile_serving(torch, srv, images):
     """The card's idle share while ``srv`` serves ``images`` (torch.profiler,
     CUDA activity): 1 - device busy time / wall time."""
@@ -3484,6 +3904,8 @@ def main(argv=None) -> int:
     emit({"phase": "trainer_done", "seconds": time.perf_counter() - t0})
     compat_cli_phase(torch, counters, dev, rows, smi, engine_img_s)
     emit({"phase": "compat_cli_done", "seconds": time.perf_counter() - t0})
+    parallel_phase(torch, counters, dev, rows, smi)
+    emit({"phase": "parallel_done", "seconds": time.perf_counter() - t0})
     emit({"kernels": list(rows.values())})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

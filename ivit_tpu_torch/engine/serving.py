@@ -15,13 +15,24 @@ current stream), copies each batch through a ring of ``inflight`` pinned
 host buffers with ``non_blocking`` copies, records one CUDA event after a
 batch's logits are copied back, reuses a buffer only after its event has
 completed, and resolves a batch by waiting on its event alone.
-Data-parallel serving over several cards (JAX's ``mesh`` / ``devices``)
-is not ported.
+
+Data-parallel serving (JAX's ``mesh`` / ``devices``, one process, as in
+JAX): ``devices=`` builds ``make_mesh(dp=len(devices), tp=1)``, and one
+``Engine`` replica runs on the first device of each data row of the mesh,
+the parameters copied to it once.  The padded batch is split over the
+replicas (``batch_size % dp`` raises, as JAX's batch sharding does); each
+slice is launched on its device's current stream (the one current when
+the server was built) through its slice of the slot's pinned buffers,
+with an event a replica, and the logits come back in batch order.  A mesh
+with ``tp > 1`` serves as JAX's does: parameters replicated, the batch
+over the data axis.  Devices may repeat (``["cuda:0", "cuda:0"]``, or
+``["cpu"] * 4``): two replicas then share a card.
 """
 
 from __future__ import annotations
 
 import collections
+import contextlib
 import queue as queue_mod
 import threading
 import time
@@ -32,6 +43,7 @@ import numpy as np
 import torch
 
 from .. import resolve_device
+from ..parallel.mesh import make_mesh
 from .vit_int import Engine
 
 
@@ -109,14 +121,31 @@ class ServingEngine:
     bounds the requests waiting to be batched (over it, ``submit`` raises
     :class:`QueueFull`); ``deadline_ms`` sheds a request that waited longer
     before batching (its future raises :class:`DeadlineExceeded`).
+    ``mesh`` (a mesh of devices, ``parallel.make_mesh(..., devices=)``) or
+    ``devices``: data-parallel replicas, one a data row (``device`` is
+    then the first one's).
     """
 
     def __init__(self, spec, batch_size: int = 64, max_wait_ms: float = 5.0,
                  inflight: int = 2, device=None, kernels=True,
                  max_queue: Optional[int] = None,
-                 deadline_ms: Optional[float] = None):
-        self.device = resolve_device(device)
-        self.engine = Engine(spec, device=self.device, kernels=kernels)
+                 deadline_ms: Optional[float] = None, mesh=None, devices=None):
+        if mesh is None and devices is not None:
+            mesh = make_mesh(dp=len(devices), tp=1, devices=devices)
+        if mesh is not None:
+            if mesh.distributed:
+                raise ValueError("ServingEngine runs in one process: give it a "
+                                 "mesh of devices (make_mesh(..., devices=))")
+            if batch_size % mesh.dp:
+                raise ValueError(f"batch_size {batch_size} is not divisible by "
+                                 f"the mesh's data axis, dp={mesh.dp}")
+            replicas = [resolve_device(mesh.devices[i, 0]) for i in range(mesh.dp)]
+        else:
+            replicas = [resolve_device(device)]
+        self.mesh = mesh
+        self.device = replicas[0]
+        self.engines = [Engine(spec, device=d, kernels=kernels) for d in replicas]
+        self.engine = self.engines[0]
         self.spec = spec
         self.batch_size = batch_size
         self.max_wait_ms = max_wait_ms
@@ -129,6 +158,7 @@ class ServingEngine:
         self._queue: queue_mod.Queue = queue_mod.Queue(maxsize=max_queue or 0)
         self._stop = threading.Event()
         self._closing = threading.Lock()     # submit's check-then-put vs close
+        # replica 0's forward (a test replaces it to inject a failure)
         self._fwd = self.engine
         img = spec.config.img_size
         self._img_shape = (img, img, 3)
@@ -138,8 +168,11 @@ class ServingEngine:
         self._host_in = [torch.zeros(shape_in, pin_memory=cuda) for _ in range(self.inflight)]
         self._host_out = [torch.zeros(shape_out, pin_memory=cuda)
                           for _ in range(self.inflight)]
-        self._events = [torch.cuda.Event() if cuda else None for _ in range(self.inflight)]
-        self._stream = torch.cuda.current_stream(self.device) if cuda else None
+        # an event a slot and a replica; each replica's device's stream
+        self._events = [[torch.cuda.Event() if d.type == "cuda" else None
+                         for d in replicas] for _ in range(self.inflight)]
+        self._streams = [torch.cuda.current_stream(d) if d.type == "cuda" else None
+                         for d in replicas]
         self._batcher = threading.Thread(target=self._run, daemon=True)
         self._batcher.start()
 
@@ -230,11 +263,7 @@ class ServingEngine:
         return items
 
     def _run(self):
-        if self._stream is not None:
-            with torch.cuda.stream(self._stream):
-                self._loop()
-        else:
-            self._loop()
+        self._loop()
 
     def _loop(self):
         pending: collections.deque = collections.deque()
@@ -268,26 +297,35 @@ class ServingEngine:
             raise
 
     def _dispatch(self, slot, items):
-        """Stage a batch in the slot's pinned buffer, run the engine and
-        queue the copy of its logits back; nothing here waits for the card
-        but the slot's previous batch (already resolved, so a no-op)."""
-        event, host = self._events[slot], self._host_in[slot]
-        if event is not None:
-            event.synchronize()
+        """Stage a batch in the slot's pinned buffer, run each replica on
+        its slice on its device's stream and queue the copy of its logits
+        back; nothing here waits for the card but the slot's previous batch
+        (already resolved, so a no-op)."""
+        events, host = self._events[slot], self._host_in[slot]
+        for event in events:
+            if event is not None:
+                event.synchronize()
         n = len(items)
         for i, (im, _, _) in enumerate(items):
             host[i].copy_(torch.from_numpy(im))
         host[n:].zero_()                       # the padded tail
-        x = host.to(self.device, non_blocking=True)
-        logits = self._fwd(x)
-        self._host_out[slot].copy_(logits, non_blocking=True)
-        if event is not None:
-            event.record()
+        per = self.batch_size // len(self.engines)
+        for r, (engine, stream, event) in enumerate(zip(self.engines, self._streams,
+                                                         events)):
+            rows = slice(r * per, (r + 1) * per)
+            with (torch.cuda.stream(stream) if stream is not None
+                  else contextlib.nullcontext()):
+                x = host[rows].to(engine.device, non_blocking=True)
+                logits = (self._fwd if r == 0 else engine)(x)
+                self._host_out[slot][rows].copy_(logits, non_blocking=True)
+                if event is not None:
+                    event.record(stream)
 
     def _resolve(self, slot, items):
         try:
-            if self._events[slot] is not None:
-                self._events[slot].synchronize()
+            for event in self._events[slot]:
+                if event is not None:
+                    event.synchronize()
             logits = self._host_out[slot].numpy().copy()
         except Exception as exc:               # fail this batch, keep serving
             for _, fut, _ in items:

@@ -49,6 +49,8 @@ from ..models.vit import BitWidths
 from ..ops.kernels import block as kblock
 from ..ops.kernels.block import int8_matmul
 from ..ops.quant import exact_int_sum, rdiv
+from ..parallel import collectives as coll
+from ..parallel.mesh import check_tp_widths
 from .convert import params_to_torch
 from .freeze import (GELU_IN_BITS, EngineConfig, _act_scale, _block_luts,
                      _exp_fast_gate, _linear, _ln_site, _mlp_half, _patch_gemm,
@@ -266,8 +268,12 @@ def _from_windows(yw, B, res, dim, ws, shift):
 
 
 def _attn_unfused(cfg, blk, x, B, res, dim, heads, ws, shift):
-    """Per-op window-attention half-block (``_swin_attn_unfused``)."""
+    """Per-op window-attention half-block (``_swin_attn_unfused``).  Under a
+    tensor-parallel mesh the block holds this rank's heads (``qkv``'s
+    columns, ``rel_bias_addend``'s rows, ``proj``'s rows) and ``proj``'s
+    int32 partial sums are summed over the model axis before its bias."""
     n, dh = ws * ws, dim // heads
+    heads = blk["qkv_w"].shape[1] // (3 * dh)
     y = _layernorm_int(cfg, x, blk["ln1_bias_int"], blk["ln1_shift"])
     y = _ln_requant(y, blk["m_ln1"], 8)
     yw = _to_windows(y, B, res, dim, ws, shift)              # [B*nW, n, C] i8
@@ -289,10 +295,10 @@ def _attn_unfused(cfg, blk, x, B, res, dim, heads, ws, shift):
     # domain (``swin_int.py:447-451``)
     probs = _softmax_int(cfg, blk, attn, allow_lut=shift == 0)
     ctx = _requant(int8_matmul(probs, v), blk["m_av"], 8)    # [B*nW, H, n, Dh]
-    ctx = ctx.permute(0, 2, 1, 3).reshape(-1, n, dim)
+    ctx = ctx.permute(0, 2, 1, 3).reshape(-1, n, heads * dh)
     # proj untapped: JAX's contracts (H, Dh) with dot_general (swin_int.py:457)
-    yo = _requant(int8_matmul(ctx, blk["proj_w"]) + blk["proj_b"],
-                  blk["m_proj"], 16)
+    acc = coll.all_reduce_exact(int8_matmul(ctx, blk["proj_w"]), "model")
+    yo = _requant(acc + blk["proj_b"], blk["m_proj"], 16)
     yo = _from_windows(yo, B, res, dim, ws, shift)
     return _residual_requant(yo, blk["m_res1_x"], x, blk["m_res1_id"], 16,
                              tap=False)
@@ -326,7 +332,8 @@ def _mlp_unfused(cfg, blk, x):
     y = _requant(_gemm_bias(y, blk["fc1_w"], blk["fc1_b"]), blk["m_fc1"],
                  GELU_IN_BITS)
     y = _gelu_requant_int(cfg, blk, y, 8)
-    y = _requant(_gemm_bias(y, blk["fc2_w"], blk["fc2_b"]), blk["m_fc2"], 8)
+    y = _requant(_gemm_bias(y, blk["fc2_w"], blk["fc2_b"], row_sharded=True),
+                 blk["m_fc2"], 8)
     return _residual_requant(y, blk["m_res2_x"], x, blk["m_res2_id"], 16,
                              tap=False)
 
@@ -406,7 +413,7 @@ def check_stage_paths(cfg, stage_paths):
 
 
 def swin_engine_forward(spec: SwinEngineSpec, images, kernels=True,
-                        device=None, stage_paths=None, mlp_wt=None):
+                        device=None, stage_paths=None, mlp_wt=None, mesh=None):
     """images: f32 NHWC [B, img, img, 3] -> f32 logits [B, classes].
 
     ``kernels``: the fused block kernels (True) or the unfused plain engine
@@ -417,12 +424,41 @@ def swin_engine_forward(spec: SwinEngineSpec, images, kernels=True,
     there if needed.  ``mlp_wt``: one dict a ``params["blocks"]`` entry of
     its MLP weights transposed (``vit_int.transposed_mlp_weights``), or
     None.
+
+    ``mesh``: a rank mesh, as :func:`~ivit_tpu_torch.engine.vit_int.
+    engine_forward` takes it (this rank's shards from
+    ``parallel.shard_engine_params``, which cuts ``rel_bias_addend`` by
+    head too, and its rows of the batch; the logits all-gathered over the
+    data axis); ``tp > 1`` takes the plain path only (``kernels=False``,
+    or every ``stage_paths`` entry False).
     """
     check_swin_kernels(kernels)
-    dev = resolve_device(device)
     cfg = spec.config
     _check_families(cfg)
     check_stage_paths(cfg, stage_paths)
+    if mesh is not None:
+        if not mesh.distributed:
+            raise ValueError("swin_engine_forward(mesh=) takes a mesh of ranks")
+        for i, heads in enumerate(cfg.stage_heads):
+            dim = cfg.embed_dim * 2 ** i
+            check_tp_widths([(f"the heads of stage {i}", heads),
+                             (f"the MLP hidden width of stage {i}",
+                              int(dim * cfg.mlp_ratio))], mesh.tp)
+        fused_any = kernels is True and (stage_paths is None or any(stage_paths))
+        if fused_any and mesh.tp > 1 and any(fused_halves(cfg)):
+            raise ValueError(f"kernels=True runs the fused block kernels, which "
+                             f"end in the proj / fc2 residual epilogue: no "
+                             f"partial sum to reduce under tp={mesh.tp}; use "
+                             "kernels=False")
+        device = mesh.device if device is None else device
+    with coll.use(mesh):
+        logits = _swin_forward(spec, images, kernels, resolve_device(device),
+                               stage_paths, mlp_wt)
+        return coll.all_gather(logits, "data") if mesh is not None else logits
+
+
+def _swin_forward(spec, images, kernels, dev, stage_paths, mlp_wt):
+    cfg = spec.config
     p = params_to_torch(spec.params, dev)
     images = torch.as_tensor(images, dtype=torch.float32).to(dev)
     B = images.shape[0]

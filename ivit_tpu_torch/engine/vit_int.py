@@ -69,6 +69,8 @@ from ..ops.kernels import nonlinear as knl
 from ..ops.kernels.block import container as _container
 from ..ops.kernels.block import int8_matmul, to_container
 from ..ops.quant import exact_int_sum, rdiv
+from ..parallel import collectives as coll
+from ..parallel.mesh import check_engine_tp
 from .convert import params_to_torch
 from .freeze import GELU_IN_BITS, EngineConfig, EngineSpec
 
@@ -206,12 +208,40 @@ def _check_kernels(kernels):
                          "kernels) or False (the plain engine)")
 
 
-def _gemm_bias(a_int, w_int8, b_int32):
+def _gemm_bias(a_int, w_int8, b_int32, row_sharded=False):
     """int8 GEMM (the operand wrapped to int8, as JAX's ``_dot_i8``) + bias,
-    tapped: the sim computes the same value in f32."""
-    acc = int8_matmul(a_int.to(torch.int8), w_int8) + b_int32
+    tapped: the sim computes the same value in f32.  ``row_sharded``
+    (``proj``, ``fc2``): under a tensor-parallel mesh the weight holds this
+    rank's rows, and the int32 partial accumulators are summed over the
+    model axis before the bias is added once (int32 addition wraps the
+    same in any order, so the sum is the single-device accumulator)."""
+    acc = int8_matmul(a_int.to(torch.int8), w_int8)
+    if row_sharded:
+        acc = coll.all_reduce_exact(acc, "model")
+    acc = acc + b_int32
     _tap("gemm_acc", acc, -F32_EXACT, F32_EXACT)
     return acc
+
+
+# columns appended to a hidden row shard to carry the row's global max
+_ROW_MAX_PAD = 16
+
+
+def _with_row_max(x_int):
+    """ShiftGELU's row max runs over the whole hidden row.  Under a
+    tensor-parallel mesh this rank holds a block of its columns: the row's
+    max over the model axis is appended as 16 more columns (keeping 16-byte
+    rows), so that the kernel and the plain cores, which take the max of
+    the row they are given, see the global one; an output depends on its
+    input and the row max only, so the first columns are the single-device
+    ones.  Returns ``(x, width)``, ``width`` None without a cut."""
+    mesh = coll.active()
+    if mesh is None or mesh.tp == 1:
+        return x_int, None
+    m = coll.reduce_max(torch.amax(x_int, dim=-1, keepdim=True).to(torch.int32),
+                     "model").to(x_int.dtype)
+    pad = m.expand(*x_int.shape[:-1], _ROW_MAX_PAD)
+    return torch.cat([x_int, pad], dim=-1), x_int.shape[-1]
 
 
 def _requant(acc, m, bits):
@@ -280,6 +310,15 @@ def _gelu_requant_int(cfg, blk, x_int, out_bits, kernels=False):
     """GELU followed by the dyadic requant to the next activation scale
     (the table form where :func:`_xla_lut_on`, but for ShiftGELU under a
     kernel path, which JAX gives its own kernel, ``vit_int.py:356``)."""
+    if _base(cfg, "gelu") == "ivit":
+        x_pad, width = _with_row_max(x_int)
+        if width is not None:
+            y = _gelu_requant_rows(cfg, blk, x_pad, out_bits, kernels)
+            return y[..., :width].contiguous()
+    return _gelu_requant_rows(cfg, blk, x_int, out_bits, kernels)
+
+
+def _gelu_requant_rows(cfg, blk, x_int, out_bits, kernels):
     base = _base(cfg, "gelu")
     if (base != "float" and "gelu_lut" in blk and _xla_lut_on(cfg)
             and not (base == "ivit" and kernels is not False)):
@@ -378,8 +417,10 @@ def _residual_requant(y, my, xr, mx, bits, tap=True):
 
 def _attn_unfused(cfg, blk, x, kernels):
     bw = cfg.bitwidths
-    B, N, C = x.shape
-    H, Dh = cfg.num_heads, cfg.head_dim
+    B, N, _ = x.shape
+    Dh = cfg.head_dim
+    # this rank's heads under a tensor-parallel mesh (head-aligned shards)
+    H = blk["qkv_w"].shape[1] // (3 * Dh)
     y = _layernorm_int(cfg, x, blk["ln1_bias_int"], blk["ln1_shift"])
     y = _ln_requant(y, blk["m_ln1"], 8)
     y = _requant(_gemm_bias(y, blk["qkv_w"], blk["qkv_b"]), blk["m_qkv"], 8)
@@ -394,9 +435,9 @@ def _attn_unfused(cfg, blk, x, kernels):
     ctx = int8_matmul(probs, v)
     _tap("gemm_acc", ctx, -F32_EXACT, F32_EXACT)
     y = _requant(ctx, blk["m_av"], 8)                        # [B, H, N, Dh]
-    y = y.permute(0, 2, 1, 3).reshape(B, N, C)
-    y = _requant(_gemm_bias(y, blk["proj_w"], blk["proj_b"]), blk["m_proj"],
-                 bw.attention_out)
+    y = y.permute(0, 2, 1, 3).reshape(B, N, H * Dh)
+    y = _requant(_gemm_bias(y, blk["proj_w"], blk["proj_b"], row_sharded=True),
+                 blk["m_proj"], bw.attention_out)
     return _residual_requant(y, blk["m_res1_x"], x, blk["m_res1_id"],
                              bw.norm2_in)
 
@@ -408,8 +449,8 @@ def _mlp_unfused(cfg, blk, x, kernels):
     y = _requant(_gemm_bias(y, blk["fc1_w"], blk["fc1_b"]), blk["m_fc1"],
                  GELU_IN_BITS)
     y = _gelu_requant_int(cfg, blk, y, 8, kernels)
-    y = _requant(_gemm_bias(y, blk["fc2_w"], blk["fc2_b"]), blk["m_fc2"],
-                 bw.mlp_out)
+    y = _requant(_gemm_bias(y, blk["fc2_w"], blk["fc2_b"], row_sharded=True),
+                 blk["m_fc2"], bw.mlp_out)
     return _residual_requant(y, blk["m_res2_x"], x, blk["m_res2_id"],
                              bw.att_block_out)
 
@@ -450,20 +491,51 @@ def _mlp_fused(cfg, blk, x, kernels):
 
 
 def engine_forward(spec: EngineSpec, images, kernels=True, device=None,
-                   mlp_wt=None):
+                   mlp_wt=None, mesh=None):
     """images: f32 NHWC [B, img, img, 3] -> f32 logits [B, classes].
 
     ``kernels``: the fused block kernels (True), the standalone ivit
     nonlinearity kernels in the unfused engine ("ops"), or the unfused plain
-    engine (False).  ``device``: where to run (default ``cuda``; raises
-    without a card unless ``"cpu"``); params and images are moved there if
-    needed.  ``mlp_wt``: one dict a block of its MLP weights transposed
-    (:func:`transposed_mlp_weights`), or None.
+    engine (False).  ``device``: where to run (default ``cuda``, or the
+    rank's device on a mesh; raises without a card unless ``"cpu"``);
+    params and images are moved there if needed.  ``mlp_wt``: one dict a
+    block of its MLP weights transposed (:func:`transposed_mlp_weights`),
+    or None.
+
+    ``mesh``: a rank mesh (``parallel.make_mesh`` in a ``torch.distributed``
+    world), the counterpart of JAX's ``jit(engine_forward,
+    in_shardings=...)`` over ``shard_engine_params``.  ``spec`` then holds
+    this rank's shards (``parallel.shard_engine_params``) and ``images``
+    this rank's rows of the batch (``parallel.local_rows``); the
+    row-sharded ``proj`` / ``fc2`` accumulators are summed over the model
+    axis (:func:`_gemm_bias`) and the logits come back all-gathered over
+    the data axis, bitwise the single-device engine's.  ``kernels=True``
+    takes ``tp == 1`` only: the fused half-blocks end in the ``proj`` /
+    ``fc2`` residual epilogue inside the kernel, where no partial sum can
+    be reduced.
     """
     _check_kernels(kernels)
-    dev = resolve_device(device)
     cfg = spec.config
     _check_families(cfg)
+    if mesh is not None:
+        if not mesh.distributed:
+            raise ValueError("engine_forward(mesh=) takes a mesh of ranks; the "
+                             "server runs a mesh of devices (ServingEngine)")
+        check_engine_tp(cfg, mesh.tp)
+        if kernels is True and mesh.tp > 1 and all(fused_halves(cfg)):
+            raise ValueError(f"kernels=True runs the fused block kernels, which "
+                             f"end in the proj / fc2 residual epilogue: no "
+                             f"partial sum to reduce under tp={mesh.tp}; use "
+                             "kernels='ops' or False")
+        device = mesh.device if device is None else device
+    with coll.use(mesh):
+        logits = _engine_forward(spec, images, kernels, resolve_device(device),
+                                 mlp_wt)
+        return coll.all_gather(logits, "data") if mesh is not None else logits
+
+
+def _engine_forward(spec, images, kernels, dev, mlp_wt):
+    cfg = spec.config
     p = params_to_torch(spec.params, dev)
     images = torch.as_tensor(images, dtype=torch.float32).to(dev)
     bw = cfg.bitwidths

@@ -15,6 +15,15 @@ The integer products (``QuantLinear``, ``QuantConv2d``, ``quant_matmul``)
 are f32 matmuls of exact integers, as in JAX; they are exact only while
 every partial sum is, which the caller's :func:`exact_f32` context keeps
 TF32 from breaking on the card.
+
+On a rank mesh (``parallel.shard_module``) every reduction over a sharded
+axis goes through :mod:`~ivit_tpu_torch.parallel.collectives`, which does
+nothing without an active mesh: the ranges of every QuantAct, of the
+I-BERT softmax's exp requant and of the ppoly sites over the data axis
+(and the model axis at the sites ``model_sharded`` marks); a row-sharded
+``QuantLinear``'s per-channel weight range and its partial sums over the
+model axis (``tp``); ShiftGELU's row max over a hidden row cut in column
+shards.
 """
 
 from __future__ import annotations
@@ -30,6 +39,7 @@ from ..ops import ibert as ibert_ops
 from ..ops import ivit as ivit_ops
 from ..ops import quant as q
 from ..ops.ppoly import eval_piecewise_poly
+from ..parallel import collectives as coll
 
 
 @contextlib.contextmanager
@@ -83,7 +93,15 @@ class QuantAct(nn.Module):
     """Activation (re)quantizer with running-range EMA (``layers.py:39``):
     momentum 0.95 (``-1``: running min/max), first-batch initialization,
     percentile or per-channel ranges, and the dyadic requant with the
-    optional fused residual (``identity``) branch."""
+    optional fused residual (``identity``) branch.  On a rank mesh the
+    ranges run over the global batch (unless the input is a parameter,
+    ``batch_sharded`` False) and over the model axis where the input is
+    cut there (``model_sharded``): min / max reduced, a percentile taken of
+    the gathered elements, a per-channel range over the data axis (its
+    channels are this rank's)."""
+
+    model_sharded = False
+    batch_sharded = True
 
     def __init__(self, activation_bit: int = 8, act_range_momentum: float = 0.95,
                  per_channel: bool = False, channel_len: Optional[int] = None,
@@ -101,22 +119,27 @@ class QuantAct(nn.Module):
 
     @torch.no_grad()
     def _update_range(self, x_act):
+        sharded = self.model_sharded and not self.per_channel
         if self.percentile is None:
             if self.per_channel:
                 flat = x_act.reshape(-1, x_act.shape[-1])
                 cur_min, cur_max = flat.amin(0), flat.amax(0)
             else:
                 cur_min, cur_max = x_act.amin().reshape(1), x_act.amax().reshape(1)
+            cur_min, cur_max = coll.reduce_range(cur_min, cur_max, sharded,
+                                                 self.batch_sharded)
         else:
             p_lo = (100.0 - self.percentile) / 2.0
             p_hi = 100.0 - p_lo
+            axis = coll.range_axis(sharded, self.batch_sharded)
             if self.per_channel:
-                flat = x_act.reshape(-1, x_act.shape[-1])
+                flat = coll.all_gather(x_act.reshape(-1, x_act.shape[-1]), axis)
                 cur_min = quantile(flat, p_lo / 100.0, dim=0)
                 cur_max = quantile(flat, p_hi / 100.0, dim=0)
             else:
-                cur_min = quantile(x_act, p_lo / 100.0).reshape(1)
-                cur_max = quantile(x_act, p_hi / 100.0).reshape(1)
+                flat = coll.all_gather(x_act.reshape(-1), axis)
+                cur_min = quantile(flat, p_lo / 100.0).reshape(1)
+                cur_max = quantile(flat, p_hi / 100.0).reshape(1)
         uninit = torch.all(self.x_min == self.x_max)
         if self.act_range_momentum == -1:
             upd_min = torch.minimum(self.x_min, cur_min)
@@ -150,7 +173,15 @@ class QuantAct(nn.Module):
 class QuantLinear(nn.Module):
     """Linear layer with per-output-channel symmetric weight quantization
     (``layers.py:119``): the weight scale from the float shadow weights
-    every forward, the bias on the ``s_w * s_act`` grid (32-bit)."""
+    every forward, the bias on the ``s_w * s_act`` grid (32-bit).
+
+    ``tp``: the tensor-parallel role on a rank mesh -- ``"col"`` (``qkv``,
+    ``fc1``: this rank's output columns; f on the input), ``"row"``
+    (``proj``, ``fc2``: this rank's input rows; the weight range over the
+    model axis, the partial sums through g, the bias added once after) or
+    None."""
+
+    tp = None
 
     def __init__(self, in_features: int, out_features: int, use_bias: bool = True,
                  weight_bit: int = 8, bias_bit: int = 32, per_channel: bool = True):
@@ -166,6 +197,9 @@ class QuantLinear(nn.Module):
             w_min, w_max = w.amin(0), w.amax(0)
         else:
             w_min, w_max = w.amin().reshape(1), w.amax().reshape(1)
+        if self.tp == "row" or (self.tp and not self.per_channel):
+            w_min = coll.reduce_min(w_min, "model")
+            w_max = coll.reduce_max(w_max, "model")
         fc_scale = q.symmetric_quant_params(self.weight_bit, w_min, w_max)
         w_int = q.quantize_int(self.kernel, self.weight_bit, fc_scale[None, :])
         bias_scale = fc_scale * pre_scale.reshape(-1)
@@ -173,7 +207,11 @@ class QuantLinear(nn.Module):
         # integer, so every partial sum is exact in f32 and any order of
         # the sum gives the engine's int32 accumulation
         x_int = q.round_ste(q.rdiv(x, pre_scale))
+        if self.tp == "col":
+            x_int = coll.copy_to_model(x_int)
         out = torch.matmul(x_int, w_int)
+        if self.tp == "row":
+            out = coll.reduce_from_model(out)
         if self.bias is not None:
             out = out + q.quantize_int(self.bias, self.bias_bit, bias_scale)
         return out * bias_scale, bias_scale
@@ -233,14 +271,19 @@ def quant_matmul(a, scale_a, b, scale_b):
 # ---------------------------------------------------------------------------
 
 class IVITGELU(nn.Module):
-    """ShiftGELU (``layers.py:228``)."""
+    """ShiftGELU (``layers.py:228``); ``model_sharded``: the row max over
+    the hidden row's column shards."""
+
+    model_sharded = False
 
     def __init__(self, output_bit: int = 8, n: int = 23):
         super().__init__()
         self.output_bit, self.n = output_bit, n
 
     def forward(self, x, scaling_factor, *, running_stat: bool = False):
-        return ivit_ops.shift_gelu(x, scaling_factor, self.output_bit, self.n)
+        return ivit_ops.shift_gelu(
+            x, scaling_factor, self.output_bit, self.n,
+            row_max=coll.model_row_max if self.model_sharded else None)
 
 
 class IVITSoftmax(nn.Module):
@@ -281,6 +324,8 @@ class _ExpRangeAct(nn.Module):
     single-rounding ``round(exp_int * rdiv(1, s_act))`` the engine and the
     kernels run."""
 
+    model_sharded = False
+
     def __init__(self):
         super().__init__()
         self.register_buffer("x_min", _zeros(1))
@@ -291,7 +336,8 @@ class _ExpRangeAct(nn.Module):
         if running_stat:
             with torch.no_grad():
                 sg = exp_int.detach()
-                cur_min, cur_max = sg.amin().reshape(1), sg.amax().reshape(1)
+                cur_min, cur_max = coll.reduce_range(
+                    sg.amin().reshape(1), sg.amax().reshape(1), self.model_sharded)
                 uninit = torch.all(self.x_min == self.x_max)
                 self.x_min.copy_(torch.where(uninit, self.x_min + cur_min,
                                              q.ema_update(self.x_min, cur_min, 0.95)))
@@ -319,6 +365,11 @@ class IBERTSoftmax(nn.Module):
         return ibert_ops.ibert_softmax_normalize(exp16, self.output_bit)
 
 
+def _batch_max(t):
+    """The max of ``t`` over the batch's shards on a rank mesh."""
+    return coll.reduce_max(t, "data")
+
+
 class IBERTLayerNorm(nn.Module):
     """I-BERT LayerNorm with its dynamic overflow shift (``layers.py:337``):
     active exactly while ranges run (the reference's fix()/unfix())."""
@@ -334,7 +385,8 @@ class IBERTLayerNorm(nn.Module):
     def forward(self, x, scaling_factor, *, running_stat: bool = False):
         y, out_scale, new_shift, y_int = ibert_ops.ibert_layernorm(
             x, scaling_factor, self.weight, self.bias, self.shift,
-            overflow_handling=running_stat, use_int_sqrt=self.use_int_sqrt)
+            overflow_handling=running_stat, use_int_sqrt=self.use_int_sqrt,
+            batch_max=_batch_max)
         if running_stat:
             self.shift.copy_(new_shift.reshape(1))
         return y, out_scale, y_int
@@ -401,6 +453,8 @@ class _PPolySite(nn.Module):
     ``bounds`` / ``coeffs`` (int32, written by ``train.ppoly_fit``),
     ``fitted``, and the calibrated ``x_lo`` / ``x_hi`` / ``in_scale``."""
 
+    model_sharded = False
+
     def __init__(self, seg: int, deg: int):
         super().__init__()
         self.seg, self.deg = seg, deg
@@ -413,8 +467,10 @@ class _PPolySite(nn.Module):
 
     @torch.no_grad()
     def _track(self, v, in_scale):
-        self.x_lo.copy_(torch.minimum(self.x_lo, v.amin().reshape(1)))
-        self.x_hi.copy_(torch.maximum(self.x_hi, v.amax().reshape(1)))
+        lo, hi = coll.reduce_range(v.amin().reshape(1), v.amax().reshape(1),
+                                   self.model_sharded)
+        self.x_lo.copy_(torch.minimum(self.x_lo, lo))
+        self.x_hi.copy_(torch.maximum(self.x_hi, hi))
         self.in_scale.copy_(in_scale.reshape(-1)[:1])
 
     def _poly(self, x_int):

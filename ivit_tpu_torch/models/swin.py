@@ -29,6 +29,7 @@ import torch.nn as nn
 
 from .. import resolve_device
 from ..ops import quant as q
+from ..parallel import collectives as coll
 from . import registry
 from .layers import QuantAct, QuantLinear, exact_f32, quant_matmul, trunc_normal_init
 from .vit import DropPath, Mlp, PatchEmbed
@@ -130,7 +131,10 @@ class WindowAttention(nn.Module):
 
     def forward(self, x, act_scaling_factor, mask=None, *, running_stat=False):
         b_, n, c = x.shape
-        heads, head_dim = self.num_heads, self.dim // self.num_heads
+        # this rank's heads on a tensor-parallel mesh (the qkv columns and
+        # the bias table are cut by head)
+        head_dim = self.dim // self.num_heads
+        heads = self.relative_position_bias_table.shape[1]
         scale = head_dim ** -0.5
         rs = running_stat
         x, s = self.qkv(x, act_scaling_factor)
@@ -160,7 +164,7 @@ class WindowAttention(nn.Module):
         attn, s = self.int_softmax(attn, s, running_stat=rs)
 
         x, s = quant_matmul(attn, s, v_, s1)
-        x = x.transpose(1, 2).reshape(b_, n, c)
+        x = x.transpose(1, 2).reshape(b_, n, heads * head_dim)
         x, s = self.qact3(x, s, running_stat=rs)
         x, s = self.proj(x, s)
         return self.qact4(x, s, running_stat=rs)
@@ -315,6 +319,7 @@ class SwinTransformer(nn.Module):
                                            "absolute_pos_embed"):
                 trunc_normal_init(p, 0.02, gen)
         self.to(dev)
+        self.mesh = None
 
     @property
     def device(self) -> torch.device:
@@ -341,7 +346,7 @@ class SwinTransformer(nn.Module):
     def forward(self, x, *, running_stat: bool = False, train: bool = False,
                 generator=None):
         x = torch.as_tensor(x, dtype=torch.float32, device=self.device)
-        with exact_f32():
+        with exact_f32(), coll.use(self.mesh):
             x, s = self.embed(x, running_stat=running_stat)
             for blocks, merge in self.stages:
                 for blk in blocks:

@@ -13,6 +13,12 @@ then moved.  ``forward(x, running_stat=True)`` calibrates (updates the
 range buffers in place), ``running_stat=False`` evaluates with the frozen
 ranges; ``train=True`` turns dropout and drop-path on, drawn from the
 ``generator`` the caller passes.
+
+On a rank mesh (``parallel.shard_module``) the forward takes this rank's
+rows of the batch, its heads and hidden columns; it makes the mesh active
+(``parallel.collectives``), and draws every dropout and drop-path mask at
+the global shape, keeping this rank's rows and head or hidden slice, so
+that a sharded step draws the single-device step's masks.
 """
 
 from __future__ import annotations
@@ -26,6 +32,7 @@ import torch.nn as nn
 
 from .. import resolve_device
 from ..ops.quant import true_divide
+from ..parallel import collectives as coll
 from . import registry
 from .layers import (QuantAct, QuantConv2d, QuantLinear, exact_f32, quant_matmul,
                      trunc_normal_init)
@@ -63,20 +70,35 @@ class BitWidths:
                 self.norm2_in, self.att_block_out]
 
 
-def _uniform(shape, generator, device):
+def _uniform(shape, generator, device, model_dim=None):
     """Uniform draws from ``generator`` on its own device, then moved to
     ``device``: a CPU generator gives the same masks to a sim on the card
-    as to its twin on the CPU."""
-    return torch.rand(shape, generator=generator, device=generator.device).to(device)
+    as to its twin on the CPU.  On a rank mesh the draw is at the global
+    shape (the batch over the data axis, ``model_dim`` over the model
+    axis) and this rank's block of it is kept."""
+    mesh = coll.active()
+    if mesh is None:
+        return torch.rand(shape, generator=generator,
+                          device=generator.device).to(device)
+    full = list(shape)
+    full[0] *= mesh.dp
+    if model_dim is not None:
+        full[model_dim] *= mesh.tp
+    u = torch.rand(full, generator=generator, device=generator.device)
+    u = u.narrow(0, mesh.data_index * shape[0], shape[0])
+    if model_dim is not None:
+        u = u.narrow(model_dim, mesh.model_index * shape[model_dim], shape[model_dim])
+    return u.to(device)
 
 
-def _dropout(x, rate: float, train: bool, generator):
-    """flax ``nn.Dropout``: keep with probability ``1 - rate``, scaled."""
+def _dropout(x, rate: float, train: bool, generator, model_dim=None):
+    """flax ``nn.Dropout``: keep with probability ``1 - rate``, scaled;
+    ``model_dim``: the axis cut over the model axis on a mesh."""
     if rate == 0.0 or not train:
         return x
     if generator is None:
         raise ValueError("dropout in training needs a torch.Generator")
-    keep = _uniform(x.shape, generator, x.device) < 1.0 - rate
+    keep = _uniform(x.shape, generator, x.device, model_dim) < 1.0 - rate
     return torch.where(keep, true_divide(x, 1.0 - rate), torch.zeros_like(x))
 
 
@@ -118,7 +140,7 @@ class Mlp(nn.Module):
         x, s = self.qact_gelu(x, s, running_stat=running_stat)
         x, s = self.act(x, s, running_stat=running_stat)
         x, s = self.qact1(x, s, running_stat=running_stat)
-        x = _dropout(x, self.drop, train, generator)
+        x = _dropout(x, self.drop, train, generator, model_dim=x.ndim - 1)
         x, s = self.fc2(x, s)
         x, s = self.qact2(x, s, running_stat=running_stat)
         return _dropout(x, self.drop, train, generator), s
@@ -177,7 +199,8 @@ class Attention(nn.Module):
         b, n, c = x.shape
         x, s = self.qkv(x, act_scaling_factor)
         x, s1 = self.qact1(x, s, running_stat=running_stat)
-        qkv = x.reshape(b, n, 3, self.num_heads, c // self.num_heads)
+        # -1: this rank's heads on a tensor-parallel mesh
+        qkv = x.reshape(b, n, 3, -1, self.dim // self.num_heads)
         q_, k_, v_ = qkv.permute(2, 0, 3, 1, 4)              # [B, H, N, Dh] each
         attn, s = quant_matmul(q_, s1, k_.transpose(-2, -1), s1)
         # head scale folded into the scaling factor (vit_quant.py:74-75)
@@ -185,9 +208,9 @@ class Attention(nn.Module):
         s = s * self.scale
         attn, s = self.qact_attn1(attn, s, running_stat=running_stat)
         attn, s = self.int_softmax(attn, s, running_stat=running_stat)
-        attn = _dropout(attn, self.attn_drop, train, generator)
+        attn = _dropout(attn, self.attn_drop, train, generator, model_dim=1)
         x, s = quant_matmul(attn, s, v_, s1)
-        x = x.transpose(1, 2).reshape(b, n, c)
+        x = x.transpose(1, 2).reshape(b, n, -1)
         x, s = self.qact2(x, s, running_stat=running_stat)
         x, s = self.proj(x, s)
         x, s = self.qact3(x, s, running_stat=running_stat)
@@ -287,6 +310,7 @@ class VisionTransformer(nn.Module):
             if name.rsplit(".", 1)[-1] in ("kernel", "cls_token", "pos_embed"):
                 trunc_normal_init(p, 0.02, gen)
         self.to(dev)
+        self.mesh = None        # a rank mesh: parallel.shard_module
 
     @property
     def device(self) -> torch.device:
@@ -314,7 +338,7 @@ class VisionTransformer(nn.Module):
                 generator=None):
         x = torch.as_tensor(x, dtype=torch.float32, device=self.device)
         kw = dict(train=train, generator=generator)
-        with exact_f32():
+        with exact_f32(), coll.use(self.mesh):
             x, s = self.embed(x, running_stat=running_stat)
             x = _dropout(x, self.drop_rate, train, generator)
             for blk in self.blocks:

@@ -152,13 +152,14 @@ def int_bitlength_sqrt(n, iters: int = 4):
     return torch.where(mask, x, torch.zeros_like(x))
 
 
-def _ibert_ln(x_int, shift, use_int_sqrt, overflow_handling):
+def _ibert_ln(x_int, shift, use_int_sqrt, overflow_handling, batch_max=None):
     """The I-BERT LayerNorm core without its bias (ibert:112-158): returns
     ``(floor(y * floor(2**31 / std) / 2), shift)``, ``y = x - mean``.  With
     ``overflow_handling`` the shift is first raised, where the variance at
     the given shift reaches 2**32, to the least shift that brings every
     row's below it (the branchless ``set_shift`` of ``ibert.py:208-217``,
-    the max over the whole batch)."""
+    the max over the whole batch; ``batch_max``: the function that takes
+    the max of a local one over the batch's shards, where it is cut)."""
     dim = x_int.shape[-1]
     x_int = round_ste(x_int)
     mean_int = round_ste(rdiv(exact_int_sum(x_int), f32(dim, x_int.device)))
@@ -172,7 +173,10 @@ def _ibert_ln(x_int, shift, use_int_sqrt, overflow_handling):
         with torch.no_grad():
             raw_var = exact_sq_sum(y_int)
             needed = torch.amax(torch.ceil(torch.log2(sqrt_rn(raw_var / 2.0**32))))
-            overflow = torch.amax(var(shift)) >= 2.0**32
+            top = torch.amax(var(shift))
+            if batch_max is not None:
+                needed, top = batch_max(needed), batch_max(top)
+            overflow = top >= 2.0**32
             shift = torch.where(overflow, torch.maximum(shift, needed), shift)
     var_int = var(shift)
     pw = pow2(shift)
@@ -193,13 +197,14 @@ def ibert_layernorm_int(x_int, shift, use_int_sqrt: bool = False):
 
 def ibert_layernorm_affine_int(x_int, weight, bias, shift,
                                overflow_handling: bool = True,
-                               use_int_sqrt: bool = False):
+                               use_int_sqrt: bool = False, batch_max=None):
     """The sim's I-BERT LayerNorm core (``ibert.py:179``): the bias folded
     through the per-channel weight, ``out_scale = sqrt(C) / 2**30 *
     weight``, and the dynamic overflow shift while ``overflow_handling``.
     Returns ``(y_int, out_scale, new_shift)``."""
     dev = x_int.device
-    y_int, new_shift = _ibert_ln(x_int, shift, use_int_sqrt, overflow_handling)
+    y_int, new_shift = _ibert_ln(x_int, shift, use_int_sqrt, overflow_handling,
+                                 batch_max)
     out_scale = sqrt_rn(f32(x_int.shape[-1], dev)) / 2.0**30
     w, b = f32(weight, dev), f32(bias, dev)
     bias_int = torch.floor(rdiv(rdiv(b.detach(), w.detach()), out_scale))
@@ -232,11 +237,13 @@ def ibert_softmax_normalize(exp_int, output_bit: int):
 
 
 def ibert_layernorm(x, scaling_factor, weight, bias, shift,
-                    overflow_handling: bool = True, use_int_sqrt: bool = False):
+                    overflow_handling: bool = True, use_int_sqrt: bool = False,
+                    batch_max=None):
     """I-BERT LayerNorm on fake-quant floats (``ibert.py:233``; a plain
     divide, as JAX has it): returns ``(x_out, out_scale, new_shift,
     y_int)``."""
     y_int, out_scale, new_shift = ibert_layernorm_affine_int(
         x / scaling_factor, weight, bias, shift,
-        overflow_handling=overflow_handling, use_int_sqrt=use_int_sqrt)
+        overflow_handling=overflow_handling, use_int_sqrt=use_int_sqrt,
+        batch_max=batch_max)
     return y_int * out_scale, out_scale, new_shift, y_int

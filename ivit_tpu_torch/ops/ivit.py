@@ -58,14 +58,18 @@ def shiftmax_int(x_int, scaling_factor, output_bit: int = 8, n_valid=None,
 
 
 def shift_gelu_int(pre_x_int, scaling_factor, output_bit: int = 8, n: int = 23,
-                   fast_q: bool = False):
+                   fast_q: bool = False, row_max=None):
     """ShiftGELU core (``ivit.py:102``): ``x * sigmoid(1.702 x)`` with the
-    sigmoid from two shift exps; the row max runs over the whole last axis.
-    Returns ``(y_int, scale * 2**-(bit-1))``."""
+    sigmoid from two shift exps; the row max runs over the whole last axis
+    (``row_max``: the function that takes it, where the row is cut in
+    shards; ``amax`` by default).  Returns ``(y_int, scale * 2**-(bit-1))``."""
     s = f32(scaling_factor, pre_x_int.device)
     s_sig = s * 1.702
     pre_x_int = round_ste(pre_x_int)
-    x_max = torch.amax(pre_x_int, dim=-1, keepdim=True)
+    if row_max is None:
+        x_max = torch.amax(pre_x_int, dim=-1, keepdim=True)
+    else:
+        x_max = row_max(pre_x_int)
     exp_int, _ = int_exp_shift(pre_x_int - x_max, s_sig, n, fast_q)
     exp_max, _ = int_exp_shift(-x_max, s_sig, n, fast_q)
     exp_sum = clip(exp_int + exp_max, hi=INT32_MAX)
@@ -123,10 +127,11 @@ def shiftmax(x, scaling_factor, output_bit: int = 8):
     return probs_int * out_scale, out_scale
 
 
-def shift_gelu(x, scaling_factor, output_bit: int = 8, n: int = 23):
+def shift_gelu(x, scaling_factor, output_bit: int = 8, n: int = 23,
+               row_max=None):
     """ShiftGELU on fake-quant floats (``ivit.py:187``)."""
     y_int, out_scale = shift_gelu_int(rdiv(x, scaling_factor), scaling_factor,
-                                      output_bit, n)
+                                      output_bit, n, row_max=row_max)
     return y_int * out_scale, out_scale
 
 

@@ -7,6 +7,10 @@ Examples:
       --gelu ivit --softmax ivit --layernorm ivit --bitwidth 8
   python -m ivit_tpu_torch.scripts.quant_train --dataset synthetic --epochs 1 \\
       --device cpu                                  # smoke run on the CPU
+  python -m ivit_tpu_torch.scripts.quant_train --mesh-dp 2 --mesh-tp 2 ...
+                                                    # 4 processes, cuda:0-3
+  torchrun --nproc-per-node 8 -m ivit_tpu_torch.scripts.quant_train \\
+      --distributed --mesh-tp 2 ...                 # one process a rank
 
 ``--data-path`` holds ``train/`` and ``val/`` in the ImageNet layout
 (``root/<class>/<image>``); PNG and BMP files are decoded by the port
@@ -15,6 +19,17 @@ and returns the fitted :class:`~ivit_tpu_torch.train.trainer.Trainer`.
 ``--pretrained`` loads a reference ``.pth.tar`` or a timm-style float
 ``.pth`` into the sim before training (``compat/torch_ckpt.py``, not strict:
 the leaves the file lacks keep their seeded values).
+
+The mesh (JAX's ``--mesh-dp`` / ``--mesh-tp`` / ``--distributed``): the
+Trainer runs one process a rank of a dp x tp world
+(``train/trainer.py``).  ``--mesh-dp N --mesh-tp M`` spawns ``N * M``
+local processes (``parallel.launch.spawn``) on ``cuda:0 .. N*M-1`` --
+fewer cards than that raises, naming the count: a card is never shared
+behind the caller's back -- or, with ``--device cpu``, on the CPU over
+gloo; ``main`` then returns each rank's best top-1.  ``--distributed``
+joins a torchrun-style ``env://`` world instead (``init_from_env``: the
+rank on ``cuda:LOCAL_RANK``, or the CPU), ``--mesh-dp`` defaulting to
+fill it.
 """
 
 from __future__ import annotations
@@ -22,14 +37,6 @@ from __future__ import annotations
 import argparse
 import logging
 import sys
-
-# The flags the port does not have yet, with the ROADMAP item that brings each.
-_NOT_YET = {
-    "mesh_dp": "--mesh-dp / --mesh-tp need the port's mesh (ROADMAP Queue 1 item 4)",
-    "distributed": "--distributed needs the port's multi-process path "
-                   "(ROADMAP Queue 1 item 4)",
-}
-
 
 def parse_args(argv=None):
     p = argparse.ArgumentParser(description="I-ViT QAT training (PyTorch/CUDA port)")
@@ -82,7 +89,7 @@ def parse_args(argv=None):
                    help="data-parallel width over local devices")
     p.add_argument("--mesh-tp", type=int, default=1)
     p.add_argument("--distributed", action="store_true",
-                   help="multi-process training")
+                   help="multi-process: join torchrun's env:// world")
     p.add_argument("--device", default="cuda",
                    help="where the sim trains: 'cuda' (default) or 'cpu'")
     return p.parse_args(argv)
@@ -112,13 +119,10 @@ def build_datasets(args):
 
 def build_trainer(args):
     """The parsed arguments' datasets, config and Trainer (not yet fitted),
-    the ``--pretrained`` weights loaded into its sim (unless resuming).
-    Raises ``NotImplementedError`` for a flag the port does not have yet."""
+    the ``--pretrained`` weights loaded into its sim (unless resuming).  With
+    ``--mesh-dp`` this process must already be a rank of its world."""
     from ivit_tpu_torch.train.trainer import TrainConfig, Trainer
 
-    for flag, why in _NOT_YET.items():
-        if getattr(args, flag):
-            raise NotImplementedError(why)
     if args.layer_type:
         args.gelu = args.softmax = args.layernorm = args.layer_type
 
@@ -138,8 +142,11 @@ def build_trainer(args):
         img_size=args.img_size, num_classes=args.num_classes or ncls,
         seed=args.seed, output_dir=args.output_dir, run_id=args.run_id,
         resume=args.resume, log_interval=args.log_interval,
-        log_grad_norm=args.log_grad_norm)
-    trainer = Trainer(cfg, ds_train, ds_val, device=args.device)
+        log_grad_norm=args.log_grad_norm,
+        mesh_dp=args.mesh_dp, mesh_tp=args.mesh_tp)
+    # on a mesh the Trainer takes the rank's own device
+    trainer = Trainer(cfg, ds_train, ds_val,
+                      device=None if args.mesh_dp else args.device)
     if args.pretrained and not args.resume:
         from ivit_tpu_torch.compat.torch_ckpt import load_into_model
         # in place: the train state holds the sim's own tensors
@@ -149,14 +156,53 @@ def build_trainer(args):
     return trainer
 
 
-def main(argv=None):
-    args = parse_args(argv)
-    logging.basicConfig(level=logging.INFO,
-                        format="%(asctime)s %(levelname)s %(message)s")
+def _fit(args):
     trainer = build_trainer(args)
     best = trainer.fit()
     logging.info("best top-1: %.4f", best)
     return trainer
+
+
+def _rank_main(rank, argv):
+    """One spawned rank: the same arguments, this rank's world joined."""
+    logging.basicConfig(level=logging.INFO if rank == 0 else logging.WARNING,
+                        format=f"%(asctime)s rank{rank} %(levelname)s %(message)s")
+    return _fit(parse_args(argv)).best_acc1
+
+
+def main(argv=None):
+    argv = list(sys.argv[1:] if argv is None else argv)
+    args = parse_args(argv)
+    logging.basicConfig(level=logging.INFO,
+                        format="%(asctime)s %(levelname)s %(message)s")
+    if args.distributed:
+        import torch.distributed as dist
+
+        from ivit_tpu_torch.parallel.launch import init_from_env
+        init_from_env(device=args.device)
+        if args.mesh_dp is None:
+            args.mesh_dp = dist.get_world_size() // args.mesh_tp
+        try:
+            return _fit(args)
+        finally:
+            dist.destroy_process_group()
+    if args.mesh_dp:
+        import torch
+
+        from ivit_tpu_torch.parallel.launch import spawn
+        world = args.mesh_dp * args.mesh_tp
+        if args.device == "cpu":
+            devices = ["cpu"] * world
+        else:
+            have = torch.cuda.device_count() if torch.cuda.is_available() else 0
+            if have < world:
+                raise RuntimeError(
+                    f"--mesh-dp {args.mesh_dp} --mesh-tp {args.mesh_tp} spawns "
+                    f"{world} processes, one a card, and this host has {have} "
+                    "card(s); pass --device cpu to run them on the CPU")
+            devices = [f"cuda:{i}" for i in range(world)]
+        return spawn(_rank_main, world, devices=devices, args=(argv,))
+    return _fit(args)
 
 
 if __name__ == "__main__":

@@ -35,6 +35,8 @@ import numpy as np
 import torch
 
 from ..ops.quant import sqrt_rn, true_divide
+from ..parallel import collectives as coll
+from ..parallel.mesh import is_model_sharded
 
 f32 = np.float32
 INT32_MAX = 2**31 - 1
@@ -80,11 +82,27 @@ def safe_increment(count):
 
 def global_norm(tree):
     """``optax.global_norm``: ``sqrt`` of the leaves' sums of squares, added
-    in leaf order starting from the first (Python's ``sum``), in f32."""
-    total = None
-    for x in tree_leaves(tree):
+    in leaf order starting from the first (Python's ``sum``), in f32.
+
+    Under an active tensor-parallel mesh the leaves cut over the model axis
+    (``parallel.mesh.is_model_sharded``) hold a shard each: their squares
+    are summed over the model axis, and the replicated leaves are counted
+    once."""
+    mesh = coll.active()
+    if mesh is None or mesh.tp == 1:
+        total = None
+        for x in tree_leaves(tree):
+            s = torch.sum(x * x)
+            total = s if total is None else total + s
+        return sqrt_rn(total)
+    parts = {True: None, False: None}
+    for path, x in tree_paths(tree):
         s = torch.sum(x * x)
-        total = s if total is None else total + s
+        cut = is_model_sharded(path)
+        parts[cut] = s if parts[cut] is None else parts[cut] + s
+    total = coll.all_reduce_sum(parts[True], "model")
+    if parts[False] is not None:
+        total = parts[False] + total
     return sqrt_rn(total)
 
 

@@ -9,6 +9,13 @@ range buffers in the flax layout (``models/convert.py::variables_tree``),
 ``opt_state`` the optimizer's (``train/optim.py``), ``step`` an int32
 count; a step updates them in place and returns the same dict.  Dropout
 and drop-path draw from the ``torch.Generator`` the caller passes.
+
+On a rank mesh (a sim put there by ``parallel.shard_module``) every step
+takes the global batch and keeps this rank's rows; the train step's loss
+is the global-batch mean (``loss_local * B_local / B_global``, the
+gradients summed over the data axis), its clip and gradient norm count
+the sharded leaves over the model axis (``optim.global_norm``), and the
+metrics are the global batch's.
 """
 
 from __future__ import annotations
@@ -20,8 +27,10 @@ import torch.nn.functional as F
 
 from ..models.convert import variables_tree
 from ..models.layers import exact_f32
+from ..parallel import collectives as coll
+from ..parallel.mesh import local_rows
 from .distill import distillation_loss
-from .optim import apply_updates, global_norm, tree_map
+from .optim import apply_updates, global_norm, tree_map, tree_paths
 
 
 def cross_entropy(logits, targets, num_classes: int):
@@ -34,14 +43,32 @@ def cross_entropy(logits, targets, num_classes: int):
 
 
 def _batch(model, batch):
-    """The batch on the model's device; soft targets in f32, as
-    ``jnp.asarray`` makes them (numpy's CutMix targets are f64)."""
-    dev = model.device
-    image = torch.as_tensor(batch["image"], dtype=torch.float32, device=dev)
-    label = torch.as_tensor(batch["label"], device=dev)
+    """The batch on the model's device (this rank's rows of it on a mesh);
+    soft targets in f32, as ``jnp.asarray`` makes them (numpy's CutMix
+    targets are f64)."""
+    dev, mesh = model.device, getattr(model, "mesh", None)
+    image = torch.as_tensor(local_rows(batch["image"], mesh), dtype=torch.float32,
+                            device=dev)
+    label = torch.as_tensor(local_rows(batch["label"], mesh), device=dev)
     if label.is_floating_point():
         label = label.float()
     return image, label
+
+
+def _data_share(model):
+    """``B_local / B_global``: 1 / dp on a mesh, else 1."""
+    mesh = getattr(model, "mesh", None)
+    return 1.0 / mesh.dp if mesh is not None else 1.0
+
+
+def _sum_over_data(tensors):
+    """Each tensor summed over the data axis of the active mesh, in one
+    collective over their flat concatenation."""
+    mesh = coll.active()
+    if mesh is None or mesh.dp == 1 or not tensors:
+        return tensors
+    flat = coll.all_reduce_sum(torch.cat([t.reshape(-1) for t in tensors]), "data")
+    return list(torch.split(flat, [t.numel() for t in tensors]))
 
 
 def make_train_step(model, tx, num_classes: int, running_stat: bool = True, *,
@@ -71,26 +98,35 @@ def make_train_step(model, tx, num_classes: int, running_stat: bool = True, *,
         for p in model.parameters():
             p.grad = None
         image, label = _batch(model, batch)
+        share = _data_share(model)
         with exact_f32():
             logits = model(image, running_stat=rs, train=True, generator=generator)
             loss = cross_entropy(logits, label, num_classes)
             if teacher_fn is not None:
                 loss = distillation_loss(loss, logits, teacher_fn(image),
                                          distillation_type, alpha, tau)
-            loss.backward()
+            (loss * share if share != 1.0 else loss).backward()
         # a parameter the graph does not reach (an LN bias behind a detached
         # path) has the zero gradient jax.grad gives it
         grads = tree_map(lambda p: torch.zeros_like(p) if p.grad is None else p.grad,
                          params)
-        with torch.no_grad():
+        hard = label.argmax(-1) if label.ndim == 2 else label
+        correct = (logits.detach().argmax(-1) == hard).float()
+        with torch.no_grad(), coll.use(getattr(model, "mesh", None)):
+            leaves = [g for _, g in tree_paths(grads)]
+            for g, s in zip(leaves, _sum_over_data(leaves)):
+                g.copy_(s.reshape(g.shape))
             updates, state["opt_state"] = tx.update(grads, state["opt_state"], params)
             apply_updates(params, updates)
+            if share == 1.0:
+                metrics = {"loss": loss.detach(), "acc": torch.mean(correct)}
+            else:
+                loss_g, hits = _sum_over_data([loss.detach().reshape(1) * share,
+                                               correct.sum().reshape(1)])
+                metrics = {"loss": loss_g[0], "acc": hits[0] * share / correct.numel()}
+            if log_grad_norm:
+                metrics["grad_norm"] = global_norm(grads)
         state["step"] = state["step"] + 1
-        hard = label.argmax(-1) if label.ndim == 2 else label
-        metrics = {"loss": loss.detach(),
-                   "acc": torch.mean((logits.detach().argmax(-1) == hard).float())}
-        if log_grad_norm:
-            metrics["grad_norm"] = global_norm(grads)
         return state, metrics
 
     return step
@@ -114,8 +150,17 @@ def make_eval_step(model, num_classes: int):
         loss = cross_entropy(logits, label, num_classes)
         top1 = (logits.argmax(-1) == label).float()
         top5 = top5_correct(logits, label).float()
-        return {"loss": loss, "top1": torch.mean(top1), "top5": torch.mean(top5),
-                "count": torch.tensor(float(label.shape[0]))}
+        share = _data_share(model)
+        if share == 1.0:
+            return {"loss": loss, "top1": torch.mean(top1), "top5": torch.mean(top5),
+                    "count": torch.tensor(float(label.shape[0]))}
+        # the global batch's: the counts summed as int64 over the data axis
+        with coll.use(model.mesh):
+            (loss_g,) = _sum_over_data([loss.reshape(1) * share])
+            counts = _sum_over_data([torch.stack([top1.sum(), top5.sum()]).long()])[0]
+        n = label.shape[0] / share
+        return {"loss": loss_g[0], "top1": counts[0].float() / n,
+                "top5": counts[1].float() / n, "count": torch.tensor(float(n))}
 
     return step
 
@@ -125,8 +170,9 @@ def make_calibration_step(model):
     (ref calibrate_model, quant_train:199) of the module's buffers."""
 
     def step(images):
+        x = local_rows(images, getattr(model, "mesh", None))
         with torch.no_grad():
-            model(torch.as_tensor(images, dtype=torch.float32, device=model.device),
+            model(torch.as_tensor(x, dtype=torch.float32, device=model.device),
                   running_stat=True)
         return variables_tree(model)["quant_stats"]
 

@@ -9,10 +9,20 @@ checkpoint + best tracking -> resume with full optimizer/schedule state.
 
 As in JAX: the JSONL logger replaces W&B with the same fields; ppoly tables
 are refit from the tracked ranges after calibration and at every epoch
-boundary.  The port has no mesh (``mesh_dp`` / ``mesh_tp``, ROADMAP Queue 1
-item 4).  Each step's dropout and drop-path draw from a CPU
+boundary.  Each step's dropout and drop-path draw from a CPU
 ``torch.Generator`` seeded with JAX's fold ``epoch * 100003 + i``; the
 draws cannot be JAX's PRNG bits (DeiT's drop rates are 0).
+
+With ``mesh_dp`` (and ``mesh_tp``) the Trainer runs one process a rank of
+a ``torch.distributed`` world of ``mesh_dp * mesh_tp`` ranks
+(``parallel.launch.spawn``, torchrun's ``init_from_env``, or the CLI's
+``--mesh-dp`` / ``--distributed``), as JAX's shards its jitted step over
+``make_mesh(mesh_dp, mesh_tp)``: every rank runs the same seeded loader
+and Mixup over the global batch and keeps its rows (so the batches are
+the single-process run's), the sim holds this rank's head and hidden
+shards (``parallel.shard_module``; the optimizer state and the EMA
+likewise), rank 0 logs and writes the checkpoints, gathered back into the
+flax layout first, and a resume shards after loading.
 """
 
 from __future__ import annotations
@@ -25,11 +35,14 @@ from typing import Iterable, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from .. import resolve_device
 from ..models import str2model
+from ..models.convert import variables_tree
 from ..models.model_utils import freeze_model as refit_ppoly
 from ..models.vit import BitWidths
+from ..parallel import gather_variables, make_mesh, shard_module, shard_variables
 from ..utils.metrics import AverageMeter, JsonlLogger, ProgressMeter
 from . import checkpoint as ckpt_io
 from . import optim
@@ -44,8 +57,7 @@ log = logging.getLogger("ivit_tpu_torch.train")
 @dataclasses.dataclass
 class TrainConfig:
     """Reference CLI surface (quant_train.py:31-186), trimmed to the knobs
-    that affect training semantics: JAX's fields less ``mesh_dp`` /
-    ``mesh_tp`` (ROADMAP Queue 1 item 4)."""
+    that affect training semantics: JAX's fields."""
 
     model: str = "deit_tiny_patch16_224"
     gelu_type: str = "ivit"
@@ -81,6 +93,9 @@ class TrainConfig:
     resume: Optional[str] = None
     log_interval: int = 50
     log_grad_norm: bool = False            # wandb.watch-style gradient stats
+    # device mesh: data-parallel width (None = no mesh) x tensor-parallel
+    mesh_dp: Optional[int] = None
+    mesh_tp: int = 1
 
     def model_config(self) -> dict:
         bw = BitWidths.from_spec(self.bitwidth)
@@ -180,20 +195,39 @@ def calibrate(model, batches: Iterable):
 
 
 class Trainer:
-    """The training loop over an image dataset (JAX's ``Trainer`` less the
-    mesh): ``fit()`` calibrates, trains ``cfg.epochs`` epochs, validates,
-    logs and checkpoints each; ``device`` (default ``cuda``) holds the sim,
-    the optimizer state and the EMA."""
+    """The training loop over an image dataset (JAX's ``Trainer``):
+    ``fit()`` calibrates, trains ``cfg.epochs`` epochs, validates, logs and
+    checkpoints each; ``device`` (default ``cuda``; the rank's own on a
+    mesh) holds the sim, the optimizer state and the EMA."""
 
     def __init__(self, cfg: TrainConfig, dataset_train, dataset_val, device=None):
         self.cfg = cfg
+        self.mesh = None
+        if cfg.mesh_dp:
+            if not (dist.is_available() and dist.is_initialized()):
+                raise ValueError(
+                    f"mesh_dp={cfg.mesh_dp}, mesh_tp={cfg.mesh_tp} trains one "
+                    "process a rank: join a torch.distributed world first "
+                    "(parallel.launch.spawn or init_from_env, or the CLI's "
+                    "--mesh-dp / --distributed)")
+            self.mesh = make_mesh(cfg.mesh_dp, cfg.mesh_tp)
+            if device is not None and resolve_device(device) != self.mesh.device:
+                raise ValueError(f"device {device} is not this rank's "
+                                 f"{self.mesh.device}")
+            device = self.mesh.device
+        self.is_main = self.mesh is None or self.mesh.rank == 0
         self.device = resolve_device(device)
         self.model = build_model(cfg, device=self.device)
         self.ds_train = dataset_train
         self.ds_val = dataset_val
         self.run_id = cfg.run_id or uuid.uuid4().hex[:8]
+        if self.mesh is not None:
+            ids = [self.run_id]
+            dist.broadcast_object_list(ids, src=0)
+            self.run_id = ids[0]
         self.logger = JsonlLogger(
-            f"{cfg.output_dir}/log_{self.run_id}.jsonl", self.run_id)
+            f"{cfg.output_dir}/log_{self.run_id}.jsonl" if self.is_main else None,
+            self.run_id)
         self.mixup_fn = (Mixup(cfg.mixup, cfg.cutmix,
                                label_smoothing=cfg.smoothing,
                                num_classes=cfg.num_classes)
@@ -216,6 +250,33 @@ class Trainer:
 
         if cfg.resume:
             self._resume(cfg.resume)
+        if self.mesh is not None:
+            self._shard()
+
+    def _shard(self):
+        """The sim, the optimizer state and the EMA cut to this rank's
+        shards (after a resume, which loads the full layout)."""
+        mesh = self.mesh
+        opt_state = shard_variables(self.state["opt_state"], mesh)[0]
+        if self.ema_params is not None:
+            self.ema_params = shard_variables(self.ema_params, mesh)[0]
+        shard_module(self.model, mesh)
+        variables = variables_tree(self.model)
+        self.state = {"params": variables["params"],
+                      "quant_stats": variables["quant_stats"],
+                      "opt_state": opt_state, "step": self.state["step"]}
+
+    def _full_state(self):
+        """(state, ema) in the flax layout: on a mesh, every sharded leaf
+        gathered over the model axis (a collective: every rank calls it)."""
+        if self.mesh is None or self.mesh.tp == 1:
+            return self.state, self.ema_params
+        state = dict(self.state)
+        for k in ("params", "opt_state"):
+            state[k] = gather_variables(state[k], self.mesh)
+        ema = (gather_variables(self.ema_params, self.mesh)
+               if self.ema_params is not None else None)
+        return state, ema
 
     # -- lifecycle ----------------------------------------------------------
 
@@ -270,7 +331,7 @@ class Trainer:
             meters["loss"].update(float(metrics["loss"]))
             meters["acc"].update(float(metrics["acc"]))
             meters["time"].update(dt)
-            if i % cfg.log_interval == 0:
+            if i % cfg.log_interval == 0 and self.is_main:
                 progress.display(i)
                 self.logger.log({"phase": "train", "epoch": epoch,
                                  "loss": float(metrics["loss"]),
@@ -312,12 +373,16 @@ class Trainer:
             self.logger.log({"phase": "epoch", "epoch": epoch,
                              "train_loss": train_loss, **val,
                              "best_acc1": self.best_acc1, "eta_s": eta})
-            ckpt_io.save_checkpoint(
-                f"{cfg.output_dir}/checkpoint_{self.run_id}",
-                self.state, epoch=epoch, best_acc1=self.best_acc1,
-                model_config=cfg.model_config(),
-                args=dataclasses.asdict(cfg),
-                ema_params=self.ema_params, is_best=is_best)
+            state, ema = self._full_state()
+            if self.is_main:
+                ckpt_io.save_checkpoint(
+                    f"{cfg.output_dir}/checkpoint_{self.run_id}",
+                    state, epoch=epoch, best_acc1=self.best_acc1,
+                    model_config=cfg.model_config(),
+                    args=dataclasses.asdict(cfg),
+                    ema_params=ema, is_best=is_best)
+            if self.mesh is not None:
+                dist.barrier()
         return self.best_acc1
 
     # -- resume -------------------------------------------------------------

@@ -308,9 +308,10 @@ def test_quant_train_pretrained(tmp_path):
               open(os.path.join(str(tmp_path / "runs"), "log_t.jsonl"))
               if json.loads(line)["phase"] == "train"]
     assert losses and np.isfinite(losses).all()
-    for flag in (["--mesh-dp", "2"], ["--distributed"]):
-        with pytest.raises(NotImplementedError):
-            quant_train.build_trainer(quant_train.parse_args(argv[:-4] + flag))
+    # a sharded Trainer is a rank of a world (the mesh runs in
+    # tests/test_torch_port_parallel_train.py)
+    with pytest.raises(ValueError, match="torch.distributed world"):
+        quant_train.build_trainer(quant_train.parse_args(argv[:-4] + ["--mesh-dp", "2"]))
 
 
 def test_benchmarking_utils():

@@ -1469,3 +1469,43 @@ def test_cuda_benchmarking_utils(cuda):
     assert bench.time_dispatch(lambda a: a @ a, x, iters=5) > 0
     ops = bench.profile_device_ops(lambda a: a @ a, x, iters=3)
     assert all(v["us_per_iter"] > 0 for v in ops.values())
+
+
+def test_cuda_engine_tp2_over_gloo_ranks_on_one_card(cuda, tmp_path):
+    """Two gloo ranks on cuda:0 (NCCL refuses two ranks on one device): the
+    ivit engine at tp 2 on the standalone kernels (the rank's 3 heads and
+    768 hidden columns) bitwise the single-device engine's, two launches of
+    each kernel a rank; and gloo takes the CUDA tensors of every collective
+    the sharded paths use as they are (all_reduce SUM on int32, MIN and MAX
+    on f32; all_gather), so no helper stages them through host memory."""
+    import os
+    import sys
+    sys.path.insert(0, os.path.dirname(__file__))
+    import _torch_parallel_workers as workers
+
+    from ivit_tpu_torch.parallel import launch
+    res = launch.spawn(workers.cuda_engine_tp_rank, 2, backend="gloo",
+                       devices=["cuda:0", "cuda:0"], init_file=str(tmp_path / "rdv"),
+                       timeout=300)
+    for r in res:
+        assert r["equal"] and r["launches"] == (2, 2)
+        assert all(r["gloo_cuda"].values()), r["gloo_cuda"]
+
+
+def test_cuda_serving_two_replicas_on_one_card(cuda):
+    """``ServingEngine(devices=["cuda:0", "cuda:0"])``: two replicas on the
+    card's stream, each half of every batch, every answer bitwise
+    ``Engine(spec)``'s, 2 x depth launches of each block kernel a batch."""
+    from ivit_tpu_torch.engine.serving import ServingEngine
+    spec = synthetic_spec(_small_config(2), seed=4)
+    images = np.random.default_rng(8).normal(size=(16, 64, 64, 3)).astype(np.float32)
+    want = Engine(spec)(torch.from_numpy(images).to(cuda)).cpu().numpy()
+    with ServingEngine(spec, batch_size=8, max_wait_ms=20,
+                       devices=["cuda:0", "cuda:0"]) as srv:
+        assert [e.device for e in srv.engines] == [torch.device("cuda", 0)] * 2
+        kb.attn_block.launches = kb.mlp_block.launches = 0
+        got = srv.infer(images)
+        torch.cuda.synchronize()
+        batches = srv.metrics.summary()["batches"]
+    np.testing.assert_array_equal(got, want)
+    assert kb.attn_block.launches == kb.mlp_block.launches == 2 * 2 * batches

@@ -40,7 +40,9 @@ def test_port_imports_no_jax_nor_reference():
     assert len(mods) >= 12                        # every module was imported
     assert {f"ivit_tpu_torch.scripts.{m}" for m in (
         "inference", "engine_inference", "serving_bench", "analyze_io_stats",
-        "quant_train")} <= mods
+        "quant_train", "multihost_demo")} <= mods
+    assert {f"ivit_tpu_torch.parallel.{m}" for m in (
+        "mesh", "collectives", "launch")} | {"ivit_tpu_torch.parallel"} <= mods
 
 
 def _sources():
@@ -58,6 +60,17 @@ def test_port_sources_import_no_jax_nor_reference():
         with open(path) as f:
             hits = pat.findall(f.read())
         assert not hits, (path, hits)
+
+
+def test_ops_layer_imports_nothing_of_parallel():
+    """``ops/`` takes a cross-shard reduction as an argument (``row_max=``,
+    ``batch_max=``); the mesh-aware call sites live in ``models/``."""
+    pat = re.compile(r"^\s*(import|from)\s+[.\w]*parallel\b", re.M)
+    for dirpath, _, files in os.walk(os.path.join(PKG, "ops")):
+        for f in files:
+            if f.endswith(".py"):
+                with open(os.path.join(dirpath, f)) as fh:
+                    assert not pat.findall(fh.read()), f
 
 
 def _tiny_spec():

@@ -24,8 +24,9 @@ steps.  The checks:
 * the checkpoints readable both ways, and a resume that runs.
 
 The CLI's ``main([...])`` runs on ``--dataset synthetic`` and on an
-ImageFolder with ``--device cpu``; ``--pretrained``, ``--mesh-dp`` and
-``--distributed`` raise.
+ImageFolder with ``--device cpu``; ``--mesh-dp`` on the card asks for one
+card a rank, and ``--distributed`` for torchrun's environment (the mesh
+runs in ``tests/test_torch_port_parallel_train.py``).
 """
 
 import dataclasses
@@ -106,7 +107,7 @@ def folder(tmp_path_factory):
 def test_train_config_fields_match_jax():
     jf = [(f.name, f.default) for f in dataclasses.fields(jtrainer.TrainConfig)]
     tf = [(f.name, f.default) for f in dataclasses.fields(ttrainer.TrainConfig)]
-    assert tf == [f for f in jf if f[0] not in ("mesh_dp", "mesh_tp")]
+    assert tf == jf
     cfg = dict(model="deit_small_patch16_224", bitwidth="8,8,8,8,16,8,16,8")
     assert (ttrainer.TrainConfig(**cfg).model_config()
             == jtrainer.TrainConfig(**cfg).model_config())
@@ -264,9 +265,14 @@ def test_cli_runs_synthetic_and_image_folder(tmp_path, folder):
     assert int(tr.state["step"]) == 4
     assert os.path.exists(tmp_path / "img" / "checkpoint_cli" / "state.msgpack")
     assert quant_train.parse_args([]).device == "cuda"
-    for flag in (["--mesh-dp", "2"], ["--distributed"]):
-        with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item"):
-            quant_train.main(["--dataset", "synthetic", *flag, *common])
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="spawns 2 processes, one a card, "
+                                               "and this host has 0 card"):
+            quant_train.main(["--dataset", "synthetic", "--mesh-dp", "2", *common,
+                              "--device", "cuda"])
+    with pytest.MonkeyPatch.context() as mp, pytest.raises(KeyError, match="RANK"):
+        mp.delenv("RANK", raising=False)
+        quant_train.main(["--dataset", "synthetic", "--distributed", *common])
     # --pretrained loads the file (tests/test_torch_port_cli.py): a missing
     # one is an error of the file, not of the flag
     with pytest.raises(FileNotFoundError, match="w.pth"):
