@@ -198,7 +198,25 @@ Phases, each printing one JSON line:
    --mesh-tp 1`` (one spawned NCCL rank, one step over a seeded folder)
    and the ``--mesh-dp 2`` refusal on one card; each collective's count
    and ms per forward (host clock, the card synchronized around each:
-   gloo's host staging included); under 90 s.
+   gloo's host staging included); under 90 s;
+27. scripts: the ports of the JAX package's root scripts
+   (``ivit_tpu_torch/scripts/``): ``scaling_bench.measure`` on DeiT-S ibert
+   (``build_spec``: qkv x 3 as in phase 19, calibrated on 8 images on the
+   card, frozen; 224 px, full depth),
+   weak, 32 images a rank, 10 timed forwards, at width 1 (a spawned world
+   of one on NCCL) and width 2 (two gloo ranks on ``cuda:0``: the card is
+   shared, so the efficiency means nothing), each with its server (a warm
+   batch, then twice the batch): every rank's gathered logits and every
+   served answer bitwise ``Engine(spec)``'s, 12 + 12 fused launches a rank
+   a forward, counted in the rank; the artifact, each rank's seconds and
+   ``all_gather`` ms; ``approx_analysis`` (GELU, softmax, exp, LayerNorm of
+   ivit, ibert, ppoly and ibert_int_sqrt) on the card and the CPU, outputs
+   bitwise and statistics equal; ``ppoly_sweep``'s deg 1-2 x seg 8-16 grid,
+   both backends and functions, the card's rows the CPU's; ``sweep
+   --dry-run`` on ``sweep.yaml`` (JAX's 8 points in its order, through the
+   port's own YAML reader too) and one point trained on the card
+   (``quant_train``, DeiT-T ivit, 32 synthetic images at batch 16): return
+   code 0 and a final epoch record.
 
 The build phase reports ptxas's registers and spill bytes per kernel and
 fails if any kernel spills.
@@ -212,6 +230,7 @@ script, it exits non-zero and prints no result.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
 import os
@@ -3772,6 +3791,167 @@ def parallel_phase(torch, counters, dev, rows, smi):
         raise AssertionError(f"parallel phase took {seconds:.1f} s (budget 90 s)")
 
 
+# ---------------------------------------------------------------------------
+# Phase 27: the ports of the JAX package's root scripts
+# ---------------------------------------------------------------------------
+
+SCRIPTS_TIMEOUT = 300     # seconds a spawned world may take
+# JAX's scripts/sweep.py --dry-run on sweep.yaml: its points in its order
+SWEEP_RUN_IDS = [f"bitwidth-{b}_layer-type-{f}" for b in ("8", "8.8.8.8.16.8.16.8")
+                 for f in ("ivit", "ibert", "ppoly", "float")]
+APPROX_FAMILIES = ["ivit", "ibert", "ppoly", "ibert_int_sqrt"]
+
+
+def scripts_phase(torch, counters, dev, rows, smi):
+    """Phase 27: the root scripts' ports.  (a) ``scaling_bench.measure`` on
+    DeiT-S ibert (``build_spec``: full depth and width, 224 px, qkv x
+    ``QAT_QKV_GAIN``, calibrated on the card and frozen), weak, 32 images a rank, 10 timed forwards: width 1 a world of
+    one on NCCL, width 2 two gloo ranks on ``cuda:0``, each with its server;
+    every rank's gathered logits and every served answer bitwise
+    ``Engine(spec)``'s, 12 + 12 fused launches a rank a forward.  (b)
+    ``approx_analysis``, the four functions and families, on the card and
+    the CPU: outputs bitwise, statistics equal.  (c) ``ppoly_sweep``'s 2 x
+    2 grid, both backends and functions: the card's rows the CPU's.  (d)
+    ``sweep``: the dry run on ``sweep.yaml`` gives JAX's 8 points in JAX's
+    order (through PyYAML where it imports and through the port's own
+    reader); one point (ivit, bitwidth 8) trains on the card through
+    ``quant_train``: return code 0 and a final epoch record."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    from ivit_tpu_torch.engine import Engine
+    from ivit_tpu_torch.scripts import approx_analysis, ppoly_sweep, scaling_bench, sweep
+
+    t_phase = time.perf_counter()
+    out, step_s = {}, {}
+
+    # (a) scaling_bench at widths 1 (NCCL) and 2 (gloo, cuda:0 twice), on
+    # the script's spec with qkv x QAT_QKV_GAIN (at the init's scale the
+    # logits do not depend on the image: a bitwise match would say little)
+    t0 = time.perf_counter()
+    import ivit_tpu_torch.models as models
+    registry = models.str2model
+
+    def gained(name):
+        build = registry(name)
+
+        def sim(**kw):
+            model = build(**kw)
+            with torch.no_grad():
+                for blk in model.blocks:
+                    blk.attn.qkv.kernel.mul_(QAT_QKV_GAIN)
+            return model
+        return sim
+    models.str2model = gained
+    try:
+        spec = scaling_bench.build_spec("deit_small_patch16_224", "ibert", dev)
+    finally:
+        models.str2model = registry
+    devices = ["cuda:0", "cuda:0"]
+    for c in counters.values():
+        c.launches = 0
+    results, runs = scaling_bench.measure(spec, [1, 2], devices=devices,
+                                          per_device_batch=32, iters=10,
+                                          serving=True, timeout=SCRIPTS_TIMEOUT)
+    torch.cuda.synchronize()
+    served_launches = {k: c.launches for k, c in counters.items()}
+    eng = Engine(spec)
+    widths = []
+    for rec, run in zip(results, runs):
+        w = rec["devices"]
+        want = eng(torch.from_numpy(run["images"]).to(dev))
+        for r in run["ranks"]:
+            got = torch.from_numpy(r["logits"]).to(dev)
+            check_logits(torch, f"scaling_bench width {w} rank {r['rank']}", got,
+                         want, 1000, rec["batch"])
+            if (r["launches"]["attn_block"], r["launches"]["mlp_block"]) != (12, 12):
+                raise AssertionError(f"scaling_bench width {w} rank {r['rank']}: "
+                                     f"launches {r['launches']}")
+        one = eng(torch.from_numpy(run["served_images"]).to(dev)).cpu().numpy()
+        if not np.array_equal(run["served"], np.concatenate([one, one])):
+            raise AssertionError(f"scaling_bench width {w}: served != Engine(spec)")
+        widths.append({"width": w, "backend": run["backend"], "devices": run["devices"],
+                       "ranks": [{k: r[k] for k in ("rank", "seconds", "launches")}
+                                 | {"all_gather_ms": r["collectives"].get(
+                                     "all_gather", {}).get("ms")}
+                                 for r in run["ranks"]]})
+    artifact = scaling_bench.make_artifact(
+        "weak", torch.cuda.get_device_name(0), "deit_small_patch16_224", "ibert",
+        results, scaling_bench.shares_silicon(devices))
+    out["scaling_bench"] = {"artifact": artifact, "widths": widths,
+                            "served_launches_in_this_process": served_launches}
+    t0 = lap(step_s, "scaling_bench", t0)
+
+    # (b) approx_analysis on the card and on the CPU (the statistics from
+    # the same outputs, as analyze() takes them: a GELU call fits a table)
+    approx = {}
+    for fn in approx_analysis.FUNCTIONS:
+        card, ref = approx_analysis.outputs(fn, 0.05, APPROX_FAMILIES, dev)
+        host, _ = approx_analysis.outputs(fn, 0.05, APPROX_FAMILIES, "cpu")
+        if list(card) != list(host):
+            raise AssertionError(f"approx_analysis {fn}: families {list(card)}")
+        for fam in card:
+            if not np.array_equal(card[fam], host[fam]):
+                raise AssertionError(f"approx_analysis {fn} {fam}: card != CPU, "
+                                     f"{int((card[fam] != host[fam]).sum())} outputs")
+        stats = {fam: approx_analysis._err_stats(y, ref) for fam, y in card.items()}
+        if stats != {fam: approx_analysis._err_stats(y, ref) for fam, y in host.items()}:
+            raise AssertionError(f"approx_analysis {fn}: statistics differ")
+        approx[fn] = stats
+    out["approx_analysis"] = approx
+    t0 = lap(step_s, "approx_analysis", t0)
+
+    # (c) ppoly_sweep's 2 x 2 grid on the card and on the CPU (the scripts'
+    # own lines go to stderr: stdout carries the smoke's JSON lines)
+    sweeps = {}
+    for fn in ("gelu", "softmax"):
+        grid = (fn, 0.05, [1, 2], [8, 16], [22], ["float", "ibert"], False)
+        with contextlib.redirect_stdout(sys.stderr):
+            card_rows = ppoly_sweep.sweep(*grid, device=dev)
+            cpu_rows = ppoly_sweep.sweep(*grid, device="cpu")
+        if card_rows != cpu_rows:
+            raise AssertionError(f"ppoly_sweep {fn}: card rows != CPU rows")
+        sweeps[fn] = [{k: r[k] for k in ("deg", "seg", "backend", "max_err")}
+                      for r in card_rows]
+    out["ppoly_sweep"] = sweeps
+    t0 = lap(step_s, "ppoly_sweep", t0)
+
+    # (d) sweep: JAX's points; one point trained on the card
+    tmp = tempfile.mkdtemp(prefix="ivit_sweep_")
+    try:
+        cfg_path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "sweep.yaml")
+        with contextlib.redirect_stdout(sys.stderr):
+            dry = sweep.main(["--config", cfg_path, "--dry-run", "--output-dir",
+                              os.path.join(tmp, "dry")])
+        with open(cfg_path) as f:
+            own = sweep.points(sweep._mini_yaml(f.read()))
+        if [r["run_id"] for r in dry] != SWEEP_RUN_IDS or \
+                [run_id for _, run_id in own] != SWEEP_RUN_IDS:
+            raise AssertionError(f"sweep --dry-run points {[r['run_id'] for r in dry]}")
+        one = os.path.join(tmp, "one.yaml")
+        with open(one, "w") as f:
+            f.write("grid:\n  layer-type:\n    - ivit\n  bitwidth:\n    - 8\n")
+        with contextlib.redirect_stdout(sys.stderr):
+            rec, = sweep.main(["--config", one, "--output-dir", os.path.join(tmp, "run"),
+                               "--device", "cuda", "--extra", "--dataset", "synthetic",
+                               "--synthetic-samples", "32", "--batch-size", "16",
+                               "--epochs", "1", "--calibration-batches", "1"])
+        if rec["returncode"] != 0 or rec.get("final", {}).get("phase") != "epoch" \
+                or not np.isfinite(rec["final"]["loss"]):
+            raise AssertionError(f"sweep point: {rec}")
+        out["sweep"] = {"dry_run_points": len(dry), "point": rec}
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    lap(step_s, "sweep", t0)
+
+    for k in ("attn_block", "mlp_block"):
+        rows[k]["launches_scaling_bench_rank"] = runs[-1]["ranks"][0]["launches"][k]
+    emit({"phase": "scripts", "seconds": time.perf_counter() - t_phase,
+          "step_s": step_s, "nvidia_smi": smi, **out})
+
+
 def lap(step_s, name, since):
     step_s[name] = time.perf_counter() - since
     return time.perf_counter()
@@ -3906,6 +4086,8 @@ def main(argv=None) -> int:
     emit({"phase": "compat_cli_done", "seconds": time.perf_counter() - t0})
     parallel_phase(torch, counters, dev, rows, smi)
     emit({"phase": "parallel_done", "seconds": time.perf_counter() - t0})
+    scripts_phase(torch, counters, dev, rows, smi)
+    emit({"phase": "scripts_done", "seconds": time.perf_counter() - t0})
     emit({"kernels": list(rows.values())})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

@@ -23,7 +23,10 @@ and each leaves the bits as the single-device run has them:
 
 Every helper acts on the mesh made active by :func:`use` and does nothing
 without one (or over an axis of width 1), so the single-device paths run
-as before.  gloo moves a CUDA tensor through host memory itself: on the
+as before.  The active mesh and the :func:`timed` switch are context
+variables: a thread sees only its own ``use`` blocks (a new thread starts
+with none), so a server's batcher running ``use(None)`` leaves a sharded
+forward on another thread its mesh.  gloo moves a CUDA tensor through host memory itself: on the
 H100 machine's torch it takes CUDA tensors in ``all_reduce`` (SUM, MIN,
 MAX; int32 and f32) and ``all_gather`` (``tests/test_torch_port_cuda.py``
 pins that), so the helpers hand them over as they are.  That copy is
@@ -38,45 +41,43 @@ from __future__ import annotations
 
 import collections
 import contextlib
+import contextvars
 import time
 
 import torch
 import torch.distributed as dist
 
-_ACTIVE = None
+_ACTIVE = contextvars.ContextVar("ivit_active_mesh", default=None)
 
 STATS = collections.defaultdict(lambda: {"count": 0, "ms": 0.0})
-_TIMED = False
+_TIMED = contextvars.ContextVar("ivit_collectives_timed", default=False)
 
 
 @contextlib.contextmanager
 def use(mesh):
-    """Make ``mesh`` (a rank mesh, or None) the active one while the block
-    runs; the helpers reduce over its groups."""
-    global _ACTIVE
-    prev, _ACTIVE = _ACTIVE, (mesh if mesh is not None and mesh.distributed
-                              else None)
+    """Make ``mesh`` (a rank mesh, or None) the active one in this thread
+    while the block runs; the helpers reduce over its groups."""
+    token = _ACTIVE.set(mesh if mesh is not None and mesh.distributed else None)
     try:
         yield mesh
     finally:
-        _ACTIVE = prev
+        _ACTIVE.reset(token)
 
 
 def active():
-    """The active rank mesh, or None."""
-    return _ACTIVE
+    """This thread's active rank mesh, or None."""
+    return _ACTIVE.get()
 
 
 @contextlib.contextmanager
 def timed(on=True):
-    """Synchronize the device around each collective while the block runs,
-    so :data:`STATS` holds each one's own time."""
-    global _TIMED
-    prev, _TIMED = _TIMED, on
+    """Synchronize the device around each collective this thread runs while
+    the block runs, so :data:`STATS` holds each one's own time."""
+    token = _TIMED.set(on)
     try:
         yield
     finally:
-        _TIMED = prev
+        _TIMED.reset(token)
 
 
 def reset_stats():
@@ -96,11 +97,12 @@ def _axes(mesh, axis):
 
 @contextlib.contextmanager
 def _clock(name, t):
-    if _TIMED and t.is_cuda:
+    sync = _TIMED.get() and t.is_cuda
+    if sync:
         torch.cuda.synchronize(t.device)
     t0 = time.perf_counter()
     yield
-    if _TIMED and t.is_cuda:
+    if sync:
         torch.cuda.synchronize(t.device)
     rec = STATS[name]
     rec["count"] += 1
@@ -110,7 +112,7 @@ def _clock(name, t):
 def _all_reduce(t, op, axis, name, mesh=None):
     """``t`` reduced over ``axis`` of ``mesh`` (default: the active one; a
     new tensor, or ``t`` itself where there is nothing to reduce)."""
-    mesh = mesh or _ACTIVE
+    mesh = mesh or _ACTIVE.get()
     if mesh is None:
         return t
     group, width = _axes(mesh, axis)
@@ -155,7 +157,7 @@ def reduce_range(cur_min, cur_max, model_sharded=False, batch_sharded=True):
     """A QuantAct's (min, max) over the active mesh: one MAX of
     ``[-min, max]`` (negation is exact)."""
     axis = range_axis(model_sharded, batch_sharded)
-    if _ACTIVE is None or axis is None:
+    if _ACTIVE.get() is None or axis is None:
         return cur_min, cur_max
     n = cur_min.numel()
     packed = reduce_max(torch.cat([-cur_min.reshape(-1), cur_max.reshape(-1)]), axis)
@@ -165,7 +167,7 @@ def reduce_range(cur_min, cur_max, model_sharded=False, batch_sharded=True):
 def all_gather(t, axis, dim=0):
     """``t`` from every rank of ``axis`` (None: ``t`` itself), concatenated
     along ``dim`` in the axis's rank order."""
-    mesh = _ACTIVE
+    mesh = _ACTIVE.get()
     if mesh is None or axis is None:
         return t
     group, width = _axes(mesh, axis)
@@ -182,15 +184,16 @@ def all_gather(t, axis, dim=0):
 # Tensor-parallel autograd pieces
 # ---------------------------------------------------------------------------
 
-# The backward runs after the forward has left the mesh's ``use`` block:
-# each function keeps the mesh its forward ran on.
+# The backward runs after the forward has left the mesh's ``use`` block,
+# and on the card on the autograd engine's own threads, whose context is
+# empty: each function keeps the mesh its forward ran on.
 
 class _CopyToModel(torch.autograd.Function):
     """f: identity forward, SUM over the model axis backward."""
 
     @staticmethod
     def forward(ctx, x):
-        ctx.mesh = _ACTIVE
+        ctx.mesh = _ACTIVE.get()
         return x.view_as(x)
 
     @staticmethod
@@ -211,7 +214,8 @@ class _ReduceFromModel(torch.autograd.Function):
 
 
 def _model_cut():
-    return _ACTIVE is not None and _ACTIVE.tp > 1
+    mesh = _ACTIVE.get()
+    return mesh is not None and mesh.tp > 1
 
 
 def copy_to_model(x):
@@ -228,7 +232,7 @@ class _ModelRowMax(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x):
         m = reduce_max(torch.amax(x, dim=-1, keepdim=True), "model")
-        ctx.mesh = _ACTIVE
+        ctx.mesh = _ACTIVE.get()
         if ctx.needs_input_grad[0]:
             mask = x == m
             count = all_reduce_sum(mask.sum(-1, keepdim=True, dtype=x.dtype),

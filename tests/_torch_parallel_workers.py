@@ -315,3 +315,48 @@ def cuda_engine_tp_rank(rank):
     checks["all_gather_f32"] = torch.cat(parts).tolist() == [0, 1, 2, 1, 2, 3]
     out["gloo_cuda"] = checks
     return out
+
+
+SERVED = 32          # requests the server answers beside the tp-2 forwards
+TP_FORWARDS = 4
+
+
+def serve_beside_tp_rank(rank, spec, x, served):
+    """Both ranks run ``TP_FORWARDS`` tp-2 plain forwards of ``x``; on rank 0
+    a ``ServingEngine`` thread on the CPU answers ``served``, one request at
+    a time, all the while (its batcher enters ``use(None)`` for every
+    batch).  Returns the tp logits, the answers, and how many answers had
+    come back when the forwards started and when they ended."""
+    import threading
+
+    from ivit_tpu_torch.engine.serving import ServingEngine
+    from ivit_tpu_torch.engine.vit_int import engine_forward
+    from ivit_tpu_torch.parallel import make_mesh, shard_engine_params
+
+    mesh = make_mesh(1, 2)
+    local, _ = shard_engine_params(spec.params, mesh)
+    lspec = type(spec)(spec.config, local)
+    answers, first = [], threading.Event()
+    srv = client = None
+    if rank == 0:
+        srv = ServingEngine(spec, batch_size=4, max_wait_ms=1, device="cpu",
+                            kernels=False)
+
+        def ask():
+            for im in served:
+                answers.append(srv.submit(im).result(timeout=120))
+                first.set()
+        client = threading.Thread(target=ask)
+        client.start()
+        first.wait(120)
+    try:
+        before = len(answers)
+        logits = [engine_forward(lspec, x, kernels=False, mesh=mesh).numpy()
+                  for _ in range(TP_FORWARDS)]
+        after = len(answers)
+    finally:
+        if client is not None:
+            client.join(120)
+            srv.close()
+    return {"tp": logits, "served": np.stack(answers) if answers else None,
+            "answered": (before, after)}

@@ -40,7 +40,8 @@ def test_port_imports_no_jax_nor_reference():
     assert len(mods) >= 12                        # every module was imported
     assert {f"ivit_tpu_torch.scripts.{m}" for m in (
         "inference", "engine_inference", "serving_bench", "analyze_io_stats",
-        "quant_train", "multihost_demo")} <= mods
+        "quant_train", "multihost_demo", "scaling_bench", "approx_analysis",
+        "ppoly_sweep", "sweep")} <= mods
     assert {f"ivit_tpu_torch.parallel.{m}" for m in (
         "mesh", "collectives", "launch")} | {"ivit_tpu_torch.parallel"} <= mods
 
@@ -149,3 +150,21 @@ def test_training_cli_defaults_to_cuda():
     with pytest.raises(RuntimeError, match="device='cpu'"):
         quant_train.main(["--dataset", "synthetic", "--synthetic-samples", "4",
                           "--batch-size", "4", "--img-size", "32", "--epochs", "1"])
+
+
+def test_root_script_ports_default_to_cuda(tmp_path):
+    """``approx_analysis``, ``ppoly_sweep``, ``scaling_bench`` and the
+    points of ``sweep`` run on the card unless told ``--device cpu``."""
+    if torch.cuda.is_available():
+        pytest.skip("this machine has a CUDA device: the default runs")
+    from ivit_tpu_torch.scripts import approx_analysis, ppoly_sweep, scaling_bench, sweep
+    for main, argv in ((approx_analysis.main, ["--function", "exp"]),
+                       (ppoly_sweep.main, ["--degrees", "1", "--segments", "8"]),
+                       (scaling_bench.main, ["--widths", "1"])):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            main(argv)
+    cfg = tmp_path / "one.yaml"
+    cfg.write_text("grid:\n  layer-type:\n    - ivit\n")
+    rec, = sweep.main(["--config", str(cfg), "--dry-run", "--output-dir",
+                       str(tmp_path / "out")])
+    assert rec["cmd"][-2:] == ["--device", "cuda"]
