@@ -216,7 +216,21 @@ Phases, each printing one JSON line:
    --dry-run`` on ``sweep.yaml`` (JAX's 8 points in its order, through the
    port's own YAML reader too) and one point trained on the card
    (``quant_train``, DeiT-T ivit, 32 synthetic images at batch 16): return
-   code 0 and a final epoch record.
+   code 0 and a final epoch record;
+28. dispatch: the engine's path dispatch (``engine/dispatch.py``) held to
+   this card's own A/B: ``scripts/path_compare.py`` (modes ``blocks`` and
+   ``ops``) on DeiT-T ivit, DeiT-S ivit and ibert and ViT-B ivit (the
+   script's spec: the seeded sim calibrated on 8 images and frozen; 224
+   px, full depth, batch 256), both modes bitwise one plain forward, 12 +
+   12 block-kernel launches a ``blocks`` forward (ivit: 12 + 12
+   standalone ones an ``ops`` forward); ``Engine(spec)`` on the
+   ``static-table`` row with the ``blocks`` logits, the probe
+   (``probe_images``) on DeiT-S ivit and ibert (skipped: no unfused path
+   launches a kernel); ``scripts/swin_path_compare.py`` on Swin-T ivit at batch 64
+   (fused, attn, mlp, the stage mixes, unfused, the table's mix), every
+   mode bitwise, ``Engine(spec)`` on the ``swin-stage-table``; each table
+   row's path not slower than the other by more than 10% in this call;
+   img/s a mode.
 
 The build phase reports ptxas's registers and spill bytes per kernel and
 fails if any kernel spills.
@@ -3952,6 +3966,145 @@ def scripts_phase(torch, counters, dev, rows, smi):
           "step_s": step_s, "nvidia_smi": smi, **out})
 
 
+# ---------------------------------------------------------------------------
+# Phase 28: the engine's path dispatch on the card's own A/B
+# ---------------------------------------------------------------------------
+
+# the ViT table keys at full width and depth: (registry name, family)
+DISPATCH_VIT = [("deit_tiny_patch16_224", "ivit"), ("deit_small_patch16_224", "ivit"),
+                ("deit_small_patch16_224", "ibert"), ("vit_base_patch16_224", "ivit")]
+# path_compare's modes run iters + 2 forwards each (the logits, a warm call,
+# the timed calls); cut the iterations, never the widths, depth or batch
+DISPATCH_ITERS, DISPATCH_SWIN_ITERS = 5, 10
+DISPATCH_SWIN_MODES = ("fused", "attn", "mlp", "stages123", "stages23", "stages3",
+                       "unfused", "dispatch")
+DISPATCH_MARGIN = 1.10    # a table row's path against the other, in one call
+
+
+def dispatch_phase(torch, counters, dev, rows, smi):
+    """Phase 28: the engine's path dispatch (``engine/dispatch.py``) held
+    to this card's own A/B.  (a) ``scripts/path_compare.py``'s modes
+    ``blocks`` and ``ops`` on DeiT-T ivit, DeiT-S ivit and ibert and ViT-B
+    ivit (the script's spec: the seeded sim calibrated on 8 images and
+    frozen; 224 px, full depth, batch 256): both modes bitwise one forward
+    of the plain version (``kernels=False``), 12 + 12 block-kernel
+    launches a ``blocks`` forward (ivit: 12 + 12 standalone ones an
+    ``ops`` forward); ``Engine(spec)`` reports the ``static-table`` row
+    and its logits are the ``blocks`` mode's; the row's path not slower
+    than the other by more than 10% here; ``Engine(spec, probe_images=x)``
+    on DeiT-S reports ``timed-probe`` (ivit) or, where no unfused path
+    launches a kernel, skips the probe and keeps the fused kernels
+    (ibert), with the same logits.  (b) ``scripts/swin_path_compare.py`` on Swin-T ivit at
+    batch 64 (fused, attn, mlp, stages123, stages23, stages3, unfused,
+    dispatch; its check): every mode bitwise; ``Engine(spec)`` reports the
+    ``swin-stage-table`` stages and the fused logits; each stage row's path
+    (the mixes that differ at that stage alone) and the ``("swin", 96)``
+    row's not slower than the other by more than 10%."""
+    import numpy as np
+
+    from ivit_tpu_torch.engine import Engine, dispatch
+    from ivit_tpu_torch.scripts import path_compare, swin_path_compare
+
+    t_phase = time.perf_counter()
+    out, launch_rows = {"vit": []}, {}
+
+    def quiet(_line):
+        pass
+
+    def slower(name, chosen, other, ms):
+        if ms[chosen] > DISPATCH_MARGIN * ms[other]:
+            raise AssertionError(f"dispatch {name}: the table's {chosen} "
+                                 f"{ms[chosen]} ms > {DISPATCH_MARGIN} x {other} "
+                                 f"{ms[other]} ms")
+
+    for model, fam in DISPATCH_VIT:
+        name = f"{model} {fam}"
+        args = path_compare.parse_args(["--model", model, "--fam", fam,
+                                        "--batch", str(BATCH), "--device", "cuda"])
+        _, spec, x = path_compare.setup(args)
+        cfg = spec.config
+        (records, outs), launches = run_counted(torch, counters, lambda: path_compare.compare(
+            spec, x, ["blocks", "ops"], DISPATCH_ITERS, emit=quiet))
+        # one untimed forward of the plain version, outside the counted run:
+        # both kernel modes are held to it at these main-path shapes
+        outs["plain"] = Engine(spec, kernels=False)(x).cpu().numpy()
+        checks = path_compare.checks(outs, "plain")
+        if not all(c["bitwise_equal_vs_plain"] for c in checks):
+            raise AssertionError(f"dispatch {name}: modes differ {checks}")
+        if not np.isfinite(outs["blocks"]).all():
+            raise AssertionError(f"dispatch {name}: non-finite logits")
+        per = {k: v / (DISPATCH_ITERS + 2) for k, v in launches.items()}
+        want = {"attn_block": cfg.depth, "mlp_block": cfg.depth,
+                "shiftmax": cfg.depth if fam == "ivit" else 0,
+                "shift_gelu_requant": cfg.depth if fam == "ivit" else 0}
+        if any(per[k] != n for k, n in want.items()):
+            raise AssertionError(f"dispatch {name}: launches a forward {per}")
+        launch_rows[name] = per
+        eng = Engine(spec)
+        choice = eng.fusion["path_choice"]
+        got = eng(x).cpu().numpy()
+        if choice["source"] != "static-table" or not np.array_equal(got, outs["blocks"]):
+            raise AssertionError(f"dispatch {name}: Engine(spec) took {choice}, "
+                                 f"logits equal: {np.array_equal(got, outs['blocks'])}")
+        ms = {r["mode"]: r["ms_per_batch"] for r in records}
+        row = dispatch.MEASURED["vit", cfg.embed_dim]
+        chosen = "blocks" if row["fused"] else "ops"
+        slower(name, chosen, "ops" if row["fused"] else "blocks", ms)
+        rec = {"model": model, "fam": fam, "records": records, "launches": per,
+               "engine_kernels": repr(eng.kernels), "key": choice["key"]}
+        if model == "deit_small_patch16_224":
+            # ivit: the fused kernels timed against "ops" (the standalone
+            # kernels); ibert: no unfused path launches a kernel, no probe
+            probed = Engine(spec, probe_images=x)
+            rep = probed.fusion["path_choice"]
+            same = np.array_equal(probed(x).cpu().numpy(), outs["blocks"])
+            want = "timed-probe" if fam == "ivit" else "static-table"
+            if rep["source"] != want or probed.kernels not in (True, "ops") or not same or \
+                    (fam != "ivit" and probed.kernels is not True):
+                raise AssertionError(f"dispatch {name}: probe {rep}, kernels "
+                                     f"{probed.kernels!r}, logits equal: {same}")
+            rec["probe"] = {**rep, "kernels": repr(probed.kernels)}
+            del probed
+        out["vit"].append(rec)
+        del eng, spec, x, outs
+        torch.cuda.empty_cache()
+
+    args = path_compare.parse_args(["--model", "swin_tiny_patch4_window7_224", "--fam",
+                                    "ivit", "--batch", str(SWIN_BATCH), "--device", "cuda"])
+    _, spec, x = path_compare.setup(args)
+    (records, outs), launches = run_counted(torch, counters, lambda: swin_path_compare.compare(
+        spec, x, DISPATCH_SWIN_MODES, DISPATCH_SWIN_ITERS, emit=quiet))
+    checks = path_compare.checks(outs, "fused")
+    if not all(c["bitwise_equal_vs_fused"] for c in checks):
+        raise AssertionError(f"dispatch Swin-T: modes differ {checks}")
+    if not launches["swin_attn_block"] or not launches["mlp_block"]:
+        raise AssertionError(f"dispatch Swin-T: launches {launches}")
+    eng = Engine(spec)
+    choice = eng.fusion["path_choice"]
+    paths, _ = dispatch.swin_stage_choice(spec.config)
+    got = eng(x).cpu().numpy()
+    if choice["source"] != "swin-stage-table" or \
+            eng.fusion["fused_attn_stages"] != list(paths) or \
+            not np.array_equal(got, outs["fused"]):
+        raise AssertionError(f"dispatch Swin-T: Engine(spec) took {choice}")
+    ms = {r["mode"]: r["ms_per_batch"] for r in records if "ms_per_batch" in r}
+    for i, dim in enumerate(96 * 2 ** i for i in range(4)):
+        on, off = swin_path_compare.STAGE_PAIRS[i]
+        fused = dispatch.MEASURED_SWIN_STAGE[dim]["fused"]
+        slower(f"Swin-T stage {i} (C {dim})", on if fused else off, off if fused else on, ms)
+    fused = dispatch.MEASURED["swin", 96]["fused"]
+    slower("Swin-T", "fused" if fused else "unfused", "unfused" if fused else "fused", ms)
+    out["swin"] = {"records": records, "launches": launches, "stage_paths": list(paths)}
+    del eng, spec, x, outs
+    torch.cuda.empty_cache()
+
+    for k in ("attn_block", "mlp_block", "shiftmax", "shift_gelu_requant"):
+        rows[k]["launches_dispatch_forward"] = {n: p[k] for n, p in launch_rows.items()}
+    rows["swin_attn_block"]["launches_dispatch_swin"] = launches["swin_attn_block"]
+    seconds = time.perf_counter() - t_phase
+    emit({"phase": "dispatch", "seconds": seconds, "nvidia_smi": smi, **out})
+
+
 def lap(step_s, name, since):
     step_s[name] = time.perf_counter() - since
     return time.perf_counter()
@@ -4088,6 +4241,8 @@ def main(argv=None) -> int:
     emit({"phase": "parallel_done", "seconds": time.perf_counter() - t0})
     scripts_phase(torch, counters, dev, rows, smi)
     emit({"phase": "scripts_done", "seconds": time.perf_counter() - t0})
+    dispatch_phase(torch, counters, dev, rows, smi)
+    emit({"phase": "dispatch_done", "seconds": time.perf_counter() - t0})
     emit({"kernels": list(rows.values())})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

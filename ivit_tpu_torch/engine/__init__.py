@@ -1,3 +1,4 @@
+from . import dispatch
 from .export import load_engine, save_engine
 from .freeze import EngineConfig, EngineSpec, freeze_model
 from .serving import DeadlineExceeded, QueueFull, ServingEngine, ServingMetrics

@@ -117,7 +117,9 @@ class ServingEngine:
     ``submit(image) -> Future[logits]`` (an [H, W, 3] float32 image; numpy
     logits [classes]).  ``device``: where the engine runs (default
     ``cuda``; raises without a card unless ``"cpu"``); ``kernels``: the
-    engine path, as ``Engine`` takes it (JAX's ``pallas``).  ``max_queue``
+    engine path, as ``Engine`` takes it (JAX's ``pallas``), but ``None``
+    is the fused kernels, as JAX's server hands ``pallas=None`` to
+    ``engine_forward`` and not to the dispatch table.  ``max_queue``
     bounds the requests waiting to be batched (over it, ``submit`` raises
     :class:`QueueFull`); ``deadline_ms`` sheds a request that waited longer
     before batching (its future raises :class:`DeadlineExceeded`).
@@ -144,6 +146,7 @@ class ServingEngine:
             replicas = [resolve_device(device)]
         self.mesh = mesh
         self.device = replicas[0]
+        kernels = True if kernels is None else kernels
         self.engines = [Engine(spec, device=d, kernels=kernels) for d in replicas]
         self.engine = self.engines[0]
         self.spec = spec

@@ -12,7 +12,8 @@ Two paths, bit-identical to each other and to the JAX engine:
   the plain per-op engine on either device, the reference the kernels are
   held against on the card.
 
-``stage_paths`` picks the path per stage, as in JAX.  The input quant, the
+``stage_paths`` picks the path per stage and ``fuse_parts`` the fused
+half-blocks, as in JAX.  The input quant, the
 patch GEMM and patch norm, the roll and window permutations, PatchMerging,
 the final LN, the exact-int average pool and the head run outside any
 kernel on every path, as in the JAX package.  The JAX fused branch pads
@@ -406,6 +407,9 @@ def swin_fusion_report(cfg, kernels=True, stage_paths=None) -> dict:
             "unfused_reasons": reasons + attn_reasons}
 
 
+FUSE_PARTS = frozenset({"attn", "mlp", "mlp_pad", "mlp_nopad"})
+
+
 def check_stage_paths(cfg, stage_paths):
     if stage_paths is not None and len(stage_paths) != len(cfg.depths):
         raise ValueError(f"stage_paths {stage_paths!r}: want one bool for each "
@@ -413,13 +417,20 @@ def check_stage_paths(cfg, stage_paths):
 
 
 def swin_engine_forward(spec: SwinEngineSpec, images, kernels=True,
-                        device=None, stage_paths=None, mlp_wt=None, mesh=None):
+                        device=None, stage_paths=None, mlp_wt=None, mesh=None,
+                        fuse_parts=("attn", "mlp")):
     """images: f32 NHWC [B, img, img, 3] -> f32 logits [B, classes].
 
     ``kernels``: the fused block kernels (True) or the unfused plain engine
     (False); ``stage_paths``: one bool per stage, fused or unfused for that
     stage (``None``: ``kernels`` everywhere; a stage is fused only where
-    ``kernels`` is True).  ``device``: where to run (default ``cuda``;
+    ``kernels`` is True).  ``fuse_parts``: JAX's A/B switch
+    (``swin_int.py:473-500``), which half-blocks of a fused stage take
+    their kernel: ``"attn"`` the window attention, ``"mlp"`` (or
+    ``"mlp_pad"``) the MLP; ``"mlp_nopad"`` keeps the MLP kernel to stages
+    whose width is a multiple of 128 (JAX pads the others to 128 lanes,
+    ``"mlp_pad"`` overriding; the port pads nothing).  Every choice gives
+    the same bits.  ``device``: where to run (default ``cuda``;
     raises without a card unless ``"cpu"``); params and images are moved
     there if needed.  ``mlp_wt``: one dict a ``params["blocks"]`` entry of
     its MLP weights transposed (``vit_int.transposed_mlp_weights``), or
@@ -436,6 +447,9 @@ def swin_engine_forward(spec: SwinEngineSpec, images, kernels=True,
     cfg = spec.config
     _check_families(cfg)
     check_stage_paths(cfg, stage_paths)
+    if isinstance(fuse_parts, str) or not set(fuse_parts) <= FUSE_PARTS:
+        raise ValueError(f"fuse_parts {fuse_parts!r}: want a tuple of "
+                         f"{sorted(FUSE_PARTS)}")
     if mesh is not None:
         if not mesh.distributed:
             raise ValueError("swin_engine_forward(mesh=) takes a mesh of ranks")
@@ -453,11 +467,11 @@ def swin_engine_forward(spec: SwinEngineSpec, images, kernels=True,
         device = mesh.device if device is None else device
     with coll.use(mesh):
         logits = _swin_forward(spec, images, kernels, resolve_device(device),
-                               stage_paths, mlp_wt)
+                               stage_paths, mlp_wt, fuse_parts)
         return coll.all_gather(logits, "data") if mesh is not None else logits
 
 
-def _swin_forward(spec, images, kernels, dev, stage_paths, mlp_wt):
+def _swin_forward(spec, images, kernels, dev, stage_paths, mlp_wt, fuse_parts):
     cfg = spec.config
     p = params_to_torch(spec.params, dev)
     images = torch.as_tensor(images, dtype=torch.float32).to(dev)
@@ -480,6 +494,9 @@ def _swin_forward(spec, images, kernels, dev, stage_paths, mlp_wt):
 
         res, dim = g, cfg.embed_dim
         attn_kernel, mlp_kernel = fused_halves(cfg)
+        attn_kernel = attn_kernel and "attn" in fuse_parts
+        mlp_kernel = mlp_kernel and bool({"mlp", "mlp_pad"} & set(fuse_parts))
+        mlp_any_width = "mlp_nopad" not in fuse_parts or "mlp_pad" in fuse_parts
         for (kind, stage, shift), blk, wt in zip(
                 cfg.layout, p["blocks"], mlp_wt or itertools.repeat({})):
             if kind == "merge":
@@ -494,7 +511,7 @@ def _swin_forward(spec, images, kernels, dev, stage_paths, mlp_wt):
                 x = _attn_fused(cfg, blk, x, B, res, dim, heads, ws, shift)
             else:
                 x = _attn_unfused(cfg, blk, x, B, res, dim, heads, ws, shift)
-            if fused and mlp_kernel:
+            if fused and mlp_kernel and (mlp_any_width or dim % 128 == 0):
                 x = _mlp_fused(cfg, {**blk, **wt}, x)
             else:
                 x = _mlp_unfused(cfg, blk, x)

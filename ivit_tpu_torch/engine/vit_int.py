@@ -589,16 +589,25 @@ class Engine:
     """Callable integer inference engine for one frozen ViT or Swin spec
     (dispatching on the spec's type, as the JAX ``Engine`` does).
 
-    ``fusion`` is :func:`fusion_report` (ViT) or
-    :func:`~ivit_tpu_torch.engine.swin_int.swin_fusion_report` (Swin) of the
-    spec and the caller's choice, with ``path_choice`` recording that
-    choice (the port has no dispatch table yet: the caller's ``kernels``
-    and ``stage_paths`` decide).
+    ``kernels=None`` (the default, JAX's ``pallas=None``) resolves on the
+    card through :func:`~ivit_tpu_torch.engine.dispatch.resolve`, to a path
+    that launches a kernel: with ``probe_images``, a one-time timed probe
+    of the fused kernels against ``"ops"`` for a ViT whose softmax or GELU
+    is ivit; otherwise the H100 A/B tables (a ViT takes True, or ``"ops"``
+    where its row says unfused and ``"ops"`` launches a kernel; a Swin
+    takes True with the per-stage ``stage_paths`` of its table).  An
+    explicit ``kernels`` or ``stage_paths`` skips both; on the CPU
+    ``None`` means True (the wrappers run their plain versions there, so
+    every path gives the same bits).  ``fusion`` is
+    :func:`fusion_report` (ViT) or
+    :func:`~ivit_tpu_torch.engine.swin_int.swin_fusion_report` (Swin) of
+    the path taken, with ``path_choice`` the report of the choice: the
+    table's or the probe's, or ``{"source": "caller", ...}``.
 
     Keeps the caller's spec as ``spec`` and moves its parameters to
     ``device`` once (default ``cuda``; raises without a card unless
-    ``device="cpu"``); with ``kernels=True``, where the MLP half-blocks run
-    fused (:func:`fused_halves`), keeps each block's MLP
+    ``device="cpu"``); where the MLP half-blocks run fused
+    (:func:`fused_halves`), keeps each block's MLP
     weights transposed beside them (:func:`transposed_mlp_weights`: the
     ``mlp_block`` kernel streams those, so a call neither transposes nor
     gives its weight maps fresh addresses), and runs :func:`engine_forward`
@@ -608,43 +617,63 @@ class Engine:
     them.
     """
 
-    def __init__(self, spec, device=None, kernels=True, stage_paths=None):
+    def __init__(self, spec, device=None, kernels=None, stage_paths=None,
+                 probe_images=None):
         # imported here: swin_int builds on this module
+        from . import dispatch
         from .swin_int import (SwinEngineSpec, check_stage_paths,
                                check_swin_kernels, swin_engine_forward,
                                swin_fusion_report)
         _check_families(spec.config)
         attn_fused, mlp_fused = fused_halves(spec.config)
-        if isinstance(spec, SwinEngineSpec):
-            check_swin_kernels(kernels)
+        is_swin = isinstance(spec, SwinEngineSpec)
+        forward = swin_engine_forward if is_swin else engine_forward
+        if is_swin:
             check_stage_paths(spec.config, stage_paths)
-            self._forward = functools.partial(swin_engine_forward,
-                                              stage_paths=stage_paths)
-            self.fusion = swin_fusion_report(spec.config, kernels, stage_paths)
-            fused = self.fusion["fused_window_attention"]
         else:
             mlp_fused = attn_fused and mlp_fused
-            _check_kernels(kernels)
             if stage_paths is not None:
                 raise ValueError("stage_paths picks a path per Swin stage; "
                                  "a ViT spec has none")
-            self._forward = engine_forward
-            self.fusion = fusion_report(spec.config, kernels)
-            fused = self.fusion["fused_blocks"]
-        self.fusion["path_choice"] = {"source": "caller", "kernels": repr(kernels),
-                                      "stage_paths": stage_paths}
-        log = logging.getLogger("ivit_tpu_torch.engine")
-        if fused:
-            log.info("engine path: fused block kernels")
-        else:
-            log.info("engine path: unfused (%s)",
-                     "; ".join(self.fusion["unfused_reasons"]) or "by stage")
+        if kernels is not None:
+            (check_swin_kernels if is_swin else _check_kernels)(kernels)
         self.device = resolve_device(device)
         self.spec = spec
         params = params_to_torch(spec.params, self.device)
         self._spec = type(spec)(spec.config, params)
-        self.mlp_wt = (transposed_mlp_weights(params)
-                       if kernels is True and mlp_fused else None)
+        mlp_wt = (transposed_mlp_weights(params)
+                  if mlp_fused and (kernels is None or kernels is True) else None)
+
+        choice = {"source": "caller", "kernels": repr(kernels),
+                  "stage_paths": stage_paths}
+        if kernels is None and stage_paths is None and self.device.type == "cuda":
+            probe = None
+            if probe_images is not None:
+                probe = (lambda k: functools.partial(
+                    forward, self._spec, kernels=k, device=self.device,
+                    mlp_wt=mlp_wt if k is True else None),
+                    torch.as_tensor(probe_images, dtype=torch.float32).to(self.device))
+            kernels, stage_paths, choice = dispatch.resolve(spec.config, probe)
+        elif kernels is None:
+            kernels = True
+
+        if is_swin:
+            self._forward = functools.partial(forward, stage_paths=stage_paths)
+            self.fusion = swin_fusion_report(spec.config, kernels, stage_paths)
+            fused = self.fusion["fused_window_attention"]
+        else:
+            self._forward = forward
+            self.fusion = fusion_report(spec.config, kernels)
+            fused = self.fusion["fused_blocks"]
+        self.fusion["path_choice"] = choice
+        log = logging.getLogger("ivit_tpu_torch.engine")
+        if fused:
+            log.info("engine path: fused block kernels (%s)", choice["source"])
+        else:
+            log.warning("engine path: unfused (%s; choice: %s)",
+                        "; ".join(self.fusion["unfused_reasons"]) or "by stage",
+                        choice)
+        self.mlp_wt = mlp_wt if kernels is True else None
         self.kernels = kernels
 
     def __call__(self, images):

@@ -6,7 +6,10 @@
   python -m ivit_tpu_torch.scripts.engine_inference --engine eng.npz --dataset synthetic
   python -m ivit_tpu_torch.scripts.engine_inference --engine eng.npz --serve --batch-size 64
 
-``main(argv)`` returns the printed result.
+``Engine`` takes the path ``Engine(spec)`` resolves (on the card, the
+H100 A/B table of ``engine/dispatch.py``), the server the fused kernels;
+``--no-pallas`` runs the plain engine in both.  ``main(argv)`` returns the
+printed result.
 """
 
 from __future__ import annotations
@@ -62,7 +65,7 @@ def main(argv=None):
     else:
         ds = ImageFolderDataset(f"{args.data_path}/val")
 
-    kernels = not args.no_pallas
+    kernels = False if args.no_pallas else None
     top1 = top5 = n = 0
     times = []
 

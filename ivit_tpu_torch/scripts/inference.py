@@ -14,8 +14,10 @@ spec (``engine/export.py``), ``--io-stats`` the per-layer IO statistics.
       --export-engine eng.npz --io-stats io.csv
   python -m ivit_tpu_torch.scripts.inference ... --device cpu
 
-``--no-pallas`` runs the plain engine (``kernels=False``), as it runs
-JAX's unfused one.  ``main(argv)`` returns the printed result.
+The engine takes the path ``Engine(spec)`` resolves (on the card, the
+H100 A/B table of ``engine/dispatch.py``); ``--no-pallas`` runs the plain
+engine (``kernels=False``), as it runs JAX's unfused one.  ``main(argv)``
+returns the printed result.
 """
 
 from __future__ import annotations
@@ -151,7 +153,7 @@ def main(argv=None):
 
     if args.engine == "int":
         spec = freeze_model(model)
-        eng = Engine(spec, device=dev, kernels=not args.no_pallas)
+        eng = Engine(spec, device=dev, kernels=False if args.no_pallas else None)
         fwd = eng
         if args.export_engine:
             from ivit_tpu_torch.engine.export import save_engine

@@ -12,6 +12,8 @@ power limit (``nvidia-smi``) where JAX's records its backend.
     python -m ivit_tpu_torch.scripts.serving_bench --out SERVING_CUDA.json
     python -m ivit_tpu_torch.scripts.serving_bench --device cpu --requests 8
 
+``path_choice`` is ``Engine(spec)``'s: on the card the report of the H100
+A/B table (``engine/dispatch.py``), as JAX's records its TPU table's.
 ``main(argv)`` returns the result it writes.
 """
 

@@ -43,7 +43,9 @@ plain versions and their towers (a freeze's tables from
 ``synthetic.with_tables``; 8- and 16-bit probabilities, both ivit row sums,
 shifted Swin blocks with ``sm_sat``, changed tables, the attention tiles'
 edges, the engines), and the integer-sqrt ibert LN in all three kernels
-on rows where it differs from floor(sqrt).  Exact
+on rows where it differs from floor(sqrt).  ``Engine(spec)`` takes the
+H100 table of ``engine/dispatch.py`` (``probe_images``: its timed probe)
+and Swin's ``fuse_parts`` launch the half-blocks they name.  Exact
 equality, but for
 the float family's logits against the CPU's (``tests/test_torch_port_float.py``'s bound).
 """
@@ -1509,3 +1511,79 @@ def test_cuda_serving_two_replicas_on_one_card(cuda):
         batches = srv.metrics.summary()["batches"]
     np.testing.assert_array_equal(got, want)
     assert kb.attn_block.launches == kb.mlp_block.launches == 2 * 2 * batches
+
+
+def test_cuda_engine_default_resolves_through_the_table(cuda):
+    """``Engine(spec)`` on the card takes the H100 table: a DeiT-S-width ViT
+    its ``("vit", 384)`` row (True or "ops", never the plain version), a
+    Swin-T-width Swin its stage rows; the logits ``kernels=True``'s."""
+    from ivit_tpu_torch.engine import dispatch
+    spec = synthetic_spec(deit_small_config(depth=2, img_size=64), seed=5)
+    images = torch.from_numpy(np.random.default_rng(2).normal(
+        size=(4, 64, 64, 3)).astype(np.float32)).to(cuda)
+    eng = Engine(spec)
+    fused, report = dispatch.static_choice(spec.config)
+    assert eng.fusion["path_choice"] == report and report["source"] == "static-table"
+    assert eng.kernels == (True if fused else "ops")
+    assert torch.equal(eng(images), Engine(spec, kernels=True)(images))
+
+    swin = _swin_spec(("ivit", "ivit", "ivit"))
+    simages = images[:, :56, :56]
+    seng = Engine(swin)
+    paths, report = dispatch.swin_stage_choice(swin.config)
+    assert seng.fusion["path_choice"] == report and seng.kernels is True
+    assert seng.fusion["fused_attn_stages"] == list(paths)
+    assert torch.equal(seng(simages), Engine(swin, kernels=True)(simages))
+
+
+@pytest.mark.parametrize("fams", [("ivit",) * 3, ("ibert",) * 3, ("ppoly", "ppoly", "ibert")],
+                         ids=["ivit", "ibert", "ppoly"])
+def test_cuda_engine_probe_images(cuda, fams):
+    """``Engine(spec, probe_images=x)`` on the card: an ivit ViT times the
+    fused kernels against ``"ops"`` (the standalone kernels) and keeps the
+    faster; an ibert or ppoly ViT and a Swin, whose unfused paths launch no
+    kernel, skip the probe and keep the fused kernels (never a path without
+    a kernel).  The logits the fused path's either way."""
+    images = torch.from_numpy(np.random.default_rng(6).normal(
+        size=(4, 64, 64, 3)).astype(np.float32)).to(cuda)
+    for spec, x in ((synthetic_spec(_small_config(2, fams), seed=1), images),
+                    (_swin_spec(fams), images[:, :56, :56])):
+        eng = Engine(spec, probe_images=x)
+        choice = eng.fusion["path_choice"]
+        if fams[0] == "ivit" and not hasattr(spec.config, "depths"):
+            assert set(choice) == {"source", "t_fused_ms", "t_unfused_ms"}
+            assert choice["source"] == "timed-probe"
+            assert eng.kernels == (True if choice["t_fused_ms"] <= choice["t_unfused_ms"]
+                                   else "ops")
+        else:
+            assert choice["probe"].startswith("skipped") and eng.kernels is True
+        kb.attn_block.launches = kb.swin_attn_block.launches = kb.mlp_block.launches = 0
+        knl.shiftmax.launches = knl.shift_gelu_requant.launches = 0
+        got = eng(x)
+        torch.cuda.synchronize()
+        assert (kb.attn_block.launches + kb.swin_attn_block.launches + kb.mlp_block.launches
+                + knl.shiftmax.launches + knl.shift_gelu_requant.launches) > 0
+        assert torch.equal(got, Engine(spec, kernels=True)(x))
+
+
+@pytest.mark.parametrize("stages", [None, (False, True)], ids=["all", "stage1"])
+@pytest.mark.parametrize("parts,attn,mlp", [
+    (("attn",), (1, 1), (0, 0)),
+    (("mlp",), (0, 0), (1, 1)),
+    (("attn", "mlp", "mlp_nopad"), (1, 1), (0, 0)),    # widths 96 and 192
+], ids=["attn", "mlp", "nopad"])
+def test_cuda_swin_fuse_parts_match_plain_engine(cuda, parts, attn, mlp, stages):
+    """``swin_engine_forward(fuse_parts=)`` on the kernels: each variant
+    launches the half-block kernels it names (2 blocks a stage), and its
+    logits equal the plain engine's."""
+    from ivit_tpu_torch.engine import swin_engine_forward
+    spec = _swin_spec(("ivit", "ivit", "ivit"))
+    images = np.random.default_rng(7).normal(size=(3, 56, 56, 3)).astype(np.float32)
+    want = swin_engine_forward(spec, images, kernels=False)
+    kb.swin_attn_block.launches = kb.mlp_block.launches = 0
+    got = swin_engine_forward(spec, images, stage_paths=stages, fuse_parts=parts)
+    torch.cuda.synchronize()
+    on = stages or (True, True)
+    assert kb.swin_attn_block.launches == 2 * sum(a and s for a, s in zip(attn, on))
+    assert kb.mlp_block.launches == 2 * sum(m and s for m, s in zip(mlp, on))
+    assert torch.equal(got, want)

@@ -41,7 +41,8 @@ def test_port_imports_no_jax_nor_reference():
     assert {f"ivit_tpu_torch.scripts.{m}" for m in (
         "inference", "engine_inference", "serving_bench", "analyze_io_stats",
         "quant_train", "multihost_demo", "scaling_bench", "approx_analysis",
-        "ppoly_sweep", "sweep")} <= mods
+        "ppoly_sweep", "sweep", "path_compare", "swin_path_compare")} <= mods
+    assert "ivit_tpu_torch.engine.dispatch" in mods
     assert {f"ivit_tpu_torch.parallel.{m}" for m in (
         "mesh", "collectives", "launch")} | {"ivit_tpu_torch.parallel"} <= mods
 
@@ -153,14 +154,17 @@ def test_training_cli_defaults_to_cuda():
 
 
 def test_root_script_ports_default_to_cuda(tmp_path):
-    """``approx_analysis``, ``ppoly_sweep``, ``scaling_bench`` and the
-    points of ``sweep`` run on the card unless told ``--device cpu``."""
+    """``approx_analysis``, ``ppoly_sweep``, ``scaling_bench``, the two
+    path-compare scripts and the points of ``sweep`` run on the card unless
+    told ``--device cpu``."""
     if torch.cuda.is_available():
         pytest.skip("this machine has a CUDA device: the default runs")
-    from ivit_tpu_torch.scripts import approx_analysis, ppoly_sweep, scaling_bench, sweep
+    from ivit_tpu_torch.scripts import (approx_analysis, path_compare, ppoly_sweep,
+                                        scaling_bench, swin_path_compare, sweep)
     for main, argv in ((approx_analysis.main, ["--function", "exp"]),
                        (ppoly_sweep.main, ["--degrees", "1", "--segments", "8"]),
-                       (scaling_bench.main, ["--widths", "1"])):
+                       (scaling_bench.main, ["--widths", "1"]),
+                       (path_compare.main, []), (swin_path_compare.main, [])):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             main(argv)
     cfg = tmp_path / "one.yaml"
