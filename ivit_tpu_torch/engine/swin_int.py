@@ -52,7 +52,7 @@ from ..ops.kernels.block import int8_matmul
 from ..ops.quant import exact_int_sum, rdiv
 from ..parallel import collectives as coll
 from ..parallel.mesh import check_tp_widths
-from .convert import params_to_torch
+from ..utils.spans import span
 from .freeze import (GELU_IN_BITS, EngineConfig, _act_scale, _block_luts,
                      _exp_fast_gate, _linear, _ln_site, _mlp_half, _patch_gemm,
                      _poly_fast_gate, _quant_w, _require_fitted, requant_const,
@@ -61,7 +61,8 @@ from .luts import swin_shift_sat
 from .vit_int import (_base, _check_families, _gelu_requant_int, _gemm_bias,
                       _layernorm_int, _ln_requant, _lut_kw, _ppoly_gelu_kw,
                       _ppoly_softmax_kw, _requant, _residual_requant,
-                      _softmax_int, _use_int_sqrt, fused_halves)
+                      _softmax_int, _use_int_sqrt, fused_halves, params_on,
+                      quantized_patches)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -361,13 +362,14 @@ def _mlp_fused(cfg, blk, x):
 def _merge(cfg, mg, x, B, res, dim):
     """PatchMerging: 2x2 neighbours concatenated (integer data movement),
     LN over 4C, reduction GEMM (no bias), requant to int8."""
-    xm = x.reshape(B, res, res, dim)
-    xm = torch.cat([xm[:, 0::2, 0::2], xm[:, 1::2, 0::2],
-                    xm[:, 0::2, 1::2], xm[:, 1::2, 1::2]], dim=-1)
-    xm = xm.reshape(B, -1, 4 * dim)
-    y = _layernorm_int(cfg, xm, mg["norm_bias_int"], mg["norm_shift"])
-    y = _ln_requant(y, mg["m_norm"], 8)
-    return _requant(int8_matmul(y, mg["red_w"]), mg["m_red"], 8)
+    with span("ivit.merge"):
+        xm = x.reshape(B, res, res, dim)
+        xm = torch.cat([xm[:, 0::2, 0::2], xm[:, 1::2, 0::2],
+                        xm[:, 0::2, 1::2], xm[:, 1::2, 1::2]], dim=-1)
+        xm = xm.reshape(B, -1, 4 * dim)
+        y = _layernorm_int(cfg, xm, mg["norm_bias_int"], mg["norm_shift"])
+        y = _ln_requant(y, mg["m_norm"], 8)
+        return _requant(int8_matmul(y, mg["red_w"]), mg["m_red"], 8)
 
 
 def swin_fusion_report(cfg, kernels=True, stage_paths=None) -> dict:
@@ -473,26 +475,22 @@ def swin_engine_forward(spec: SwinEngineSpec, images, kernels=True,
 
 def _swin_forward(spec, images, kernels, dev, stage_paths, mlp_wt, fuse_parts):
     cfg = spec.config
-    p = params_to_torch(spec.params, dev)
-    images = torch.as_tensor(images, dtype=torch.float32).to(dev)
-    B = images.shape[0]
-    ps = cfg.patch_size
-    g = cfg.img_size // ps
+    p = params_on(spec, dev)
 
     with torch.no_grad():
-        x = torch.clamp(torch.round(rdiv(images, p["s_input"])), -128, 127)
-        x = x.to(torch.int8).reshape(B, g, ps, g, ps, 3)
-        x = x.permute(0, 1, 3, 2, 4, 5).reshape(B, g * g, ps * ps * 3)
-        x = _requant(_gemm_bias(x, p["patch"]["w"], p["patch"]["b"]),
-                     p["patch"]["m"], 8)
-        # patch norm, its qact, then the 16-bit stage input
-        y = _layernorm_int(cfg, x, p["patch"]["pn_bias_int"],
-                           p["patch"]["pn_shift"])
-        x = _ln_requant(y, p["patch"]["m_norm"], 8)
-        x = torch.clamp(torch.round(x.float() * p["patch"]["m_x0"]),
-                        -(2.0**15), 2.0**15 - 1).to(torch.int16)
+        x = quantized_patches(cfg, images, p["s_input"], dev)
+        B = x.shape[0]
+        with span("ivit.embed"):
+            x = _requant(_gemm_bias(x, p["patch"]["w"], p["patch"]["b"]),
+                         p["patch"]["m"], 8)
+            # patch norm, its qact, then the 16-bit stage input
+            y = _layernorm_int(cfg, x, p["patch"]["pn_bias_int"],
+                               p["patch"]["pn_shift"])
+            x = _ln_requant(y, p["patch"]["m_norm"], 8)
+            x = torch.clamp(torch.round(x.float() * p["patch"]["m_x0"]),
+                            -(2.0**15), 2.0**15 - 1).to(torch.int16)
 
-        res, dim = g, cfg.embed_dim
+        res, dim = cfg.img_size // cfg.patch_size, cfg.embed_dim
         attn_kernel, mlp_kernel = fused_halves(cfg)
         attn_kernel = attn_kernel and "attn" in fuse_parts
         mlp_kernel = mlp_kernel and bool({"mlp", "mlp_pad"} & set(fuse_parts))
@@ -516,12 +514,13 @@ def _swin_forward(spec, images, kernels, dev, stage_paths, mlp_wt, fuse_parts):
             else:
                 x = _mlp_unfused(cfg, blk, x)
 
-        y = _layernorm_int(cfg, x, p["lnf_bias_int"], p["lnf_shift"])
-        y = _ln_requant(y, p["m_lnf"], 8)
-        # exact-int average pool: two-limb int32 token sum, correctly
-        # rounded divide by the token count, round once
-        y = torch.round(rdiv(exact_int_sum(y.float().transpose(1, 2)),
-                             float(y.shape[1])))
-        y = _requant(y[..., 0], p["m_pool"], 8)
-        acc = _gemm_bias(y, p["head_w"], p["head_b"])
-        return acc.float() * p["head_scale"]
+        with span("ivit.head"):
+            y = _layernorm_int(cfg, x, p["lnf_bias_int"], p["lnf_shift"])
+            y = _ln_requant(y, p["m_lnf"], 8)
+            # exact-int average pool: two-limb int32 token sum, correctly
+            # rounded divide by the token count, round once
+            y = torch.round(rdiv(exact_int_sum(y.float().transpose(1, 2)),
+                                 float(y.shape[1])))
+            y = _requant(y[..., 0], p["m_pool"], 8)
+            acc = _gemm_bias(y, p["head_w"], p["head_b"])
+            return acc.float() * p["head_scale"]

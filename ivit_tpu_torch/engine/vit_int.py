@@ -71,6 +71,7 @@ from ..ops.kernels.block import int8_matmul, to_container
 from ..ops.quant import exact_int_sum, rdiv
 from ..parallel import collectives as coll
 from ..parallel.mesh import check_engine_tp
+from ..utils.spans import span
 from .convert import params_to_torch
 from .freeze import GELU_IN_BITS, EngineConfig, EngineSpec
 
@@ -534,30 +535,45 @@ def engine_forward(spec: EngineSpec, images, kernels=True, device=None,
         return coll.all_gather(logits, "data") if mesh is not None else logits
 
 
+def params_on(spec, dev):
+    """The spec's parameter tree on ``dev`` (:func:`params_to_torch`), spanned
+    as ``ivit.params``."""
+    with span("ivit.params"):
+        return params_to_torch(spec.params, dev)
+
+
+def quantized_patches(cfg, images, s_input, dev):
+    """f32 NHWC images -> the int8 patch rows [B, g*g, ps*ps*3] on ``dev``
+    (SymmetricQuantFunction on the raw image, then the patch layout),
+    spanned as ``ivit.input``."""
+    with span("ivit.input"):
+        images = torch.as_tensor(images, dtype=torch.float32).to(dev)
+        B, ps = images.shape[0], cfg.patch_size
+        g = cfg.img_size // ps
+        x = torch.clamp(torch.round(rdiv(images, s_input)), -128, 127)
+        x = x.to(torch.int8).reshape(B, g, ps, g, ps, 3)
+        return x.permute(0, 1, 3, 2, 4, 5).reshape(B, g * g, ps * ps * 3)
+
+
 def _engine_forward(spec, images, kernels, dev, mlp_wt):
     cfg = spec.config
-    p = params_to_torch(spec.params, dev)
-    images = torch.as_tensor(images, dtype=torch.float32).to(dev)
     bw = cfg.bitwidths
-    B = images.shape[0]
-    ps = cfg.patch_size
-    g = cfg.img_size // ps
     C = cfg.embed_dim
+    p = params_on(spec, dev)
 
     with torch.no_grad():
-        # input quantization (SymmetricQuantFunction on the raw image)
-        x = torch.clamp(torch.round(rdiv(images, p["s_input"])), -128, 127)
-        x = x.to(torch.int8).reshape(B, g, ps, g, ps, 3)
-        x = x.permute(0, 1, 3, 2, 4, 5).reshape(B, g * g, ps * ps * 3)
-        x = _requant(_gemm_bias(x, p["patch"]["w"], p["patch"]["b"]),
-                     p["patch"]["m"], bw.patch_embed)
+        x = quantized_patches(cfg, images, p["s_input"], dev)
+        B = x.shape[0]
+        with span("ivit.embed"):
+            x = _requant(_gemm_bias(x, p["patch"]["w"], p["patch"]["b"]),
+                         p["patch"]["m"], bw.patch_embed)
 
-        # cls concat (shares the patch scale) + positional add at s_block0
-        cls = p["cls_int"].to(torch.int32).expand(B, 1, C)
-        x = torch.cat([cls, x.to(torch.int32)], dim=1)
-        lim = 2.0 ** (bw.block_input - 1)
-        x = torch.clamp(torch.round(x.float() * p["m_x0"]) + p["pos_addend"],
-                        -lim, lim - 1).to(_container(bw.block_input))
+            # cls concat (shares the patch scale) + positional add at s_block0
+            cls = p["cls_int"].to(torch.int32).expand(B, 1, C)
+            x = torch.cat([cls, x.to(torch.int32)], dim=1)
+            lim = 2.0 ** (bw.block_input - 1)
+            x = torch.clamp(torch.round(x.float() * p["m_x0"]) + p["pos_addend"],
+                            -lim, lim - 1).to(_container(bw.block_input))
 
         # the fused kernels where JAX runs them: no half-block is fused
         # when the softmax or the GELU is float (vit_int.py:496-500)
@@ -569,10 +585,11 @@ def _engine_forward(spec, images, kernels, dev, mlp_wt):
             x = mlp(cfg, blk, attn(cfg, blk, x, kernels), kernels)
 
         # final norm on the cls row only -> head
-        y = _layernorm_int(cfg, x[:, :1], p["lnf_bias_int"], p["lnf_shift"])
-        y = _ln_requant(y, p["m_lnf"], 8)[:, 0]
-        acc = _gemm_bias(y, p["head_w"], p["head_b"])
-        return acc.float() * p["head_scale"]
+        with span("ivit.head"):
+            y = _layernorm_int(cfg, x[:, :1], p["lnf_bias_int"], p["lnf_shift"])
+            y = _ln_requant(y, p["m_lnf"], 8)[:, 0]
+            acc = _gemm_bias(y, p["head_w"], p["head_b"])
+            return acc.float() * p["head_scale"]
 
 
 def transposed_mlp_weights(params):
@@ -583,6 +600,13 @@ def transposed_mlp_weights(params):
     return [{"fc1_wt": blk["fc1_w"].t().contiguous(),
              "fc2_wt": blk["fc2_w"].t().contiguous()} if "fc1_w" in blk else {}
             for blk in params["blocks"]]
+
+
+def weight_transposes():
+    """The weight transposes the kernel wrappers have made inside their
+    calls (their ``transposes`` counters, summed)."""
+    return (kblock.attn_block.transposes + kblock.swin_attn_block.transposes
+            + kblock.mlp_block.transposes)
 
 
 class Engine:
@@ -615,6 +639,17 @@ class Engine:
     :func:`~ivit_tpu_torch.engine.swin_int.swin_engine_forward` (a Swin
     spec; ``kernels`` True or False, ``stage_paths`` one bool per stage) on
     them.
+
+    Spans (:mod:`ivit_tpu_torch.utils.spans`, recorded only while a
+    ``torch.profiler`` records): each call is the root ``ivit.call`` (on
+    close ``transposes``, the call's :func:`weight_transposes`), over
+    ``ivit.params`` (the parameter walk), ``ivit.input`` (the images to the
+    device and their quantization), ``ivit.embed`` (patch GEMM, cls / pos;
+    Swin: patch GEMM and patch norm), on Swin ``ivit.merge``, and
+    ``ivit.head`` (final LN, Swin's pool, head GEMM); below them the
+    wrappers' ``ivit.kernel.<wrapper>`` and, wherever a host scalar becomes
+    a device tensor and the host waits for the device,
+    ``ops/quant.py::f32``'s ``ivit.sync``.
     """
 
     def __init__(self, spec, device=None, kernels=None, stage_paths=None,
@@ -677,5 +712,10 @@ class Engine:
         self.kernels = kernels
 
     def __call__(self, images):
-        return self._forward(self._spec, images, kernels=self.kernels,
-                             device=self.device, mlp_wt=self.mlp_wt)
+        with span("ivit.call") as s:
+            before = weight_transposes() if s else None
+            out = self._forward(self._spec, images, kernels=self.kernels,
+                                device=self.device, mlp_wt=self.mlp_wt)
+            if s:
+                s.set(transposes=weight_transposes() - before)
+            return out

@@ -24,7 +24,13 @@ Each wrapper counts its kernel launches in a plain integer attribute
 (``mlp_block.launches``, ``attn_block.launches``,
 ``swin_attn_block.launches``), incremented only where the kernel is
 launched, and those of its table form and of its integer-sqrt LN apart as
-well (``lut_launches``, ``int_sqrt_launches``).
+well (``lut_launches``, ``int_sqrt_launches``), and the weight transposes it
+makes inside the call (``transposes``: two a call of ``attn_block`` and
+``swin_attn_block``, one for each of ``fc1_wt`` / ``fc2_wt`` that a
+``mlp_block`` call is not handed).  The whole of each wrapper call (checks,
+argument structs, transposes, table and kernel launches; the plain version
+on the CPU) is the span ``ivit.kernel.<wrapper>``
+(:mod:`ivit_tpu_torch.utils.spans`: recorded only while a profiler records).
 
 Each kernel takes its LayerNorm from the ivit or ibert family and its
 softmax and GELU from the ivit, ibert or ppoly family, in any mix
@@ -80,6 +86,7 @@ import os
 
 import torch
 
+from ...utils.spans import spanned
 from .. import ibert as ib
 from .. import ivit as iv
 from .. import ppoly as pp
@@ -399,6 +406,7 @@ def _count(fn, lut, int_sqrt):
     fn.int_sqrt_launches += bool(int_sqrt)
 
 
+@spanned("ivit.kernel.mlp_block")
 def mlp_block(x, *, ln_bias, m_ln, ln_shift, fc1_w, fc1_b, m_fc1, s_gelu,
               m_gelu, fc2_w, fc2_b, m_fc2, m_res_x, m_res_id, mlp_bits=8,
               out_bits=8, fast_exp=False, fast_poly=False, ln_base="ibert",
@@ -464,8 +472,10 @@ def mlp_block(x, *, ln_bias, m_ln, ln_shift, fc1_w, fc1_b, m_fc1, s_gelu,
     # the kernel streams weight rows of torch's Linear layout [out, in]
     if fc1_wt is None:
         fc1_wt = fc1_w.t().contiguous()
+        mlp_block.transposes += 1
     if fc2_wt is None:
         fc2_wt = fc2_w.t().contiguous()
+        mlp_block.transposes += 1
     _check(fc1_wt, "fc1_wt", torch.int8, (hd, c))
     _check(fc2_wt, "fc2_wt", torch.int8, (c, hd))
     for name, t in (("ln_shift", ln_shift), ("s_gelu", s_gelu),
@@ -513,6 +523,7 @@ def mlp_block(x, *, ln_bias, m_ln, ln_shift, fc1_w, fc1_b, m_fc1, s_gelu,
 
 
 mlp_block.launches = mlp_block.lut_launches = mlp_block.int_sqrt_launches = 0
+mlp_block.transposes = 0
 
 
 # ---------------------------------------------------------------------------
@@ -578,6 +589,7 @@ def _softmax_probs(s, sm_base, s_attn, s_exp_act, sm_bit, n_valid, fast_exp,
     return torch.floor(exp16 * factor / 2 ** (32 - sm_bit + 1))
 
 
+@spanned("ivit.kernel.attn_block")
 def attn_block(x, *, ln_bias, m_ln, ln_shift, qkv_w, qkv_b, m_qkv, m_attn,
                s_attn, m_av, proj_w, proj_b, m_proj, m_res_x, m_res_id,
                num_heads, n_valid, s_exp_act=None, sm_bit=8, attn_bits=8,
@@ -651,6 +663,7 @@ def attn_block(x, *, ln_bias, m_ln, ln_shift, qkv_w, qkv_b, m_qkv, m_attn,
     out = torch.empty((b, np_, c), dtype=container(out_bits), device=x.device)
     lib = _build.library("attn_block")
     wqkv_t, wp_t = qkv_w.t().contiguous(), proj_w.t().contiguous()
+    attn_block.transposes += 2
     err = lib.ivit_attn_block(
         _ptr(x), _ptr(ln_in), _ptr(ln_bias), _ptr(m_ln), _ptr(ln_shift),
         _ptr(wqkv_t), _ptr(qkv_b), _ptr(m_qkv), _ptr(m_attn), _ptr(s_attn),
@@ -667,6 +680,7 @@ def attn_block(x, *, ln_bias, m_ln, ln_shift, qkv_w, qkv_b, m_qkv, m_attn,
 
 
 attn_block.launches = attn_block.lut_launches = attn_block.int_sqrt_launches = 0
+attn_block.transposes = 0
 
 
 # ---------------------------------------------------------------------------
@@ -719,6 +733,7 @@ def swin_attn_block_ref(xw, *, ln_bias, m_ln, ln_shift, qkv_w, qkv_b, m_qkv,
     return _residual(y2, m_res_x, xw, m_res_id, 16)
 
 
+@spanned("ivit.kernel.swin_attn_block")
 def swin_attn_block(xw, *, ln_bias, m_ln, ln_shift, qkv_w, qkv_b, m_qkv,
                     m_attn, m_attn2, s_attn, rel_addend, mask_addend, m_av,
                     proj_w, proj_b, m_proj, m_res_x, m_res_id, num_heads,
@@ -805,6 +820,7 @@ def swin_attn_block(xw, *, ln_bias, m_ln, ln_shift, qkv_w, qkv_b, m_qkv,
     out = torch.empty((bw, n, c), dtype=torch.int16, device=xw.device)
     lib = _build.library("swin_attn_block")
     wqkv_t, wp_t = qkv_w.t().contiguous(), proj_w.t().contiguous()
+    swin_attn_block.transposes += 2
     err = lib.ivit_swin_attn_block(
         _ptr(xw), _ptr(ln_in), _ptr(ln_bias), _ptr(m_ln), _ptr(ln_shift),
         _ptr(wqkv_t), _ptr(qkv_b), _ptr(m_qkv), _ptr(m_attn), _ptr(m_attn2),
@@ -820,5 +836,5 @@ def swin_attn_block(xw, *, ln_bias, m_ln, ln_shift, qkv_w, qkv_b, m_qkv,
     return out
 
 
-swin_attn_block.launches = 0
+swin_attn_block.launches = swin_attn_block.transposes = 0
 swin_attn_block.lut_launches = swin_attn_block.int_sqrt_launches = 0

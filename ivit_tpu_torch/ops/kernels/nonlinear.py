@@ -16,13 +16,17 @@ in every thread, so a call launches the kernel and nothing else
 (``shift_gelu_requant``: its table of every (row max, value) output, then
 the rows, counted as one).  Each wrapper counts its launches in a plain
 integer attribute (``shiftmax.launches``, ``shift_gelu_requant.launches``),
-incremented only where the kernel is launched.
+incremented only where the kernel is launched; neither transposes anything.
+The whole of each wrapper call is the span ``ivit.kernel.shiftmax`` /
+``ivit.kernel.shift_gelu_requant`` (:mod:`ivit_tpu_torch.utils.spans`:
+recorded only while a profiler records).
 """
 
 from __future__ import annotations
 
 import torch
 
+from ...utils.spans import spanned
 from .. import ivit as iv
 from . import _build
 from .block import (GELU_TABLE_BYTES, _check, _check_scalar, _ptr, _raise_on,
@@ -47,6 +51,7 @@ def shift_gelu_requant_ref(x, s_gelu, m_out, output_bit=8, n=23, out_bits=8,
     return torch.clamp(torch.round(y * m_out), -lim, lim - 1).to(torch.int8)
 
 
+@spanned("ivit.kernel.shiftmax")
 def shiftmax(scores, s_attn, output_bit=8, *, n_valid=None, fast_q=False):
     """Row Shiftmax over the last axis of int8 ``scores``; columns >=
     ``n_valid`` are padding (probability 0)."""
@@ -76,6 +81,7 @@ def shiftmax(scores, s_attn, output_bit=8, *, n_valid=None, fast_q=False):
 shiftmax.launches = 0
 
 
+@spanned("ivit.kernel.shift_gelu_requant")
 def shift_gelu_requant(x, s_gelu, m_out, output_bit=8, n=23, out_bits=8, *,
                        fast_q=False):
     """Row ShiftGELU + requant over the last axis of int8 ``x``; the row max

@@ -35,13 +35,20 @@ import math
 
 import torch
 
+from ..utils.spans import span
+
 
 def f32(x, device=None) -> torch.Tensor:
     """``x`` as an f32 tensor (a Python float or numpy value becomes one on
-    ``device``)."""
+    ``device``).  Made on a device other than the CPU, it is a copy from
+    the host's pageable memory, after which torch waits for the device's
+    stream: the span ``ivit.sync``."""
     if isinstance(x, torch.Tensor):
         return x if x.dtype == torch.float32 else x.float()
-    return torch.as_tensor(x, dtype=torch.float32, device=device)
+    if device is None or getattr(device, "type", device) == "cpu":
+        return torch.as_tensor(x, dtype=torch.float32, device=device)
+    with span("ivit.sync"):
+        return torch.as_tensor(x, dtype=torch.float32, device=device)
 
 
 def _device(*xs):

@@ -45,7 +45,8 @@ shifted Swin blocks with ``sm_sat``, changed tables, the attention tiles'
 edges, the engines), and the integer-sqrt ibert LN in all three kernels
 on rows where it differs from floor(sqrt).  ``Engine(spec)`` takes the
 H100 table of ``engine/dispatch.py`` (``probe_images``: its timed probe)
-and Swin's ``fuse_parts`` launch the half-blocks they name.  Exact
+and Swin's ``fuse_parts`` launch the half-blocks they name.  The program's
+spans line up with the profiler's device trace.  Exact
 equality, but for
 the float family's logits against the CPU's (``tests/test_torch_port_float.py``'s bound).
 """
@@ -1586,4 +1587,62 @@ def test_cuda_swin_fuse_parts_match_plain_engine(cuda, parts, attn, mlp, stages)
     on = stages or (True, True)
     assert kb.swin_attn_block.launches == 2 * sum(a and s for a, s in zip(attn, on))
     assert kb.mlp_block.launches == 2 * sum(m and s for m, s in zip(mlp, on))
+    assert torch.equal(got, want)
+
+
+def test_cuda_spans_share_the_device_traces_clock(cuda):
+    """The program's spans (``ivit_tpu_torch.utils.spans``) on the card,
+    over 4 DeiT-S calls: under the device-only profiler they are recorded,
+    each call's ``ivit.call`` holds the start of device work and ends inside
+    the device operations' stretch, and it waits for the card
+    (``ivit.sync``) in the final LN of ``ivit.head``; under
+    CPU + CUDA each ``ivit.call`` lies inside a ``record_function`` event
+    around the call and starts within 50 us of it (the profiling session's
+    first call left out, as the CPU test does); in neither trace does a
+    device operation bear an ``ivit.`` name (spans enter no
+    ``record_function``, which the profiler would project onto the device's
+    timeline); the logits are the unprofiled call's."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from ivit_tpu_torch.utils import spans
+
+    def device_ops(prof):
+        return [(e.name(), e.start_ns(), e.end_ns())
+                for e in prof.profiler.kineto_results.events()
+                if "CUDA" in str(e.device_type())]
+
+    eng = Engine(synthetic_spec(deit_small_config(), seed=0))
+    x = torch.from_numpy(np.random.default_rng(8).normal(
+        size=(8, 224, 224, 3)).astype(np.float32)).to(cuda)
+    want = eng(x).cpu()
+    spans.clear()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(4):
+            eng(x).cpu()
+    recs = spans.spans()
+    calls = [(r.start_ns, r.end_ns) for r in recs if r.name == "ivit.call"]
+    device = device_ops(prof)
+    assert len(calls) == 4 and device
+    first, last = min(s for _, s, _ in device), max(e for _, _, e in device)
+    for s, e in calls:
+        assert first <= e <= last
+        assert any(s <= o <= e for _, o, _ in device)
+    assert calls[0][0] <= first
+    heads = {r.call for r in recs if r.name == "ivit.sync" and recs[r.parent].name == "ivit.head"}
+    assert heads == {r.call for r in recs if r.name == "ivit.call"}
+
+    spans.clear()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(5):
+            with record_function("test.call"):
+                got = eng(x)
+            got = got.cpu()
+    events = sorted((e.start_ns(), e.end_ns()) for e in prof.profiler.kineto_results.events()
+                    if e.name() == "test.call" and "CPU" in str(e.device_type()))
+    roots = [(r.start_ns, r.end_ns) for r in spans.spans() if r.name == "ivit.call"]
+    assert len(events) == len(roots) == 5
+    for (es, ee), (rs, re) in list(zip(events, roots))[1:]:
+        assert es <= rs < es + 50_000 and re <= ee
+    for ops in (device, device_ops(prof)):
+        assert not [n for n, _, _ in ops if n.startswith("ivit.")]
     assert torch.equal(got, want)
