@@ -232,6 +232,20 @@ Phases, each printing one JSON line:
    row's path not slower than the other by more than 10% in this call;
    img/s a mode.
 
+29. ln_requant: the LayerNorm + int8 requant kernel of the LNs outside the
+   block kernels bitwise equal to its plain version (the engines' chain)
+   at the five Swin-T sites of batch 64 (patch norm [200,704, 96] int8,
+   merges [50,176, 384], [12,544, 768] and [3,136, 1,536] int16, the final
+   norm [3,136, 768] int16; the spec's leaves, I-LayerNorm, the ibert LN
+   and its integer-sqrt form) and DeiT-S's head (the cls rows of a [256,
+   197, 384] int8 stream, read in place; the same three LNs); the
+   kernel's device time (profiler), a call's time back to back, the plain
+   time and the bytes bound at each site (run after the edge phases).
+   Every later phase that counts launches counts it too (``ln_norms``):
+   one a norm outside the blocks where the engine launches kernels, 5 a
+   Swin-T forward and 1 a ViT one (the ``kernels`` line takes the main
+   path's, from phases 7 and 13), none on the plain engines.
+
 The build phase reports ptxas's registers and spill bytes per kernel and
 fails if any kernel spills.
 
@@ -716,6 +730,84 @@ def mlp_edge_phase(torch, kb, knl, dev):
           "streams_bits": [8, 16], "far_s_gelu": [1e-3, 1.0]})
 
 
+LN_FAMS = [("ivit", False), ("ibert", False), ("ibert", True)]   # (LN, int sqrt)
+
+
+def ln_requant_phase(torch, knl, dev, rows):
+    """Phase 29: the LN + requant kernel at the Swin-T sites of batch 64 and
+    DeiT-S's head at batch 256, against its plain version, timed beside its
+    bound.  Its launches a forward are the engine phases' (``ln_norms``)."""
+    import numpy as np
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from ivit_tpu_torch.engine.synthetic import (deit_small_config, swin_tiny_config,
+                                                  synthetic_spec, synthetic_swin_spec)
+
+    rng = np.random.default_rng(11)
+
+    def stream(shape, dtype):
+        info = torch.iinfo(dtype)
+        std = 40 if dtype == torch.int8 else 6000
+        x = np.clip(np.round(rng.normal(0, std, shape)), info.min, info.max)
+        return torch.as_tensor(x).to(dtype).to(dev)
+
+    swin = synthetic_swin_spec(swin_tiny_config(), seed=0)
+    deit = synthetic_spec(deit_small_config(), seed=0)
+    p = swin.params
+    merges = [blk["merge"] for blk in p["blocks"] if "merge" in blk]
+    g = SWIN_GRID
+    # (site, x, bias, m, shift): the leaves as the specs hold them
+    sites = [("swin_patch_norm", stream((SWIN_BATCH * g * g, 96), torch.int8),
+              p["patch"]["pn_bias_int"], p["patch"]["m_norm"], p["patch"]["pn_shift"])]
+    for i, mg in enumerate(merges):
+        n = g // 2 ** (i + 1)
+        sites.append((f"swin_merge{i}", stream((SWIN_BATCH * n * n, 4 * 96 * 2**i), torch.int16),
+                      mg["norm_bias_int"], mg["m_norm"], mg["norm_shift"]))
+    sites.append(("swin_final_norm", stream((SWIN_BATCH * 49, 768), torch.int16),
+                  p["lnf_bias_int"], p["m_lnf"], p["lnf_shift"]))
+    sites.append(("deit_head", stream((BATCH, TOKENS, 384), torch.int8)[:, :1],
+                  deit.params["lnf_bias_int"], deit.params["m_lnf"],
+                  deit.params["lnf_shift"]))
+    out, checks = {}, 0
+    for name, x, bias, m, shift in sites:
+        leaves = [torch.as_tensor(np.asarray(v, np.float32)).to(dev) for v in (bias, m, shift)]
+        for ln, isqrt in LN_FAMS:
+            kw = dict(ln_base=ln, use_int_sqrt=isqrt)
+            check_equal(torch, f"ln_requant {name} {ln} int_sqrt={isqrt}",
+                        knl.ln_requant(x, *leaves, **kw), knl.ln_requant_ref(x, *leaves, **kw))
+            checks += 1
+        # the family the benchmark's configs run at each site; the kernel's
+        # device time from the profiler (back to back, a call of these small
+        # launches is paced by the wrapper's host time: call_ms)
+        kw = dict(ln_base="ibert" if name == "deit_head" else "ivit")
+        call_ms = time_ms(torch, lambda: knl.ln_requant(x, *leaves, **kw), iters=20)
+        plain_ms = time_ms(torch, lambda: knl.ln_requant_ref(x, *leaves, **kw),
+                           iters=3, warmup=1)
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(10):
+                knl.ln_requant(x, *leaves, **kw)
+            torch.cuda.synchronize()
+        ms = sum(a.self_device_time_total for a in prof.key_averages()
+                 if a.device_type == DeviceType.CUDA and "ln_requant_kernel" in a.key) / 1e4
+        nb = x.numel() * (x.element_size() + 1) + 2 * 4 * x.shape[-1]
+        out[name] = {"shape": list(x.shape), "dtype": str(x.dtype), "ln": kw["ln_base"],
+                     "kernel_ms": ms, "call_ms": call_ms, "plain_ms": plain_ms,
+                     "bytes": nb, "bound_ms": nb / H100_BYTES * 1e3}
+    swin_sites = [v for k, v in out.items() if k.startswith("swin")]
+    rows["ln_requant"] = dict(
+        name="ln_requant", route="cuda", source="ivit_tpu_torch/csrc/nonlinear.cu",
+        replaces=None, launches={}, max_abs_err=0,
+        ms=sum(v["kernel_ms"] for v in swin_sites),
+        plain_ms=sum(v["plain_ms"] for v in swin_sites),
+        bound_ms=sum(v["bound_ms"] for v in swin_sites), bound_by="bytes",
+        library_ms=None, ms_by_site={k: v["kernel_ms"] for k, v in out.items()})
+    emit({"phase": "ln_requant", "equal": True, "checks": checks, "sites": out,
+          "swin_t_batch_ms": rows["ln_requant"]["ms"],
+          "swin_t_batch_bound_ms": rows["ln_requant"]["bound_ms"],
+          "swin_t_batch_plain_ms": rows["ln_requant"]["plain_ms"]})
+
+
 PPOLY = "ppoly_backend_ibert"
 
 
@@ -1114,7 +1206,8 @@ def int16_engine_phase(torch, counters, dev, rows, profile=False):
     equal to the plain engine on the card and, for 4 images, on the CPU;
     img/s.  Then one DeiT-S float-family forward (gelu and softmax float,
     ibert LN) at batch 4: the fused entry takes the unfused forward (no
-    kernel launches, logits equal to the plain engine's), and the card's
+    block kernel launches, the final norm's ``ln_requant`` one, logits
+    equal to the plain engine's), and the card's
     logits are within the CPU test's bound of the CPU's."""
     from ivit_tpu_torch.engine import Engine
     from ivit_tpu_torch.engine.synthetic import deit_small_config, synthetic_spec
@@ -1129,6 +1222,7 @@ def int16_engine_phase(torch, counters, dev, rows, profile=False):
         eng, plain = Engine(spec), Engine(spec, kernels=False)
         logits, launches = run_counted(torch, counters, lambda: eng(batches[0]))
         want = {k: cfg.depth if k in ("attn_block", "mlp_block") else 0 for k in counters}
+        want["ln_requant"] = ln_norms(cfg)
         if launches != want:
             raise AssertionError(f"int16 {fam} forward launched {launches}, want {want}")
         check_logits(torch, f"int16 {fam} kernel engine", logits, plain(batches[0]),
@@ -1152,7 +1246,7 @@ def int16_engine_phase(torch, counters, dev, rows, profile=False):
     spec = synthetic_spec(cfg, seed=0)
     images = batches[1][:4]
     logits, launches = run_counted(torch, counters, lambda: Engine(spec)(images))
-    if any(launches.values()):
+    if launches != {k: 0 for k in counters} | {"ln_requant": ln_norms(cfg)}:
         raise AssertionError(f"float forward launched kernels: {launches}")
     check_logits(torch, "float entry", logits, Engine(spec, kernels=False)(images),
                  cfg.num_classes, 4)
@@ -1359,9 +1453,13 @@ def swin_engine_phase(torch, counters, dev, rows, profile=False):
         eng, plain = Engine(spec), Engine(spec, kernels=False)
         logits, launches = run_counted(torch, counters, lambda: eng(batches[0]))
         want = {k: cfg.depth if k in kernels else 0 for k in counters}
+        want["ln_requant"] = ln_norms(cfg)
         if launches != want:
             raise AssertionError(f"swin {fam} forward launched {launches}, want {want}")
-        check_logits(torch, f"swin {fam} kernel engine", logits, plain(batches[0]),
+        want_logits, plain_launches = run_counted(torch, counters, lambda: plain(batches[0]))
+        if any(plain_launches.values()):
+            raise AssertionError(f"swin {fam} plain engine launched {plain_launches}")
+        check_logits(torch, f"swin {fam} kernel engine", logits, want_logits,
                      cfg.num_classes, SWIN_BATCH)
         cpu = Engine(spec, device="cpu", kernels=False)(batches[0][:4].cpu())
         if not torch.equal(logits[:4].cpu(), cpu):
@@ -1371,6 +1469,7 @@ def swin_engine_phase(torch, counters, dev, rows, profile=False):
         if fam == "ivit":
             rows["swin_attn_block"]["launches"] = launches["swin_attn_block"]
             rows["mlp_block"]["launches_swin"] = launches["mlp_block"]
+            rows["ln_requant"]["launches"]["swin_t_ivit"] = launches["ln_requant"]
         out[fam] = {"launches_per_forward": launches,
                     "img_per_s": img_per_s(torch, eng, batches, 6),
                     "plain_img_per_s": img_per_s(torch, plain, batches, 2),
@@ -1396,6 +1495,16 @@ def check_logits(torch, name, logits, want, classes, batch=BATCH):
         raise AssertionError(
             f"{name} != plain engine on the card: max abs diff "
             f"{(logits - want).abs().max().item()}")
+
+
+def ln_norms(cfg, kernels=True):
+    """``ln_requant`` launches a forward: one a LayerNorm outside the block
+    kernels (ViT's final norm; Swin's patch norm, merges and final norm)
+    where the engine launches kernels (``kernels`` True or ``"ops"``), none
+    on the plain engine."""
+    if kernels is False:
+        return 0
+    return len(cfg.depths) + 1 if hasattr(cfg, "depths") else 1
 
 
 def run_counted(torch, counters, fn):
@@ -1435,10 +1544,14 @@ def engine_phases(torch, counters, dev, rows, profile=False):
     eng, plain = Engine(spec), Engine(spec, kernels=False)
     logits, launches = run_counted(torch, counters, lambda: eng(batches[0]))
     want = {k: cfg.depth if k in block_kernels else 0 for k in counters}
+    want["ln_requant"] = ln_norms(cfg)
     if launches != want:
         raise AssertionError(f"ibert forward launched {launches}, want {want}")
-    check_logits(torch, "ibert kernel engine", logits, plain(batches[0]),
-                 cfg.num_classes)
+    want_logits, plain_launches = run_counted(torch, counters, lambda: plain(batches[0]))
+    if any(plain_launches.values()):
+        raise AssertionError(f"ibert plain engine launched {plain_launches}")
+    check_logits(torch, "ibert kernel engine", logits, want_logits, cfg.num_classes)
+    rows["ln_requant"]["launches"]["deit_s_ibert"] = launches["ln_requant"]
     cpu = Engine(spec, device="cpu", kernels=False)(batches[0][:4].cpu())
     if not torch.equal(logits[:4].cpu(), cpu):
         raise AssertionError(
@@ -1467,6 +1580,7 @@ def engine_phases(torch, counters, dev, rows, profile=False):
         logits, launches = run_counted(torch, counters,
                                        lambda: engines[path](batches[0]))
         want = {k: cfg.depth if k in kernels else 0 for k in counters}
+        want["ln_requant"] = ln_norms(cfg, path)
         if launches != want:
             raise AssertionError(f"ivit kernels={path!r} forward launched "
                                  f"{launches}, want {want}")
@@ -1515,6 +1629,7 @@ def ppoly_engine_phase(torch, counters, dev, rows, profile=False):
         eng, plain = Engine(spec), Engine(spec, kernels=False)
         logits, launches = run_counted(torch, counters, lambda: eng(batches[0]))
         want = {k: cfg.depth if k in (attn, "mlp_block") else 0 for k in counters}
+        want["ln_requant"] = ln_norms(cfg)
         if launches != want:
             raise AssertionError(f"{name} ppoly forward launched {launches}, want {want}")
         check_logits(torch, f"{name} ppoly kernel engine", logits, plain(batches[0]),
@@ -1653,6 +1768,7 @@ def qat_freeze_phase(torch, counters, dev, rows, smi, profile=False):
             eng = Engine(spec, kernels=path)
             logits, launches = run_counted(torch, counters, lambda: eng(images))
             expect = {k: depth if k in kernels else 0 for k in counters}
+            expect["ln_requant"] = ln_norms(spec.config, path)
             if launches != expect:
                 raise AssertionError(f"qat {name} kernels={path!r} launched "
                                      f"{launches}, want {expect}")
@@ -1828,6 +1944,7 @@ def qat_freeze_swin_phase(torch, counters, dev, rows, smi, profile=False):
             eng = Engine(spec, device=dev, kernels=path)
             logits, launches = run_counted(torch, counters, lambda: eng(images))
             expect = {k: depth if k in kernels else 0 for k in counters}
+            expect["ln_requant"] = ln_norms(spec.config, path)
             if launches != expect:
                 raise AssertionError(f"swin qat {name} kernels={path!r} launched "
                                      f"{launches}, want {expect}")
@@ -2180,7 +2297,7 @@ def lut_phase(torch, kb, counters, dev, rows, smi, vit_frozen, swin_frozen):
                 logits, launches = run_counted(torch, counters, lambda: eng(images))
             expect = {k: 0 for k in counters} | {
                 attn: len(blocks), "mlp_block": len(blocks), "mlp_block[lut]": len(blocks),
-                f"{attn}[lut]": tables}
+                f"{attn}[lut]": tables, "ln_requant": ln_norms(spec.config)}
             if launches != expect:
                 raise AssertionError(f"lut {label} launched {launches}, want {expect}")
             launches_by[label] = launches
@@ -2215,6 +2332,7 @@ def lut_phase(torch, kb, counters, dev, rows, smi, vit_frozen, swin_frozen):
         logits, launches = run_counted(torch, counters, lambda: eng(images))
         expect = {k: depth if k in (attn, "mlp_block", f"{attn}[int_sqrt]",
                                     "mlp_block[int_sqrt]") else 0 for k in counters}
+        expect["ln_requant"] = ln_norms(cfg)
         if launches != expect:
             raise AssertionError(f"int_sqrt {kind} launched {launches}, want {expect}")
         launches_by[f"{kind}_int_sqrt"] = launches
@@ -2386,6 +2504,7 @@ def serving_phase(torch, counters, dev, rows, smi, swin_spec, profile=False):
     depth = spec.config.depth
     expect = {k: depth * m["batches"] if k in ("attn_block", "mlp_block") else 0
               for k in counters}
+    expect["ln_requant"] = ln_norms(spec.config) * m["batches"]
     if launches != expect:
         raise AssertionError(f"serving launched {launches} in {m['batches']} batches, "
                              f"want {expect}")
@@ -2657,6 +2776,7 @@ def train_engines(torch, name, sim, want, images, counters, rows):
         eng = Engine(spec, device=images.device, kernels=path)
         logits, launches = run_counted(torch, counters, lambda: eng(images))
         expect = {k: depth if k in kernels else 0 for k in counters}
+        expect["ln_requant"] = ln_norms(spec.config, path)
         if launches != expect:
             raise AssertionError(f"train {name} kernels={path!r} launched {launches}, "
                                  f"want {expect}")
@@ -3133,9 +3253,11 @@ def compat_round_trip(torch, counters, dev, name, sim, fresh, images, directory,
     with torch.no_grad():
         want = sim(images)
     freeze = freeze_swin_model if isinstance(fresh, SwinTransformer) else freeze_model
-    eng = Engine(freeze(fresh))
+    spec = freeze(fresh)
+    eng = Engine(spec)
     logits, launches = run_counted(torch, counters, lambda: eng(images))
     expect = {k: 12 if k in kernels else 0 for k in counters}
+    expect["ln_requant"] = ln_norms(spec.config)
     if launches != expect:
         raise AssertionError(f"compat {name}: Engine launched {launches}, want {expect}")
     if not torch.isfinite(want).all() or not torch.equal(logits, want):
@@ -3245,6 +3367,7 @@ def compat_cli_phase(torch, counters, dev, rows, smi, engine_img_s):
         t0 = lap("inference_cli", t0)
         expect = {k: 12 * COMPAT_CLI_BATCHES if k in ("attn_block", "mlp_block") else 0
                   for k in counters}
+        expect["ln_requant"] = COMPAT_CLI_BATCHES
         if launches != expect or result["images"] != COMPAT_CLI_BATCH * COMPAT_CLI_BATCHES:
             raise AssertionError(f"inference CLI launched {launches}, want {expect} "
                                  f"({result['images']} images)")
@@ -3426,7 +3549,7 @@ def _par_counters():
     from ivit_tpu_torch.ops.kernels import nonlinear as knl
     return {"attn_block": kb.attn_block, "mlp_block": kb.mlp_block,
             "swin_attn_block": kb.swin_attn_block, "shiftmax": knl.shiftmax,
-            "shift_gelu_requant": knl.shift_gelu_requant}
+            "shift_gelu_requant": knl.shift_gelu_requant, "ln_requant": knl.ln_requant}
 
 
 def _par_images(np, n, img=224, seed=QAT_SEED + 31):
@@ -3647,20 +3770,21 @@ def parallel_phase(torch, counters, dev, rows, smi):
     """Phase 26: parallelism on the card (one card).  (a) A world of one on
     NCCL, in this process: the dp 1 x tp 1 mesh's DeiT-S ibert engine
     (batch 64, the fused kernels) bitwise Engine(spec)'s, 12 + 12
-    launches; an NCCL int32 all_reduce of values past 2**24, exact.  (b)
-    Two gloo ranks on cuda:0 (spawned; NCCL refuses two ranks on one
-    device): the dp-2 fused engine (32 rows a rank, 12 + 12 launches), the
-    tp-2 ivit engine on the standalone kernels (3 heads and 768 + 16
-    columns a rank, 12 + 12 launches), each bitwise the single-device
+    launches and its final norm's ``ln_requant``; an NCCL int32 all_reduce
+    of values past 2**24, exact.  (b) Two gloo ranks on cuda:0 (spawned;
+    NCCL refuses two ranks on one device): the dp-2 fused engine (32 rows a
+    rank, 12 + 12 + 1 launches), the tp-2 ivit engine on the standalone
+    kernels (3 heads and 768 + 16 columns a rank, 12 + 12 + 1 launches),
+    each bitwise the single-device
     Engine's; the tp-2 DeiT-S ivit sim (qkv x QAT_QKV_GAIN) bitwise the
     single-device sim; one dp-2 train step on a global batch of 16:
     quant_stats bitwise, the loss within rtol 1e-5 and the params within
     rtol 2e-4 / atol 2e-6 (tests/test_parallel.py's bounds).  (c) Three
     gloo ranks: the Swin-T ivit sim at tp 3, bitwise; the synthetic Swin-T
-    engine at dp 3 (fused, 12 + 12 launches a rank) and tp 3 (plain),
-    bitwise.  (d) ServingEngine
+    engine at dp 3 (fused, 12 + 12 + 5 launches a rank) and tp 3 (plain,
+    none), bitwise.  (d) ServingEngine
     over devices ["cuda:0", "cuda:0"]: every answer bitwise Engine(spec)'s,
-    24 + 24 launches a served batch, its img/s beside a one-replica
+    24 + 24 + 2 launches a served batch, its img/s beside a one-replica
     server's.  (e) quant_train --mesh-dp 1 --mesh-tp 1 on a seeded folder
     (one spawned rank on NCCL, one step), and the --mesh-dp 2 refusal."""
     import json
@@ -3694,7 +3818,8 @@ def parallel_phase(torch, counters, dev, rows, smi):
                 eng._spec, x, kernels=True, mesh=mesh))
             check_logits(torch, "parallel world-of-one engine", got, want, 1000,
                          PAR_BATCH)
-            if (launches["attn_block"], launches["mlp_block"]) != (12, 12):
+            if (launches["attn_block"], launches["mlp_block"], launches["ln_requant"]) != \
+                    (12, 12, 1):
                 raise AssertionError(f"world of one: launches {launches}")
             big = torch.tensor([2**24 + 1, -(2**30) - 3, 2**31 - 1], dtype=torch.int32,
                                device=dev)
@@ -3713,9 +3838,10 @@ def parallel_phase(torch, counters, dev, rows, smi):
                             devices=["cuda:0", "cuda:0"], timeout=PAR_TIMEOUT)
         for r, res in enumerate(pair):
             dp_l, tp_l = res["engine_dp"]["launches"], res["engine_tp"]["launches"]
-            if (dp_l["attn_block"], dp_l["mlp_block"]) != (12, 12):
+            if (dp_l["attn_block"], dp_l["mlp_block"], dp_l["ln_requant"]) != (12, 12, 1):
                 raise AssertionError(f"rank {r}: dp-2 launches {dp_l}")
-            if (tp_l["shiftmax"], tp_l["shift_gelu_requant"]) != (12, 12):
+            if (tp_l["shiftmax"], tp_l["shift_gelu_requant"], tp_l["ln_requant"]) != \
+                    (12, 12, 1):
                 raise AssertionError(f"rank {r}: tp-2 launches {tp_l}")
             shapes = res["engine_tp"]["shapes"]
             if shapes["shiftmax"] != [(PAR_BATCH, 3, 197, 197)] or \
@@ -3730,8 +3856,8 @@ def parallel_phase(torch, counters, dev, rows, smi):
         for r, t in enumerate(trio):
             d3, t3 = t["engine_dp3"], t["engine_tp3"]
             if t["heads"] != [1, 2, 4, 8] or \
-                    (d3["swin_attn_block"], d3["mlp_block"]) != (12, 12) or \
-                    t3["swin_attn_block"] + t3["mlp_block"] != 0:
+                    (d3["swin_attn_block"], d3["mlp_block"], d3["ln_requant"]) != (12, 12, 5) or \
+                    t3["swin_attn_block"] + t3["mlp_block"] + t3["ln_requant"] != 0:
                 raise AssertionError(f"rank {r}: tp-3 Swin-T heads / launches {t}")
         out["swin_trio"] = trio[0]
         t0 = lap(step_s, "three_ranks", t0)
@@ -3754,10 +3880,11 @@ def parallel_phase(torch, counters, dev, rows, smi):
             if not np.array_equal(got, want):
                 raise AssertionError(f"{name} server != Engine(spec)")
             served[name] = {"img_s": PAR_SERVED / wall, "batches": batches,
-                            "launches_per_batch": {k: launches[k] / batches
-                                                   for k in ("attn_block", "mlp_block")}}
+                            "launches_per_batch": {k: launches[k] / batches for k in (
+                                "attn_block", "mlp_block", "ln_requant")}}
         if served["two_replicas"]["launches_per_batch"] != {"attn_block": 24,
-                                                            "mlp_block": 24}:
+                                                            "mlp_block": 24,
+                                                            "ln_requant": 2}:
             raise AssertionError(f"two-replica server launches {served}")
         out["serving"] = served
         t0 = lap(step_s, "serving", t0)
@@ -4036,7 +4163,8 @@ def dispatch_phase(torch, counters, dev, rows, smi):
         per = {k: v / (DISPATCH_ITERS + 2) for k, v in launches.items()}
         want = {"attn_block": cfg.depth, "mlp_block": cfg.depth,
                 "shiftmax": cfg.depth if fam == "ivit" else 0,
-                "shift_gelu_requant": cfg.depth if fam == "ivit" else 0}
+                "shift_gelu_requant": cfg.depth if fam == "ivit" else 0,
+                "ln_requant": ln_norms(cfg, "blocks") + ln_norms(cfg, "ops")}
         if any(per[k] != n for k, n in want.items()):
             raise AssertionError(f"dispatch {name}: launches a forward {per}")
         launch_rows[name] = per
@@ -4207,10 +4335,11 @@ def main(argv=None) -> int:
     int16_edge_phase(torch, kb, dev)
     attn_edge_phase(torch, kb, dev)
     mlp_edge_phase(torch, kb, knl, dev)
+    ln_requant_phase(torch, knl, dev, rows)
     emit({"phase": "kernel_checks_done", "seconds": time.perf_counter() - t0})
     counters = {"attn_block": kb.attn_block, "mlp_block": kb.mlp_block,
                 "swin_attn_block": kb.swin_attn_block, "shiftmax": knl.shiftmax,
-                "shift_gelu_requant": knl.shift_gelu_requant}
+                "shift_gelu_requant": knl.shift_gelu_requant, "ln_requant": knl.ln_requant}
     # the table forms' and the integer-sqrt LN's own counts: 0 in every
     # phase but the lut phase, which takes them
     for k in ("attn_block", "mlp_block", "swin_attn_block"):

@@ -90,14 +90,16 @@ __device__ __forceinline__ float pow2(float k) {
   return __int_as_float((ki + 127) << 23);
 }
 
-// The LN shift's exact power 2**shift and its inverse, from the spec's
-// 0-d shift leaf.
+// The LN shift's exact power 2**shift, its inverse and the shift as pow2
+// clamps it (bits: pw's exponent, ln_row_i32's arithmetic shift), from the
+// spec's 0-d shift leaf.
 struct LnShift {
   float pw, inv_pw;
+  int bits;
 };
 __device__ __forceinline__ LnShift ln_shift_of(const float* shift) {
   const float pw = pow2(__ldg(shift));
-  return {pw, __fdiv_rn(1.f, pw)};
+  return {pw, __fdiv_rn(1.f, pw), ((__float_as_int(pw) >> 23) & 255) - 127};
 }
 
 __device__ __forceinline__ float clampf(float v, float lo, float hi) {

@@ -1,4 +1,5 @@
-// The two standalone ivit nonlinearity kernels, for sm_90a.
+// The standalone kernels, for sm_90a: the two ivit nonlinearities, and the
+// integer LayerNorm + int8 requant of the LNs outside the block kernels.
 //
 // ivit_shiftmax replaces ivit_tpu/ops/pallas/nonlinear.py::shiftmax_p
 // (body _shiftmax_kernel): row Shiftmax over the last axis of int8 scores
@@ -71,6 +72,33 @@
 // are device pointers to one f32 each (the spec's 0-d leaves); every thread
 // derives x0 and s_gelu * 1.702 from them, so the host does no arithmetic
 // for a call.
+
+// ivit_ln_requant replaces no Pallas kernel: JAX leaves the LNs outside
+// its block kernels (Swin's patch norm, each PatchMerging norm, the final
+// norm; ViT's final norm of the cls rows) to XLA, which fuses their chains.
+// The port ran each as about 250 torch launches (ten Newton steps of
+// correctly rounded divides, two-limb sums, the requant) and copied two
+// host scalars to the card for the ibert LN, after which torch waits for
+// the stream.  It maps int8 or int16 rows [R, C] (any row stride of
+// 16-byte aligned rows; C a multiple of 16 up to 1,536, the widest norm the
+// engines run: Swin-T's last merge) to int8 [R, C]: exact.cuh's ln_row_i32, the LN the block kernels run at their
+// input (I-LayerNorm, or the ibert LN with the spec's shift, floor(sqrt)
+// or I-BERT's integer sqrt), its bias, a NaN row pinned to 0 and the int8
+// requant; every scalar is an argument or read from the spec's 0-d leaf.
+//
+// Bound on this card: bytes.  Each row is read once and its output written
+// once: a Swin-T batch of 64 moves about 147 MB through its five LNs
+// (patch norm [200,704, 96] int8, merges [50,176, 384], [12,544, 768],
+// [3,136, 1,536] and the final norm [3,136, 768] int16), 44 us at 3.35 TB/s.
+// A persistent grid walks tiles of 256 / L rows, L lanes a row (4 up to C
+// 128, 8 up to 384, 16 up to 768, else 32: the narrower the row, the more
+// rows a warp takes at once, so that its Newton chain is shared by fewer
+// lanes).  The block copies a tile into shared memory, 16 bytes a thread,
+// each group runs ln_row_i32 on its row there (so
+// the row leaves device memory once, however often the LN reads it) into
+// an output tile, which the block writes back 16 bytes a thread.  A row
+// 16 bytes longer in shared memory than in device memory keeps the groups
+// of a warp, on consecutive rows, on distinct banks.
 
 #include "ivit.cuh"
 #include "wgmma_gemm.cuh"
@@ -421,6 +449,103 @@ int launch_by_width(const int8_t* x, const float* s_attn, void* out, int rows,
   return launch(x, s_attn, out, rows, N, n_valid, output_bit, fast_q, stream);
 }
 
+// The widest row ln_requant takes: Swin-T's last merge norm.  Each int32
+// limb sum of ln_row_i32 (C * 2**16 at most) is exact there.
+constexpr int kMaxLnWidth = 1536;
+
+// Shared memory of an ln_requant tile: TR rows of x and TR output rows,
+// each 16 bytes longer than the row.
+inline size_t ln_tile_smem(int TR, int C, int x_size) {
+  return (size_t)TR * (C * x_size + 16 + C + 16);
+}
+
+// Persistent: block b takes tiles b, b + gridDim.x, ... of TR = 256 / L
+// rows; thread t's group (L lanes) computes row t / L of each.  Rows are
+// whole 16-byte chunks at 16-byte aligned addresses.
+template <int L, bool IVIT, typename XT>
+__global__ void __launch_bounds__(kThreads)
+ln_requant_kernel(const XT* __restrict__ x, long long stride, int R, int C,
+                  const float* __restrict__ bias, const float* __restrict__ m_ln,
+                  const float* __restrict__ ln_shift, int isqrt,
+                  int8_t* __restrict__ out) {
+  constexpr int TR = kThreads / L;
+  extern __shared__ __align__(16) uint8_t smem[];
+  const int ld_in = C * (int)sizeof(XT) + 16, ld_out = C + 16;
+  const int cw_in = C * (int)sizeof(XT) / 16, cw_out = C / 16;
+  uint8_t* xs = smem;
+  int8_t* os = reinterpret_cast<int8_t*>(smem + (size_t)TR * ld_in);
+  const int tid = threadIdx.x, row = tid / L;
+  float pw = 1.f;
+  int shift = 0;
+  if (!IVIT) {
+    const LnShift ln = ln_shift_of(ln_shift);
+    pw = ln.pw;
+    shift = ln.bits;
+  }
+  const int ntiles = (R + TR - 1) / TR;
+  for (int t = blockIdx.x; t < ntiles; t += gridDim.x) {
+    const int r0 = t * TR, live = min(TR, R - r0);
+    for (int i = tid; i < live * cw_in; i += kThreads) {
+      const int r = i / cw_in, w = i - r * cw_in;
+      const int4* src = reinterpret_cast<const int4*>(x + (r0 + r) * stride);
+      *reinterpret_cast<int4*>(xs + r * ld_in + 16 * w) = __ldg(src + w);
+    }
+    __syncthreads();
+    // rows past the tile's last rerun it (every lane of a warp takes part
+    // in the group sums) into output rows that are not stored
+    ln_row_i32<IVIT, L>(reinterpret_cast<const XT*>(xs + min(row, live - 1) * ld_in),
+                        C, bias, m_ln, pw, shift, os + row * ld_out, tid & (L - 1),
+                        isqrt != 0);
+    __syncthreads();
+    int8_t* dst = out + (size_t)r0 * C;
+    for (int i = tid; i < live * cw_out; i += kThreads) {
+      const int r = i / cw_out, w = i - r * cw_out;
+      *reinterpret_cast<int4*>(dst + (size_t)r * C + 16 * w) =
+          *reinterpret_cast<const int4*>(os + r * ld_out + 16 * w);
+    }
+    // the next tile's copy writes xs only: every group has read it
+  }
+}
+
+// A launch's grid at width C: the blocks that fit an SM, on every SM.
+struct LnPlan {
+  int C, grid;
+};
+
+template <int L, bool IVIT, typename XT>
+int launch_ln_requant(const void* x, long long stride, int R, int C,
+                      const float* bias, const float* m_ln, const float* ln_shift,
+                      int isqrt, int8_t* out, cudaStream_t stream) {
+  auto kernel = ln_requant_kernel<L, IVIT, XT>;
+  static const SmDevice device = sm_device(kernel);
+  if (device.err != cudaSuccess) return (int)device.err;
+  constexpr int TR = kThreads / L;
+  const size_t smem = ln_tile_smem(TR, C, sizeof(XT));
+  static thread_local LnPlan plan{0, 0};
+  if (plan.C != C) {
+    int blocks = 0;
+    const cudaError_t err =
+        cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel, kThreads, smem);
+    if (err != cudaSuccess) return (int)err;
+    plan = {C, max(1, blocks) * sm_count()};
+  }
+  const int grid = min((R + TR - 1) / TR, plan.grid);
+  kernel<<<grid, kThreads, smem, stream>>>(static_cast<const XT*>(x), stride, R, C,
+                                           bias, m_ln, ln_shift, isqrt, out);
+  return (int)cudaGetLastError();
+}
+
+template <bool IVIT, typename XT>
+int ln_requant_by_width(const void* x, long long stride, int R, int C,
+                        const float* bias, const float* m_ln, const float* ln_shift,
+                        int isqrt, int8_t* out, cudaStream_t stream) {
+  auto launch = C <= 128   ? launch_ln_requant<4, IVIT, XT>
+                : C <= 384 ? launch_ln_requant<8, IVIT, XT>
+                : C <= 768 ? launch_ln_requant<16, IVIT, XT>
+                           : launch_ln_requant<32, IVIT, XT>;
+  return launch(x, stride, R, C, bias, m_ln, ln_shift, isqrt, out, stream);
+}
+
 }  // namespace ivit
 
 // scores int8 [rows, N], N <= 1024; out int8 [rows, N] for output_bit <= 8,
@@ -462,4 +587,33 @@ extern "C" int ivit_shift_gelu_requant(const int8_t* x, const float* s_gelu,
               : per_lane == 4                 ? launch_shift_gelu<4>
                                               : launch_shift_gelu<8>;
   return launch(x, table, out, rows, H, stream);
+}
+
+// x int8 (x16 0) or int16 [R, C] with row stride `stride` elements (its
+// columns contiguous; x and each row 16-byte aligned, C a multiple of 16 up
+// to kMaxLnWidth); bias and m_ln f32 [C]; ln_shift points at one f32 (read
+// by the ibert LN only); out int8 [R, C], contiguous and 16-byte aligned.
+// ln_kind: 0 the ibert LN (floor(sqrt)), 1 I-LayerNorm, 2 the ibert LN with
+// I-BERT's integer sqrt.
+extern "C" int ivit_ln_requant(const void* x, long long stride, const float* bias,
+                               const float* m_ln, const float* ln_shift,
+                               int8_t* out, int R, int C, int x16, int ln_kind,
+                               cudaStream_t stream) {
+  if (R == 0) return 0;
+  using namespace ivit;
+  const size_t x_size = x16 ? 2 : 1;
+  if (C < 16 || C > kMaxLnWidth || C % 16 || ln_kind < 0 || ln_kind > 2 ||
+      ((reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(out) |
+        (uintptr_t)(stride * x_size)) & 15))
+    return (int)cudaErrorInvalidValue;
+  const int isqrt = ln_kind == kLnIbertIntSqrt;
+  if (ln_kind == kLnIvit)
+    return x16 ? ln_requant_by_width<true, int16_t>(x, stride, R, C, bias, m_ln,
+                                                    ln_shift, 0, out, stream)
+               : ln_requant_by_width<true, int8_t>(x, stride, R, C, bias, m_ln,
+                                                   ln_shift, 0, out, stream);
+  return x16 ? ln_requant_by_width<false, int16_t>(x, stride, R, C, bias, m_ln,
+                                                   ln_shift, isqrt, out, stream)
+             : ln_requant_by_width<false, int8_t>(x, stride, R, C, bias, m_ln,
+                                                  ln_shift, isqrt, out, stream);
 }

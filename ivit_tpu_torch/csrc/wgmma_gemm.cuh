@@ -394,15 +394,13 @@ __device__ __forceinline__ void fill_ln_tile(
     copy_rows_swizzled(ln_in, R, C, r0, A);
     return;
   }
-  // 2**shift = pw, pow2's clamped exponent
   const LnShift ln = ln_shift_of(ln_shift);
-  const int shift = ((__float_as_int(ln.pw) >> 23) & 255) - 127;
   if (x16)
     ln_rows_any_width(static_cast<const int16_t*>(x), R, C, r0, ln_kind,
-                      ln_bias, m_ln, ln.pw, shift, A);
+                      ln_bias, m_ln, ln.pw, ln.bits, A);
   else
     ln_rows_any_width(static_cast<const int8_t*>(x), R, C, r0, ln_kind,
-                      ln_bias, m_ln, ln.pw, shift, A);
+                      ln_bias, m_ln, ln.pw, ln.bits, A);
 }
 
 // Two adjacent activations x[i], x[i + 1] (i even) of an int8 or (x16)

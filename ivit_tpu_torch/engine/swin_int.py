@@ -14,9 +14,13 @@ Two paths, bit-identical to each other and to the JAX engine:
 
 ``stage_paths`` picks the path per stage and ``fuse_parts`` the fused
 half-blocks, as in JAX.  The input quant, the
-patch GEMM and patch norm, the roll and window permutations, PatchMerging,
-the final LN, the exact-int average pool and the head run outside any
-kernel on every path, as in the JAX package.  The JAX fused branch pads
+patch GEMM, the roll and window permutations, PatchMerging's gather and
+GEMM, the exact-int average pool and the head run outside any kernel on
+every path, as in the JAX package; the patch norm, each merge's norm and
+the final LN, each with its int8 requant, are one
+:func:`~ivit_tpu_torch.ops.kernels.nonlinear.ln_requant` launch where
+``kernels`` is True (JAX leaves them to XLA; ``stage_paths`` does not
+reach them) and the per-op chain on the plain engine.  The JAX fused branch pads
 Swin's 96- and 192-channel stages to 128 lanes for the FFN kernel
 (``c_valid``) and each window to 56 tokens for the attention kernel; the
 port runs both unpadded.  JAX's Swin engine has no hybrid of standalone
@@ -59,10 +63,10 @@ from .freeze import (GELU_IN_BITS, EngineConfig, _act_scale, _block_luts,
                      requant_multiplier, spec_tree)
 from .luts import swin_shift_sat
 from .vit_int import (_base, _check_families, _gelu_requant_int, _gemm_bias,
-                      _layernorm_int, _ln_requant, _lut_kw, _ppoly_gelu_kw,
-                      _ppoly_softmax_kw, _requant, _residual_requant,
-                      _softmax_int, _use_int_sqrt, fused_halves, params_on,
-                      quantized_patches)
+                      _layernorm_int, _ln_requant, _lut_kw, _norm_site,
+                      _ppoly_gelu_kw, _ppoly_softmax_kw, _requant,
+                      _residual_requant, _softmax_int, _use_int_sqrt,
+                      fused_halves, params_on, quantized_patches)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -359,7 +363,7 @@ def _mlp_fused(cfg, blk, x):
     return y.reshape(B, L, C)
 
 
-def _merge(cfg, mg, x, B, res, dim):
+def _merge(cfg, mg, x, B, res, dim, kernels):
     """PatchMerging: 2x2 neighbours concatenated (integer data movement),
     LN over 4C, reduction GEMM (no bias), requant to int8."""
     with span("ivit.merge"):
@@ -367,8 +371,8 @@ def _merge(cfg, mg, x, B, res, dim):
         xm = torch.cat([xm[:, 0::2, 0::2], xm[:, 1::2, 0::2],
                         xm[:, 0::2, 1::2], xm[:, 1::2, 1::2]], dim=-1)
         xm = xm.reshape(B, -1, 4 * dim)
-        y = _layernorm_int(cfg, xm, mg["norm_bias_int"], mg["norm_shift"])
-        y = _ln_requant(y, mg["m_norm"], 8)
+        y = _norm_site(cfg, xm, mg["norm_bias_int"], mg["norm_shift"],
+                       mg["m_norm"], kernels)
         return _requant(int8_matmul(y, mg["red_w"]), mg["m_red"], 8)
 
 
@@ -484,9 +488,8 @@ def _swin_forward(spec, images, kernels, dev, stage_paths, mlp_wt, fuse_parts):
             x = _requant(_gemm_bias(x, p["patch"]["w"], p["patch"]["b"]),
                          p["patch"]["m"], 8)
             # patch norm, its qact, then the 16-bit stage input
-            y = _layernorm_int(cfg, x, p["patch"]["pn_bias_int"],
-                               p["patch"]["pn_shift"])
-            x = _ln_requant(y, p["patch"]["m_norm"], 8)
+            x = _norm_site(cfg, x, p["patch"]["pn_bias_int"],
+                           p["patch"]["pn_shift"], p["patch"]["m_norm"], kernels)
             x = torch.clamp(torch.round(x.float() * p["patch"]["m_x0"]),
                             -(2.0**15), 2.0**15 - 1).to(torch.int16)
 
@@ -498,7 +501,7 @@ def _swin_forward(spec, images, kernels, dev, stage_paths, mlp_wt, fuse_parts):
         for (kind, stage, shift), blk, wt in zip(
                 cfg.layout, p["blocks"], mlp_wt or itertools.repeat({})):
             if kind == "merge":
-                x = _merge(cfg, blk["merge"], x, B, res, dim)
+                x = _merge(cfg, blk["merge"], x, B, res, dim, kernels)
                 res, dim = res // 2, dim * 2
                 continue
             heads = cfg.stage_heads[stage]
@@ -515,8 +518,8 @@ def _swin_forward(spec, images, kernels, dev, stage_paths, mlp_wt, fuse_parts):
                 x = _mlp_unfused(cfg, blk, x)
 
         with span("ivit.head"):
-            y = _layernorm_int(cfg, x, p["lnf_bias_int"], p["lnf_shift"])
-            y = _ln_requant(y, p["m_lnf"], 8)
+            y = _norm_site(cfg, x, p["lnf_bias_int"], p["lnf_shift"],
+                           p["m_lnf"], kernels)
             # exact-int average pool: two-limb int32 token sum, correctly
             # rounded divide by the token count, round once
             y = torch.round(rdiv(exact_int_sum(y.float().transpose(1, 2)),

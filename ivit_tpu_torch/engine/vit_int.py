@@ -21,8 +21,11 @@ Three paths, bit-identical to each other and to the JAX engine:
   plain per-op engine on either device, the reference the kernels are held
   against on the card.
 
-The patch-embed and head GEMMs, the input quant and the final cls-row LN
-run outside any kernel on every path, as in the JAX package.  The JAX fused
+The patch-embed and head GEMMs and the input quant run outside any kernel
+on every path, as in the JAX package.  The final cls-row LN + requant is
+one :func:`~ivit_tpu_torch.ops.kernels.nonlinear.ln_requant` launch on the
+two kernel paths (JAX leaves it to XLA) and the per-op chain on the plain
+engine and while the envelope audit records.  The JAX fused
 branch pads tokens to a multiple of 8 for the TPU's tiles; the port runs
 the ``N`` real tokens unpadded.  The ivit, ibert, ppoly and float softmax
 and GELU run, in any mix, with the ivit or ibert LayerNorm; the float and
@@ -406,6 +409,18 @@ def _layernorm_int(cfg, x_int, bias_int, shift):
                                   use_int_sqrt=_use_int_sqrt(cfg)) + bias_int
 
 
+def _norm_site(cfg, x, bias_int, shift, m, kernels):
+    """A LayerNorm + int8 requant outside the block kernels (the final
+    norm; Swin's patch norm and merges): one ``ln_requant`` launch where
+    the engine launches kernels (``kernels`` True or ``"ops"``; its plain
+    version on the CPU), the per-op chain on the plain engine and while the
+    envelope audit records, whose taps are the chain's."""
+    if kernels is False or _AUDIT is not None:
+        return _ln_requant(_layernorm_int(cfg, x, bias_int, shift), m, 8)
+    return knl.ln_requant(x, bias_int, m, shift, ln_base=_base(cfg, "ln"),
+                          use_int_sqrt=_use_int_sqrt(cfg))
+
+
 def _residual_requant(y, my, xr, mx, bits, tap=True):
     """The integer residual add (dual requant); ``tap=False`` where JAX's
     engine does not tap it (Swin's, ``swin_int.py:466``)."""
@@ -586,8 +601,8 @@ def _engine_forward(spec, images, kernels, dev, mlp_wt):
 
         # final norm on the cls row only -> head
         with span("ivit.head"):
-            y = _layernorm_int(cfg, x[:, :1], p["lnf_bias_int"], p["lnf_shift"])
-            y = _ln_requant(y, p["m_lnf"], 8)[:, 0]
+            y = _norm_site(cfg, x[:, :1], p["lnf_bias_int"], p["lnf_shift"],
+                           p["m_lnf"], kernels)[:, 0]
             acc = _gemm_bias(y, p["head_w"], p["head_b"])
             return acc.float() * p["head_scale"]
 

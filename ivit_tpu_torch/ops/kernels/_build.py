@@ -38,7 +38,9 @@ _SIGNATURES = {
     "swin_attn_block": {"ivit_swin_attn_block": [_P] * 23 + [_I] * 10 + [_P] * 2
                         + [_I, _P, _P]},
     "nonlinear": {"ivit_shiftmax": [_P] * 3 + [_I] * 5 + [_P],
-                  "ivit_shift_gelu_requant": [_P] * 4 + [_I] * 6 + [_P, _P]},
+                  "ivit_shift_gelu_requant": [_P] * 4 + [_I] * 6 + [_P, _P],
+                  "ivit_ln_requant": [_P, ctypes.c_longlong] + [_P] * 4 + [_I] * 4
+                  + [_P]},
 }
 
 _libs: dict = {}

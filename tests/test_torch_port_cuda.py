@@ -128,10 +128,11 @@ def test_cuda_kernels_match_plain_versions(cuda, fast):
 def test_cuda_engine_matches_plain_engines(cuda):
     spec = synthetic_spec(_small_config(2), seed=0)
     images = np.random.default_rng(1).normal(size=(4, 64, 64, 3)).astype(np.float32)
-    kb.mlp_block.launches = kb.attn_block.launches = 0
+    kb.mlp_block.launches = kb.attn_block.launches = knl.ln_requant.launches = 0
     got = Engine(spec)(images)
     torch.cuda.synchronize()
     assert (kb.mlp_block.launches, kb.attn_block.launches) == (2, 2)
+    assert knl.ln_requant.launches == 1
     assert torch.equal(got, Engine(spec, kernels=False)(images))
     assert torch.equal(got.cpu(), Engine(spec, device="cpu", kernels=False)(images))
 
@@ -368,10 +369,11 @@ def test_cuda_swin_engine_matches_plain_engines(cuda):
     spec = _swin_spec(("ivit", "ivit", "ivit"))
     images = np.random.default_rng(1).normal(size=(3, 56, 56, 3)).astype(np.float32)
     want = Engine(spec, kernels=False)(images)
-    kb.mlp_block.launches = kb.swin_attn_block.launches = 0
+    kb.mlp_block.launches = kb.swin_attn_block.launches = knl.ln_requant.launches = 0
     got = Engine(spec)(images)
     torch.cuda.synchronize()
     assert (kb.mlp_block.launches, kb.swin_attn_block.launches) == (4, 4)
+    assert knl.ln_requant.launches == 3      # patch norm, merge, final norm
     assert torch.equal(got, want)
     assert torch.equal(Engine(spec, stage_paths=(True, False))(images), want)
     assert torch.equal(want.cpu(), Engine(spec, device="cpu", kernels=False)(images))
@@ -641,20 +643,22 @@ def test_cuda_ppoly_engines_match_plain_engines(cuda):
     images = np.random.default_rng(1).normal(size=(3, 64, 64, 3)).astype(np.float32)
     spec = synthetic_spec(_small_config(2, (fam, fam, "ibert")), seed=0)
     want = Engine(spec, kernels=False)(images)
-    kb.mlp_block.launches = kb.attn_block.launches = 0
+    kb.mlp_block.launches = kb.attn_block.launches = knl.ln_requant.launches = 0
     got = Engine(spec)(images)
     torch.cuda.synchronize()
     assert (kb.mlp_block.launches, kb.attn_block.launches) == (2, 2)
+    assert knl.ln_requant.launches == 1
     assert torch.equal(got, want)
     assert torch.equal(Engine(spec, kernels="ops")(images), want)
     assert torch.equal(want.cpu(), Engine(spec, device="cpu", kernels=False)(images))
     spec = _swin_spec((fam, fam, "ivit"))
     images = images[:, :56, :56].copy()
     want = Engine(spec, kernels=False)(images)
-    kb.mlp_block.launches = kb.swin_attn_block.launches = 0
+    kb.mlp_block.launches = kb.swin_attn_block.launches = knl.ln_requant.launches = 0
     got = Engine(spec)(images)
     torch.cuda.synchronize()
     assert (kb.mlp_block.launches, kb.swin_attn_block.launches) == (4, 4)
+    assert knl.ln_requant.launches == 3      # patch norm, merge, final norm
     assert torch.equal(got, want)
     assert torch.equal(want.cpu(), Engine(spec, device="cpu", kernels=False)(images))
 
@@ -1018,6 +1022,119 @@ def test_cuda_int_sqrt_ln_matches_plain_versions(cuda):
     got = kb.swin_attn_block(xw, use_int_sqrt=True, **kw)
     torch.cuda.synchronize()
     assert torch.equal(got, kb.swin_attn_block_ref(xw, use_int_sqrt=True, **kw))
+
+
+# --- the LayerNorm + requant outside the block kernels --------------------------
+
+# (C, stream, rows, ibert shift): DeiT-S's head (the cls rows of a [64, 197,
+# 384] stream, read in place), Swin-T's patch norm (96 int8), its merges
+# (384, 768, 1,536 int16) and final norm (768 int16) at ragged row counts
+LN_SITES = [(384, torch.int8, "cls", 0), (96, torch.int8, 1000, 0),
+            (384, torch.int16, 777, 2), (768, torch.int16, 300, 2),
+            (1536, torch.int16, 70, 5), (768, torch.int16, 129, 2)]
+LN_FAMS = [("ivit", False), ("ibert", False), ("ibert", True)]
+
+
+def _ln_rows(dev, c, dtype, n, seed):
+    """Seeded rows, then the stream's extremes (both ends, the two ends
+    alternating, a flat row, a spike)."""
+    info = torch.iinfo(dtype)
+    rng = np.random.default_rng(seed)
+    rows = np.clip(np.round(rng.normal(0, 40 if dtype == torch.int8 else 6000, (n, c))),
+                   info.min, info.max)
+    edge = np.zeros((5, c))
+    edge[0], edge[1] = info.min, info.max
+    edge[2] = np.resize([info.min, info.max], c)
+    edge[3] = 17
+    edge[4, c // 3] = info.max
+    return torch.from_numpy(np.concatenate([rows, edge])).to(dtype).to(dev)
+
+
+def _ln_leaves(dev, c, shift, seed):
+    """Bias, multiplier and shift at a freeze's scale (the LN's integers
+    are z * 2**30 / sqrt(C) for a standard score z)."""
+    rng = np.random.default_rng(seed)
+    unit = 2.0**30 / np.sqrt(c)
+    bias = torch.from_numpy(np.floor(rng.normal(0, unit / 2, c))).float().to(dev)
+    m = torch.from_numpy(rng.uniform(20, 120, c) / unit).float().to(dev)
+    return bias, m, torch.tensor(float(shift), device=dev)
+
+
+@pytest.mark.parametrize("site", LN_SITES, ids=[f"C{s[0]}-{str(s[1])[6:]}-{s[2]}"
+                                                for s in LN_SITES])
+@pytest.mark.parametrize("fam,isqrt", LN_FAMS, ids=["ivit", "ibert", "ibert_isqrt"])
+def test_cuda_ln_requant_matches_plain_version(cuda, fam, isqrt, site):
+    """The LN + requant kernel equals its plain version (the engines' chain)
+    bit for bit at the engines' widths and streams, both families and the
+    integer-sqrt ibert LN, on rows at the stream's extremes; a flat ibert
+    row's NaN is pinned to 0; one launch a call."""
+    c, dtype, n, shift = site
+    bias, m, sh = _ln_leaves(cuda, c, shift, seed=c)
+    if n == "cls":
+        x = _ln_rows(cuda, c, dtype, 59, seed=5)[:, None].repeat(1, 197, 1)
+        x[:, 1:] = _ln_rows(cuda, c, dtype, 59, seed=6)[:, None]
+        x = x[:, :1]
+        assert not x.is_contiguous()
+    else:
+        x = _ln_rows(cuda, c, dtype, n, seed=c + n)
+    kw = dict(ln_base=fam, use_int_sqrt=isqrt)
+    before = knl.ln_requant.launches
+    got = knl.ln_requant(x, bias, m, sh, **kw)
+    torch.cuda.synchronize()
+    assert knl.ln_requant.launches == before + 1
+    want = knl.ln_requant_ref(x, bias, m, sh, **kw)
+    assert got.shape == x.shape and got.dtype == torch.int8
+    assert torch.equal(got, want)
+    flat = got.reshape(-1, c)[-2]
+    assert (flat == 0).all() if fam == "ibert" else flat.ne(0).any()
+    assert got.min() == -128 and got.max() == 127
+
+
+@pytest.mark.parametrize("c,dtype,offset", [(100, torch.int8, 0), (1552, torch.int16, 0),
+                                             (96, torch.int8, 1), (384, torch.int16, 2)])
+def test_cuda_ln_requant_refuses_rows_off_its_chunks(cuda, c, dtype, offset):
+    """The kernel reads and writes rows in whole 16-byte chunks: a width
+    that is not a multiple of 16 or past Swin-T's 1,536, or a row off a
+    16-byte boundary, raises, and nothing is launched."""
+    bias, m, sh = _ln_leaves(cuda, c, 0, seed=c)
+    x = _at_byte_offset(_ln_rows(cuda, c, dtype, 9, seed=c), offset)
+    before = knl.ln_requant.launches
+    with pytest.raises(ValueError, match="16"):
+        knl.ln_requant(x, bias, m, sh, ln_base="ivit")
+    assert knl.ln_requant.launches == before
+
+
+def test_cuda_ln_requant_launches_and_waits(cuda):
+    """One ``ln_requant`` launch a norm outside the blocks: 5 a fused Swin-T
+    forward (patch norm, three merges, final norm), 1 a fused DeiT-S one,
+    none on the plain engine, logits equal to the plain engine's; under the
+    profiler a DeiT-S forward waits for the card nowhere (no ``ivit.sync``),
+    a Swin-T one once, in the pool of ``ivit.head``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from ivit_tpu_torch.utils import spans
+    rng = np.random.default_rng(3)
+    for spec, n, syncs in ((synthetic_swin_spec(swin_tiny_config(), seed=0), 5, 1),
+                           (synthetic_spec(deit_small_config(), seed=0), 1, 0)):
+        x = torch.from_numpy(rng.normal(size=(4, 224, 224, 3)).astype(np.float32)).to(cuda)
+        want = Engine(spec, kernels=False)(x)
+        knl.ln_requant.launches = 0
+        Engine(spec, kernels=False)(x)
+        assert knl.ln_requant.launches == 0
+        eng = Engine(spec)
+        got = eng(x)
+        torch.cuda.synchronize()
+        assert knl.ln_requant.launches == n
+        assert torch.equal(got, want)
+        spans.clear()
+        with profile(activities=[ProfilerActivity.CUDA]):
+            eng(x).cpu()
+        recs = spans.spans()
+        waits = [r for r in recs if r.name == "ivit.sync"]
+        assert len(waits) == syncs
+        assert all(recs[r.parent].name == "ivit.head" for r in waits)
+        assert sum(r.name == "ivit.kernel.ln_requant" for r in recs) == n
+        spans.clear()
 
 
 # --- the QAT sim and its freeze on the card ------------------------------------
@@ -1594,8 +1711,9 @@ def test_cuda_spans_share_the_device_traces_clock(cuda):
     """The program's spans (``ivit_tpu_torch.utils.spans``) on the card,
     over 4 DeiT-S calls: under the device-only profiler they are recorded,
     each call's ``ivit.call`` holds the start of device work and ends inside
-    the device operations' stretch, and it waits for the card
-    (``ivit.sync``) in the final LN of ``ivit.head``; under
+    the device operations' stretch, and it waits for the card nowhere (no
+    ``ivit.sync``: the final LN is one ``ln_requant`` launch in each
+    call's ``ivit.head``); under
     CPU + CUDA each ``ivit.call`` lies inside a ``record_function`` event
     around the call and starts within 50 us of it (the profiling session's
     first call left out, as the CPU test does); in neither trace does a
@@ -1628,7 +1746,9 @@ def test_cuda_spans_share_the_device_traces_clock(cuda):
         assert first <= e <= last
         assert any(s <= o <= e for _, o, _ in device)
     assert calls[0][0] <= first
-    heads = {r.call for r in recs if r.name == "ivit.sync" and recs[r.parent].name == "ivit.head"}
+    assert not [r for r in recs if r.name == "ivit.sync"]
+    heads = {r.call for r in recs
+             if r.name == "ivit.kernel.ln_requant" and recs[r.parent].name == "ivit.head"}
     assert heads == {r.call for r in recs if r.name == "ivit.call"}
 
     spans.clear()

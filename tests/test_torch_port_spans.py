@@ -54,6 +54,11 @@ TOP = {"vit": ["ivit.params", "ivit.input", "ivit.embed"] + BLOCK["vit"] * DEPTH
        + ["ivit.head"],
        "swin": ["ivit.params", "ivit.input", "ivit.embed"] + BLOCK["swin"] * 2
        + ["ivit.merge"] + BLOCK["swin"] * 2 + ["ivit.head"]}
+# the spans below those: the LayerNorm + requant wrapper of the norms
+# outside the blocks (the final norm; Swin's patch norm and merge)
+LN = ["ivit.kernel.ln_requant"]
+INNER = {"vit": {"ivit.head": LN},
+         "swin": {"ivit.embed": LN, "ivit.merge": LN, "ivit.head": LN}}
 
 
 def _profiled(fn, calls):
@@ -88,7 +93,10 @@ def test_the_span_tree_of_a_call(model):
         top = _children(recs, i)
         assert [recs[j].name for j in top] == TOP[model]
         # on the CPU no host scalar is copied to a device: nothing waits
-        assert all(_children(recs, j) == [] for j in top)
+        for j in top:
+            inner = _children(recs, j)
+            assert [recs[k].name for k in inner] == INNER[model].get(recs[j].name, [])
+            assert all(_children(recs, k) == [] for k in inner)
         assert all(not r.attrs for r in recs if r.parent is not None)
 
 
@@ -219,7 +227,7 @@ def test_f32_spans_each_copy_of_a_host_value_to_a_device():
 
 
 @pytest.mark.parametrize("fn", [kb.mlp_block, kb.attn_block, kb.swin_attn_block,
-                                knl.shiftmax, knl.shift_gelu_requant],
+                                knl.shiftmax, knl.shift_gelu_requant, knl.ln_requant],
                          ids=lambda fn: fn.__name__)
 def test_the_wrappers_keep_their_names_and_counters(fn):
     assert fn.__wrapped__.__name__ == fn.__name__ and fn.__doc__
