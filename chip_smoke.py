@@ -42,6 +42,12 @@ Phases, each printing one JSON line:
    family mix, fast flags on and off, ``ln_in``, the int8 input a merge
    feeds a stage, ibert LNs with their overflow shift > 0, and a small
    ragged case; per-stage kernel, plain and library times and the bound;
+   swin_attn_block_b384: the window-attention kernel on its split-key core
+   at the four Swin-B/384 stage shapes of batch 64 ([4096, 144, 128] to
+   [64, 144, 1024] windows, the shifted block where the stage has one)
+   bitwise equal to its plain version; per stage a call's time, the core's
+   device time (profiler), the plain time, and the bounds of the call and
+   of the core alone;
 11. attn_edges: both attention kernels bitwise equal to their plain
    versions at the edge shapes of their 16-row query tiles, 32-key chunks
    and 32-channel head chunks, C 128 with head dims 32, 64 and 128, ivit
@@ -59,6 +65,13 @@ Phases, each printing one JSON line:
    (2, 2, 6, 2), batch 64) through ``Engine``: 12 + 12 launches a forward,
    logits bitwise equal to the plain engine on the card and, for 4 images,
    on the CPU; finite and image-dependent; img/s of both engines;
+   engine_swin_b384: a synthetic Swin-B/384 ivit engine
+   (``swin_base_patch4_window12_384``'s published widths, windows of 144
+   tokens, batch 64) through ``Engine``: 24 ``swin_attn_block`` launches,
+   all 24 on the split-key core (``wide_launches``), 24 ``mlp_block`` and
+   5 ``ln_requant`` (the last merge's 2,048 channels) a forward, logits
+   bitwise equal to the plain engine run on 8-image slices of the same
+   batch on the card; img/s of both engines;
 14. ppoly_kernels: the ppoly variants of the three block kernels (the
    ppoly GELU in both MLP blocks, the ppoly softmax in both attention
    cores) bitwise equal to their plain versions at DeiT-S shapes (both
@@ -237,8 +250,9 @@ Phases, each printing one JSON line:
    at the five Swin-T sites of batch 64 (patch norm [200,704, 96] int8,
    merges [50,176, 384], [12,544, 768] and [3,136, 1,536] int16, the final
    norm [3,136, 768] int16; the spec's leaves, I-LayerNorm, the ibert LN
-   and its integer-sqrt form) and DeiT-S's head (the cls rows of a [256,
-   197, 384] int8 stream, read in place; the same three LNs); the
+   and its integer-sqrt form), DeiT-S's head (the cls rows of a [256,
+   197, 384] int8 stream, read in place; the same three LNs) and
+   Swin-B/384's last merge ([9,216, 2,048] int16, batch 64); the
    kernel's device time (profiler), a call's time back to back, the plain
    time and the bytes bound at each site (run after the edge phases).
    Every later phase that counts launches counts it too (``ln_norms``):
@@ -734,9 +748,10 @@ LN_FAMS = [("ivit", False), ("ibert", False), ("ibert", True)]   # (LN, int sqrt
 
 
 def ln_requant_phase(torch, knl, dev, rows):
-    """Phase 29: the LN + requant kernel at the Swin-T sites of batch 64 and
-    DeiT-S's head at batch 256, against its plain version, timed beside its
-    bound.  Its launches a forward are the engine phases' (``ln_norms``)."""
+    """Phase 29: the LN + requant kernel at the Swin-T sites of batch 64,
+    DeiT-S's head at batch 256 and Swin-B/384's last merge (2,048 channels,
+    batch 64), against its plain version, timed beside its bound.  Its
+    launches a forward are the engine phases' (``ln_norms``)."""
     import numpy as np
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -769,6 +784,12 @@ def ln_requant_phase(torch, knl, dev, rows):
     sites.append(("deit_head", stream((BATCH, TOKENS, 384), torch.int8)[:, :1],
                   deit.params["lnf_bias_int"], deit.params["m_lnf"],
                   deit.params["lnf_shift"]))
+    # Swin-B/384's last merge, leaves at a freeze's scale (2**30 / sqrt(C) a
+    # standard score); not one of Swin-T's sites
+    unit = 2.0**30 / np.sqrt(2048)
+    sites.append(("b384_merge2", stream((SWIN_BATCH * 144, 2048), torch.int16),
+                  np.floor(rng.normal(0, unit / 2, 2048)), rng.uniform(20, 120, 2048) / unit,
+                  5.0))
     out, checks = {}, 0
     for name, x, bias, m, shift in sites:
         leaves = [torch.as_tensor(np.asarray(v, np.float32)).to(dev) for v in (bias, m, shift)]
@@ -1264,16 +1285,16 @@ def int16_engine_phase(torch, counters, dev, rows, profile=False):
 
 
 def swin_stage_blocks(torch, spec, dev):
-    """Per Swin-T stage: (C, heads, windows an image, [(shift, block
-    tensors) of its first two blocks]) of a synthetic spec."""
+    """Per stage: (C, heads, windows an image, [(shift, block tensors) of
+    its first two blocks]) of a synthetic Swin spec."""
     cfg, stages = spec.config, {}
     for (kind, stage, shift), blk in zip(cfg.layout, spec.params["blocks"]):
         if kind != "block":
             continue
-        res = SWIN_GRID // 2 ** stage
+        res = cfg.img_size // cfg.patch_size // 2 ** stage
         entry = stages.setdefault(stage, (cfg.embed_dim * 2 ** stage,
                                           cfg.stage_heads[stage],
-                                          (res // min(7, res)) ** 2, []))
+                                          (res // min(cfg.window_size, res)) ** 2, []))
         if len(entry[3]) < 2:
             entry[3].append((shift, block_args(torch, blk, dev)))
     return [stages[i] for i in sorted(stages)]
@@ -1482,6 +1503,130 @@ def swin_engine_phase(torch, counters, dev, rows, profile=False):
                     "(synthetic, seed 0)",
           "batch": SWIN_BATCH, "ivit": out["ivit"], "ibert": out["ibert"],
           "equal_plain_cuda": True, "equal_plain_cpu_4img": True})
+
+
+SWIN_B384_WIN = 144    # Swin-B/384's 12 x 12 windows
+SWIN_B384_PLAIN = 8    # images a plain-engine pass (stage-0 scores [512, 4, 144, 144])
+
+
+def swin_b384_config():
+    """Swin-B/384 (``swin_base_patch4_window12_384``) at its published widths."""
+    from ivit_tpu_torch.engine.synthetic import swin_tiny_config
+
+    return swin_tiny_config(depths=(2, 2, 18, 2), img_size=384, embed_dim=128,
+                            stage_heads=(4, 8, 16, 32), window_size=12)
+
+
+def swin_b384_attn_phase(torch, kb, dev, rows):
+    """Phase 10b: the Swin window-attention kernel on its split-key core
+    (144-token windows) at the four Swin-B/384 stage shapes of batch 64,
+    against its plain version; a call's time, the core's device time
+    (profiler), the plain time and the bounds of the call and of the core,
+    added to the swin_attn_block row."""
+    import numpy as np
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from ivit_tpu_torch.engine.synthetic import synthetic_swin_spec
+
+    rng = np.random.default_rng(12)
+    n, per_stage, errs = SWIN_B384_WIN, [], []
+    spec = synthetic_swin_spec(swin_b384_config(), seed=0)
+    for st, (c, heads, nw, blks) in enumerate(swin_stage_blocks(torch, spec, dev)):
+        x = np.clip(np.round(rng.normal(0, 2**13, (SWIN_BATCH * nw, n, c))), -2**15, 2**15 - 1)
+        x = torch.as_tensor(x.astype(np.int16)).to(dev)
+        shift, b = blks[-1]    # the shifted block where the stage has one
+        kw = swin_attn_kwargs(b, True, heads, nw, shift, IVIT)
+        got = kb.swin_attn_block(x, **kw)
+        torch.cuda.synchronize()
+        errs.append(check_equal(torch, f"swin_attn_block b384 stage {st} shift {shift}",
+                                got, kb.swin_attn_block_ref(x, **kw)))
+        del got
+        ms = time_ms(torch, lambda: kb.swin_attn_block(x, **kw), iters=10)
+        plain_ms = time_ms(torch, lambda: kb.swin_attn_block_ref(x, **kw), iters=2, warmup=1)
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(5):
+                kb.swin_attn_block(x, **kw)
+            torch.cuda.synchronize()
+        core_ms = sum(a.self_device_time_total for a in prof.key_averages()
+                      if a.device_type == DeviceType.CUDA
+                      and "swin_core_mma_kernel" in a.key) / 5e3
+        r = x.shape[0] * n
+        ops = 2 * r * 4 * c * c + 2 * 2 * r * n * c
+        masks = [b["mask_int"]] if shift else []
+        nb = nbytes(x, x, b["qkv_w"], b["proj_w"], b["qkv_b"], b["proj_b"],
+                    b["m_qkv"], b["m_proj"], b["m_ln1"], b["ln1_bias_int"],
+                    b["rel_bias_addend"], *masks)
+        b_ms, b_by = bound(ops, nb)
+        # the core alone: scores and P.V over the int8 qkv in, int8 ctx out
+        core_b_ms, core_b_by = bound(2 * 2 * r * n * c, r * 4 * c + nbytes(
+            b["rel_bias_addend"], *masks))
+        per_stage.append(dict(stage=st, shape=[x.shape[0], n, c], heads=heads, shift=shift,
+                              ms=ms, core_ms=core_ms, plain_ms=plain_ms, bound_ms=b_ms,
+                              bound_by=b_by, core_bound_ms=core_b_ms,
+                              core_bound_by=core_b_by, int8_ops=ops, bytes=nb))
+        del x
+    rows["swin_attn_block"].update(
+        swin_b384_ms=sum(d["ms"] for d in per_stage),
+        swin_b384_core_ms=sum(d["core_ms"] for d in per_stage),
+        swin_b384_plain_ms=sum(d["plain_ms"] for d in per_stage),
+        swin_b384_bound_ms=sum(d["bound_ms"] for d in per_stage),
+        swin_b384_core_bound_ms=sum(d["core_bound_ms"] for d in per_stage),
+        swin_b384_ms_by_stage=[d["ms"] for d in per_stage],
+        swin_b384_core_ms_by_stage=[d["core_ms"] for d in per_stage],
+        swin_b384_bound_ms_by_stage=[d["bound_ms"] for d in per_stage],
+        swin_b384_times_are="one ivit call at each of the four Swin-B/384 stage shapes "
+                            "of batch 64, summed")
+    rows["swin_attn_block"]["max_abs_err"] = max(rows["swin_attn_block"]["max_abs_err"],
+                                                 max(errs))
+    emit({"phase": "swin_attn_block_b384", "equal": True, "stages": per_stage,
+          "max_abs_err": max(errs)})
+
+
+def swin_b384_engine_phase(torch, counters, dev, rows):
+    """Phase 13b: a synthetic Swin-B/384 ivit engine through Engine at batch
+    64, against the plain engine run on 8-image slices of the same batch."""
+    from ivit_tpu_torch.engine import Engine
+    from ivit_tpu_torch.engine.synthetic import synthetic_swin_spec
+    from ivit_tpu_torch.ops.kernels import block as kb
+
+    cfg = swin_b384_config()
+    spec = synthetic_swin_spec(cfg, seed=0)
+    gen = torch.Generator(device=dev).manual_seed(2)
+    batches = [torch.randn((SWIN_BATCH, 384, 384, 3), generator=gen, device=dev)
+               for _ in range(2)]
+    counted = {**counters, "swin_attn_block[wide]": FormCount(kb.swin_attn_block,
+                                                              "wide_launches")}
+    eng, plain = Engine(spec), Engine(spec, kernels=False)
+
+    def plain_sliced(x):
+        return torch.cat([plain(x[i:i + SWIN_B384_PLAIN])
+                          for i in range(0, x.shape[0], SWIN_B384_PLAIN)])
+
+    logits, launches = run_counted(torch, counted, lambda: eng(batches[0]))
+    want = {k: 0 for k in counted}
+    want.update({"swin_attn_block": 24, "swin_attn_block[wide]": 24, "mlp_block": 24,
+                 "ln_requant": ln_norms(cfg)})
+    if launches != want:
+        raise AssertionError(f"swin-b/384 forward launched {launches}, want {want}")
+    want_logits, plain_launches = run_counted(torch, counted,
+                                              lambda: plain_sliced(batches[0]))
+    if any(plain_launches.values()):
+        raise AssertionError(f"swin-b/384 plain engine launched {plain_launches}")
+    check_logits(torch, "swin-b/384 kernel engine", logits, want_logits,
+                 cfg.num_classes, SWIN_BATCH)
+    rows["swin_attn_block"]["launches_swin_b384"] = launches["swin_attn_block"]
+    rows["swin_attn_block"]["wide_launches_swin_b384"] = launches["swin_attn_block[wide]"]
+    rows["mlp_block"]["launches_swin_b384"] = launches["mlp_block"]
+    rows["ln_requant"]["launches"]["swin_b384_ivit"] = launches["ln_requant"]
+    emit({"phase": "engine_swin_b384",
+          "config": "swin_base_patch4_window12_384 384px depths (2, 2, 18, 2) "
+                    "(synthetic ivit, seed 0)",
+          "batch": SWIN_BATCH, "plain_slice": SWIN_B384_PLAIN,
+          "path_choice": eng.fusion["path_choice"], "launches_per_forward": launches,
+          "img_per_s": img_per_s(torch, eng, batches, 6),
+          "plain_img_per_s": img_per_s(torch, plain_sliced, batches, 1),
+          "logits_std": logits.std().item(), "equal_plain_cuda": True})
 
 
 def check_logits(torch, name, logits, want, classes, batch=BATCH):
@@ -4330,6 +4475,7 @@ def main(argv=None) -> int:
         raise AssertionError(f"kernels spill: {spills}")
     rows = kernel_phases(torch, kb, knl, dev)
     swin_phases(torch, kb, dev, rows)
+    swin_b384_attn_phase(torch, kb, dev, rows)
     ppoly_phases(torch, kb, dev, rows)
     int16_kernel_phase(torch, kb, dev, rows)
     int16_edge_phase(torch, kb, dev)
@@ -4347,6 +4493,7 @@ def main(argv=None) -> int:
         counters[f"{k}[int_sqrt]"] = FormCount(counters[k], "int_sqrt_launches")
     engine_img_s = engine_phases(torch, counters, dev, rows, profile=args.profile)
     swin_engine_phase(torch, counters, dev, rows, profile=args.profile)
+    swin_b384_engine_phase(torch, counters, dev, rows)
     ppoly_engine_phase(torch, counters, dev, rows, profile=args.profile)
     int16_engine_phase(torch, counters, dev, rows, profile=args.profile)
     emit({"phase": "engines_done", "seconds": time.perf_counter() - t0})

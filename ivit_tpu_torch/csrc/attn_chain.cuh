@@ -287,6 +287,13 @@ __host__ __device__ constexpr size_t split_xchg_bytes(int K, int dh) {
          (size_t)(K - 1) * (((dh + 31) & ~31) / 8) * 4 * 32 * 4;
 }
 
+// The named barrier bar (1 .. 15; 0 is __syncthreads') of the K warps of
+// a split.
+template <int K>
+__device__ __forceinline__ void split_bar(int bar) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(bar), "n"(32 * K) : "memory");
+}
+
 // ... or over the quads of the row in all K warps of a split (part 0 ..
 // K - 1): each quad's value goes through shared memory to the others, and
 // every warp combines the K values in the same order-free way (max; exact
@@ -301,7 +308,7 @@ struct SplitReduce {
   __device__ __forceinline__ const int* publish(int v) {
     int* b = xch + slot * K * 16;
     if ((threadIdx.x & 3) == 0) b[part * 16 + row] = v;
-    asm volatile("bar.sync %0, %1;\n" ::"r"(bar), "n"(32 * K) : "memory");
+    split_bar<K>(bar);
     slot ^= 1;
     return b + row;  // part p's value at [16 p]
   }
@@ -564,8 +571,7 @@ __device__ __forceinline__ void attn_tile(
         for (int e = 0; e < 4; ++e)
           if (d < 4 * nd) pv[(part - 1) * stride + (4 * d + e) * 32 + lane] = o[d][e];
     }
-    asm volatile("bar.sync %0, %1;\n" ::"r"(red.bar), "n"(32 * Red::kParts)
-                 : "memory");
+    split_bar<Red::kParts>(red.bar);
     if (part > 0) return;
 #pragma unroll
     for (int p = 1; p < Red::kParts; ++p)

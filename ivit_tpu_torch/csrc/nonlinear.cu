@@ -80,8 +80,9 @@
 // correctly rounded divides, two-limb sums, the requant) and copied two
 // host scalars to the card for the ibert LN, after which torch waits for
 // the stream.  It maps int8 or int16 rows [R, C] (any row stride of
-// 16-byte aligned rows; C a multiple of 16 up to 1,536, the widest norm the
-// engines run: Swin-T's last merge) to int8 [R, C]: exact.cuh's ln_row_i32, the LN the block kernels run at their
+// 16-byte aligned rows; C a multiple of 16 up to 2,048, the widest norm the
+// engines run: Swin-B's last merge, Swin-T's 1,536) to int8 [R, C]:
+// exact.cuh's ln_row_i32, the LN the block kernels run at their
 // input (I-LayerNorm, or the ibert LN with the spec's shift, floor(sqrt)
 // or I-BERT's integer sqrt), its bias, a NaN row pinned to 0 and the int8
 // requant; every scalar is an argument or read from the spec's 0-d leaf.
@@ -449,9 +450,11 @@ int launch_by_width(const int8_t* x, const float* s_attn, void* out, int rows,
   return launch(x, s_attn, out, rows, N, n_valid, output_bit, fast_q, stream);
 }
 
-// The widest row ln_requant takes: Swin-T's last merge norm.  Each int32
-// limb sum of ln_row_i32 (C * 2**16 at most) is exact there.
-constexpr int kMaxLnWidth = 1536;
+// The widest row ln_requant takes: Swin-B's last merge norm (4 x 512).  Each
+// int32 limb sum of ln_row_i32 (C * 2**16 at most, 2**27 here) is exact
+// there.  At C 2,048 an int16 tile of 8 rows takes 49,408 bytes of shared
+// memory, past the 48 KB default: sm_device raises the kernel's limit.
+constexpr int kMaxLnWidth = 2048;
 
 // Shared memory of an ln_requant tile: TR rows of x and TR output rows,
 // each 16 bytes longer than the row.

@@ -61,6 +61,14 @@
 // workarounds, not semantics: the port runs the 49 tokens as they are.
 // Rolling and window partition stay outside, in torch, as the JAX engine
 // runs them.
+// Windows of more than 64 tokens (Swin-B/384's 12 x 12 = 144) take the
+// wide instantiation, chosen by n at launch: a warp holds at most 64 keys
+// (attn_tile's two 32-key chunks, 32 scores a thread), so the three warps
+// of a pair split its keys 64 a warp, as attn_block.cu's core splits an
+// image's (SplitReduce: the row maxima, the exact sums and the P v partial
+// sums exchanged through the pair's shared memory, one named barrier a
+// pair), and run the window's 9 query tiles together; 2 pairs a block.  At
+// n = 144 the third warp holds keys 128-143 alone.
 
 #include <type_traits>
 
@@ -69,34 +77,69 @@
 namespace ivit {
 
 constexpr int kSwinPairsPerBlock = 8;  // one (window, head) pair a warp
+constexpr int kSwinWideSplit = 3;      // warps a pair past 64 tokens
+constexpr int kSwinWidePairs = 2;      // pairs a block of the wide core
+constexpr int kSwinMaxTokens = 64 * kSwinWideSplit;
 
-// 2. Window attention, one (window, head) pair a warp; SM: the softmax
-// family (kSmShift the ivit one, kSmIbert, kSmPpoly; kSmShiftLut and
-// kSmIbertLut their table forms); MAXD: chunks of 32 channels (1: Dh <= 32,
-// Swin-T; 4: Dh <= 128).  rel: [H, n, n] f32 rel-pos addends; mask: [nW, n,
-// n] f32 shift-mask addends, or null for an unshifted block.
-template <int SM, int MAXD>
-__global__ void __launch_bounds__(32 * kSwinPairsPerBlock, MAXD > 1 ? 2 : 3)
+// Pairs a block of the core whose pairs take KS warps each.
+__host__ __device__ constexpr int swin_pairs(int KS) {
+  return KS == 1 ? kSwinPairsPerBlock : kSwinWidePairs;
+}
+
+// Shared memory of one pair: its k and v and, split over KS warps, their
+// exchanges.
+__host__ __device__ constexpr size_t swin_pair_bytes(int n, int dh, int KS) {
+  return kv_bytes(n, dh) + (KS > 1 ? split_xchg_bytes(KS, dh) : 0);
+}
+
+// Blocks an SM, so registers a thread: the split core keeps its exchange
+// state beside the one-warp core's and spills at 80 registers (ptxas, on
+// the H100), so at Dh <= 32 the Shiftmax and table forms take three blocks
+// of 192 threads (113 registers; they use 96), the ibert and ppoly forms,
+// whose exps keep more live, two (they use 100-125, still three blocks an
+// SM); at Dh 128 one (they use 192-210).
+__host__ __device__ constexpr int swin_min_blocks(int SM, int MAXD, int KS) {
+  return KS == 1                              ? (MAXD > 1 ? 2 : 3)
+         : MAXD > 1                           ? 1
+         : SM == kSmPpoly || SM == kSmIbert   ? 2
+                                              : 3;
+}
+
+// 2. Window attention, one (window, head) pair a warp (KS 1: n <= 64) or
+// three (KS kSwinWideSplit: n <= kSwinMaxTokens, the keys split 64 a
+// warp); SM: the softmax family (kSmShift the ivit one, kSmIbert, kSmPpoly;
+// kSmShiftLut and kSmIbertLut their table forms); MAXD: chunks of 32
+// channels (1: Dh <= 32, every Swin-T and Swin-B head; 4: Dh <= 128).  rel:
+// [H, n, n] f32 rel-pos addends; mask: [nW, n, n] f32 shift-mask addends,
+// or null for an unshifted block.
+template <int SM, int MAXD, int KS>
+__global__ void __launch_bounds__(32 * KS * swin_pairs(KS),
+                                  swin_min_blocks(SM, MAXD, KS))
 swin_core_mma_kernel(const int8_t* __restrict__ qkv, const float* __restrict__ rel,
                      const float* __restrict__ mask, AttnScalars sp,
                      int8_t* __restrict__ ctx, int n, int C, int Dh, int H,
                      int pairs, int n_windows, int fast_q, int fast_poly,
                      SoftmaxTable ps) {
   extern __shared__ __align__(16) int8_t smem[];
+  constexpr int kPairs = swin_pairs(KS);
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int p = blockIdx.x * kSwinPairsPerBlock + warp;
+  const int slot = warp / KS, part = warp - slot * KS;  // the block's pair, its keys
+  const int p = blockIdx.x * kPairs + slot;
   if (is_lut_core(SM)) {  // every warp of the block, before any leaves
-    stage_lut(ps, reinterpret_cast<float*>(smem + kSwinPairsPerBlock * kv_bytes(n, Dh)),
-              threadIdx.x, 32 * kSwinPairsPerBlock);
+    stage_lut(ps, reinterpret_cast<float*>(smem + kPairs * swin_pair_bytes(n, Dh, KS)),
+              threadIdx.x, 32 * KS * kPairs);
     __syncthreads();
   }
-  if (p >= pairs) return;
+  if (p >= pairs) return;  // the KS warps of a pair leave together
   const int w = p / H, h = p - w * H;
-  int8_t* Ks = smem + warp * kv_bytes(n, Dh);
+  int8_t* Ks = smem + slot * swin_pair_bytes(n, Dh, KS);
   int8_t* Vt = Ks + ((n + 31) & ~31) * kv_ld(Dh);
   const int8_t* base = qkv + (size_t)w * n * 3 * C + h * Dh;
-  stage_kv(base, n, C, Dh, Ks, Vt, lane, 32);
-  __syncwarp();
+  stage_kv(base, n, C, Dh, Ks, Vt, 32 * part + lane, 32 * KS);
+  if constexpr (KS == 1)
+    __syncwarp();
+  else
+    split_bar<KS>(1 + slot);
 
   const float m_attn = __ldg(sp.m_attn), m_attn2 = __ldg(sp.m_attn2);
   const float m_av = __ldg(sp.m_av);
@@ -113,10 +156,19 @@ swin_core_mma_kernel(const int8_t* __restrict__ qkv, const float* __restrict__ r
   const bool sat = mask_w != nullptr && ps.sat != nullptr;
   auto masked = [&](int i, int j) { return sat && __ldg(mask_w + i * n + j) < 0.f; };
   int8_t* cbase = ctx + (size_t)w * n * C + h * Dh;
-  QuadReduce red{0, 0};
-  for (int i0 = 0; i0 < n; i0 += 16)
-    attn_tile<SM, 2, MAXD>(base, 3 * C, i0, n, Dh, n, Ks, Vt, score, masked, k,
-                           ps, fast_q, fast_poly, m_av, cbase, C, red);
+  auto tiles = [&](auto& red) {
+    for (int i0 = 0; i0 < n; i0 += 16)
+      attn_tile<SM, 2, MAXD>(base, 3 * C, i0, n, Dh, n, Ks, Vt, score, masked, k,
+                             ps, fast_q, fast_poly, m_av, cbase, C, red);
+  };
+  if constexpr (KS == 1) {
+    QuadReduce red{0, 0};
+    tiles(red);
+  } else {  // the pair's exchanges after its k and v; barrier 0 is the block's
+    SplitReduce<KS> red{reinterpret_cast<int*>(Ks + kv_bytes(n, Dh)), part,
+                        1 + slot, 0, 0};
+    tiles(red);
+  }
 }
 
 template <int BN, int SM>
@@ -130,32 +182,28 @@ int launch_swin(const void* x, int x16, const int8_t* ln_in,
                 int ln_kind, int fast_q, int fast_poly, cudaStream_t stream) {
   const int R = BW * n, Dh = C / H, pairs = BW * H;
   const size_t smem_gemm = wg_smem(C, BN);
-  const size_t smem_core = kSwinPairsPerBlock * kv_bytes(n, Dh) +
+  // the core: one warp a pair up to 64 tokens, else the split
+  const int ks = n <= 64 ? 1 : kSwinWideSplit, per_block = swin_pairs(ks);
+  auto core = ks == 1 ? (Dh <= 32 ? swin_core_mma_kernel<SM, 1, 1>
+                                  : swin_core_mma_kernel<SM, 4, 1>)
+                      : (Dh <= 32 ? swin_core_mma_kernel<SM, 1, kSwinWideSplit>
+                                  : swin_core_mma_kernel<SM, 4, kSwinWideSplit>);
+  const size_t smem_core = per_block * swin_pair_bytes(n, Dh, ks) +
                            (is_lut_core(SM) ? 256 * sizeof(float) : 0);
   CUtensorMap mq, mpj;
   cudaError_t err;
   if ((err = prepare_gemms<BN>(wqkv_t, wp_t, C, &mq, &mpj)) != cudaSuccess ||
-      (err = cudaFuncSetAttribute(swin_core_mma_kernel<SM, 1>,
-                                  cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                  (int)smem_core)) != cudaSuccess ||
-      (err = cudaFuncSetAttribute(swin_core_mma_kernel<SM, 4>,
-                                  cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (err = cudaFuncSetAttribute(core, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                   (int)smem_core)) != cudaSuccess)
     return (int)err;
   const int row_blocks = (R + kGemmRows - 1) / kGemmRows;
   ln_qkv_wgmma_kernel<BN><<<row_blocks, kGemmThreads, smem_gemm, stream>>>(
       mq, x, ln_in, ln_bias, m_ln, bqkv, mqkv, sp, qkv, R, C, x16, ln_kind);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-  const int blocks = (pairs + kSwinPairsPerBlock - 1) / kSwinPairsPerBlock;
-  const int threads = 32 * kSwinPairsPerBlock;
-  if (Dh <= 32)  // Swin-T's heads
-    swin_core_mma_kernel<SM, 1><<<blocks, threads, smem_core, stream>>>(
-        qkv, rel, mask, sp, ctx, n, C, Dh, H, pairs, n_windows, fast_q,
-        fast_poly, ps);
-  else
-    swin_core_mma_kernel<SM, 4><<<blocks, threads, smem_core, stream>>>(
-        qkv, rel, mask, sp, ctx, n, C, Dh, H, pairs, n_windows, fast_q,
-        fast_poly, ps);
+  const int blocks = (pairs + per_block - 1) / per_block;
+  core<<<blocks, 32 * ks * per_block, smem_core, stream>>>(
+      qkv, rel, mask, sp, ctx, n, C, Dh, H, pairs, n_windows, fast_q, fast_poly,
+      ps);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
   proj_wgmma_kernel<BN><<<gemm_grid(R, C, BN), kGemmThreads, smem_gemm,
                           stream>>>(mpj, x, ctx, bp, mp, sp, out, R, C, 16, 16,
@@ -178,8 +226,8 @@ int launch_swin(const void* x, int x16, const int8_t* ln_in,
 // then the spec's sm_lut); sat: with lut on a shifted ivit or ibert block,
 // the spec's sm_sat (one f32 on the card), else null.  C % 32 == 0 and C
 // <= 1024 with a pass width (ivit::pass_width of 3C and C), C / H a
-// multiple of 4 up to 128, n <= 64, a ppoly table within ppoly.cuh's
-// limits; else cudaErrorInvalidValue.
+// multiple of 4 up to 128, n <= kSwinMaxTokens (192), a ppoly table within
+// ppoly.cuh's limits; else cudaErrorInvalidValue.
 extern "C" int ivit_swin_attn_block(
     const void* x, const int8_t* ln_in, const float* ln_bias, const float* m_ln,
     const float* ln_shift, const int8_t* wqkv_t, const int32_t* bqkv,
@@ -197,8 +245,8 @@ extern "C" int ivit_swin_attn_block(
   SoftmaxTable ps{exp_table, {}, lut == 2, sat, nullptr};
   const int bn = pass_width(3 * C, C), dh = H > 0 ? C / H : 0;
   if (bn == 0 || C % 32 || C > 1024 || dh * H != C || dh % 4 ||
-      dh > 128 || n < 1 || n > 64 || n_windows < 1 || sm < 0 || sm > 2 ||
-      (sm == kSmPpoly && !ppoly_args_ok(pp, false)) || ln_kind < 0 ||
+      dh > 128 || n < 1 || n > kSwinMaxTokens || n_windows < 1 || sm < 0 ||
+      sm > 2 || (sm == kSmPpoly && !ppoly_args_ok(pp, false)) || ln_kind < 0 ||
       ln_kind > 2 || lut < 0 || lut > 2 || (lut != 0 && exp_table == nullptr) ||
       (sat != nullptr && (lut == 0 || sm == kSmPpoly || mask == nullptr)))
     return (int)cudaErrorInvalidValue;

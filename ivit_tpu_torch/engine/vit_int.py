@@ -657,7 +657,9 @@ class Engine:
 
     Spans (:mod:`ivit_tpu_torch.utils.spans`, recorded only while a
     ``torch.profiler`` records): each call is the root ``ivit.call`` (on
-    close ``transposes``, the call's :func:`weight_transposes`), over
+    close ``transposes``, the call's :func:`weight_transposes`, and
+    ``wide_launches``, its ``swin_attn_block`` calls on the split-key
+    core), over
     ``ivit.params`` (the parameter walk), ``ivit.input`` (the images to the
     device and their quantization), ``ivit.embed`` (patch GEMM, cls / pos;
     Swin: patch GEMM and patch norm), on Swin ``ivit.merge``, and
@@ -728,9 +730,11 @@ class Engine:
 
     def __call__(self, images):
         with span("ivit.call") as s:
-            before = weight_transposes() if s else None
+            if s:
+                before = (weight_transposes(), kblock.swin_attn_block.wide_launches)
             out = self._forward(self._spec, images, kernels=self.kernels,
                                 device=self.device, mlp_wt=self.mlp_wt)
             if s:
-                s.set(transposes=weight_transposes() - before)
+                s.set(transposes=weight_transposes() - before[0],
+                      wide_launches=kblock.swin_attn_block.wide_launches - before[1])
             return out

@@ -6,8 +6,8 @@ test) overrides the published one."""
 
 from __future__ import annotations
 
-from .swin import (swin_base_patch4_window7_224, swin_small_patch4_window7_224,
-                   swin_tiny_patch4_window7_224)
+from .swin import (swin_base_patch4_window7_224, swin_base_patch4_window12_384,
+                   swin_small_patch4_window7_224, swin_tiny_patch4_window7_224)
 from .vit import BitWidths, VisionTransformer
 
 
@@ -48,6 +48,7 @@ MODEL_REGISTRY = {
     "swin_tiny_patch4_window7_224": swin_tiny_patch4_window7_224,
     "swin_small_patch4_window7_224": swin_small_patch4_window7_224,
     "swin_base_patch4_window7_224": swin_base_patch4_window7_224,
+    "swin_base_patch4_window12_384": swin_base_patch4_window12_384,
 }
 
 

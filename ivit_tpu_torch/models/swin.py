@@ -376,3 +376,14 @@ def swin_base_patch4_window7_224(**kw):
     kw.setdefault("num_heads", (4, 8, 16, 32))
     kw.setdefault("embed_dim", 128)
     return SwinTransformer(patch_size=4, window_size=7, **kw)
+
+
+def swin_base_patch4_window12_384(**kw):
+    """Swin-B fine-tuned at 384 px with 12 x 12 windows (arXiv:2103.14030
+    Table 1; ``swin_base_patch4_window12_384``): stage 3's 12 x 12 grid is
+    one window, so it has no shift."""
+    kw.setdefault("depths", (2, 2, 18, 2))
+    kw.setdefault("num_heads", (4, 8, 16, 32))
+    kw.setdefault("embed_dim", 128)
+    kw.setdefault("img_size", 384)
+    return SwinTransformer(patch_size=4, window_size=12, **kw)

@@ -24,7 +24,9 @@ Each wrapper counts its kernel launches in a plain integer attribute
 (``mlp_block.launches``, ``attn_block.launches``,
 ``swin_attn_block.launches``), incremented only where the kernel is
 launched, and those of its table form and of its integer-sqrt LN apart as
-well (``lut_launches``, ``int_sqrt_launches``), and the weight transposes it
+well (``lut_launches``, ``int_sqrt_launches``; ``swin_attn_block`` also
+counts the calls that ran its split-key core, windows of more than 64
+tokens, as ``wide_launches``), and the weight transposes it
 makes inside the call (``transposes``: two a call of ``attn_block`` and
 ``swin_attn_block``, one for each of ``fc1_wt`` / ``fc2_wt`` that a
 ``mlp_block`` call is not handed).  The whole of each wrapper call (checks,
@@ -59,9 +61,11 @@ defined.
 
 The kernels take any channel count C that is a multiple of 32 (at most
 1024) whose GEMM widths share a pass of 128, 96 or 64 columns: DeiT-S's
-384 and Swin-T's 96 to 768 run as they are.  The TPU kernels' lane padding
-of C to 128 (``c_valid``) is a Mosaic layout workaround, not semantics,
-and the port has none.
+384, Swin-T's 96 to 768 and Swin-B's 128 to 1024 run as they are.  Swin
+windows take up to 192 tokens: up to 64 one warp a (window, head) pair,
+past that (Swin-B/384's 144) three warps that split its keys.  The TPU
+kernels' lane padding of C to 128 (``c_valid``) is a Mosaic layout
+workaround, not semantics, and the port has none.
 
 The ibert LayerNorm takes I-BERT's integer sqrt where ``use_int_sqrt`` asks
 for it (the JAX kernels take floor(sqrt) whatever the flag; the port's
@@ -733,6 +737,11 @@ def swin_attn_block_ref(xw, *, ln_bias, m_ln, ln_shift, qkv_w, qkv_b, m_qkv,
     return _residual(y2, m_res_x, xw, m_res_id, 16)
 
 
+# csrc/swin_attn_block.cu: a (window, head) pair of up to 64 tokens on one
+# warp, past that (kSwinMaxTokens) its keys split over three
+SWIN_SPLIT_TOKENS, SWIN_MAX_TOKENS = 64, 192
+
+
 @spanned("ivit.kernel.swin_attn_block")
 def swin_attn_block(xw, *, ln_bias, m_ln, ln_shift, qkv_w, qkv_b, m_qkv,
                     m_attn, m_attn2, s_attn, rel_addend, mask_addend, m_av,
@@ -753,7 +762,8 @@ def swin_attn_block(xw, *, ln_bias, m_ln, ln_shift, qkv_w, qkv_b, m_qkv,
     (``block.py:1486``).  Returns int16 [B*nW, n, C].  On the card: three
     launches (LN + qkv, per-(window, head) softmax attention, proj +
     residual), after the ppoly exp table's (none with ``sm_lut``), counted
-    as one."""
+    as one; a window of more than 64 tokens (up to 192) runs the core's
+    split-key form, counted in ``wide_launches`` too."""
     _check_family(ln_base, sm_base)
     use = (sm_lut is not None and _lut_on()
            and (mask_addend is None or sm_sat is not None))
@@ -778,14 +788,16 @@ def swin_attn_block(xw, *, ln_bias, m_ln, ln_shift, qkv_w, qkv_b, m_qkv,
     bw, n, c = xw.shape
     dh = c // num_heads
     if (c % 32 or c > 1024 or not _pass_width(3 * c, c)
-            or dh * num_heads != c or dh % 4 or dh > 128 or not 0 < n <= 64
-            or sm_bit != 8 or xw.dtype not in _STREAM or n_windows < 1
+            or dh * num_heads != c or dh % 4 or dh > 128
+            or not 0 < n <= SWIN_MAX_TOKENS or sm_bit != 8
+            or xw.dtype not in _STREAM or n_windows < 1
             or (mask_addend is not None and bw % n_windows)):
         raise ValueError(
             f"swin_attn_block kernel takes an int8 or int16 stream, C a "
             f"multiple of 32 (<= 1024) with a 128-, 96- or 64-column pass "
-            f"over 3C and C, head dim a multiple of 4 (<= 128), <= 64 tokens "
-            f"a window, whole images of windows and 8-bit probs; got "
+            f"over 3C and C, head dim a multiple of 4 (<= 128), <= "
+            f"{SWIN_MAX_TOKENS} tokens a window, whole images of windows and "
+            f"8-bit probs; got "
             f"{xw.dtype} [{bw}, {n}, {c}], heads={num_heads}, "
             f"n_windows={n_windows}, sm_bit={sm_bit}")
     for name, t, dt, shp in (
@@ -833,8 +845,10 @@ def swin_attn_block(xw, *, ln_bias, m_ln, ln_shift, qkv_w, qkv_b, m_qkv,
         _ptr(sm_sat), _stream())
     _raise_on(err, "swin_attn_block")
     _count(swin_attn_block, sm_lut, use_int_sqrt and ln_base == "ibert")
+    swin_attn_block.wide_launches += n > SWIN_SPLIT_TOKENS
     return out
 
 
 swin_attn_block.launches = swin_attn_block.transposes = 0
 swin_attn_block.lut_launches = swin_attn_block.int_sqrt_launches = 0
+swin_attn_block.wide_launches = 0

@@ -38,7 +38,7 @@ from . import _build
 from .block import (_STREAM, GELU_TABLE_BYTES, _check, _check_scalar, _ln8,
                     _ln_kind, _ptr, _raise_on, _stream, container, to_container)
 
-LN_MAX_WIDTH = 1536     # csrc/nonlinear.cu kMaxLnWidth: Swin-T's last merge norm
+LN_MAX_WIDTH = 2048     # csrc/nonlinear.cu kMaxLnWidth: Swin-B's last merge norm
 
 
 def shiftmax_ref(scores, s_attn, output_bit=8, *, n_valid=None, fast_q=False):
@@ -131,7 +131,7 @@ def ln_requant_ref(x, ln_bias, m_ln, ln_shift, ln_base="ibert",
 @spanned("ivit.kernel.ln_requant")
 def ln_requant(x, ln_bias, m_ln, ln_shift, ln_base="ibert", use_int_sqrt=False):
     """Integer LayerNorm + int8 requant over the last axis of ``x`` (int8 or
-    int16, C a multiple of 16 up to 1,536; any view whose rows lie at one
+    int16, C a multiple of 16 up to 2,048; any view whose rows lie at one
     stride on 16-byte boundaries, such as ViT's cls rows ``x[:, :1]``, is
     read in place); ``ln_bias`` and ``m_ln`` f32 [C], ``ln_shift`` the
     spec's one-element shift (read by the ibert LN).  Returns a contiguous

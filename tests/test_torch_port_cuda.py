@@ -1090,11 +1090,11 @@ def test_cuda_ln_requant_matches_plain_version(cuda, fam, isqrt, site):
     assert got.min() == -128 and got.max() == 127
 
 
-@pytest.mark.parametrize("c,dtype,offset", [(100, torch.int8, 0), (1552, torch.int16, 0),
+@pytest.mark.parametrize("c,dtype,offset", [(100, torch.int8, 0), (2064, torch.int16, 0),
                                              (96, torch.int8, 1), (384, torch.int16, 2)])
 def test_cuda_ln_requant_refuses_rows_off_its_chunks(cuda, c, dtype, offset):
     """The kernel reads and writes rows in whole 16-byte chunks: a width
-    that is not a multiple of 16 or past Swin-T's 1,536, or a row off a
+    that is not a multiple of 16 or past Swin-B's 2,048, or a row off a
     16-byte boundary, raises, and nothing is launched."""
     bias, m, sh = _ln_leaves(cuda, c, 0, seed=c)
     x = _at_byte_offset(_ln_rows(cuda, c, dtype, 9, seed=c), offset)

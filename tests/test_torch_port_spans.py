@@ -88,8 +88,9 @@ def test_the_span_tree_of_a_call(model):
             assert r.parent < i and r.call == p.call
             assert p.start_ns <= r.start_ns and r.end_ns <= p.end_ns
     for i in roots:
-        # on the CPU the wrappers run their plain versions: no transposes
-        assert recs[i].attrs == {"transposes": 0}
+        # on the CPU the wrappers run their plain versions: no transposes,
+        # no split-key Swin core
+        assert recs[i].attrs == {"transposes": 0, "wide_launches": 0}
         top = _children(recs, i)
         assert [recs[j].name for j in top] == TOP[model]
         # on the CPU no host scalar is copied to a device: nothing waits
