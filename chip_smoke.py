@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py             # every phase
     python3 chip_smoke.py --profile   # + device time by kernel per forward
+    python3 chip_smoke.py --parent DIR  # + attn_block's and mlp_block's SASS against DIR's
 
 Phases, each printing one JSON line:
 
@@ -42,12 +43,15 @@ Phases, each printing one JSON line:
    family mix, fast flags on and off, ``ln_in``, the int8 input a merge
    feeds a stage, ibert LNs with their overflow shift > 0, and a small
    ragged case; per-stage kernel, plain and library times and the bound;
+   at each stage one call on the token-order stream (``grid``) bitwise
+   equal to the roll + partition, windowed call, reverse + roll that the
+   engine ran before, both timed (``token_order_ms``, ``copies_ms``);
    swin_attn_block_b384: the window-attention kernel on its split-key core
    at the four Swin-B/384 stage shapes of batch 64 ([4096, 144, 128] to
    [64, 144, 1024] windows, the shifted block where the stage has one)
    bitwise equal to its plain version; per stage a call's time, the core's
    device time (profiler), the plain time, and the bounds of the call and
-   of the core alone;
+   of the core alone; the token-order call against the copies, as above;
 11. attn_edges: both attention kernels bitwise equal to their plain
    versions at the edge shapes of their 16-row query tiles, 32-key chunks
    and 32-channel head chunks, C 128 with head dims 32, 64 and 128, ivit
@@ -261,7 +265,11 @@ Phases, each printing one JSON line:
    path's, from phases 7 and 13), none on the plain engines.
 
 The build phase reports ptxas's registers and spill bytes per kernel and
-fails if any kernel spills.
+fails if any kernel spills (the token-order instantiations of
+``swin_attn_block`` among them).  Phase 2b, sass, with ``--parent DIR``:
+every kernel of ``attn_block`` and ``mlp_block`` equal to the build of that
+checkout's, instruction for instruction (``cuobjdump -sass``), and
+``swin_attn_block``'s reported against it.
 
 Then the kernel table as one JSON line, the card's name and power limit,
 and last ``{"ok": true, "device": {...}}``.  Any failure raises and exits
@@ -1284,6 +1292,65 @@ def int16_engine_phase(torch, counters, dev, rows, profile=False):
                     "launches": launches}})
 
 
+def sass_functions(lib):
+    """``{demangled name: SASS lines}`` of every kernel of a built library
+    (``cuobjdump -sass``, names through ``cu++filt``), the identity row map
+    (``IdentityRows``, wgmma_gemm.cuh) taken out of the names: a kernel
+    without a row map and its identity instantiation share a name."""
+    import re
+    import shutil
+
+    tools = {t: shutil.which(t) or f"/usr/local/cuda/bin/{t}" for t in ("cuobjdump", "cu++filt")}
+    out = subprocess.run([tools["cuobjdump"], "-sass", lib], capture_output=True, text=True,
+                         check=True).stdout
+    funcs, cur = {}, None
+    for line in out.splitlines():
+        m = re.match(r"\s*Function : (\S+)", line)
+        if m:
+            cur = funcs.setdefault(m.group(1), [])
+        elif cur is not None and "/*" in line:
+            cur.append(line.strip())
+    names = list(funcs)
+    plain = subprocess.run([tools["cu++filt"]], input="\n".join(names), capture_output=True,
+                           text=True, check=True).stdout.splitlines()
+    # the map's parameter demangles as its template parameter, T2
+    return {re.sub(r",\s*ivit::IdentityRows|, T2(?=\)$)", "", d): funcs[n]
+            for n, d in zip(names, plain)}
+
+
+def sass_phase(parent):
+    """Phase 2b (with ``--parent DIR``, a checkout of an earlier tree): its
+    libraries built there, every kernel of ``attn_block`` and ``mlp_block``
+    equal to that build's instruction for instruction, so the row map that
+    ``swin_attn_block`` takes compiles to nothing in them; the windowed
+    (identity-map) kernels of ``swin_attn_block`` reported beside its
+    token-order ones (a library with more kernels may lay out its calls
+    elsewhere)."""
+    import glob
+
+    from ivit_tpu_torch.ops.kernels import _build
+
+    if parent is None:
+        emit({"phase": "sass", "skipped": "no --parent checkout to compare with"})
+        return
+
+    def lib(root, name):
+        return glob.glob(os.path.join(root, "build", "ivit_tpu_torch", f"lib{name}-*.so"))[0]
+    subprocess.run([sys.executable, "-c", "from ivit_tpu_torch.ops.kernels import _build; "
+                    "_build.build_all()"], cwd=parent, check=True)
+    here = os.path.dirname(os.path.dirname(_build.BUILD_DIR))
+    out = {"phase": "sass", "parent": parent}
+    for name in ("attn_block", "mlp_block", "swin_attn_block"):
+        new, old = sass_functions(lib(here, name)), sass_functions(lib(parent, name))
+        differ = sorted(k for k in old if new.get(k) != old[k])
+        added = sorted(k for k in new if k not in old)
+        if name != "swin_attn_block" and (differ or added):
+            raise AssertionError(f"{name}: SASS differs from {parent}'s: {differ}, new {added}")
+        out[name] = {"same_as_parent": len(old) - len(differ), "differ": differ,
+                     "new": added}
+    emit(out)
+
+
 def swin_stage_blocks(torch, spec, dev):
     """Per stage: (C, heads, windows an image, [(shift, block tensors) of
     its first two blocks]) of a synthetic Swin spec."""
@@ -1310,6 +1377,33 @@ def swin_attn_kwargs(b, flags, heads, n_windows, shift, mix):
                 proj_b=b["proj_b"], m_proj=b["m_proj"], m_res_x=b["m_res1_x"],
                 m_res_id=b["m_res1_id"], num_heads=heads, n_windows=n_windows,
                 fast_exp=flags, fast_poly=flags, sm_base=mix[1], ln_base=mix[2])
+
+
+def token_order_site(torch, kb, xw, kw, res, ws, shift, iters):
+    """One stage site of ``swin_attn_block`` on the token-order stream
+    (``grid``: the roll and window partition as the kernel's row map): the
+    windows xw reversed into the stream [B, res*res, C], one token-order
+    call bitwise equal to the windowed call between the roll + partition
+    and reverse + roll copies (the engine before the map), both timed."""
+    from ivit_tpu_torch.models.swin import from_windows, to_windows
+
+    b, c = xw.shape[0] // (res // ws) ** 2, xw.shape[2]
+    x = from_windows(xw, b, res, c, ws, shift).contiguous()
+    grid = (res, ws, shift)
+
+    def copies():
+        return from_windows(kb.swin_attn_block(to_windows(x, b, res, c, ws, shift), **kw),
+                            b, res, c, ws, shift)
+    before = kb.swin_attn_block.token_order_launches
+    got = kb.swin_attn_block(x, grid=grid, **kw)
+    torch.cuda.synchronize()
+    if kb.swin_attn_block.token_order_launches != before + 1:
+        raise AssertionError("swin_attn_block: a grid call not counted as token-order")
+    err = check_equal(torch, f"swin_attn_block token order {grid}", got, copies())
+    del got
+    return err, dict(token_order_ms=time_ms(torch, lambda: kb.swin_attn_block(
+                         x, grid=grid, **kw), iters=iters),
+                     copies_ms=time_ms(torch, copies, iters=iters))
 
 
 def swin_phases(torch, kb, dev, rows):
@@ -1366,6 +1460,9 @@ def swin_phases(torch, kb, dev, rows):
         shift, b = stages[IVIT][st][3][-1]
         kw = swin_attn_kwargs(b, True, heads, nw, shift, IVIT)
         ms = time_ms(torch, lambda: kb.swin_attn_block(x16, **kw), iters=20)
+        err, token_order = token_order_site(torch, kb, x16, kw, SWIN_GRID >> st,
+                                            min(7, SWIN_GRID >> st), shift, iters=20)
+        errs.append(err)
         kw_ibert = swin_attn_kwargs(stages[ibert][st][3][-1][1], True, heads, nw, shift, ibert)
         ms_ibert = time_ms(torch, lambda: kb.swin_attn_block(x16, **kw_ibert), iters=20)
         plain_ms = time_ms(torch, lambda: kb.swin_attn_block_ref(x16, **kw), iters=3, warmup=1)
@@ -1381,7 +1478,7 @@ def swin_phases(torch, kb, dev, rows):
         per_stage.append(dict(stage=st, shape=[x16.shape[0], WIN, c], heads=heads,
                               shift=shift, ms=ms, ms_ibert=ms_ibert, plain_ms=plain_ms,
                               library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by,
-                              int8_ops=ops, bytes=nb))
+                              int8_ops=ops, bytes=nb, **token_order))
     # a small ragged case: 147 rows (not a multiple of 64), 16-token windows
     xs = stream((3, 16, 96))
     for mix in mixes:
@@ -1401,9 +1498,12 @@ def swin_phases(torch, kb, dev, rows):
         library_ms=sum(d["library_ms"] for d in per_stage),
         times_are="one ivit call at each of the four Swin-T stage shapes, summed",
         ms_by_stage=[d["ms"] for d in per_stage],
-        bound_ms_by_stage=[d["bound_ms"] for d in per_stage])
+        bound_ms_by_stage=[d["bound_ms"] for d in per_stage],
+        token_order_ms_by_stage=[d["token_order_ms"] for d in per_stage],
+        copies_ms_by_stage=[d["copies_ms"] for d in per_stage])
     emit({"phase": "swin_attn_block", "equal": True,
-          "families_checked": [mix_name(m) for m in mixes] + ["int8 input", "ln_in", "ragged"],
+          "families_checked": [mix_name(m) for m in mixes] + ["int8 input", "ln_in", "ragged",
+                                                               "token order"],
           "ibert_ln_shifts": ln_shifts, "stages": per_stage, "max_abs_err": max(errs)})
 
     # --- mlp_block, Swin form: int16 rows in and out, fc2 at 8 bits ---
@@ -1543,6 +1643,8 @@ def swin_b384_attn_phase(torch, kb, dev, rows):
                                 got, kb.swin_attn_block_ref(x, **kw)))
         del got
         ms = time_ms(torch, lambda: kb.swin_attn_block(x, **kw), iters=10)
+        err, token_order = token_order_site(torch, kb, x, kw, 96 >> st, 12, shift, iters=10)
+        errs.append(err)
         plain_ms = time_ms(torch, lambda: kb.swin_attn_block_ref(x, **kw), iters=2, warmup=1)
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(5):
@@ -1564,7 +1666,8 @@ def swin_b384_attn_phase(torch, kb, dev, rows):
         per_stage.append(dict(stage=st, shape=[x.shape[0], n, c], heads=heads, shift=shift,
                               ms=ms, core_ms=core_ms, plain_ms=plain_ms, bound_ms=b_ms,
                               bound_by=b_by, core_bound_ms=core_b_ms,
-                              core_bound_by=core_b_by, int8_ops=ops, bytes=nb))
+                              core_bound_by=core_b_by, int8_ops=ops, bytes=nb,
+                              **token_order))
         del x
     rows["swin_attn_block"].update(
         swin_b384_ms=sum(d["ms"] for d in per_stage),
@@ -1575,6 +1678,8 @@ def swin_b384_attn_phase(torch, kb, dev, rows):
         swin_b384_ms_by_stage=[d["ms"] for d in per_stage],
         swin_b384_core_ms_by_stage=[d["core_ms"] for d in per_stage],
         swin_b384_bound_ms_by_stage=[d["bound_ms"] for d in per_stage],
+        swin_b384_token_order_ms_by_stage=[d["token_order_ms"] for d in per_stage],
+        swin_b384_copies_ms_by_stage=[d["copies_ms"] for d in per_stage],
         swin_b384_times_are="one ivit call at each of the four Swin-B/384 stage shapes "
                             "of batch 64, summed")
     rows["swin_attn_block"]["max_abs_err"] = max(rows["swin_attn_block"]["max_abs_err"],
@@ -4445,6 +4550,9 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", action="store_true",
                     help="add a torch.profiler breakdown of the engine forwards")
+    ap.add_argument("--parent", metavar="DIR",
+                    help="a checkout of an earlier tree: build it and hold attn_block's "
+                         "and mlp_block's SASS to its build (phase 2b)")
     args = ap.parse_args(argv)
     import torch
     if not torch.cuda.is_available():
@@ -4473,6 +4581,7 @@ def main(argv=None) -> int:
     spills = [k for n in _build.SOURCES for k in ptxas.get(n, []) if k["spill_bytes"]]
     if spills:
         raise AssertionError(f"kernels spill: {spills}")
+    sass_phase(args.parent)
     rows = kernel_phases(torch, kb, knl, dev)
     swin_phases(torch, kb, dev, rows)
     swin_b384_attn_phase(torch, kb, dev, rows)

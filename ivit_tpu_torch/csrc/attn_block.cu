@@ -148,7 +148,8 @@ int launch_attn(const void* x, int x16, const int8_t* ln_in,
     return (int)err;
   const int row_blocks = (R + kGemmRows - 1) / kGemmRows;
   ln_qkv_wgmma_kernel<BN><<<row_blocks, kGemmThreads, smem_gemm, stream>>>(
-      mq, x, ln_in, ln_bias, m_ln, bqkv, mqkv, sp, qkv, R, C, x16, ln_kind);
+      mq, x, ln_in, ln_bias, m_ln, bqkv, mqkv, sp, qkv, R, C, x16, ln_kind,
+      IdentityRows{});
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
   const dim3 core_grid(H, B);
   if (Dh <= 64)
@@ -160,7 +161,8 @@ int launch_attn(const void* x, int x16, const int8_t* ln_in,
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
   proj_wgmma_kernel<BN><<<gemm_grid(R, C, BN), kGemmThreads, smem_gemm,
                           stream>>>(mpj, x, ctx, bp, mp, sp, out, R, C,
-                                    proj_bits, out_bits, x16, out_bits > 8);
+                                    proj_bits, out_bits, x16, out_bits > 8,
+                                    IdentityRows{});
   return (int)cudaGetLastError();
 }
 

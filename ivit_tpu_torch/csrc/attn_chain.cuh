@@ -8,8 +8,9 @@
 //   3. proj_wgmma_kernel: proj GEMM + requant + integer residual, on the
 //      same wgmma row GEMM.
 // The token stream is int8 (ViT) or int16 (Swin), read and written as it
-// is; the LN shift and the exp constants are derived in every thread from
-// the spec's scalar leaves.
+// is (Swin's token-order stream through a row map, swin_attn_block.cu
+// WindowRows); the LN shift and the exp constants are derived in every
+// thread from the spec's scalar leaves.
 #pragma once
 
 #include "ivit.cuh"
@@ -605,8 +606,10 @@ __device__ __forceinline__ void attn_tile(
 
 // 1. LN + qkv GEMM + requant.  x: [R, C] int8 or (x16) int16; wqkv: the
 // tensor map of the qkv weight transposed, [3C, C]; ln_in: the hoisted LN
-// output [R, C], or null to run the LN here.
-template <int BN>
+// output [R, C], or null to run the LN here; rows: where row r of x and
+// ln_in lies (wgmma_gemm.cuh IdentityRows, or Swin's WindowRows); qkv [R,
+// 3C] row by row.
+template <int BN, class Rows = IdentityRows>
 __global__ void __launch_bounds__(kGemmThreads, 2)
 ln_qkv_wgmma_kernel(const __grid_constant__ CUtensorMap wqkv,
                     const void* __restrict__ x, const int8_t* __restrict__ ln_in,
@@ -615,11 +618,11 @@ ln_qkv_wgmma_kernel(const __grid_constant__ CUtensorMap wqkv,
                     const int32_t* __restrict__ bqkv,
                     const float* __restrict__ mqkv, AttnScalars sp,
                     int8_t* __restrict__ qkv, int R, int C, int x16,
-                    int ln_kind) {
+                    int ln_kind, Rows rows) {
   const int r0 = blockIdx.x * kGemmRows, N3 = 3 * C;
   auto fill = [&](int8_t* A) {
     fill_ln_tile(A, x, ln_in, R, C, r0, x16, ln_kind, ln_bias, m_ln,
-                 sp.ln_shift);
+                 sp.ln_shift, rows);
   };
   auto epi = [&](int (&acc)[BN / 4], int c0) {
 #pragma unroll
@@ -649,36 +652,38 @@ ln_qkv_wgmma_kernel(const __grid_constant__ CUtensorMap wqkv,
 
 // 3. proj GEMM + requant to proj_bits + residual to out_bits.  wp: the
 // tensor map of the proj weight transposed, [C, C]; x and out: [R, C],
-// int8 or (x16 / o16) int16.
-template <int BN>
+// int8 or (x16 / o16) int16, row r of both at rows(r) (as ln_qkv's); ctx
+// [R, C] row by row.
+template <int BN, class Rows = IdentityRows>
 __global__ void __launch_bounds__(kGemmThreads, 2)
 proj_wgmma_kernel(const __grid_constant__ CUtensorMap wp,
                   const void* __restrict__ x, const int8_t* __restrict__ ctx,
                   const int32_t* __restrict__ bp, const float* __restrict__ mp,
                   AttnScalars sp, void* __restrict__ out, int R, int C,
-                  int proj_bits, int out_bits, int x16, int o16) {
+                  int proj_bits, int out_bits, int x16, int o16, Rows rows) {
   const int r0 = blockIdx.x * kGemmRows;
   auto fill = [&](int8_t* A) { copy_rows_swizzled(ctx, R, C, r0, A); };
   const float m_res_x = __ldg(sp.m_res_x), m_res_id = __ldg(sp.m_res_id);
   const float lim_p = bits_lim(proj_bits), lim_o = bits_lim(out_bits);
+  const auto erows = rows.at(r0 + wg_row(0));  // this thread's two epilogue rows
   auto epi = [&](int (&acc)[BN / 4], int c0) {
     residual_epilogue<BN>(acc, c0, r0, R, C, x, bp, mp, m_res_x, m_res_id,
-                          lim_p, lim_o, x16, o16, out);
+                          lim_p, lim_o, x16, o16, out, erows);
   };
   wgmma_rows<BN, true>(&wp, C, C, fill, epi);
 }
 
 // Launch the two GEMM launches' kernels around a core launch: set their
 // shared memory limit and build both weight maps.
-template <int BN>
+template <int BN, class Rows = IdentityRows>
 cudaError_t prepare_gemms(const int8_t* wqkv_t, const int8_t* wp_t, int C,
                           CUtensorMap* mq, CUtensorMap* mp) {
   const int bytes = (int)wg_smem(C, BN);
   cudaError_t err;
-  if ((err = cudaFuncSetAttribute(ln_qkv_wgmma_kernel<BN>,
+  if ((err = cudaFuncSetAttribute(ln_qkv_wgmma_kernel<BN, Rows>,
                                   cudaFuncAttributeMaxDynamicSharedMemorySize,
                                   bytes)) != cudaSuccess ||
-      (err = cudaFuncSetAttribute(proj_wgmma_kernel<BN>,
+      (err = cudaFuncSetAttribute(proj_wgmma_kernel<BN, Rows>,
                                   cudaFuncAttributeMaxDynamicSharedMemorySize,
                                   bytes)) != cudaSuccess ||
       (err = weight_map(mq, wqkv_t, 3 * C, C, BN)) != cudaSuccess)

@@ -3,8 +3,9 @@
 //
 // Replaces ivit_tpu/ops/pallas/block.py::swin_attn_block_p (body
 // _swin_attn_kernel), per window of the rolled, window-partitioned token
-// stream xw [B * nW, n, C] (int16, or int8 where PatchMerging feeds the
-// first block of a stage):
+// stream (int16, or int8 where PatchMerging feeds the first block of a
+// stage), which it takes either as that windowed stream xw [B * nW, n, C]
+// or in token order, x [B, res * res, C] as the blocks hand it on:
 //   LN (I-LayerNorm or ibert LN with its frozen shift; or the hoisted int8
 //   ln_in) -> int8 requant -> qkv GEMM + bias -> requant -> per (window,
 //   head) int32 q k^T -> clip(round(clip(round(s * m_attn)) * m_attn2) +
@@ -59,8 +60,16 @@
 // that ViT holds bitwise.  The window pad n = 49 -> 56, head packing,
 // pad_kv, win_tile and the f32 scratches of the TPU kernel are Mosaic
 // workarounds, not semantics: the port runs the 49 tokens as they are.
-// Rolling and window partition stay outside, in torch, as the JAX engine
-// runs them.
+// Rolling and window partition are a row map (WindowRows), not a copy: in
+// token order the chain's flat rows are still the windows' tokens, row r =
+// (image b, window (wy, wx), token (ty, tx)), and ln_qkv reads its LN input
+// (x or ln_in) and proj its residual identity and its output row from image
+// b's token ((wy * ws + ty + shift) mod res, (wx * ws + tx + shift) mod
+// res): torch.roll by -shift and the partition on the way in, the reverse
+// and the roll by +shift on the way out send a row to the same token.  The
+// core and the qkv and ctx scratch stay in window order, so the shift
+// mask's window w % nW and the rel-pos addend are the windowed call's.  A
+// row still moves as one contiguous run of C (int8) or 2C (int16) bytes.
 // Windows of more than 64 tokens (Swin-B/384's 12 x 12 = 144) take the
 // wide instantiation, chosen by n at launch: a warp holds at most 64 keys
 // (attn_tile's two 32-key chunks, 32 scores a thread), so the three warps
@@ -171,7 +180,33 @@ swin_core_mma_kernel(const int8_t* __restrict__ qkv, const float* __restrict__ r
   }
 }
 
-template <int BN, int SM>
+// A map at one thread's two epilogue rows g and g + 8, their targets
+// computed once (WindowRows::at).
+struct RowPair {
+  int g, m0, m8;
+  __device__ __forceinline__ int operator()(int r) const { return r == g ? m0 : m8; }
+};
+
+// Swin's window rows in a token-order stream (the header's map): res x res
+// tokens an image in windows of ws x ws, rolled by -shift; the divisors of
+// one launch.
+struct WindowRows {
+  int res, ws, shift, nwx, n, image;  // nwx = res / ws, n = ws^2, image = res^2
+  __device__ __forceinline__ int operator()(int r) const {
+    const int b = r / image, p = r - b * image;
+    const int w = p / n, t = p - w * n;
+    const int wy = w / nwx, ty = t / ws;
+    int y = wy * ws + ty + shift, xx = (w - wy * nwx) * ws + (t - ty * ws) + shift;
+    y -= y >= res ? res : 0;
+    xx -= xx >= res ? res : 0;
+    return b * image + y * res + xx;
+  }
+  __device__ __forceinline__ RowPair at(int g) const {
+    return {g, (*this)(g), (*this)(g + 8)};
+  }
+};
+
+template <int BN, int SM, class Rows>
 int launch_swin(const void* x, int x16, const int8_t* ln_in,
                 const float* ln_bias, const float* m_ln, const int8_t* wqkv_t,
                 const int32_t* bqkv, const float* mqkv, const float* rel,
@@ -179,7 +214,8 @@ int launch_swin(const void* x, int x16, const int8_t* ln_in,
                 const float* mp, AttnScalars sp, SoftmaxTable ps, int8_t* qkv,
                 int8_t* ctx,
                 int16_t* out, int BW, int n, int C, int H, int n_windows,
-                int ln_kind, int fast_q, int fast_poly, cudaStream_t stream) {
+                int ln_kind, int fast_q, int fast_poly, Rows rows,
+                cudaStream_t stream) {
   const int R = BW * n, Dh = C / H, pairs = BW * H;
   const size_t smem_gemm = wg_smem(C, BN);
   // the core: one warp a pair up to 64 tokens, else the split
@@ -192,29 +228,31 @@ int launch_swin(const void* x, int x16, const int8_t* ln_in,
                            (is_lut_core(SM) ? 256 * sizeof(float) : 0);
   CUtensorMap mq, mpj;
   cudaError_t err;
-  if ((err = prepare_gemms<BN>(wqkv_t, wp_t, C, &mq, &mpj)) != cudaSuccess ||
+  if ((err = prepare_gemms<BN, Rows>(wqkv_t, wp_t, C, &mq, &mpj)) != cudaSuccess ||
       (err = cudaFuncSetAttribute(core, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                   (int)smem_core)) != cudaSuccess)
     return (int)err;
   const int row_blocks = (R + kGemmRows - 1) / kGemmRows;
-  ln_qkv_wgmma_kernel<BN><<<row_blocks, kGemmThreads, smem_gemm, stream>>>(
-      mq, x, ln_in, ln_bias, m_ln, bqkv, mqkv, sp, qkv, R, C, x16, ln_kind);
+  ln_qkv_wgmma_kernel<BN, Rows><<<row_blocks, kGemmThreads, smem_gemm, stream>>>(
+      mq, x, ln_in, ln_bias, m_ln, bqkv, mqkv, sp, qkv, R, C, x16, ln_kind, rows);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
   const int blocks = (pairs + per_block - 1) / per_block;
   core<<<blocks, 32 * ks * per_block, smem_core, stream>>>(
       qkv, rel, mask, sp, ctx, n, C, Dh, H, pairs, n_windows, fast_q, fast_poly,
       ps);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-  proj_wgmma_kernel<BN><<<gemm_grid(R, C, BN), kGemmThreads, smem_gemm,
-                          stream>>>(mpj, x, ctx, bp, mp, sp, out, R, C, 16, 16,
-                                    x16, 1);
+  proj_wgmma_kernel<BN, Rows><<<gemm_grid(R, C, BN), kGemmThreads, smem_gemm,
+                                stream>>>(mpj, x, ctx, bp, mp, sp, out, R, C, 16,
+                                          16, x16, 1, rows);
   return (int)cudaGetLastError();
 }
 
 }  // namespace ivit
 
 // Pointers in the wrapper's argument order.  x: [BW, n, C] int8 or (x16)
-// int16; ln_in may be null (LN in the kernel); rel [H, n, n] and, for a
+// int16, or with res > 0 the token-order stream [BW / nW, res * res, C] of
+// windows of n = ws * ws tokens rolled by -shift (WindowRows; ln_in and out
+// alike); ln_in may be null (LN in the kernel); rel [H, n, n] and, for a
 // shifted block, mask [n_windows, n, n] f32 (else null); ln_shift, m_attn,
 // m_attn2, s_attn, s_exp_act (ibert softmax only), m_av, m_res_x and
 // m_res_id point at one f32 each.  qkv [BW * n, 3C] and ctx [BW * n, C] are
@@ -227,7 +265,9 @@ int launch_swin(const void* x, int x16, const int8_t* ln_in,
 // the spec's sm_sat (one f32 on the card), else null.  C % 32 == 0 and C
 // <= 1024 with a pass width (ivit::pass_width of 3C and C), C / H a
 // multiple of 4 up to 128, n <= kSwinMaxTokens (192), a ppoly table within
-// ppoly.cuh's limits; else cudaErrorInvalidValue.
+// ppoly.cuh's limits, and with res > 0: ws * ws == n, res a multiple of ws,
+// 0 <= shift < ws, BW whole images of (res / ws)^2 == n_windows windows;
+// else cudaErrorInvalidValue.
 extern "C" int ivit_swin_attn_block(
     const void* x, const int8_t* ln_in, const float* ln_bias, const float* m_ln,
     const float* ln_shift, const int8_t* wqkv_t, const int32_t* bqkv,
@@ -238,7 +278,7 @@ extern "C" int ivit_swin_attn_block(
     const float* m_res_id, int8_t* qkv, int8_t* ctx, int16_t* out, int BW,
     int n, int C, int H, int n_windows, int x16, int ln_kind, int sm,
     int fast_q, int fast_poly, const ivit::PpolyArgs* pp, float* exp_table,
-    int lut, const float* sat, cudaStream_t stream) {
+    int lut, const float* sat, int res, int ws, int shift, cudaStream_t stream) {
   using namespace ivit;
   const AttnScalars sp{ln_shift, m_attn, m_attn2, s_attn, s_exp_act,
                        m_av,     m_res_x, m_res_id};
@@ -248,7 +288,10 @@ extern "C" int ivit_swin_attn_block(
       dh > 128 || n < 1 || n > kSwinMaxTokens || n_windows < 1 || sm < 0 ||
       sm > 2 || (sm == kSmPpoly && !ppoly_args_ok(pp, false)) || ln_kind < 0 ||
       ln_kind > 2 || lut < 0 || lut > 2 || (lut != 0 && exp_table == nullptr) ||
-      (sat != nullptr && (lut == 0 || sm == kSmPpoly || mask == nullptr)))
+      (sat != nullptr && (lut == 0 || sm == kSmPpoly || mask == nullptr)) ||
+      (res != 0 && (res < 0 || ws < 1 || ws * ws != n || res % ws || shift < 0 ||
+                    shift >= ws || (res / ws) * (res / ws) != n_windows ||
+                    BW % n_windows)))
     return (int)cudaErrorInvalidValue;
   if (sm == kSmPpoly) {
     ps.pp = *pp;
@@ -257,19 +300,25 @@ extern "C" int ivit_swin_attn_block(
       if (err != cudaSuccess) return (int)err;
     }
   }
-  auto pick = [&](auto sm_tag) {
-    constexpr int S = decltype(sm_tag)::value;
-    return bn == 128 ? launch_swin<128, S> : bn == 96 ? launch_swin<96, S>
-                                                      : launch_swin<64, S>;
+  auto run = [&](auto rows) {
+    using Rows = decltype(rows);
+    auto pick = [&](auto sm_tag) {
+      constexpr int S = decltype(sm_tag)::value;
+      return bn == 128  ? launch_swin<128, S, Rows>
+             : bn == 96 ? launch_swin<96, S, Rows>
+                        : launch_swin<64, S, Rows>;
+    };
+    auto launch =
+        sm == kSmPpoly ? pick(std::integral_constant<int, kSmPpoly>{})
+        : sm == kSmShift
+            ? (lut ? pick(std::integral_constant<int, kSmShiftLut>{})
+                   : pick(std::integral_constant<int, kSmShift>{}))
+            : (lut ? pick(std::integral_constant<int, kSmIbertLut>{})
+                   : pick(std::integral_constant<int, kSmIbert>{}));
+    return launch(x, x16, ln_in, ln_bias, m_ln, wqkv_t, bqkv, mqkv, rel, mask,
+                  wp_t, bp, mp, sp, ps, qkv, ctx, out, BW, n, C, H, n_windows,
+                  ln_kind, fast_q, fast_poly, rows, stream);
   };
-  auto launch =
-      sm == kSmPpoly ? pick(std::integral_constant<int, kSmPpoly>{})
-      : sm == kSmShift
-          ? (lut ? pick(std::integral_constant<int, kSmShiftLut>{})
-                 : pick(std::integral_constant<int, kSmShift>{}))
-          : (lut ? pick(std::integral_constant<int, kSmIbertLut>{})
-                 : pick(std::integral_constant<int, kSmIbert>{}));
-  return launch(x, x16, ln_in, ln_bias, m_ln, wqkv_t, bqkv, mqkv, rel, mask,
-                wp_t, bp, mp, sp, ps, qkv, ctx, out, BW, n, C, H, n_windows,
-                ln_kind, fast_q, fast_poly, stream);
+  if (res == 0) return run(IdentityRows{});
+  return run(WindowRows{res, ws, shift, res / ws, n, res * res});
 }

@@ -70,16 +70,31 @@ struct SwizzledRow {
   }
 };
 
-// The rows r0.. of an int8 [R, C] matrix into the swizzled A tile (16
-// bytes a thread at a time; rows past R zero).  Consumer threads only.
+// Where a GEMM's row r lies in the [R, C] matrices that it reads and
+// writes row by row: the row itself (every kernel but Swin's token-order
+// window chain, swin_attn_block.cu WindowRows, whose rows are windows'
+// tokens and whose matrices are in token order).  A map is a functor
+// int -> int; the kernels take it as their last argument.  at(g): the map
+// as one thread's epilogue uses it, on its rows g and g + 8 alone
+// (residual_epilogue), so a map that costs arithmetic runs it once.
+struct IdentityRows {
+  __device__ __forceinline__ int operator()(int r) const { return r; }
+  __device__ __forceinline__ IdentityRows at(int) const { return *this; }
+};
+
+// The rows r0.. of an int8 [R, C] matrix, row r at rows(r), into the
+// swizzled A tile (16 bytes a thread at a time; rows past R zero).
+// Consumer threads only.
+template <class Rows = IdentityRows>
 __device__ __forceinline__ void copy_rows_swizzled(
-    const int8_t* __restrict__ src, int R, int C, int r0, int8_t* A) {
+    const int8_t* __restrict__ src, int R, int C, int r0, int8_t* A,
+    Rows rows = {}) {
   const int cw = C >> 4;
   for (int i = threadIdx.x; i < kGemmRows * cw; i += kGemmConsumers) {
     const int row = i / cw, w = i - row * cw;
     int4 v = make_int4(0, 0, 0, 0);
     if (r0 + row < R)
-      v = *reinterpret_cast<const int4*>(src + (size_t)(r0 + row) * C + 16 * w);
+      v = *reinterpret_cast<const int4*>(src + (size_t)rows(r0 + row) * C + 16 * w);
     *reinterpret_cast<int4*>(A + a_off(row, 16 * w)) = v;
   }
 }
@@ -347,21 +362,21 @@ __device__ __forceinline__ void wgmma_rows(const CUtensorMap* wmap, int K,
 }
 
 // The LN prologue of a row GEMM: the LN (of the ln_kind form, exact.cuh
-// ln_row_i32) of the 64 rows r0.. of x (XT: int8 or int16) into the
-// swizzled A tile.  A row takes L lanes (8 below C 256, else 16), so a
-// warp runs 32 / L rows at once: the Newton chain and the group reductions
-// are latency.  Rows past R rerun row R - 1 (every lane of a warp
-// takes part in the group sums); the GEMM never stores them.
-template <int L, typename XT>
+// ln_row_i32) of the 64 rows r0.. of x (XT: int8 or int16; row r at
+// rows(r)) into the swizzled A tile.  A row takes L lanes (8 below C 256,
+// else 16), so a warp runs 32 / L rows at once: the Newton chain and the
+// group reductions are latency.  Rows past R rerun row R - 1 (every lane
+// of a warp takes part in the group sums); the GEMM never stores them.
+template <int L, typename XT, class Rows = IdentityRows>
 __device__ __forceinline__ void ln_rows_swizzled(
     const XT* __restrict__ x, int R, int C, int r0, int ln_kind,
     const float* __restrict__ bias, const float* __restrict__ m_ln, float pw,
-    int shift, int8_t* A) {
+    int shift, int8_t* A, Rows rows = {}) {
   constexpr int kGroups = 32 / L, kWarps = kGemmConsumers / 32;
   const int lane = threadIdx.x & (L - 1);
   const int first = (threadIdx.x >> 5) * kGroups + ((threadIdx.x & 31) / L);
   for (int row = first; row < kGemmRows; row += kWarps * kGroups) {
-    const XT* xrow = x + (size_t)min(r0 + row, R - 1) * C;
+    const XT* xrow = x + (size_t)rows(min(r0 + row, R - 1)) * C;
     const SwizzledRow out{A, row};
     if (ln_kind == kLnIvit)
       ln_row_i32<true, L>(xrow, C, bias, m_ln, 1.f, 0, out, lane);
@@ -371,36 +386,38 @@ __device__ __forceinline__ void ln_rows_swizzled(
   }
 }
 
-template <typename XT>
+template <typename XT, class Rows = IdentityRows>
 __device__ __forceinline__ void ln_rows_any_width(
     const XT* __restrict__ x, int R, int C, int r0, int ln_kind,
     const float* __restrict__ bias, const float* __restrict__ m_ln, float pw,
-    int shift, int8_t* A) {
+    int shift, int8_t* A, Rows rows = {}) {
   if (C < 256)
-    ln_rows_swizzled<8>(x, R, C, r0, ln_kind, bias, m_ln, pw, shift, A);
+    ln_rows_swizzled<8>(x, R, C, r0, ln_kind, bias, m_ln, pw, shift, A, rows);
   else
-    ln_rows_swizzled<16>(x, R, C, r0, ln_kind, bias, m_ln, pw, shift, A);
+    ln_rows_swizzled<16>(x, R, C, r0, ln_kind, bias, m_ln, pw, shift, A, rows);
 }
 
 // The A tile of an LN + GEMM block: the LN of the rows r0.. of x (int8,
-// or int16 with x16) with the LN shift leaf ln_shift, or the hoisted LN
-// output ln_in (null: run the LN) as it is.
+// or int16 with x16; row r at rows(r)) with the LN shift leaf ln_shift, or
+// the hoisted LN output ln_in (null: run the LN; its rows mapped alike) as
+// it is.
+template <class Rows = IdentityRows>
 __device__ __forceinline__ void fill_ln_tile(
     int8_t* A, const void* __restrict__ x, const int8_t* __restrict__ ln_in,
     int R, int C, int r0, bool x16, int ln_kind,
     const float* __restrict__ ln_bias, const float* __restrict__ m_ln,
-    const float* __restrict__ ln_shift) {
+    const float* __restrict__ ln_shift, Rows rows = {}) {
   if (ln_in != nullptr) {
-    copy_rows_swizzled(ln_in, R, C, r0, A);
+    copy_rows_swizzled(ln_in, R, C, r0, A, rows);
     return;
   }
   const LnShift ln = ln_shift_of(ln_shift);
   if (x16)
     ln_rows_any_width(static_cast<const int16_t*>(x), R, C, r0, ln_kind,
-                      ln_bias, m_ln, ln.pw, ln.bits, A);
+                      ln_bias, m_ln, ln.pw, ln.bits, A, rows);
   else
     ln_rows_any_width(static_cast<const int8_t*>(x), R, C, r0, ln_kind,
-                      ln_bias, m_ln, ln.pw, ln.bits, A);
+                      ln_bias, m_ln, ln.pw, ln.bits, A, rows);
 }
 
 // Two adjacent activations x[i], x[i + 1] (i even) of an int8 or (x16)
@@ -420,16 +437,17 @@ __device__ __forceinline__ float2 load_act_pair(const void* x, size_t i,
 // fc2): bias, requant to lim_p's bits, then the integer residual
 // clip(round(y * m_res_x) + round(x * m_res_id)) to lim_o's, for the
 // columns c0 .. c0 + BN/2 of this warpgroup's pass and the rows r0.. < R;
-// x and out [R, C], int8 or (x16 / o16) int16, x read-only.  Each group of
-// two 8-column tiles and one row half loads its x before it stores; 8-bit
-// rows are stored a 4-byte word of two lanes at a time (pair_word), 16-bit
-// ones two columns a lane.
-template <int BN>
+// x and out [R, C], int8 or (x16 / o16) int16, x read-only, row r of both
+// at rows(r) (a map's at(r0 + wg_row(0))).  Each group of two 8-column tiles and one row half loads its
+// x before it stores; 8-bit rows are stored a 4-byte word of two lanes at a
+// time (pair_word), 16-bit ones two columns a lane.
+template <int BN, class Rows = IdentityRows>
 __device__ __forceinline__ void residual_epilogue(
     const int (&acc)[BN / 4], int c0, int r0, int R, int C,
     const void* __restrict__ x, const int32_t* __restrict__ bias,
     const float* __restrict__ mult, float m_res_x, float m_res_id,
-    float lim_p, float lim_o, bool x16, bool o16, void* __restrict__ out) {
+    float lim_p, float lim_o, bool x16, bool o16, void* __restrict__ out,
+    Rows rows = {}) {
 #pragma unroll
   for (int j = 0; j < BN / 16; j += 2)
 #pragma unroll
@@ -439,7 +457,7 @@ __device__ __forceinline__ void residual_epilogue(
       if (gr < R) {
 #pragma unroll
         for (int q = 0; q < 2; ++q)
-          xv[q] = load_act_pair(x, (size_t)gr * C + c0 + wg_col(j + q, 0), x16);
+          xv[q] = load_act_pair(x, (size_t)rows(gr) * C + c0 + wg_col(j + q, 0), x16);
       }
       int o[2][2];
 #pragma unroll
@@ -459,8 +477,8 @@ __device__ __forceinline__ void residual_epilogue(
         if (gr < R) {
 #pragma unroll
           for (int q = 0; q < 2; ++q)
-            *reinterpret_cast<uint32_t*>(static_cast<int16_t*>(out) + (size_t)gr * C +
-                                         c0 + wg_col(j + q, 0)) =
+            *reinterpret_cast<uint32_t*>(static_cast<int16_t*>(out) +
+                                         (size_t)rows(gr) * C + c0 + wg_col(j + q, 0)) =
                 (uint32_t)(o[q][0] & 0xffff) | ((uint32_t)(o[q][1] & 0xffff) << 16);
         }
       } else {
@@ -471,7 +489,7 @@ __device__ __forceinline__ void residual_epilogue(
         const uint32_t word = pair_word(v[0], v[1]);
         if (gr < R)
           *reinterpret_cast<uint32_t*>(static_cast<int8_t*>(out) +
-                                       (size_t)gr * C + c0 + 8 * j +
+                                       (size_t)rows(gr) * C + c0 + 8 * j +
                                        pair_col()) = word;
       }
     }

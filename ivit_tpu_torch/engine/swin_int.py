@@ -4,7 +4,7 @@ Two paths, bit-identical to each other and to the JAX engine:
 
 * ``kernels=True`` (the JAX fused branch, ``swin_int.py:546-652``): each
   block is one :func:`~ivit_tpu_torch.ops.kernels.block.swin_attn_block`
-  call on the rolled, window-partitioned stream and one
+  call on the token-order stream, windowed by the kernel's row map, and one
   :func:`~ivit_tpu_torch.ops.kernels.block.mlp_block` call on the int16
   token rows -- the CUDA kernels for tensors on the card, their plain
   versions on the CPU;
@@ -14,9 +14,12 @@ Two paths, bit-identical to each other and to the JAX engine:
 
 ``stage_paths`` picks the path per stage and ``fuse_parts`` the fused
 half-blocks, as in JAX.  The input quant, the
-patch GEMM, the roll and window permutations, PatchMerging's gather and
-GEMM, the exact-int average pool and the head run outside any kernel on
-every path, as in the JAX package; the patch norm, each merge's norm and
+patch GEMM, PatchMerging's gather and GEMM, the exact-int average pool and
+the head run outside any kernel on every path, as in the JAX package; the
+roll and window permutations too on the plain path, while the fused
+window attention reads and writes the token-order stream through them
+(``swin_attn_block``'s ``grid``; JAX rolls and partitions around its
+kernel); the patch norm, each merge's norm and
 the final LN, each with its int8 requant, are one
 :func:`~ivit_tpu_torch.ops.kernels.nonlinear.ln_requant` launch where
 ``kernels`` is True (JAX leaves them to XLA; ``stage_paths`` does not
@@ -48,8 +51,8 @@ import numpy as np
 import torch
 
 from .. import resolve_device
-from ..models.swin import (attention_mask, relative_position_index, stage_geometry,
-                           window_partition, window_reverse)
+from ..models.swin import (attention_mask, from_windows, relative_position_index,
+                           stage_geometry, to_windows)
 from ..models.vit import BitWidths
 from ..ops.kernels import block as kblock
 from ..ops.kernels.block import int8_matmul
@@ -257,22 +260,6 @@ def check_swin_kernels(kernels):
                          "kernels) or False (the plain engine)")
 
 
-def _to_windows(x, B, res, dim, ws, shift):
-    """[B, res*res, dim] -> rolled, window-partitioned [B*nW, ws*ws, dim]."""
-    xw = x.reshape(B, res, res, dim)
-    if shift > 0:
-        xw = torch.roll(xw, (-shift, -shift), (1, 2))
-    return window_partition(xw, ws)
-
-
-def _from_windows(yw, B, res, dim, ws, shift):
-    """The inverse of :func:`_to_windows`: [B, res*res, dim]."""
-    y = window_reverse(yw.reshape(-1, ws, ws, dim), ws, res, res)
-    if shift > 0:
-        y = torch.roll(y, (shift, shift), (1, 2))
-    return y.reshape(B, res * res, dim)
-
-
 def _attn_unfused(cfg, blk, x, B, res, dim, heads, ws, shift):
     """Per-op window-attention half-block (``_swin_attn_unfused``).  Under a
     tensor-parallel mesh the block holds this rank's heads (``qkv``'s
@@ -282,7 +269,7 @@ def _attn_unfused(cfg, blk, x, B, res, dim, heads, ws, shift):
     heads = blk["qkv_w"].shape[1] // (3 * dh)
     y = _layernorm_int(cfg, x, blk["ln1_bias_int"], blk["ln1_shift"])
     y = _ln_requant(y, blk["m_ln1"], 8)
-    yw = _to_windows(y, B, res, dim, ws, shift)              # [B*nW, n, C] i8
+    yw = to_windows(y, B, res, dim, ws, shift)               # [B*nW, n, C] i8
     q8 = _requant(_gemm_bias(yw, blk["qkv_w"], blk["qkv_b"]), blk["m_qkv"], 8)
     qkv = q8.reshape(-1, n, 3, heads, dh)
     q = qkv[:, :, 0].permute(0, 2, 1, 3)                     # [B*nW, H, n, Dh]
@@ -305,17 +292,18 @@ def _attn_unfused(cfg, blk, x, B, res, dim, heads, ws, shift):
     # proj untapped: JAX's contracts (H, Dh) with dot_general (swin_int.py:457)
     acc = coll.all_reduce_exact(int8_matmul(ctx, blk["proj_w"]), "model")
     yo = _requant(acc + blk["proj_b"], blk["m_proj"], 16)
-    yo = _from_windows(yo, B, res, dim, ws, shift)
+    yo = from_windows(yo, B, res, dim, ws, shift)
     return _residual_requant(yo, blk["m_res1_x"], x, blk["m_res1_id"], 16,
                              tap=False)
 
 
 def _attn_fused(cfg, blk, x, B, res, dim, heads, ws, shift):
     """The window-attention half-block as one ``swin_attn_block`` call on
-    the rolled, partitioned stream (int16, or int8 after a merge)."""
-    xw = _to_windows(x, B, res, dim, ws, shift)
+    the token-order stream (int16, or int8 after a merge) as it stands: the
+    kernel reads and writes its windows' rows through the roll and the
+    partition (``grid``), so nothing is rolled or permuted around it."""
     yo = kblock.swin_attn_block(
-        xw, ln_bias=blk["ln1_bias_int"], m_ln=blk["m_ln1"],
+        x, grid=(res, ws, shift), ln_bias=blk["ln1_bias_int"], m_ln=blk["m_ln1"],
         ln_shift=blk["ln1_shift"], qkv_w=blk["qkv_w"], qkv_b=blk["qkv_b"],
         m_qkv=blk["m_qkv"], m_attn=blk["m_attn"], m_attn2=blk["m_attn2"],
         s_attn=blk["s_attn"], rel_addend=blk["rel_bias_addend"],
@@ -329,7 +317,7 @@ def _attn_fused(cfg, blk, x, B, res, dim, heads, ws, shift):
         sm_base=_base(cfg, "softmax"), use_int_sqrt=_use_int_sqrt(cfg),
         sm_sat=blk.get("sm_sat") if cfg.use_lut and shift > 0 else None,
         **_ppoly_softmax_kw(cfg, blk), **_lut_kw(cfg, blk, "sm"))
-    return _from_windows(yo, B, res, dim, ws, shift)
+    return yo
 
 
 def _mlp_unfused(cfg, blk, x):

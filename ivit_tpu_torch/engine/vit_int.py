@@ -659,7 +659,8 @@ class Engine:
     ``torch.profiler`` records): each call is the root ``ivit.call`` (on
     close ``transposes``, the call's :func:`weight_transposes`, and
     ``wide_launches``, its ``swin_attn_block`` calls on the split-key
-    core), over
+    core, and ``token_order_launches``, those on the token-order stream),
+    over
     ``ivit.params`` (the parameter walk), ``ivit.input`` (the images to the
     device and their quantization), ``ivit.embed`` (patch GEMM, cls / pos;
     Swin: patch GEMM and patch norm), on Swin ``ivit.merge``, and
@@ -730,11 +731,14 @@ class Engine:
 
     def __call__(self, images):
         with span("ivit.call") as s:
+            swin = kblock.swin_attn_block
             if s:
-                before = (weight_transposes(), kblock.swin_attn_block.wide_launches)
+                before = (weight_transposes(), swin.wide_launches,
+                          swin.token_order_launches)
             out = self._forward(self._spec, images, kernels=self.kernels,
                                 device=self.device, mlp_wt=self.mlp_wt)
             if s:
                 s.set(transposes=weight_transposes() - before[0],
-                      wide_launches=kblock.swin_attn_block.wide_launches - before[1])
+                      wide_launches=swin.wide_launches - before[1],
+                      token_order_launches=swin.token_order_launches - before[2])
             return out

@@ -51,6 +51,23 @@ def window_reverse(windows, window_size: int, h: int, w: int):
     return x.permute(0, 1, 3, 2, 4, 5).reshape(b, h, w, -1)
 
 
+def to_windows(x, B, res, dim, ws, shift):
+    """A token stream [B, res*res, dim] -> rolled (by -shift),
+    window-partitioned [B*nW, ws*ws, dim], as Swin's attention runs it."""
+    xw = x.reshape(B, res, res, dim)
+    if shift > 0:
+        xw = torch.roll(xw, (-shift, -shift), (1, 2))
+    return window_partition(xw, ws)
+
+
+def from_windows(yw, B, res, dim, ws, shift):
+    """The inverse of :func:`to_windows`: [B, res*res, dim]."""
+    y = window_reverse(yw.reshape(-1, ws, ws, dim), ws, res, res)
+    if shift > 0:
+        y = torch.roll(y, (shift, shift), (1, 2))
+    return y.reshape(B, res * res, dim)
+
+
 def relative_position_index(window_size: int) -> np.ndarray:
     """Pairwise relative-position lookup table [N, N], N = ws*ws
     (swin_quant.py:79-94)."""

@@ -26,7 +26,8 @@ Each wrapper counts its kernel launches in a plain integer attribute
 launched, and those of its table form and of its integer-sqrt LN apart as
 well (``lut_launches``, ``int_sqrt_launches``; ``swin_attn_block`` also
 counts the calls that ran its split-key core, windows of more than 64
-tokens, as ``wide_launches``), and the weight transposes it
+tokens, as ``wide_launches``, and those that took the token-order stream,
+``grid`` given, as ``token_order_launches``), and the weight transposes it
 makes inside the call (``transposes``: two a call of ``attn_block`` and
 ``swin_attn_block``, one for each of ``fc1_wt`` / ``fc2_wt`` that a
 ``mlp_block`` call is not handed).  The whole of each wrapper call (checks,
@@ -90,6 +91,7 @@ import os
 
 import torch
 
+from ...models.swin import from_windows, to_windows
 from ...utils.spans import spanned
 from .. import ibert as ib
 from .. import ivit as iv
@@ -691,16 +693,32 @@ attn_block.transposes = 0
 # Swin window-attention half-block
 # ---------------------------------------------------------------------------
 
-def swin_attn_block_ref(xw, *, ln_bias, m_ln, ln_shift, qkv_w, qkv_b, m_qkv,
-                        m_attn, m_attn2, s_attn, rel_addend, mask_addend, m_av,
-                        proj_w, proj_b, m_proj, m_res_x, m_res_id, num_heads,
-                        n_windows, s_exp_act=None, sm_bit=8, fast_exp=False,
-                        fast_poly=False, ln_base="ivit", sm_base="ivit",
-                        ln_in=None, sm_bounds=None, sm_coeffs=None,
-                        exp_bits=16, sm_lut=None, sm_sum_i32=False,
-                        sm_sat=None, use_int_sqrt=False):
+def swin_attn_block_ref(xw, *, grid=None, **kw):
     """Plain version of the Swin window-attention kernel: xw int8 or int16
-    [B*nW, n, C] (rolled and window-partitioned) -> int16 [B*nW, n, C].
+    [B*nW, n, C] (rolled and window-partitioned) -> int16 [B*nW, n, C]; or,
+    with ``grid`` ``(res, ws, shift)``, the token-order stream xw (and
+    ``ln_in``) [B, res*res, C] -> int16 [B, res*res, C], through
+    :func:`~ivit_tpu_torch.models.swin.to_windows` and ``from_windows``.
+    ``kw``: :func:`_swin_attn_windows`'s."""
+    if grid is None:
+        return _swin_attn_windows(xw, **kw)
+    res, ws, shift = grid
+    b, c = xw.shape[0], xw.shape[2]
+    ln_in = kw.pop("ln_in", None)
+    win = (lambda t: None if t is None else to_windows(t, b, res, c, ws, shift))
+    yw = _swin_attn_windows(win(xw), ln_in=win(ln_in), **kw)
+    return from_windows(yw, b, res, c, ws, shift)
+
+
+def _swin_attn_windows(xw, *, ln_bias, m_ln, ln_shift, qkv_w, qkv_b, m_qkv,
+                       m_attn, m_attn2, s_attn, rel_addend, mask_addend, m_av,
+                       proj_w, proj_b, m_proj, m_res_x, m_res_id, num_heads,
+                       n_windows, s_exp_act=None, sm_bit=8, fast_exp=False,
+                       fast_poly=False, ln_base="ivit", sm_base="ivit",
+                       ln_in=None, sm_bounds=None, sm_coeffs=None,
+                       exp_bits=16, sm_lut=None, sm_sum_i32=False,
+                       sm_sat=None, use_int_sqrt=False):
+    """The windowed plain version: xw [B*nW, n, C] -> int16 [B*nW, n, C].
 
     LN (or ``ln_in``) -> requant -> qkv GEMM -> requant -> per (window,
     head) int32 q k^T -> ``clip(round(clip(round(s * m_attn)) * m_attn2) +
@@ -742,6 +760,26 @@ def swin_attn_block_ref(xw, *, ln_bias, m_ln, ln_shift, qkv_w, qkv_b, m_qkv,
 SWIN_SPLIT_TOKENS, SWIN_MAX_TOKENS = 64, 192
 
 
+def _swin_geometry(xw, grid, n_windows):
+    """(windows in the call, tokens a window) of ``xw``: windowed [B*nW, n,
+    C], or with ``grid`` = (res, ws, shift) the token-order [B, res*res, C]
+    of ``n_windows`` = (res / ws)**2 windows of ws x ws an image, rolled by
+    -shift; a grid that does not tile ``xw`` raises."""
+    if grid is None:
+        bw, n, _ = xw.shape
+        return bw, n
+    res, ws, shift = (int(g) for g in grid)
+    if (ws < 1 or res < ws or res % ws or not 0 <= shift < ws
+            or xw.dim() != 3 or xw.shape[1] != res * res
+            or n_windows != (res // ws) ** 2):
+        raise ValueError(
+            f"swin_attn_block grid (res, ws, shift) = {tuple(grid)}: want res "
+            f"a multiple of ws, 0 <= shift < ws, x [B, res*res, C] and "
+            f"n_windows (res / ws)**2; got x {_describe(xw)}, "
+            f"n_windows={n_windows}")
+    return xw.shape[0] * n_windows, ws * ws
+
+
 @spanned("ivit.kernel.swin_attn_block")
 def swin_attn_block(xw, *, ln_bias, m_ln, ln_shift, qkv_w, qkv_b, m_qkv,
                     m_attn, m_attn2, s_attn, rel_addend, mask_addend, m_av,
@@ -750,16 +788,20 @@ def swin_attn_block(xw, *, ln_bias, m_ln, ln_shift, qkv_w, qkv_b, m_qkv,
                     fast_poly=False, ln_base="ivit", sm_base="ivit",
                     use_int_sqrt=False, ln_in=None, sm_bounds=None,
                     sm_coeffs=None, exp_bits=16, sm_lut=None, sm_sum_i32=False,
-                    sm_sat=None):
+                    sm_sat=None, grid=None):
     """Fused Swin window-attention half-block; ``xw`` int8 or int16
-    [B*nW, n, C], windows of ``n`` tokens, ``n_windows`` windows an image;
+    [B*nW, n, C], windows of ``n`` tokens, ``n_windows`` windows an image,
+    or, with ``grid`` ``(res, ws, shift)``, the token-order stream [B,
+    res*res, C] whose windows of ws x ws tokens, rolled by -shift, the
+    kernel reads and writes in place (no roll or partition copy: a row map
+    in its two GEMM launches; counted in ``token_order_launches`` too);
     ``rel_addend`` f32 [H, n, n]; ``mask_addend`` f32 [nW, n, n] for a
     shifted block, else None; ``ln_in``: the hoisted int8 LN output of
     ``xw``, or None to run the LN in the kernel; ``sm_bounds``,
     ``sm_coeffs``, ``exp_bits``: the ppoly softmax's leaves; ``sm_lut``,
     ``sm_sum_i32``: as ``attn_block``'s, used where ``IVIT_LUT`` is set and,
     on a shifted block, ``sm_sat`` (the exp of a masked score) is given
-    (``block.py:1486``).  Returns int16 [B*nW, n, C].  On the card: three
+    (``block.py:1486``).  Returns int16 in ``xw``'s layout.  On the card: three
     launches (LN + qkv, per-(window, head) softmax attention, proj +
     residual), after the ppoly exp table's (none with ``sm_lut``), counted
     as one; a window of more than 64 tokens (up to 192) runs the core's
@@ -783,9 +825,10 @@ def swin_attn_block(xw, *, ln_bias, m_ln, ln_shift, qkv_w, qkv_b, m_qkv,
               sm_base=sm_base, ln_in=ln_in, sm_bounds=sm_bounds,
               sm_coeffs=sm_coeffs, exp_bits=exp_bits, sm_lut=sm_lut,
               sm_sum_i32=sm_sum_i32, sm_sat=sm_sat, use_int_sqrt=use_int_sqrt)
+    bw, n = _swin_geometry(xw, grid, n_windows)
     if xw.device.type == "cpu":
-        return swin_attn_block_ref(xw, **kw)
-    bw, n, c = xw.shape
+        return swin_attn_block_ref(xw, grid=grid, **kw)
+    c = xw.shape[-1]
     dh = c // num_heads
     if (c % 32 or c > 1024 or not _pass_width(3 * c, c)
             or dh * num_heads != c or dh % 4 or dh > 128
@@ -800,8 +843,9 @@ def swin_attn_block(xw, *, ln_bias, m_ln, ln_shift, qkv_w, qkv_b, m_qkv,
             f"8-bit probs; got "
             f"{xw.dtype} [{bw}, {n}, {c}], heads={num_heads}, "
             f"n_windows={n_windows}, sm_bit={sm_bit}")
+    shape = tuple(xw.shape) if grid is not None else (bw, n, c)
     for name, t, dt, shp in (
-            ("xw", xw, xw.dtype, (bw, n, c)),
+            ("xw", xw, xw.dtype, shape),
             ("ln_bias", ln_bias, torch.float32, (c,)),
             ("m_ln", m_ln, torch.float32, (c,)),
             ("qkv_w", qkv_w, torch.int8, (c, 3 * c)),
@@ -815,7 +859,7 @@ def swin_attn_block(xw, *, ln_bias, m_ln, ln_shift, qkv_w, qkv_b, m_qkv,
     if mask_addend is not None:
         _check(mask_addend, "mask_addend", torch.float32, (n_windows, n, n))
     if ln_in is not None:
-        _check(ln_in, "ln_in", torch.int8, (bw, n, c))
+        _check(ln_in, "ln_in", torch.int8, shape)
     scalars = [("ln_shift", ln_shift), ("m_attn", m_attn), ("m_attn2", m_attn2),
                ("s_attn", s_attn), ("m_av", m_av), ("m_res_x", m_res_x),
                ("m_res_id", m_res_id)]
@@ -829,7 +873,8 @@ def swin_attn_block(xw, *, ln_bias, m_ln, ln_shift, qkv_w, qkv_b, m_qkv,
                                          exp_bits, sm_lut, xw.device)
     qkv = torch.empty((bw * n, 3 * c), dtype=torch.int8, device=xw.device)
     ctx = torch.empty((bw * n, c), dtype=torch.int8, device=xw.device)
-    out = torch.empty((bw, n, c), dtype=torch.int16, device=xw.device)
+    out = torch.empty(shape, dtype=torch.int16, device=xw.device)
+    res, ws, shift = grid if grid is not None else (0, 0, 0)
     lib = _build.library("swin_attn_block")
     wqkv_t, wp_t = qkv_w.t().contiguous(), proj_w.t().contiguous()
     swin_attn_block.transposes += 2
@@ -842,13 +887,14 @@ def swin_attn_block(xw, *, ln_bias, m_ln, ln_shift, qkv_w, qkv_b, m_qkv,
         n_windows, int(xw.dtype == torch.int16), _ln_kind(ln_base, use_int_sqrt),
         _KIND[sm_base], int(bool(fast_exp)), int(bool(fast_poly)),
         _pp_ref(pp_args), _ptr(exp_table), _lut_mode(sm_lut, sm_sum_i32),
-        _ptr(sm_sat), _stream())
+        _ptr(sm_sat), res, ws, shift, _stream())
     _raise_on(err, "swin_attn_block")
     _count(swin_attn_block, sm_lut, use_int_sqrt and ln_base == "ibert")
     swin_attn_block.wide_launches += n > SWIN_SPLIT_TOKENS
+    swin_attn_block.token_order_launches += grid is not None
     return out
 
 
 swin_attn_block.launches = swin_attn_block.transposes = 0
 swin_attn_block.lut_launches = swin_attn_block.int_sqrt_launches = 0
-swin_attn_block.wide_launches = 0
+swin_attn_block.wide_launches = swin_attn_block.token_order_launches = 0

@@ -45,7 +45,10 @@ shifted Swin blocks with ``sm_sat``, changed tables, the attention tiles'
 edges, the engines), and the integer-sqrt ibert LN in all three kernels
 on rows where it differs from floor(sqrt).  ``Engine(spec)`` takes the
 H100 table of ``engine/dispatch.py`` (``probe_images``: its timed probe)
-and Swin's ``fuse_parts`` launch the half-blocks they name.  The program's
+and Swin's ``fuse_parts`` launch the half-blocks they name.  The Swin
+window attention on the token-order stream (``grid``: the roll and window
+partition as the kernel's row map) equals the windowed call between the
+roll and partition copies, and a bad grid raises.  The program's
 spans line up with the profiler's device trace.  Exact
 equality, but for
 the float family's logits against the CPU's (``tests/test_torch_port_float.py``'s bound).
@@ -61,6 +64,7 @@ from ivit_tpu_torch.engine import Engine
 from ivit_tpu_torch.engine.synthetic import (deit_small_config, swin_tiny_config,
                                               synthetic_spec, synthetic_swin_spec)
 from ivit_tpu_torch.models import BitWidths
+from ivit_tpu_torch.models import swin as tgeo
 from ivit_tpu_torch.ops.kernels import block as kb
 from ivit_tpu_torch.ops.kernels import nonlinear as knl
 
@@ -370,13 +374,98 @@ def test_cuda_swin_engine_matches_plain_engines(cuda):
     images = np.random.default_rng(1).normal(size=(3, 56, 56, 3)).astype(np.float32)
     want = Engine(spec, kernels=False)(images)
     kb.mlp_block.launches = kb.swin_attn_block.launches = knl.ln_requant.launches = 0
+    kb.swin_attn_block.token_order_launches = 0
     got = Engine(spec)(images)
     torch.cuda.synchronize()
     assert (kb.mlp_block.launches, kb.swin_attn_block.launches) == (4, 4)
+    assert kb.swin_attn_block.token_order_launches == 4   # no roll or partition copy
     assert knl.ln_requant.launches == 3      # patch norm, merge, final norm
     assert torch.equal(got, want)
     assert torch.equal(Engine(spec, stage_paths=(True, False))(images), want)
     assert torch.equal(want.cpu(), Engine(spec, device="cpu", kernels=False)(images))
+
+
+def _token_order_pair(x, kw, res, shift, ln_in=None, ws=7):
+    """The call on the token-order stream x [B, res*res, C] (``grid``: the
+    kernel's row map) and, on the card too, the windowed call between the
+    roll + partition and reverse + roll copies that the engine ran before;
+    one token-order launch."""
+    b, _, c = x.shape
+    before = kb.swin_attn_block.token_order_launches
+    got = kb.swin_attn_block(x, ln_in=ln_in, grid=(res, ws, shift), **kw)
+    torch.cuda.synchronize()
+    assert kb.swin_attn_block.token_order_launches == before + 1
+    assert got.dtype == torch.int16 and got.shape == x.shape
+
+    def win(t):
+        return None if t is None else tgeo.to_windows(t, b, res, c, ws, shift)
+    want = kb.swin_attn_block(win(x), ln_in=win(ln_in), **kw)
+    return got, tgeo.from_windows(want, b, res, c, ws, shift)
+
+
+IVIT3, IBERT3 = ("ivit",) * 3, ("ibert",) * 3
+# (spec families, block of _swin_blocks, stream bits, ln_in, tables): the
+# 56 px spec's stage 0 (res 14, 4 windows an image; block 1 shifted by 3)
+# and stage 1 (res = ws = 7; block 2 a merge's int8 output)
+TOKEN_ORDER_CASES = {
+    "ivit_shifted_int16": (IVIT3, 1, 16, False, False),
+    "ivit_unshifted_int16": (IVIT3, 0, 16, False, False),
+    "ivit_shifted_int8": (IVIT3, 1, 8, False, False),
+    "ivit_merge_int8_res_eq_ws": (IVIT3, 2, 8, False, False),
+    "ivit_res_eq_ws_int16": (IVIT3, 3, 16, False, False),
+    "ibert_shifted": (IBERT3, 1, 16, False, False),
+    "mix_ibert_ln_shifted": (("ivit", "ivit", "ibert"), 1, 16, False, False),
+    "ivit_ln_in_shifted": (IVIT3, 1, 16, True, False),
+    "ibert_ln_in_shifted": (IBERT3, 1, 16, True, False),
+    "ivit_tables_sm_sat_shifted": (IVIT3, 1, 16, False, True),
+    "ibert_tables_sm_sat_shifted": (IBERT3, 1, 16, False, True),
+    "ibert_tables_unshifted": (IBERT3, 0, 16, False, True),
+}
+
+
+@pytest.mark.parametrize("case", list(TOKEN_ORDER_CASES))
+def test_cuda_swin_token_order_matches_windowed_call(cuda, case, monkeypatch):
+    """``swin_attn_block`` on the token-order stream equals the windowed
+    call between the roll and partition copies, bit for bit: Swin-T's
+    widths (C 96 and 192, windows of 49), shifted and unshifted, int16 and
+    int8, res = ws, the ibert and ivit LNs with ``ln_in``, the table forms
+    with ``sm_sat`` on a shifted block."""
+    from ivit_tpu_torch.engine.synthetic import with_tables
+    mix, i, bits, hoisted, tables = TOKEN_ORDER_CASES[case]
+    spec = _swin_spec(mix)
+    if tables:
+        spec = with_tables(spec)
+        monkeypatch.setenv("IVIT_LUT", "1")
+    b, heads, nw, shift = _swin_blocks(spec, cuda)[i]
+    res, c = 7 * int(round(nw ** 0.5)), b["ln1_bias_int"].shape[0]
+    x = _stream(cuda, (2, res * res, c), bits, seed=80 + i)
+    kw = _swin_attn_kw(b, mix, True, heads, nw, shift)
+    if tables:
+        kw |= dict(sm_lut=b["sm_lut"], sm_sum_i32=spec.config.sm_sum_i32,
+                   sm_sat=b.get("sm_sat"))
+        assert ("sm_sat" in b) == (shift > 0)
+    ln_in = kb._ln8(x, mix[2], kw["ln_bias"], kw["ln_shift"], kw["m_ln"], None) \
+        if hoisted else None
+    before = kb.swin_attn_block.lut_launches
+    got, want = _token_order_pair(x, kw, res, shift, ln_in)
+    assert kb.swin_attn_block.lut_launches == before + 2 * tables
+    assert torch.equal(got, want), case
+    assert torch.equal(got, kb.swin_attn_block_ref(
+        x, ln_in=ln_in, grid=(res, 7, shift), **kw)), case
+
+
+def test_cuda_swin_attn_block_refuses_a_bad_grid(cuda):
+    """A grid that does not tile the stream raises, and nothing launches."""
+    b, heads, nw, shift = _swin_blocks(_swin_spec(IVIT3), cuda)[1]
+    kw = _swin_attn_kw(b, IVIT3, True, heads, nw, shift)
+    x = _stream(cuda, (2, 196, 96), 16, seed=0)
+    before = kb.swin_attn_block.launches
+    for grid in ((14, 7, 7), (14, 5, 0), (13, 7, 3), (14, 14, 0)):
+        with pytest.raises(ValueError, match="grid"):
+            kb.swin_attn_block(x, grid=grid, **kw)
+    with pytest.raises(ValueError, match="grid"):
+        kb.swin_attn_block(x, grid=(14, 7, 3), **(kw | dict(n_windows=1)))
+    assert kb.swin_attn_block.launches == before
 
 
 # (Np, n_valid) and heads at C 128 (head dims 32, 64, 128): ragged query

@@ -1,7 +1,7 @@
 """Spans inside the port's engine (``ivit_tpu_torch.utils.spans``), on the
 CPU: the span tree of a call, nothing recorded without a profiler, the
-same logits either way, the buffer's cap, the transposes counted on
-``ivit.call``, the clock against the profiler's own events, ``f32``'s
+same logits either way, the buffer's cap, the transposes and the
+token-order Swin launches counted on ``ivit.call``, the clock against the profiler's own events, ``f32``'s
 wait for a device and the ``spanned`` decorator."""
 
 import dataclasses
@@ -89,8 +89,9 @@ def test_the_span_tree_of_a_call(model):
             assert p.start_ns <= r.start_ns and r.end_ns <= p.end_ns
     for i in roots:
         # on the CPU the wrappers run their plain versions: no transposes,
-        # no split-key Swin core
-        assert recs[i].attrs == {"transposes": 0, "wide_launches": 0}
+        # no split-key Swin core, no token-order launch
+        assert recs[i].attrs == {"transposes": 0, "wide_launches": 0,
+                                 "token_order_launches": 0}
         top = _children(recs, i)
         assert [recs[j].name for j in top] == TOP[model]
         # on the CPU no host scalar is copied to a device: nothing waits
@@ -157,6 +158,29 @@ def test_call_counter_deltas_equal_the_wrappers_counters(monkeypatch):
     roots = [r for r in spans.spans() if r.name == "ivit.call"]
     assert sum(r.attrs["transposes"] for r in roots) == vit_int.weight_transposes() - before
     assert [r.attrs["transposes"] for r in roots] == [3 * DEPTH] * 2
+
+
+@pytest.mark.parametrize("kernels", [True, False], ids=["fused", "plain"])
+@pytest.mark.parametrize("model", sorted(MODELS))
+def test_call_carries_its_token_order_launches(monkeypatch, model, kernels):
+    """``ivit.call`` carries its ``swin_attn_block`` calls on the token-order
+    stream (``grid`` given, no roll or partition around them): every block
+    of a fused Swin forward, none of a ViT or a plain one.  On the CPU the
+    wrapper counts nothing: a counting stand-in counts as the card's does."""
+    real = kb.swin_attn_block
+
+    def counted(xw, **kw):
+        counted.token_order_launches += kw.get("grid") is not None
+        return real(xw, **kw)
+    counted.wide_launches = counted.transposes = counted.token_order_launches = 0
+    monkeypatch.setattr(kb, "swin_attn_block", counted)
+    spec, x = MODELS[model]()
+    eng = Engine(spec, device="cpu", kernels=kernels)
+    _profiled(lambda: eng(x), 2)
+    roots = [r for r in spans.spans() if r.name == "ivit.call"]
+    want = 4 if model == "swin" and kernels else 0
+    assert [r.attrs["token_order_launches"] for r in roots] == [want] * 2
+    assert counted.token_order_launches == 2 * want
 
 
 def test_spans_share_the_profilers_clock():

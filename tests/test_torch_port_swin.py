@@ -6,7 +6,8 @@ Swin-T width, bit-exact against the JAX package (tolerance 0).
 * the plain version of the window-attention kernel against JAX
   ``swin_attn_block_p`` in interpret mode: shifted and unshifted blocks,
   int16 and int8 (a merge's output) input, ivit, ibert and the two mixes of
-  ``tests/test_pallas.py``, the hoisted ``ln_in``, an ibert LN shift > 0;
+  ``tests/test_pallas.py``, the hoisted ``ln_in``, an ibert LN shift > 0
+  (on the token-order stream: ``tests/test_torch_port_swin_token_order.py``);
 * the Swin form of the MLP kernel's plain version (int16 in and out)
   against JAX ``mlp_block_p``, and at C 96 unpadded against JAX padded to
   128 lanes with ``c_valid=96``;

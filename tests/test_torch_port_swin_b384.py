@@ -8,8 +8,8 @@ reference (``gpubench/reference/swin.py``) on its seeded specs
 (``gpubench/specmaker.py``) at window 12, cut to 96 px and two stages (stage
 0: four shifted windows of 144 tokens an image; stage 1: one), ivit and
 ibert families, logits equal; the registry's geometry; the
-``wide_launches`` delta on ``ivit.call`` and the benchmark metric that reads
-it.
+``wide_launches`` delta on ``ivit.call`` and the benchmark metrics that read
+it and ``token_order_launches``.
 
 On a card (``cuda`` marker, skipped without one; no JAX here, so
 
@@ -18,7 +18,9 @@ On a card (``cuda`` marker, skipped without one; no JAX here, so
 runs them where only PyTorch is installed): the split-key core at 144
 tokens, unshifted and shifted, every family and table form, int8 and int16
 streams, the integer-sqrt LN, and at 81 and 169 tokens with head dims 32 and
-128; ``ln_requant`` at C 2,048; Swin-B at 224 and 384 px at its published
+128; on the token-order stream (``grid``, the roll and partition as the
+kernel's row map) against the windowed call between the copies;
+``ln_requant`` at C 2,048; Swin-B at 224 and 384 px at its published
 widths, the fused ``Engine`` against the plain engine.  Exact equality
 throughout.
 """
@@ -43,7 +45,7 @@ from ivit_tpu_torch.engine.synthetic import (swin_tiny_config, synthetic_swin_sp
                                               with_tables)
 from ivit_tpu_torch.models import str2model
 from ivit_tpu_torch.models import swin as swin_models
-from ivit_tpu_torch.models.swin import stage_geometry
+from ivit_tpu_torch.models.swin import from_windows, stage_geometry, to_windows
 from ivit_tpu_torch.ops.kernels import block as kb
 from ivit_tpu_torch.ops.kernels import nonlinear as knl
 from ivit_tpu_torch.utils import spans
@@ -98,11 +100,13 @@ def test_registry_carries_the_published_swin_b384_geometry(monkeypatch):
 
 def _wide_counting(real):
     """A stand-in for the wrapper that counts its split-key calls as the
-    card's wrapper does (on the CPU the wrapper runs its plain version)."""
+    card's wrapper does (on the CPU the wrapper runs its plain version): a
+    window's tokens are ws**2 of a token-order call's ``grid``."""
     def wrapper(xw, **kw):
-        wrapper.wide_launches += xw.shape[1] > kb.SWIN_SPLIT_TOKENS
+        n = kw["grid"][1] ** 2 if kw.get("grid") else xw.shape[1]
+        wrapper.wide_launches += n > kb.SWIN_SPLIT_TOKENS
         return real(xw, **kw)
-    wrapper.wide_launches = wrapper.transposes = 0
+    wrapper.wide_launches = wrapper.transposes = wrapper.token_order_launches = 0
     return wrapper
 
 
@@ -150,6 +154,32 @@ def test_wide_launches_reader_reads_the_calls_attribute(monkeypatch):
     assert reader.read(run) == 24
     mod.recs = [rec(0, 10.0, 11.5, {"transposes": 24}),
                 rec(1, 12.0, 13.5, {"transposes": 24})]
+    assert reader.read(run) is None
+
+
+def test_token_order_launches_reader_reads_the_calls_attribute(monkeypatch):
+    """The benchmark's ``token_order_launches_per_call``: the median of the
+    calls' attribute over the device-only stretch; None from a program
+    whose calls carry no such attribute (the parent of this metric)."""
+    def rec(call, start, end, attrs):
+        return types.SimpleNamespace(name="ivit.call", start_ns=int(start * 1e9),
+                                     end_ns=int(end * 1e9), parent=None, call=call,
+                                     attrs=attrs)
+    mod = types.SimpleNamespace(recs=[])
+    mod.spans = lambda: list(mod.recs)
+    monkeypatch.setitem(sys.modules, program_spans.MODULE, mod)
+    ops = [gtrace.Op("k", 10.0, 11.0), gtrace.Op("k", 12.0, 13.0)]
+    trace = gtrace.Trace(ops, [], [], (10.0, 14.0), 2)
+    run = Run(cfg={}, traffic={}, batch=64, blocks=[], macs_per_image=1, img_per_s=1.0,
+              enqueue_s=[], trace=trace)
+    reader = cells.metric("token_order_launches_per_call")
+    assert (reader.LAYER, reader.UNIT, reader.MOVES) == ("Kernel wrappers", "launches",
+                                                         "img_per_s")
+    attrs = {"transposes": 24, "wide_launches": 24}
+    mod.recs = [rec(0, 10.0, 11.5, attrs | {"token_order_launches": 24}),
+                rec(1, 12.0, 13.5, attrs | {"token_order_launches": 24})]
+    assert reader.read(run) == 24
+    mod.recs = [rec(0, 10.0, 11.5, attrs), rec(1, 12.0, 13.5, attrs)]
     assert reader.read(run) is None
 
 
@@ -268,6 +298,43 @@ def test_cuda_split_key_core_table_forms(cuda, fam, monkeypatch):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("fam", list(FAMILIES) + ["ivit_tables"])
+def test_cuda_split_key_core_token_order(cuda, fam, monkeypatch):
+    """The split-key chain on the token-order stream [2, 576, 128] (``grid``
+    (24, 12, shift): four windows of 144 an image, the kernel's row map),
+    unshifted and shifted by 6, int16 and int8, the LN in the kernel and
+    hoisted (and the ivit table form with ``sm_sat``): equal to the windowed
+    call between the roll + partition and reverse + roll copies, one
+    token-order and one wide launch a call."""
+    tables = fam.endswith("_tables")
+    spec_mix, mix = FAMILIES[fam.removesuffix("_tables")]
+    if tables:
+        monkeypatch.setenv("IVIT_LUT", "1")
+    for i, (b, heads, shift) in enumerate(_blocks(_window_spec(spec_mix, tables=tables),
+                                                  cuda)):
+        kw = _attn_kw(b, mix, True, heads, shift)
+        if tables:
+            kw |= dict(sm_lut=b["sm_lut"], sm_sum_i32=False, sm_sat=b.get("sm_sat"))
+        for bits in (16, 8):
+            x = _stream(cuda, (2, 576, 128), bits, seed=90 + i + bits)
+            for ln_in in (None, kb._ln8(x, mix[2], kw["ln_bias"], kw["ln_shift"],
+                                        kw["m_ln"], None)):
+                fn = kb.swin_attn_block
+                before = (fn.token_order_launches, fn.wide_launches)
+                got = fn(x, ln_in=ln_in, grid=(24, 12, shift), **kw)
+                torch.cuda.synchronize()
+                assert (fn.token_order_launches, fn.wide_launches) == (
+                    before[0] + 1, before[1] + 1)
+                assert got.dtype == torch.int16 and got.shape == x.shape
+
+                def win(t):
+                    return None if t is None else to_windows(t, 2, 24, 128, 12, shift)
+                want = from_windows(fn(win(x), ln_in=win(ln_in), **kw), 2, 24, 128, 12,
+                                    shift)
+                assert torch.equal(got, want), (i, bits, ln_in is None)
+
+
+@pytest.mark.cuda
 def test_cuda_split_key_core_int_sqrt_ln(cuda):
     """The ibert LN with I-BERT's integer sqrt in the split-key chain."""
     spec_mix, mix = FAMILIES["ibert"]
@@ -364,15 +431,19 @@ def test_cuda_swin_b_engine_matches_plain_engine(cuda, img, window, wide):
     assert not {128, 256, 512, 1024} & set(dispatch.MEASURED_SWIN_STAGE)
     assert eng.kernels is True and all(eng.fusion["fused_attn_stages"])
     fns = (kb.swin_attn_block, kb.mlp_block, knl.ln_requant)
-    before = [f.launches for f in fns] + [kb.swin_attn_block.wide_launches]
+    counters = (kb.swin_attn_block.wide_launches, kb.swin_attn_block.token_order_launches)
+    before = [f.launches for f in fns] + list(counters)
     spans.clear()
     with profile(activities=[ProfilerActivity.CUDA]):
         got = eng(x)
         torch.cuda.synchronize()
-    after = [f.launches for f in fns] + [kb.swin_attn_block.wide_launches]
-    assert [a - b for a, b in zip(after, before)] == [24, 24, 5, wide]
+    after = [f.launches for f in fns] + [kb.swin_attn_block.wide_launches,
+                                         kb.swin_attn_block.token_order_launches]
+    # every block on the token-order stream: no roll or partition copy
+    assert [a - b for a, b in zip(after, before)] == [24, 24, 5, wide, 24]
     roots = [r for r in spans.spans() if r.name == "ivit.call"]
     assert [r.attrs["wide_launches"] for r in roots] == [wide]
+    assert [r.attrs["token_order_launches"] for r in roots] == [24]
     spans.clear()
     assert torch.equal(got, want)
     assert float(want.std()) > 0
